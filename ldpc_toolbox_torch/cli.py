@@ -1,0 +1,126 @@
+"""Command-line interface: the ``ber`` subcommand.
+
+``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
+reference CLI (cli/ber.rs) on the port, for the code specs
+``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum layered
+decoders. It prints the reference's table, one row per Eb/N0 point once
+the point ends, and writes the same rows to ``--output-file``: the columns
+of the JAX package's ``ber``, whose formatting it reuses
+(``ldpc_toolbox_tpu.cli`` imports no jax at module level).
+
+Not ported yet (ROADMAP A5, A9, A10): the live progress rows and
+checkpoints, puncturing, interleaving, 8PSK, alist files and the other
+code families, and the other subcommands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ldpc_toolbox_tpu.cli import _BER_HEADER, _format_progress, parse_duration
+
+
+def _die(msg: str):
+    print(f"error: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def resolve_ber_code(spec: str):
+    """``dvbs2:RATE[:short]`` or ``5g:BG:Z`` -> (h, LiftedGraph)."""
+    from .decoder.lifted import LiftedGraph, lifted_graph_for, nr5g_maps
+
+    parts = spec.split(":")
+    if parts[0] == "dvbs2" and len(parts) in (2, 3):
+        from ldpc_toolbox_tpu.codes.dvbs2 import Code
+
+        name = "R" + parts[1].replace("/", "_")
+        if len(parts) == 3:
+            if parts[2] != "short":
+                raise ValueError(f"unknown DVB-S2 frame size {parts[2]!r}")
+            name += "short"
+        code = Code[name]
+        return code.h(), lifted_graph_for(code)
+    if parts[0] == "5g" and len(parts) == 3:
+        from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+
+        bg = {"1": BaseGraph.BG1, "2": BaseGraph.BG2}[parts[1]]
+        h = bg.h(int(parts[2]))
+        return h, LiftedGraph.from_sparse(h, *nr5g_maps(bg, int(parts[2])))
+    raise ValueError("expected dvbs2:RATE[:short] or 5g:BG:Z")
+
+
+def run_ber(args) -> None:
+    from .simulation.factory import BerTestBuilder
+
+    try:
+        h, lifted = resolve_ber_code(args.code)
+    except (KeyError, ValueError) as e:
+        _die(f"invalid code spec {args.code!r}: {e}")
+    num_ebn0s = int((args.max_ebn0 - args.min_ebn0) / args.step_ebn0) + 1
+    ebn0s = [args.min_ebn0 + i * args.step_ebn0 for i in range(num_ebn0s)]
+    try:
+        test = BerTestBuilder(
+            h=h,
+            lifted_graph=lifted,
+            decoder_implementation=args.decoder,
+            max_frame_errors=args.frame_errors,
+            min_run_time=parse_duration(args.min_time) if args.min_time else None,
+            max_run_time=parse_duration(args.max_time) if args.max_time else None,
+            max_iterations=args.max_iter,
+            ebn0s_db=ebn0s,
+            bch_max_errors=args.bch_max_errors,
+            batch_size=args.batch_size,
+            seed=args.seed,
+            device=args.device,
+        ).build()
+    except (ValueError, NotImplementedError) as e:
+        _die(str(e))
+    print(_BER_HEADER, flush=True)
+    out_file = open(args.output_file, "w") if args.output_file else None
+    try:
+        if out_file:
+            out_file.write(_BER_HEADER + "\n")
+        for stats in test.run():
+            row = _format_progress(stats, False)
+            print(row, flush=True)
+            if out_file:
+                out_file.write(row + "\n")
+    finally:
+        if out_file:
+            out_file.close()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ldpc-toolbox-torch",
+        description="LDPC toolbox on PyTorch with CUDA kernels for Hopper",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+    s = sub.add_parser("ber", help="Performs a BER simulation")
+    s.add_argument("code", help="code spec: dvbs2:RATE[:short] or 5g:BG:Z")
+    s.add_argument("--output-file")
+    s.add_argument("--decoder", default="HLMinsumbf16")
+    s.add_argument("--min-ebn0", type=float, required=True)
+    s.add_argument("--max-ebn0", type=float, required=True)
+    s.add_argument("--step-ebn0", type=float, required=True)
+    s.add_argument("--max-iter", type=int, default=100)
+    s.add_argument("--frame-errors", type=int, default=100)
+    s.add_argument("--min-time")
+    s.add_argument("--max-time")
+    s.add_argument("--bch-max-errors", type=int, default=0)
+    s.add_argument("--batch-size", type=int, default=128)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--device", default="cuda",
+                   help="torch device that runs the sweep (default cuda)")
+    s.set_defaults(func=run_ber)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    args.func(args)
+
+
+if __name__ == "__main__":
+    main()

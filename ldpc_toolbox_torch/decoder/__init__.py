@@ -1,0 +1,94 @@
+"""Belief-propagation LDPC decoders on torch tensors.
+
+Public API::
+
+    dec = Decoder(Code.R1_2, "HLMinsumbf16", device="cuda")
+    out = dec.decode_batch(llrs, max_iterations=30)    # (B, n) LLRs
+    single = dec.decode(llrs_1d, max_iterations=30)    # one frame
+
+``decode`` mirrors the reference's ``LdpcDecoder::decode`` contract
+(decoder.rs:19-35): the returned ``DecoderOutput`` carries the hard
+decision, the iteration count (0 if the input already satisfied H,
+``max_iterations`` on failure) and a success flag.
+
+Ported so far: standards code objects and 5G ``(BaseGraph, Z)`` pairs on
+the lifted layered path. The flooding schedule waits for ROADMAP A7 and a
+generic ``SparseMatrix`` for A8.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ldpc_toolbox_tpu.sparse import SparseMatrix
+
+from .factory import DECODER_IMPLEMENTATIONS, make_arithmetic  # noqa: F401
+from .lifted import LiftedGraph, lifted_graph_for, nr5g_maps
+from .lifted_layered import lifted_layered_decode
+
+__all__ = ["Decoder", "DecoderOutput", "DECODER_IMPLEMENTATIONS"]
+
+
+@dataclass
+class DecoderOutput:
+    codeword: np.ndarray  # (n,) uint8 hard decisions
+    iterations: int
+    success: bool
+
+
+class Decoder:
+    """A batched LDPC decoder for a fixed standards code on one device."""
+
+    def __init__(self, h, implementation: str = "Phif64", device="cpu"):
+        """``h``: a standards code object (``codes.dvbs2.Code``,
+        ``AR4JACode``, ``C2Code``) or a ``(BaseGraph, Z)`` pair for 5G NR.
+        ``device``: where the LLRs are decoded; on a CUDA device the decode
+        runs the hand-written kernel."""
+        if isinstance(h, SparseMatrix):
+            raise NotImplementedError(
+                "the generic parity-check path is not ported yet (ROADMAP A8)"
+            )
+        if isinstance(h, tuple):  # (BaseGraph, lifting size Z)
+            bg, z = h
+            self.lifted = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
+        else:
+            self.lifted = lifted_graph_for(h)
+            if self.lifted is None:
+                raise TypeError(f"unsupported code object {type(h).__name__}")
+        self.implementation = implementation
+        self.schedule, self.arithmetic = make_arithmetic(implementation)
+        if self.schedule != "layered":
+            raise NotImplementedError(
+                "the flooding schedule is not ported yet (ROADMAP A7)"
+            )
+        self.device = torch.device(device)
+
+    @property
+    def n(self) -> int:
+        return self.lifted.n
+
+    def decode_batch(self, llrs, max_iterations: int = 100):
+        """Decode a (B, n) batch of channel LLR frames.
+
+        Returns a dict of tensors on the decoder's device: ``codeword``
+        (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool.
+        """
+        llrs = torch.as_tensor(llrs, device=self.device)
+        if llrs.ndim != 2 or llrs.shape[1] != self.n:
+            raise ValueError(f"expected (B, {self.n}) LLRs, got {tuple(llrs.shape)}")
+        return lifted_layered_decode(
+            self.lifted, self.arithmetic, llrs, max_iterations
+        )
+
+    def decode(self, llrs, max_iterations: int = 100) -> DecoderOutput:
+        """Decode a single (n,) frame (convenience wrapper)."""
+        llrs = torch.as_tensor(llrs, device=self.device)
+        out = self.decode_batch(llrs[None, :], max_iterations)
+        return DecoderOutput(
+            codeword=out["codeword"][0].cpu().numpy(),
+            iterations=int(out["iterations"][0]),
+            success=bool(out["success"][0]),
+        )

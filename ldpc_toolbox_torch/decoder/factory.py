@@ -1,0 +1,96 @@
+"""Decoder registry keyed by the reference's implementation names.
+
+All 44 names of ``ldpc_toolbox_tpu.decoder.factory.DECODER_IMPLEMENTATIONS``
+resolve here: 28 flooding names and 16 ``HL*`` horizontal-layered names.
+The 8 min-sum names (``Minsum*``, ``Normminsum*``, plain and ``HL``) build
+an arithmetic; every other name raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .arithmetic import Arithmetic, MinSumArithmetic
+
+__all__ = ["DECODER_IMPLEMENTATIONS", "make_arithmetic"]
+
+
+def _not_ported(name: str) -> Callable[[], Arithmetic]:
+    def factory():
+        raise NotImplementedError(
+            f"decoder arithmetic {name!r} is not ported yet (ROADMAP A6)"
+        )
+
+    return factory
+
+
+_I8_SUFFIXES = [
+    "Jones" * j + "PartialHardLimit" * h + "Deg1Clip" * c
+    for j in (0, 1)
+    for h in (0, 1)
+    for c in (0, 1)
+]
+
+_FLOODING_ARITHS: dict[str, Callable[[], Arithmetic]] = {
+    **{
+        name: _not_ported(name)
+        for name in (
+            "Phif64", "Phif32", "Tanhf64", "Tanhf32",
+            "Minstarapproxf64", "Minstarapproxf32",
+            "Aminstarf64", "Aminstarf32",
+        )
+    },
+    # framework extensions: plain and normalized (scale 0.75) min-sum,
+    # with f32 or bf16 message storage
+    "Minsumf32": lambda: MinSumArithmetic(torch.float32),
+    "Minsumbf16": lambda: MinSumArithmetic(
+        torch.float32, storage=torch.bfloat16
+    ),
+    "Normminsumf32": lambda: MinSumArithmetic(torch.float32, scale=0.75),
+    "Normminsumbf16": lambda: MinSumArithmetic(
+        torch.float32, scale=0.75, storage=torch.bfloat16
+    ),
+    **{
+        prefix + s: _not_ported(prefix + s)
+        for prefix in ("Minstarapproxi8", "Aminstari8")
+        for s in _I8_SUFFIXES
+    },
+}
+
+# the HL (horizontal layered) subset exposed by the reference
+_HL_NAMES = [
+    "Phif64",
+    "Phif32",
+    "Tanhf64",
+    "Tanhf32",
+    "Minstarapproxf64",
+    "Minstarapproxf32",
+    "Minstarapproxi8",
+    "Minstarapproxi8PartialHardLimit",
+    "Aminstarf64",
+    "Aminstarf32",
+    "Aminstari8",
+    "Aminstari8PartialHardLimit",
+    "Minsumf32",
+    "Minsumbf16",
+    "Normminsumf32",
+    "Normminsumbf16",
+]
+
+#: name -> (schedule, arithmetic factory); schedule in {"flooding", "layered"}
+DECODER_IMPLEMENTATIONS: dict[str, tuple[str, Callable[[], Arithmetic]]] = {
+    **{name: ("flooding", f) for name, f in _FLOODING_ARITHS.items()},
+    **{f"HL{name}": ("layered", _FLOODING_ARITHS[name]) for name in _HL_NAMES},
+}
+
+
+def make_arithmetic(name: str) -> tuple[str, Arithmetic]:
+    """Returns (schedule, arithmetic instance) for an implementation name."""
+    try:
+        schedule, factory = DECODER_IMPLEMENTATIONS[name]
+    except KeyError:
+        raise ValueError(f"invalid decoder implementation {name!r}") from None
+    return schedule, factory()

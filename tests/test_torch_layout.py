@@ -1,0 +1,103 @@
+"""The port's lifted graph and flat layout against the JAX package's, the
+device tables both packages decode on, and the port's freedom from jax."""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ldpc_toolbox_tpu.ops import fused_bp2 as jax_fused_bp2
+from ldpc_toolbox_torch.convert import layout_to_device
+from ldpc_toolbox_torch.decoder.factory import make_arithmetic
+from ldpc_toolbox_torch.ops import fused_bp2
+from ldpc_toolbox_torch.ops.resident_layered import resident_layered_decode
+
+from torch_parity import CODES, as_torch, lifted_graphs, llrs
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _assert_equal_fields(a, b, names):
+    for name in names:
+        va, vb = getattr(a, name), getattr(b, name)
+        if isinstance(va, np.ndarray):
+            np.testing.assert_array_equal(va, vb, err_msg=name)
+            assert va.dtype == vb.dtype, name
+        elif name == "missing":
+            assert len(va) == len(vb)
+            for ma, mb in zip(va, vb):
+                assert ma[:2] == mb[:2]
+                np.testing.assert_array_equal(ma[2], mb[2])
+                np.testing.assert_array_equal(ma[3], mb[3])
+        elif name in ("chk_buckets", "var_buckets"):
+            assert len(va) == len(vb)
+            for ba, bb in zip(va, vb):
+                _assert_equal_fields(
+                    ba, bb, [f.name for f in dataclasses.fields(ba)]
+                )
+        elif name in ("chk_meta", "var_meta"):
+            assert [dataclasses.astuple(m) for m in va] == [
+                dataclasses.astuple(m) for m in vb
+            ], name
+        else:
+            assert va == vb, name
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_lifted_graph_and_layout_match_jax(code):
+    jlg, tlg = lifted_graphs(code)
+    _assert_equal_fields(jlg, tlg, [f.name for f in dataclasses.fields(jlg)])
+    jl = jax_fused_bp2.build_fused_layout(jlg)
+    tl = fused_bp2.build_fused_layout(tlg)
+    _assert_equal_fields(jl, tl, [f.name for f in dataclasses.fields(tl)])
+    assert tl.max_chk_degree == jl.max_chk_degree
+
+
+def test_jax_layout_decodes_like_the_ports():
+    """layout_to_device accepts the JAX package's layout, and both tables
+    decode the same tiles to the same results."""
+    jlg, tlg = lifted_graphs("bg2z16")
+    tables = [
+        layout_to_device(jax_fused_bp2.build_fused_layout(jlg), "cpu"),
+        layout_to_device(fused_bp2.build_fused_layout(tlg), "cpu"),
+    ]
+    for name in ("chk_cs", "syn_vg", "syn_rot", "rot_cv", "syn_mask"):
+        a, b = getattr(tables[0], name), getattr(tables[1], name)
+        assert a.dtype == torch.int32 and torch.equal(a, b), name
+    x = llrs(tlg.n, 64, 1.3, seed=3)
+    col = tlg.var_cols[tlg.var_group_order].reshape(-1)
+    planes = x.T[col].reshape(tlg.num_var_groups, tlg.Z, 16, 4)
+    qv0 = as_torch(planes.transpose(2, 0, 1, 3))
+    bits0 = (qv0 <= 0).to(torch.int8)
+    rule = fused_bp2.rule_for(make_arithmetic("HLMinsumbf16")[1])
+    outs = [resident_layered_decode(qv0, bits0, t, rule, 6) for t in tables]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    conv = outs[0][2]
+    assert 0 < int(conv.sum()) < conv.numel()
+
+
+def test_port_never_imports_jax():
+    """Importing every module of the port leaves jax unimported."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ldpc_toolbox_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "print(sorted(k for k in sys.modules if k.startswith('ldpc_toolbox_torch')))\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ldpc_toolbox_torch.simulation.ber" in proc.stdout
+    assert "ldpc_toolbox_torch.cli" in proc.stdout
