@@ -2,11 +2,13 @@
 
 ``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
 reference CLI (cli/ber.rs) on the port, for the code specs
-``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum layered
-decoders. It prints the reference's table, one row per Eb/N0 point once
+``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum decoders of
+both schedules (``--decoder Minsumbf16`` floods, ``HLMinsumbf16`` is
+layered). It prints the reference's table, one row per Eb/N0 point once
 the point ends, and writes the same rows to ``--output-file``: the columns
-of the JAX package's ``ber``, whose formatting it reuses
-(``ldpc_toolbox_tpu.cli`` imports no jax at module level).
+and formatting of the JAX package's ``ber``, from this module's own copies
+of its helpers (``parse_duration``, ``_BER_HEADER``, ``_format_duration``,
+``_format_progress``).
 
 Not ported yet (ROADMAP A5, A9, A10): the live progress rows and
 checkpoints, puncturing, interleaving, 8PSK, alist files and the other
@@ -16,9 +18,76 @@ code families, and the other subcommands.
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 
-from ldpc_toolbox_tpu.cli import _BER_HEADER, _format_progress, parse_duration
+
+def parse_duration(s: str) -> float:
+    """Parse humantime-style durations: "30s", "5m", "1h 30m"; a bare
+    number is seconds (framework extension — humantime requires a unit).
+    Strict like humantime: unknown units and trailing junk are errors."""
+    s = s.strip()
+    if not s:
+        raise ValueError("empty duration")
+    units = {
+        "ms": 1e-3, "s": 1.0, "sec": 1.0, "secs": 1.0, "m": 60.0,
+        "min": 60.0, "mins": 60.0, "h": 3600.0, "hr": 3600.0,
+        "hours": 3600.0, "hour": 3600.0, "d": 86400.0, "day": 86400.0,
+        "days": 86400.0,
+    }
+    total = 0.0
+    pos = 0
+    pattern = re.compile(r"\s*([0-9]+(?:\.[0-9]+)?)\s*([a-z]*)\s*")
+    while pos < len(s):
+        m = pattern.match(s, pos)
+        if m is None or m.start(1) != pos and not s[pos:m.start(1)].isspace():
+            raise ValueError(f"cannot parse duration {s!r}")
+        num, unit = m.group(1), m.group(2)
+        if unit == "":
+            # bare seconds allowed only as the entire input
+            if pos != 0 or m.end() != len(s):
+                raise ValueError(f"cannot parse duration {s!r}")
+            total += float(num)
+        elif unit in units:
+            total += float(num) * units[unit]
+        else:
+            raise ValueError(f"unknown duration unit {unit!r}")
+        pos = m.end()
+    return total
+
+
+_BER_HEADER = (
+    "  Eb/N0 |   Frames | Bit errs | Frame er | False de |     BER |"
+    "     FER | Avg iter | Avg corr | Throughp | Elapsed\n"
+    "--------|----------|----------|----------|----------|---------|"
+    "---------|----------|----------|----------|----------"
+)
+
+
+def _format_duration(seconds: float) -> str:
+    """Whole-second humantime-like rendering ("1m 5s")."""
+    s = int(seconds)
+    if s == 0:
+        return "0s"
+    parts = []
+    for unit, size in (("d", 86400), ("h", 3600), ("m", 60), ("s", 1)):
+        if s >= size:
+            parts.append(f"{s // size}{unit}")
+            s %= size
+    return " ".join(parts)
+
+
+def _format_progress(stats, force_ldpc: bool) -> str:
+    code_stats = stats.ldpc if (force_ldpc or stats.bch is None) else stats.bch
+    return (
+        f"{stats.ebn0_db:7.2f} | {stats.num_frames:8} | "
+        f"{code_stats.bit_errors:8} | {code_stats.frame_errors:8} | "
+        f"{stats.false_decodes:8} | {code_stats.ber:7.2e} | "
+        f"{code_stats.fer:7.2e} | {stats.average_iterations:8.1f} | "
+        f"{code_stats.average_iterations_correct:8.1f} | "
+        f"{stats.throughput_mbps:8.3f} | "
+        f"{_format_duration(stats.elapsed)}"
+    )
 
 
 def _die(msg: str):
@@ -32,7 +101,7 @@ def resolve_ber_code(spec: str):
 
     parts = spec.split(":")
     if parts[0] == "dvbs2" and len(parts) in (2, 3):
-        from ldpc_toolbox_tpu.codes.dvbs2 import Code
+        from .codes.dvbs2 import Code
 
         name = "R" + parts[1].replace("/", "_")
         if len(parts) == 3:
@@ -42,7 +111,7 @@ def resolve_ber_code(spec: str):
         code = Code[name]
         return code.h(), lifted_graph_for(code)
     if parts[0] == "5g" and len(parts) == 3:
-        from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+        from .codes.nr5g import BaseGraph
 
         bg = {"1": BaseGraph.BG1, "2": BaseGraph.BG2}[parts[1]]
         h = bg.h(int(parts[2]))

@@ -60,7 +60,7 @@ struct Tables {
   const int* chk_cs;    // (CG,) first edge of each check group
   const int* syn_vg;    // (E,) variable-group plane of each edge
   const int* syn_rot;   // (E,) s: check lane c reads variable lane c - s
-  const int* rot_cv;    // (E,) (Z - s) % Z: variable lane w takes check lane w - rot
+  const int* chk_rot;   // (E,) (Z - s) % Z: variable lane w takes check lane w - rot
   const int* syn_mask;  // (E,) missing check lane, -1 none
   int CG, E, VG, Z;
 };
@@ -186,7 +186,7 @@ __global__ void resident_layered_kernel(float* qv_all, Msg* rcv_all,
         const int w = i / Bt, f = i - w * Bt;
         for (int k = 0; k < d; ++k) {
           const int e = e0 + k;
-          int c = w - t.rot_cv[e];
+          int c = w - t.chk_rot[e];
           if (c < 0) c += t.Z;
           float* q = qv + t.syn_vg[e] * ZB + i;
           *q = __fadd_rn(*q, scratch[k * ZB + c * Bt + f]);
@@ -256,13 +256,13 @@ cudaError_t launch(void* qv, void* rcv, void* bits, void* iters, void* conv,
 extern "C" int ldpc_resident_layered_decode(
     void* qv, void* rcv, void* bits, void* iters, void* conv,
     const void* chk_cs, const void* syn_vg, const void* syn_rot,
-    const void* rot_cv, const void* syn_mask, int nbt, int CG, int E, int VG,
+    const void* chk_rot, const void* syn_mask, int nbt, int CG, int E, int VG,
     int Z, int Bt, int max_degree, int max_iterations, int threads, float big,
     float scale, int msg_bf16, void* stream) {
   const Tables t{static_cast<const int*>(chk_cs),
                  static_cast<const int*>(syn_vg),
                  static_cast<const int*>(syn_rot),
-                 static_cast<const int*>(rot_cv),
+                 static_cast<const int*>(chk_rot),
                  static_cast<const int*>(syn_mask),
                  CG, E, VG, Z};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -2,7 +2,7 @@
 
 Public API::
 
-    dec = Decoder(Code.R1_2, "HLMinsumbf16", device="cuda")
+    dec = Decoder(Code.R1_2, "Minsumbf16")            # on the card
     out = dec.decode_batch(llrs, max_iterations=30)    # (B, n) LLRs
     single = dec.decode(llrs_1d, max_iterations=30)    # one frame
 
@@ -12,8 +12,10 @@ decision, the iteration count (0 if the input already satisfied H,
 ``max_iterations`` on failure) and a success flag.
 
 Ported so far: standards code objects and 5G ``(BaseGraph, Z)`` pairs on
-the lifted layered path. The flooding schedule waits for ROADMAP A7 and a
-generic ``SparseMatrix`` for A8.
+the lifted layout, with the min-sum names of both schedules: the ``HL*``
+names decode layered (``lifted_layered``), the others flooding
+(``lifted_flooding``). The other rules wait for ROADMAP A6, a generic
+``SparseMatrix`` for A8.
 """
 
 from __future__ import annotations
@@ -23,13 +25,25 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ldpc_toolbox_tpu.sparse import SparseMatrix
+from ..sparse import SparseMatrix
 
 from .factory import DECODER_IMPLEMENTATIONS, make_arithmetic  # noqa: F401
 from .lifted import LiftedGraph, lifted_graph_for, nr5g_maps
+from .lifted_flooding import lifted_flooding_decode
 from .lifted_layered import lifted_layered_decode
 
-__all__ = ["Decoder", "DecoderOutput", "DECODER_IMPLEMENTATIONS"]
+__all__ = [
+    "Decoder",
+    "DecoderOutput",
+    "DECODER_IMPLEMENTATIONS",
+    "lifted_decode_for",
+]
+
+
+def lifted_decode_for(schedule: str):
+    """The lifted decode function of a schedule, "flooding" or "layered"
+    (the first item ``make_arithmetic`` returns)."""
+    return lifted_flooding_decode if schedule == "flooding" else lifted_layered_decode
 
 
 @dataclass
@@ -42,11 +56,11 @@ class DecoderOutput:
 class Decoder:
     """A batched LDPC decoder for a fixed standards code on one device."""
 
-    def __init__(self, h, implementation: str = "Phif64", device="cpu"):
+    def __init__(self, h, implementation: str = "Phif64", device="cuda"):
         """``h``: a standards code object (``codes.dvbs2.Code``,
         ``AR4JACode``, ``C2Code``) or a ``(BaseGraph, Z)`` pair for 5G NR.
         ``device``: where the LLRs are decoded; on a CUDA device the decode
-        runs the hand-written kernel."""
+        runs the hand-written kernels, on ``"cpu"`` their plain versions."""
         if isinstance(h, SparseMatrix):
             raise NotImplementedError(
                 "the generic parity-check path is not ported yet (ROADMAP A8)"
@@ -60,10 +74,7 @@ class Decoder:
                 raise TypeError(f"unsupported code object {type(h).__name__}")
         self.implementation = implementation
         self.schedule, self.arithmetic = make_arithmetic(implementation)
-        if self.schedule != "layered":
-            raise NotImplementedError(
-                "the flooding schedule is not ported yet (ROADMAP A7)"
-            )
+        self._decode = lifted_decode_for(self.schedule)
         self.device = torch.device(device)
 
     @property
@@ -79,9 +90,7 @@ class Decoder:
         llrs = torch.as_tensor(llrs, device=self.device)
         if llrs.ndim != 2 or llrs.shape[1] != self.n:
             raise ValueError(f"expected (B, {self.n}) LLRs, got {tuple(llrs.shape)}")
-        return lifted_layered_decode(
-            self.lifted, self.arithmetic, llrs, max_iterations
-        )
+        return self._decode(self.lifted, self.arithmetic, llrs, max_iterations)
 
     def decode(self, llrs, max_iterations: int = 100) -> DecoderOutput:
         """Decode a single (n,) frame (convenience wrapper)."""

@@ -28,7 +28,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ldpc_toolbox_tpu.sparse import SparseMatrix
+from ..sparse import SparseMatrix
 
 __all__ = [
     "LiftedGraph",
@@ -314,8 +314,8 @@ def c2_maps():
 
 def lifted_graph_for(code_obj) -> Optional[LiftedGraph]:
     """Build a LiftedGraph for a known standards code object."""
-    from ldpc_toolbox_tpu.codes.ccsds import AR4JACode, C2Code
-    from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
+    from ..codes.ccsds import AR4JACode, C2Code
+    from ..codes.dvbs2 import Code as DvbCode
 
     if isinstance(code_obj, DvbCode):
         vm, cm, Z, nvg, ncg = dvbs2_maps(code_obj)

@@ -1,0 +1,84 @@
+"""Flooding BP on the block-circulant (lifted) layout.
+
+Counterpart of the JAX package's ``decoder.lifted_flooding`` fused path
+(``_fused_flooding_decode``): the batch is cut into tiles of BT frames
+(the last padded with +100-LLR frames), the channel LLRs are cast to the
+message storage type before they are gathered into ``(VG, Z, B)`` planes
+(so for the bf16 names the channel planes and the iteration-0 bits come
+from bf16 values), and the decoded planes are put back into codeword
+order. The tiles then go through
+
+* ``resident=True`` (the default): ``ops/resident_flooding.py``, the whole
+  decode in one kernel launch;
+* ``resident=False``: the streaming phases of ``ops/fused_bp2.py`` in a
+  host loop (``fused_var`` initialisation, then ``fused_check``,
+  ``fused_var`` and ``fused_syndrome_bits`` an iteration, per-frame
+  freeze), which stops once every frame has converged.
+
+Both give the same bits, iterations and success flags. On CPU tensors
+every kernel wrapper runs its plain version.
+
+Not ported yet (ROADMAP A7): the plane-gather path that serves rules
+without a kernel, and staged converged-frame compaction
+(``decoder/compaction.py``). The TPU's VMEM pickers and ``LDPC_FORCE_*``
+switches have no counterpart: the port has one resident kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.fused_bp2 import (
+    fused_check,
+    fused_syndrome_bits,
+    fused_var,
+    rule_for,
+)
+from ..ops.resident_flooding import flooding_loop, resident_flooding_decode
+from .lifted import LiftedGraph
+from .lifted_layered import (
+    _planes_of,
+    device_layout,
+    pad_to_tiles,
+    tile,
+    tiles_to_output,
+)
+
+__all__ = ["lifted_flooding_decode", "flooding_tiles", "streaming_flooding_decode"]
+
+
+def lifted_flooding_decode(
+    lg: LiftedGraph, arithmetic, llrs: torch.Tensor, max_iterations: int,
+    resident: bool = True,
+):
+    """Decode a (B, n) batch of channel LLRs, flooding schedule, lifted
+    layout. Returns a dict of tensors on the LLRs' device: ``codeword``
+    (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
+    q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
+    decode = resident_flooding_decode if resident else streaming_flooding_decode
+    bits, iters, conv = decode(q_t, bits0_t, layout, rule, max_iterations)
+    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
+
+
+def flooding_tiles(lg, arithmetic, llrs):
+    """The kernels' inputs for a (B, n) batch of LLRs: the channel planes
+    in the storage type and their hard bits as (nbt, VG, Z, BT) tiles, the
+    device layout and the rule."""
+    rule = rule_for(arithmetic)
+    if rule is None:
+        raise NotImplementedError(
+            f"{type(arithmetic).__name__} has no kernel yet (ROADMAP A6)"
+        )
+    # cast before the gather, as the JAX package does
+    planes, _ = _planes_of(lg, pad_to_tiles(llrs), rule.storage_dtype)
+    layout = device_layout(lg, llrs.device)
+    return tile(planes), tile((planes <= 0).to(torch.int8)), layout, rule
+
+
+def streaming_flooding_decode(q_t, bits0_t, layout, rule, max_iterations):
+    """The flooding decode through the three phase kernels; the arguments
+    and results of ``resident_flooding_decode``."""
+    return flooding_loop(
+        q_t, bits0_t, layout, rule, max_iterations,
+        fused_check, fused_var, fused_syndrome_bits,
+    )

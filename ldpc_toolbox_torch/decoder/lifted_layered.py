@@ -18,19 +18,28 @@ Both give the same success, iterations and codewords.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
 from ..convert import layout_to_device
-from ..ops.fused_bp2 import build_fused_layout, rule_for
+from ..ops.fused_bp2 import BT, build_fused_layout, rule_for
 from ..ops.resident_layered import (
-    BT,
     layered_decode_planes,
     resident_layered_decode,
 )
 from .lifted import LiftedGraph
 
-__all__ = ["lifted_layered_decode", "plain_layered_decode", "tile_inputs"]
+__all__ = [
+    "device_layout",
+    "lifted_layered_decode",
+    "pad_to_tiles",
+    "plain_layered_decode",
+    "tile",
+    "tile_inputs",
+    "tiles_to_output",
+]
 
 
 def lifted_layered_decode(
@@ -44,11 +53,27 @@ def lifted_layered_decode(
     return plain_layered_decode(lg, arithmetic, llrs, max_iterations)
 
 
-def _planes_of(lg, llrs):
-    """Channel LLRs as f32 (VG, Z, B) planes in var-bucket group order."""
+#: (id(graph), device) -> DeviceLayout, each dropped when its graph dies
+_LAYOUTS: dict = {}
+
+
+def device_layout(lg, device):
+    """The graph's decode tables on a device, built and copied once per
+    (graph, device): they depend only on the code."""
+    key = (id(lg), torch.device(device))
+    layout = _LAYOUTS.get(key)
+    if layout is None:
+        layout = _LAYOUTS[key] = layout_to_device(build_fused_layout(lg), device)
+        weakref.finalize(lg, _LAYOUTS.pop, key, None)
+    return layout
+
+
+def _planes_of(lg, llrs, dtype=torch.float32):
+    """Channel LLRs cast to ``dtype``, then gathered into (VG, Z, B)
+    planes in var-bucket group order."""
     col_of = lg.var_cols[lg.var_group_order]
     idx = torch.as_tensor(col_of.reshape(-1), device=llrs.device)
-    planes = llrs.to(torch.float32).T[idx].reshape(
+    planes = llrs.to(dtype).T[idx].reshape(
         lg.num_var_groups, lg.Z, llrs.shape[0]
     )
     return planes, col_of
@@ -83,7 +108,7 @@ class _ArithmeticRule:
 
 
 def plain_layered_decode(lg, arithmetic, llrs, max_iterations):
-    layout = layout_to_device(build_fused_layout(lg), llrs.device)
+    layout = device_layout(lg, llrs.device)
     llr_planes, col_of = _planes_of(lg, llrs)
     q = arithmetic.quantize(llr_planes)
     qv0 = arithmetic.llr_to_var_llr(q).to(arithmetic.var_llr_storage_dtype)
@@ -98,28 +123,48 @@ def plain_layered_decode(lg, arithmetic, llrs, max_iterations):
     }
 
 
+def pad_to_tiles(llrs):
+    """(B, n) LLRs padded to a whole number of BT-frame tiles with +100-LLR
+    frames: the all-zero codeword satisfies every check at iteration 0, so
+    pad frames converge at once and never hold a tile open."""
+    if llrs.shape[0] % BT:
+        pad = llrs.new_full((BT - llrs.shape[0] % BT, llrs.shape[1]), 100.0)
+        llrs = torch.cat([llrs, pad])
+    return llrs
+
+
+def tile(x):
+    """(P, Z, B) planes -> (nbt, P, Z, BT) tiles, frames innermost."""
+    P, Z, B = x.shape
+    return x.reshape(P, Z, B // BT, BT).permute(2, 0, 1, 3).contiguous()
+
+
+def tiles_to_output(lg, bits, iters, conv, batch):
+    """A kernel's (bits, iters, conv) tiles -> the decoder's output dict
+    for the first ``batch`` frames."""
+    nbt, VG, Z, Bt = bits.shape
+    planes = bits.permute(1, 2, 0, 3).reshape(VG, Z, nbt * Bt)
+    col_of = lg.var_cols[lg.var_group_order]
+    return {
+        "codeword": _codeword_from_planes(lg, col_of, planes)[:batch],
+        "iterations": iters.reshape(-1)[:batch],
+        "success": (conv.reshape(-1) != 0)[:batch],
+    }
+
+
 def tile_inputs(lg, arithmetic, llrs):
     """The kernel's inputs for a (B, n) batch of LLRs: qv0 and raw-channel
-    bits as (nbt, VG, Z, BT) tiles (frames innermost; a partial last tile
-    padded with +100-LLR frames, which converge at iteration 0), the
-    device layout and the rule."""
+    bits as (nbt, VG, Z, BT) tiles (a partial last tile padded by
+    ``pad_to_tiles``), the device layout and the rule."""
     rule = rule_for(arithmetic)
     if rule is None:
         raise NotImplementedError(
             f"{type(arithmetic).__name__} has no kernel yet (ROADMAP A6)"
         )
-    if llrs.shape[0] % BT:
-        pad = llrs.new_full((BT - llrs.shape[0] % BT, llrs.shape[1]), 100.0)
-        llrs = torch.cat([llrs, pad])
-    nbt = llrs.shape[0] // BT
-    llr_planes, _ = _planes_of(lg, llrs)
+    llr_planes, _ = _planes_of(lg, pad_to_tiles(llrs))
     q = arithmetic.quantize(llr_planes)
     qv0 = arithmetic.llr_to_var_llr(q).to(arithmetic.var_llr_storage_dtype)
-
-    def tile(x):  # (P, Z, B) -> (nbt, P, Z, Bt)
-        return x.reshape(x.shape[0], lg.Z, nbt, BT).permute(2, 0, 1, 3).contiguous()
-
-    layout = layout_to_device(build_fused_layout(lg), llrs.device)
+    layout = device_layout(lg, llrs.device)
     return tile(qv0), tile((llr_planes <= 0).to(torch.int8)), layout, rule
 
 
@@ -129,12 +174,4 @@ def _fused_layered_decode(lg, arithmetic, llrs, max_iterations):
     bits, iters, conv = resident_layered_decode(
         qv0_t, bits0_t, layout, rule, max_iterations
     )
-    nbt, VG, Z, Bt = bits.shape
-    planes = bits.permute(1, 2, 0, 3).reshape(VG, Z, nbt * Bt)
-    col_of = lg.var_cols[lg.var_group_order]
-    B_user = llrs.shape[0]
-    return {
-        "codeword": _codeword_from_planes(lg, col_of, planes)[:B_user],
-        "iterations": iters.reshape(-1)[:B_user],
-        "success": (conv.reshape(-1) != 0)[:B_user],
-    }
+    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])

@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ldpc_toolbox_tpu.gf2 import NotInvertibleError, gauss_reduction
-from ldpc_toolbox_tpu.sparse import SparseMatrix
+from .gf2 import NotInvertibleError, gauss_reduction
+from .sparse import SparseMatrix
 
 __all__ = ["Encoder", "EncoderError", "is_staircase"]
 
@@ -47,7 +47,7 @@ def is_staircase(h: SparseMatrix) -> bool:
 class Encoder:
     """Systematic encoder for a parity-check matrix."""
 
-    def __init__(self, h: SparseMatrix, device="cpu"):
+    def __init__(self, h: SparseMatrix, device="cuda"):
         """``device``: where ``encode_batch`` runs (its tables live there)."""
         n = h.num_rows
         m = h.num_cols

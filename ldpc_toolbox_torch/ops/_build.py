@@ -15,11 +15,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "library_path", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -29,6 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+#: every kernel source of the package, by name
+SOURCES = ("resident_layered", "flooding")
 
 
 def _nvcc() -> str:
@@ -67,6 +70,13 @@ def library_path(name: str) -> Path:
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def build_all(names=SOURCES) -> dict:
+    """Builds the named sources at once, one nvcc each, all started
+    together; returns {name: library path}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(library_path, names)))
 
 
 @functools.cache

@@ -1,4 +1,4 @@
-"""Flat decode layout and per-plane check rules.
+"""Flat decode layout, per-plane rules and the flooding phase kernels.
 
 Counterpart of ``ldpc_toolbox_tpu.ops.fused_bp2``. The layout is numpy and
 built once per code; the rules are plain functions on torch tensors, the
@@ -11,25 +11,55 @@ two sides is a roll by the edge's lift shift. Incomplete circulants (the
 DVB-S2 staircase corner) have one missing lane per affected edge: a check
 update sees ``big`` there (min-sum ignores it) and emits 0 there.
 
-Still to be ported from the JAX module: the streaming phase kernels
-``fused_check`` and ``fused_var``, the syndrome kernel
-``fused_syndrome_bits``, and the rules of the Phi, Tanh, Minstarapprox,
-Aminstar and i8 families (ROADMAP queues A and B).
+The streaming flooding phases work on frame tiles, ``(nbt, P, Z, Bt)``
+planes with frames innermost:
+
+* ``fused_check``: v2c (check-major, check coordinates) -> c2v
+  (var-major, var coordinates), 0 at the missing lanes;
+* ``fused_var``: c2v and the channel planes q -> v2c, big at the missing
+  lanes, and the posterior hard bits; ``c2v=None`` is the flooding
+  initialisation (every output is q);
+* ``fused_syndrome_bits``: hard bits -> one "unsatisfied check" flag a
+  frame.
+
+On a CUDA tensor each launches its hand-written kernel of
+``csrc/flooding.cu`` or raises; on a CPU tensor it runs its plain version
+(the ``*_reference`` functions). A roll by s means ``out[i] = x[(i - s)
+mod Z]``, on unpadded planes.
+
+Still to be ported from the JAX module: the rules of the Phi, Tanh,
+Minstarapprox, Aminstar and i8 families (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
+from . import _build
+
 __all__ = [
+    "BT",
     "FusedLayout",
     "build_fused_layout",
     "MinSumRule",
     "rule_for",
+    "fused_check",
+    "fused_check_reference",
+    "fused_var",
+    "fused_var_reference",
+    "fused_syndrome_bits",
+    "fused_syndrome_bits_reference",
 ]
+
+#: frames per tile of the port's kernels: B = 1024 gives 256 tiles, about
+#: two per SM of an H100 (132 SMs), with frames innermost and coalesced
+BT = 4
 
 
 @dataclass(frozen=True)
@@ -212,6 +242,14 @@ class MinSumRule:
             outs.append(torch.where(par ^ negs[t], -loo, loo))
         return torch.stack(outs)
 
+    def var(self, q, xs, degree):
+        """Sum-minus-own variable rule, summed in slot order as the kernels
+        do: (the d extrinsic outputs, the posterior)."""
+        tot = q
+        for x in xs:
+            tot = tot + x
+        return [tot - x for x in xs], tot
+
     # layered-schedule helper (horizontal_layered.rs:105-110)
     def layered_x(self, qv, rold):
         return qv - rold
@@ -224,3 +262,236 @@ def rule_for(arithmetic):
     if isinstance(arithmetic, MinSumArithmetic):
         return MinSumRule(arithmetic.storage_dtype, arithmetic.scale)
     return None
+
+
+# -- the streaming flooding phases -------------------------------------------
+
+_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: threads per block of the check and variable phase kernels
+PHASE_THREADS = 256
+#: threads per block of the kernels that give one block to a tile (the
+#: syndrome and the resident decode); a multiple of the tile width
+TILE_THREADS = 512
+#: the check kernels keep the signs of a group's inputs in 64 bits
+MAX_CHECK_DEGREE = 64
+#: the layout tables the flooding kernels read, in their argument order
+_TABLES = (
+    "chk_cs", "chk_dest", "chk_rot", "chk_omask",
+    "var_cs", "var_dest", "var_rot", "var_omask",
+    "syn_vg", "syn_rot", "syn_mask",
+)
+
+
+@functools.cache
+def flooding_lib():
+    """The loaded library of ``csrc/flooding.cu`` (built at first use)."""
+    lib = _build.load("flooding")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i] * 6  # nbt, CG, VG, E, Z, Bt
+    lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [f, f, i, i, p]
+    lib.ldpc_fused_var.argtypes = [p, p, p, p, p] + dims + [f, i, i, p]
+    lib.ldpc_fused_syndrome.argtypes = [p, p, p] + dims + [i, p]
+    lib.ldpc_resident_flooding_decode.argtypes = (
+        [p] * 8 + dims + [i, i, f, f, i, p]
+    )
+    for fn in (
+        lib.ldpc_fused_check, lib.ldpc_fused_var, lib.ldpc_fused_syndrome,
+        lib.ldpc_resident_flooding_decode,
+    ):
+        fn.restype = i
+    lib.ldpc_flooding_error_string.argtypes = [i]
+    lib.ldpc_flooding_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch_args(x, layout, rule=None):
+    """(table pointer array, tile dims, stream) of a flooding launch on the
+    tiles ``x`` (nbt, P, Z, Bt); raises on what the kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    nbt, _, Z, Bt = x.shape
+    if Z != layout.Z:
+        raise ValueError(f"plane height {Z} does not match the layout's {layout.Z}")
+    if TILE_THREADS % Bt:
+        raise ValueError(f"tile width {Bt} must divide {TILE_THREADS}")
+    if not x.is_contiguous():
+        raise ValueError("planes must be contiguous")
+    if rule is not None and rule.storage_dtype not in _MSG_DTYPES:
+        raise TypeError(f"unsupported message storage {rule.storage_dtype}")
+    if layout.max_chk_degree > MAX_CHECK_DEGREE:
+        raise ValueError(
+            f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
+        )
+    tables = [getattr(layout, name) for name in _TABLES]
+    if any(
+        t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous()
+        for t in tables
+    ):
+        raise TypeError("layout tables must be contiguous int32 on the planes' device")
+    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    dims = (nbt, layout.CG, layout.VG, layout.E, Z, Bt)
+    return ptrs, dims, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def raise_on(err: int, name: str) -> None:
+    if err:
+        msg = flooding_lib().ldpc_flooding_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
+
+
+def _check_planes(x, planes, layout, dtype, what):
+    if x.ndim != 4 or x.shape[1] != planes or x.dtype != dtype:
+        raise ValueError(
+            f"{what} must be (nbt, {planes}, {layout.Z}, Bt) {dtype}, got "
+            f"{tuple(x.shape)} {x.dtype}"
+        )
+
+
+def fused_check(v2c, layout, rule):
+    """Check phase: v2c (nbt, E, Z, Bt) -> c2v (nbt, E, Z, Bt), both in the
+    rule's storage type. ``layout``: a ``convert.DeviceLayout`` on the
+    planes' device; ``rule``: a ``MinSumRule``."""
+    if v2c.device.type == "cpu":
+        return fused_check_reference(v2c, layout, rule)
+    _check_planes(v2c, layout.E, layout, rule.storage_dtype, "v2c")
+    tables, dims, stream = launch_args(v2c, layout, rule)
+    c2v = torch.empty_like(v2c)
+    raise_on(
+        flooding_lib().ldpc_fused_check(
+            v2c.data_ptr(), c2v.data_ptr(), tables, *dims, rule.big,
+            rule.scale, _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
+        ),
+        "fused_check",
+    )
+    fused_check.launches += 1
+    return c2v
+
+
+def fused_var(c2v, q, layout, rule):
+    """Variable phase: c2v (nbt, E, Z, Bt) and the channel planes q (nbt,
+    VG, Z, Bt), both in the rule's storage type -> (v2c (nbt, E, Z, Bt),
+    bits (nbt, VG, Z, Bt) int8). ``c2v=None`` is the initialisation: every
+    v2c output is q, rolled, with big at the missing lanes."""
+    if q.device.type == "cpu":
+        return fused_var_reference(c2v, q, layout, rule)
+    _check_planes(q, layout.VG, layout, rule.storage_dtype, "q")
+    if c2v is not None:
+        _check_planes(c2v, layout.E, layout, rule.storage_dtype, "c2v")
+        if c2v.shape[0] != q.shape[0] or c2v.shape[3] != q.shape[3]:
+            raise ValueError("c2v and q tiles differ")
+        if not c2v.is_contiguous() or c2v.device != q.device:
+            raise ValueError("c2v must be contiguous on q's device")
+    tables, dims, stream = launch_args(q, layout, rule)
+    nbt, VG, Z, Bt = q.shape
+    v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q.dtype, device=q.device)
+    bits = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=q.device)
+    raise_on(
+        flooding_lib().ldpc_fused_var(
+            None if c2v is None else c2v.data_ptr(), q.data_ptr(),
+            v2c.data_ptr(), bits.data_ptr(), tables, *dims, rule.big,
+            _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
+        ),
+        "fused_var",
+    )
+    fused_var.launches += 1
+    return v2c, bits
+
+
+def fused_syndrome_bits(bits, layout):
+    """Syndrome of hard-decision planes: bits (nbt, VG, Z, Bt) int8 ->
+    flags (nbt, Bt) int32, 1 where the frame has an unsatisfied check."""
+    if bits.device.type == "cpu":
+        return fused_syndrome_bits_reference(bits, layout)
+    _check_planes(bits, layout.VG, layout, torch.int8, "bits")
+    tables, dims, stream = launch_args(bits, layout)
+    nbt, _, _, Bt = bits.shape
+    flags = torch.empty((nbt, Bt), dtype=torch.int32, device=bits.device)
+    raise_on(
+        flooding_lib().ldpc_fused_syndrome(
+            bits.data_ptr(), flags.data_ptr(), tables, *dims, TILE_THREADS,
+            stream,
+        ),
+        "fused_syndrome_bits",
+    )
+    fused_syndrome_bits.launches += 1
+    return flags
+
+
+#: kernel launches since the count was last set to 0
+fused_check.launches = 0
+fused_var.launches = 0
+fused_syndrome_bits.launches = 0
+
+
+def _roll_planes(x, rot):
+    """x (nbt, P, Z, Bt), rot (P,) -> out[:, p, i] = x[:, p, (i - rot[p])
+    mod Z]."""
+    nbt, P, Z, Bt = x.shape
+    lane = torch.arange(Z, device=x.device)
+    src = (lane[None, :] - rot.to(x.device, torch.long)[:, None]) % Z
+    return torch.gather(x, 2, src[None, :, :, None].expand(nbt, P, Z, Bt))
+
+
+def _poke(x, mask, value):
+    """Lane ``mask[p]`` of plane p set to value (-1: none)."""
+    lane = torch.arange(x.shape[2], device=x.device)
+    hit = lane[None, :] == mask.to(x.device, torch.long)[:, None]
+    return torch.where(hit[None, :, :, None], value, x)
+
+
+def fused_check_reference(v2c, layout, rule):
+    """The plain PyTorch version of ``fused_check``, on any device."""
+    nbt, E, Z, Bt = v2c.shape
+    c2v = torch.empty_like(v2c)
+    for m in layout.chk_meta:
+        if not m.d:
+            continue
+        G = m.g1 - m.g0
+        e0, e1 = m.ebase, m.ebase + G * m.d
+        x = v2c[:, e0:e1].float().reshape(nbt, G, m.d, Z, Bt)
+        outs = rule.check([x[:, :, t] for t in range(m.d)])  # (d, nbt, G, ...)
+        o = outs.permute(1, 2, 0, 3, 4).reshape(nbt, G * m.d, Z, Bt)
+        o = _poke(_roll_planes(o, layout.chk_rot[e0:e1]), layout.chk_omask[e0:e1], 0.0)
+        c2v[:, layout.chk_dest[e0:e1].long()] = o.to(v2c.dtype)
+    return c2v
+
+
+def fused_var_reference(c2v, q, layout, rule):
+    """The plain PyTorch version of ``fused_var``, on any device."""
+    nbt, VG, Z, Bt = q.shape
+    v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q.dtype, device=q.device)
+    bits = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=q.device)
+    for m in layout.var_meta:
+        G = m.g1 - m.g0
+        e0, e1 = m.ebase, m.ebase + G * m.d
+        qf = q[:, m.g0 : m.g1].float()
+        if c2v is None:
+            outs, tot = [qf] * m.d, qf
+        else:
+            y = c2v[:, e0:e1].float().reshape(nbt, G, m.d, Z, Bt)
+            outs, tot = rule.var(qf, [y[:, :, t] for t in range(m.d)], m.d)
+        bits[:, m.g0 : m.g1] = (tot <= 0).to(torch.int8)
+        if not m.d:
+            continue
+        o = torch.stack(outs, dim=2).reshape(nbt, G * m.d, Z, Bt)
+        o = _roll_planes(o, layout.var_rot[e0:e1])
+        o = _poke(o, layout.var_omask[e0:e1], rule.big)
+        v2c[:, layout.var_dest[e0:e1].long()] = o.to(q.dtype)
+    return v2c, bits
+
+
+def fused_syndrome_bits_reference(bits, layout):
+    """The plain PyTorch version of ``fused_syndrome_bits``, on any
+    device."""
+    nbt, VG, Z, Bt = bits.shape
+    bad = torch.zeros((nbt, Bt), dtype=torch.bool, device=bits.device)
+    for m in layout.chk_meta:
+        if not m.d:
+            continue
+        G = m.g1 - m.g0
+        e0, e1 = m.ebase, m.ebase + G * m.d
+        b = bits[:, layout.syn_vg[e0:e1].long()].to(torch.int32) & 1
+        b = _poke(_roll_planes(b, layout.syn_rot[e0:e1]), layout.syn_mask[e0:e1], 0)
+        par = b.reshape(nbt, G, m.d, Z, Bt).sum(dim=2) & 1
+        bad |= par.flatten(1, 2).any(dim=1)
+    return bad.to(torch.int32)

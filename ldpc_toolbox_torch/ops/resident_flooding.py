@@ -1,0 +1,135 @@
+"""Whole flooding decode of frame tiles.
+
+``resident_flooding_decode`` keeps the contract of the JAX package's two
+resident flooding kernels, ``ops/resident_flooding_dual.py
+resident_flooding_dual_decode`` and ``ops/resident_flooding.py
+resident_flooding_decode``: it takes a batch cut into tiles of Bt frames,
+``(nbt, VG, Z, Bt)`` channel planes and raw-channel bits, runs all
+iterations (check phase, variable phase, syndrome, per-frame freeze at
+first convergence, per-tile early exit) and returns the hard bits,
+iteration counts and convergence flags. One function serves both TPU
+kernels because they compute the same thing: they differ only in how the
+state fits the TPU's vector memory (two message arrays, or one array
+aliased between the phases). On this card the state lives in device
+memory either way, so the CUDA kernel keeps two arrays.
+
+On a CUDA tensor it launches ``resident_flooding_kernel`` of
+``csrc/flooding.cu`` (one thread block per tile, all iterations in one
+launch) or raises; on a CPU tensor it runs the plain version
+``resident_flooding_decode_reference``, built from the plain phases.
+
+Semantics (bit-identical to the JAX package's kernels): v2c starts as the
+channel planes rolled into check coordinates with big at the missing
+lanes; each iteration runs the whole check phase, then the whole variable
+phase; the syndrome tests the posterior hard bits; a frame's bits and
+count freeze at its first passing iteration; iteration 0 tests the
+raw-channel bits, so a frame can finish with 0 iterations; a frame that
+never converges gets ``max_iterations`` and its last posterior bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fused_bp2 import (
+    _MSG_DTYPES,
+    TILE_THREADS,
+    _check_planes,
+    flooding_lib,
+    fused_check_reference,
+    fused_syndrome_bits_reference,
+    fused_var_reference,
+    launch_args,
+    raise_on,
+)
+
+__all__ = [
+    "resident_flooding_decode",
+    "resident_flooding_decode_reference",
+    "flooding_loop",
+]
+
+
+def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
+    """(q, bits0) -> (bits, iters, conv) for every tile.
+
+    q_t: (nbt, VG, Z, Bt) channel planes in the rule's storage type;
+    bits0_t: (nbt, VG, Z, Bt) int8 hard decisions of the raw channel LLRs;
+    layout: a ``convert.DeviceLayout`` on the same device; rule: a
+    ``MinSumRule``. Returns bits (nbt, VG, Z, Bt) int8, iters (nbt, Bt)
+    int32 and conv (nbt, Bt) int32.
+    """
+    if q_t.device.type == "cpu":
+        return resident_flooding_decode_reference(
+            q_t, bits0_t, layout, rule, max_iterations
+        )
+    _check_planes(q_t, layout.VG, layout, rule.storage_dtype, "q_t")
+    _check_planes(bits0_t, layout.VG, layout, torch.int8, "bits0_t")
+    if bits0_t.shape != q_t.shape or bits0_t.device != q_t.device:
+        raise ValueError("q_t and bits0_t must match in shape and device")
+    if max_iterations < 0:
+        raise ValueError("max_iterations must be >= 0")
+    tables, dims, stream = launch_args(q_t, layout, rule)
+    nbt, VG, Z, Bt = q_t.shape
+    dev = q_t.device
+    v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev)
+    c2v = torch.empty_like(v2c)
+    post = torch.empty_like(bits0_t)
+    bits = bits0_t.clone(memory_format=torch.contiguous_format)
+    iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    raise_on(
+        flooding_lib().ldpc_resident_flooding_decode(
+            v2c.data_ptr(), c2v.data_ptr(), q_t.data_ptr(), post.data_ptr(),
+            bits.data_ptr(), iters.data_ptr(), conv.data_ptr(), tables, *dims,
+            int(max_iterations), TILE_THREADS, rule.big, rule.scale,
+            _MSG_DTYPES[rule.storage_dtype], stream,
+        ),
+        "resident_flooding_decode",
+    )
+    resident_flooding_decode.launches += 1
+    return bits, iters, conv
+
+
+#: kernel launches since the count was last set to 0
+resident_flooding_decode.launches = 0
+
+
+def resident_flooding_decode_reference(
+    q_t, bits0_t, layout, rule, max_iterations: int
+):
+    """The plain PyTorch version of ``resident_flooding_decode``, on any
+    device, same arguments and results. Tiles are independent, so it
+    decodes them together and stops when every frame has converged;
+    per-tile early exit changes no output."""
+    return flooding_loop(
+        q_t, bits0_t, layout, rule, max_iterations,
+        fused_check_reference, fused_var_reference,
+        fused_syndrome_bits_reference,
+    )
+
+
+def flooding_loop(q_t, bits0_t, layout, rule, max_iterations, check, var,
+                  syndrome):
+    """The flooding decode as a host loop over the phases ``check(v2c,
+    layout, rule)``, ``var(c2v, q, layout, rule)`` and ``syndrome(bits,
+    layout)``; same arguments and results as ``resident_flooding_decode``.
+    It stops when every frame has converged (one host read a iteration) or
+    after ``max_iterations``."""
+    v2c, _ = var(None, q_t, layout, rule)
+    conv = syndrome(bits0_t, layout) == 0
+    iters = torch.zeros(conv.shape, dtype=torch.int32, device=q_t.device)
+    frozen = bits = bits0_t
+    it = 0
+    while it < max_iterations and not bool(conv.all()):
+        c2v = check(v2c, layout, rule)
+        v2c, bits = var(c2v, q_t, layout, rule)
+        ok = syndrome(bits, layout) == 0
+        it += 1
+        newly = ok & ~conv
+        iters = torch.where(newly, it, iters)
+        frozen = torch.where(newly[:, None, None, :], bits, frozen)
+        conv = conv | ok
+    bits = torch.where(conv[:, None, None, :], frozen, bits)
+    iters = torch.where(conv, iters, max_iterations).to(torch.int32)
+    return bits.contiguous(), iters, conv.to(torch.int32)

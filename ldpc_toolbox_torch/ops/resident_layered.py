@@ -27,6 +27,7 @@ import functools
 import torch
 
 from . import _build
+from .fused_bp2 import BT
 
 __all__ = [
     "BT",
@@ -36,9 +37,6 @@ __all__ = [
     "layered_decode_planes",
 ]
 
-#: frames per tile: B = 1024 gives 256 blocks, about two per SM of an H100
-#: (132 SMs), so every SM has work and frames stay innermost and coalesced
-BT = 4
 #: threads per block; a multiple of BT, so each thread keeps one frame
 BLOCK_THREADS = 512
 #: dynamic shared memory a block may use on Hopper
@@ -109,7 +107,7 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
     iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
     conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
     tables = [
-        layout.chk_cs, layout.syn_vg, layout.syn_rot, layout.rot_cv,
+        layout.chk_cs, layout.syn_vg, layout.syn_rot, layout.chk_rot,
         layout.syn_mask,
     ]
     if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tables):

@@ -32,11 +32,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ldpc_toolbox_tpu.sparse import SparseMatrix
-
+from ..decoder import lifted_decode_for
 from ..decoder.factory import make_arithmetic
-from ..decoder.lifted_layered import lifted_layered_decode
 from ..encoder import Encoder
+from ..sparse import SparseMatrix
 from .channel import AwgnChannel
 from .modulation import Bpsk
 
@@ -93,7 +92,7 @@ class BerTestParameters:
     # frames per decode step
     batch_size: int = 128
     seed: int = 0
-    device: str = "cpu"
+    device: str = "cuda"
 
 
 @dataclass
@@ -150,7 +149,8 @@ def _frame_counters(msg, out, bch_max_errors: int) -> dict:
 
 
 class BerTest:
-    """BER test over a list of Eb/N0 points, BPSK, lifted layered decode."""
+    """BER test over a list of Eb/N0 points, BPSK, lifted decode (flooding
+    or layered, as the decoder name says)."""
 
     def __init__(self, parameters: BerTestParameters):
         p = parameters
@@ -168,10 +168,7 @@ class BerTest:
         self.schedule, self.arithmetic = make_arithmetic(
             p.decoder_implementation
         )
-        if self.schedule != "layered":
-            raise NotImplementedError(
-                "the flooding schedule is not ported yet (ROADMAP A7)"
-            )
+        self.decode = lifted_decode_for(self.schedule)
         self.graph = p.lifted_graph
         self.statistics: list[Statistics] = []
 
@@ -186,9 +183,7 @@ class BerTest:
         sym = self.modulation.modulate(cw)
         rx = AwgnChannel.add_noise(sym, noise_sigma, generator)
         llr = self.modulation.demodulate(rx, noise_sigma)
-        out = lifted_layered_decode(
-            self.graph, self.arithmetic, llr, p.max_iterations
-        )
+        out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
         return _frame_counters(msg, out, p.bch_max_errors)
 
     def _point_statistics(

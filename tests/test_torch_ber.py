@@ -13,34 +13,36 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
-from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+from ldpc_toolbox_tpu import codes as jax_codes
 from ldpc_toolbox_tpu.decoder import factory as jax_factory
 from ldpc_toolbox_tpu.decoder import lifted_layered as jax_layered
 from ldpc_toolbox_tpu.encoder import Encoder as JaxEncoder
 from ldpc_toolbox_tpu.simulation.modulation import Bpsk as JaxBpsk
+from ldpc_toolbox_torch import codes as torch_codes
 from ldpc_toolbox_torch.encoder import Encoder
 from ldpc_toolbox_torch.simulation import AwgnChannel, Bpsk, BerTestBuilder
 from ldpc_toolbox_torch.simulation.ber import step_generator
 
-from torch_parity import lifted_graphs
+from torch_parity import lifted_graphs, parity_check
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize(
-    "h, staircase",
-    [(DvbCode.R1_4short.h(), True), (BaseGraph.BG2.h(16), False)],
+    "code, staircase",
+    [("R1_4short", True), ("bg2z16", False)],
     ids=["staircase", "dense"],
 )
-def test_encoder_matches_jax(h, staircase):
+def test_encoder_matches_jax(code, staircase):
+    h = parity_check(code, torch_codes)
     msg = np.random.default_rng(0).integers(0, 2, (16, h.num_cols - h.num_rows))
     msg = msg.astype(np.uint8)
-    enc = Encoder(h)
+    enc = Encoder(h, device="cpu")
     assert enc.staircase == staircase
     cw = enc.encode_batch(torch.from_numpy(msg))
+    jenc = JaxEncoder(parity_check(code, jax_codes))
     np.testing.assert_array_equal(
-        np.asarray(JaxEncoder(h)._encode_batch(jnp.asarray(msg))), cw.numpy()
+        np.asarray(jenc._encode_batch(jnp.asarray(msg))), cw.numpy()
     )
 
 
@@ -64,10 +66,10 @@ def test_step_counters_match_jax():
     the same draws through the JAX encoder, channel and jnp decode give
     the same nine counters (the JAX step's formulas)."""
     jlg, tlg = lifted_graphs("R1_4short")
-    code = DvbCode.R1_4short
+    code = torch_codes.dvbs2.Code.R1_4short
     test = BerTestBuilder(
         h=code.h(), lifted_graph=tlg, decoder_implementation="HLMinsumbf16",
-        max_iterations=8, batch_size=32, bch_max_errors=1,
+        max_iterations=8, batch_size=32, bch_max_errors=1, device="cpu",
     ).build()
     sigma = 1.25
     counters = test.step(step_generator(0, 0, 0, "cpu"), sigma)
@@ -76,7 +78,9 @@ def test_step_counters_match_jax():
     msg = torch.randint(0, 2, (32, code.k), generator=gen, dtype=torch.uint8)
     noise = torch.randn((32, code.n), generator=gen).numpy()
     jmod = JaxBpsk()
-    cw = JaxEncoder(code.h())._encode_batch(jnp.asarray(msg.numpy()))
+    cw = JaxEncoder(parity_check("R1_4short", jax_codes))._encode_batch(
+        jnp.asarray(msg.numpy())
+    )
     llr = jmod.demodulate(jmod.modulate(cw) + sigma * jnp.asarray(noise), sigma)
     _, ja = jax_factory.make_arithmetic("Minsumbf16")
     out = jax_layered.lifted_layered_decode(jlg, ja, llr, 8)

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain version, bit for bit, on the card.
+"""The CUDA kernels against their plain versions, bit for bit, on the card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest::
@@ -12,9 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
-from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+from ldpc_toolbox_torch.codes.dvbs2 import Code as DvbCode
+from ldpc_toolbox_torch.codes.nr5g import BaseGraph
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
+from ldpc_toolbox_torch.decoder.lifted_flooding import (
+    flooding_tiles,
+    lifted_flooding_decode,
+)
 from ldpc_toolbox_torch.decoder.lifted import (
     LiftedGraph,
     lifted_graph_for,
@@ -25,6 +29,11 @@ from ldpc_toolbox_torch.decoder.lifted_layered import (
     plain_layered_decode,
     tile_inputs,
 )
+from ldpc_toolbox_torch.ops import fused_bp2
+from ldpc_toolbox_torch.ops.resident_flooding import (
+    resident_flooding_decode,
+    resident_flooding_decode_reference,
+)
 from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode,
     resident_layered_decode_reference,
@@ -32,6 +41,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
 
 pytestmark = pytest.mark.cuda
 DECODERS = ["HLMinsumf32", "HLMinsumbf16", "HLNormminsumbf16"]
+FLOODING = ["Minsumf32", "Minsumbf16", "Normminsumbf16"]
 
 
 @pytest.fixture
@@ -73,3 +83,57 @@ def test_partial_tile_decode_matches_plain(cuda):
     ref = plain_layered_decode(lg, arith, llrs, 10)
     for key in ("codeword", "iterations", "success"):
         assert torch.equal(out[key], ref[key]), key
+
+
+def _flooding_case(decoder, device):
+    """R1_4short tiles (two check buckets, three variable buckets, missing
+    lanes) at an Eb/N0 where some frames converge within 6 iterations."""
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    _, arith = make_arithmetic(decoder)
+    return lg, flooding_tiles(lg, arith, _llrs(lg.n, 128, 0.85, 5, device))
+
+
+@pytest.mark.parametrize("decoder", FLOODING)
+def test_flooding_phase_kernels_match_plain_versions(cuda, decoder):
+    _, (q, bits0, layout, rule) = _flooding_case(decoder, cuda)
+    before = (fused_bp2.fused_check.launches, fused_bp2.fused_var.launches,
+              fused_bp2.fused_syndrome_bits.launches)
+    v2c0, b0 = fused_bp2.fused_var(None, q, layout, rule)
+    r_v2c0, r_b0 = fused_bp2.fused_var_reference(None, q, layout, rule)
+    assert torch.equal(v2c0, r_v2c0) and torch.equal(b0, r_b0)
+    c2v = fused_bp2.fused_check(v2c0, layout, rule)
+    assert torch.equal(c2v, fused_bp2.fused_check_reference(v2c0, layout, rule))
+    v2c, bits = fused_bp2.fused_var(c2v, q, layout, rule)
+    r_v2c, r_bits = fused_bp2.fused_var_reference(c2v, q, layout, rule)
+    assert torch.equal(v2c, r_v2c) and torch.equal(bits, r_bits)
+    for b in (bits0, bits):
+        flags = fused_bp2.fused_syndrome_bits(b, layout)
+        assert torch.equal(flags, fused_bp2.fused_syndrome_bits_reference(b, layout))
+    assert (fused_bp2.fused_check.launches, fused_bp2.fused_var.launches,
+            fused_bp2.fused_syndrome_bits.launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+
+
+@pytest.mark.parametrize("decoder", FLOODING)
+def test_resident_flooding_kernel_matches_plain_version(cuda, decoder):
+    _, args = _flooding_case(decoder, cuda)
+    before = resident_flooding_decode.launches
+    out = resident_flooding_decode(*args, 6)
+    assert resident_flooding_decode.launches == before + 1
+    ref = resident_flooding_decode_reference(*args, 6)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+def test_flooding_partial_tile_streaming_equals_resident(cuda):
+    bg, z = BaseGraph.BG2, 16
+    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
+    _, arith = make_arithmetic("Minsumbf16")
+    llrs = _llrs(lg.n, 130, 1.3, 11, cuda)
+    out = lifted_flooding_decode(lg, arith, llrs, 8)
+    stream = lifted_flooding_decode(lg, arith, llrs, 8, resident=False)
+    plain = lifted_flooding_decode(lg, arith, llrs.cpu(), 8)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key], stream[key]), key
+        assert torch.equal(out[key].cpu(), plain[key]), key

@@ -1,7 +1,10 @@
 """The port's lifted graph and flat layout against the JAX package's, the
-device tables both packages decode on, and the port's freedom from jax."""
+port's copies of the JAX package's numpy modules against the originals,
+the device tables both packages decode on, and the port's freedom from jax
+and from the JAX package."""
 
 import dataclasses
+import gc
 import os
 import pathlib
 import subprocess
@@ -11,13 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from ldpc_toolbox_tpu import codes as jax_codes
+from ldpc_toolbox_tpu import gf2 as jax_gf2
 from ldpc_toolbox_tpu.ops import fused_bp2 as jax_fused_bp2
+from ldpc_toolbox_torch import codes as torch_codes
+from ldpc_toolbox_torch import gf2
 from ldpc_toolbox_torch.convert import layout_to_device
+from ldpc_toolbox_torch.decoder import lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.ops import fused_bp2
 from ldpc_toolbox_torch.ops.resident_layered import resident_layered_decode
 
-from torch_parity import CODES, as_torch, lifted_graphs, llrs
+from torch_parity import CODES, as_torch, lifted_graphs, llrs, parity_check
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -58,6 +66,35 @@ def test_lifted_graph_and_layout_match_jax(code):
     assert tl.max_chk_degree == jl.max_chk_degree
 
 
+@pytest.mark.parametrize("code", CODES)
+def test_code_copies_match_jax(code):
+    """The port's own ``codes`` (with ``sparse``) build the same
+    parity-check matrices as the JAX package's."""
+    hj, ht = parity_check(code, jax_codes), parity_check(code, torch_codes)
+    assert type(ht).__module__ == "ldpc_toolbox_torch.sparse"
+    assert (ht.num_rows, ht.num_cols) == (hj.num_rows, hj.num_cols)
+    for r in range(hj.num_rows):
+        assert ht.row_list(r) == hj.row_list(r), r
+
+
+def test_gf2_copy_matches_jax():
+    """``gauss_reduction`` of the port's ``gf2`` gives the JAX package's
+    result on a fixed seeded matrix, and refuses the same singular one."""
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 2, (24, 40)).astype(np.uint8)
+    low = np.tril(rng.integers(0, 2, (24, 24)), -1) + np.eye(24, dtype=np.int64)
+    up = np.triu(rng.integers(0, 2, (24, 24)), 1) + np.eye(24, dtype=np.int64)
+    a[:, :24] = (low @ up) % 2  # an invertible leading block
+    expect = jax_gf2.gauss_reduction(a.copy())
+    np.testing.assert_array_equal(gf2.gauss_reduction(a.copy()), expect)
+    singular = a.copy()
+    singular[1] = singular[0]
+    with pytest.raises(jax_gf2.NotInvertibleError):
+        jax_gf2.gauss_reduction(singular.copy())
+    with pytest.raises(gf2.NotInvertibleError):
+        gf2.gauss_reduction(singular.copy())
+
+
 def test_jax_layout_decodes_like_the_ports():
     """layout_to_device accepts the JAX package's layout, and both tables
     decode the same tiles to the same results."""
@@ -66,7 +103,10 @@ def test_jax_layout_decodes_like_the_ports():
         layout_to_device(jax_fused_bp2.build_fused_layout(jlg), "cpu"),
         layout_to_device(fused_bp2.build_fused_layout(tlg), "cpu"),
     ]
-    for name in ("chk_cs", "syn_vg", "syn_rot", "rot_cv", "syn_mask"):
+    for name in (
+        "chk_cs", "chk_dest", "chk_rot", "chk_omask", "var_cs", "var_dest",
+        "var_rot", "var_omask", "syn_vg", "syn_rot", "syn_mask",
+    ):
         a, b = getattr(tables[0], name), getattr(tables[1], name)
         assert a.dtype == torch.int32 and torch.equal(a, b), name
     x = llrs(tlg.n, 64, 1.3, seed=3)
@@ -82,16 +122,38 @@ def test_jax_layout_decodes_like_the_ports():
     assert 0 < int(conv.sum()) < conv.numel()
 
 
+def test_device_layout_is_built_once_per_graph_and_device():
+    """The decode glue builds a graph's tables once per device, equal to
+    ``layout_to_device`` of its layout, and drops them with the graph."""
+    _, tlg = lifted_graphs("bg2z16")
+    tlg = dataclasses.replace(tlg)  # a graph of this test's own
+    first = lifted_layered.device_layout(tlg, "cpu")
+    assert lifted_layered.device_layout(tlg, torch.device("cpu")) is first
+    fresh = layout_to_device(fused_bp2.build_fused_layout(tlg), "cpu")
+    for f in dataclasses.fields(first):
+        a, b = getattr(first, f.name), getattr(fresh, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
+    key = (id(tlg), torch.device("cpu"))
+    assert key in lifted_layered._LAYOUTS
+    del tlg
+    gc.collect()
+    assert key not in lifted_layered._LAYOUTS
+
+
 def test_port_never_imports_jax():
-    """Importing every module of the port leaves jax unimported."""
+    """Importing every module of the port, and everything chip_smoke.py
+    imports, leaves jax and every module of the JAX package unimported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ldpc_toolbox_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "print(sorted(k for k in sys.modules if k.startswith('ldpc_toolbox_torch')))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [k for k in sys.modules if k.startswith('ldpc_toolbox_tpu')]\n"
+        "assert not bad, f'the JAX package was imported: {bad}'\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
@@ -101,3 +163,5 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     assert "ldpc_toolbox_torch.simulation.ber" in proc.stdout
     assert "ldpc_toolbox_torch.cli" in proc.stdout
+    assert "ldpc_toolbox_torch.codes.dvbs2" in proc.stdout
+    assert "ldpc_toolbox_torch.decoder.lifted_flooding" in proc.stdout

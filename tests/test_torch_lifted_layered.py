@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
-from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
 from ldpc_toolbox_tpu.decoder import factory as jax_factory
 from ldpc_toolbox_tpu.decoder import lifted_layered as jax_layered
+from ldpc_toolbox_torch.codes.dvbs2 import Code as DvbCode
+from ldpc_toolbox_torch.codes.nr5g import BaseGraph
 from ldpc_toolbox_torch.decoder import Decoder
 from ldpc_toolbox_torch.decoder import lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
@@ -63,8 +63,17 @@ def test_decoder_class():
     assert one.success == bool(jout["success"][3])
     assert one.iterations == int(jout["iterations"][3])
     assert (one.codeword == jout["codeword"][3]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Decoder(DvbCode.R1_4short, "Minsumbf16")
+    # a name without HL decodes flooding: the same frames through the
+    # flooding route, where converged frames decode the all-zero codeword
+    flood = Decoder((BaseGraph.BG2, 16), "Minsumbf16", device="cpu")
+    assert flood.schedule == "flooding"
+    fout = flood.decode_batch(x, max_iterations=10)
+    ok = fout["success"]
+    assert 0 < int(ok.sum()) < ok.numel()
+    assert not fout["codeword"][ok].any()
+    assert (fout["iterations"][~ok] == 10).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        Decoder(DvbCode.R1_4short, "Phif32", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Decoder(DvbCode.R1_4short.h(), "HLMinsumbf16")
     with pytest.raises(ValueError):

@@ -1,13 +1,14 @@
 """Shared helpers of the tests that hold ldpc_toolbox_torch against the JAX
-package: identical inputs made with numpy from a seed, and exact
-comparison of decoder outputs."""
+package: the test codes built by each package from its own code modules,
+identical inputs made with numpy from a seed, and exact comparison of
+decoder outputs."""
 
 import numpy as np
 import torch
 
-from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
-from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+from ldpc_toolbox_tpu import codes as jax_codes
 from ldpc_toolbox_tpu.decoder import lifted as jax_lifted
+from ldpc_toolbox_torch import codes as torch_codes
 from ldpc_toolbox_torch.decoder import lifted as torch_lifted
 
 # The parity tests run many small ops on small planes; one intra-op thread
@@ -19,22 +20,37 @@ torch.set_num_threads(1)
 CODES = ("R1_2", "R1_4short", "bg2z16", "ccsds-c2")
 
 
-def lifted_graphs(name):
-    """(JAX LiftedGraph, port LiftedGraph) of a test code."""
+def code_objects(name, codes):
+    """The test code ``name`` from a package's ``codes`` module: a code
+    object, or a ``(BaseGraph, Z)`` pair for 5G."""
     if name == "bg2z16":
-        bg, z = BaseGraph.BG2, 16
-        h = bg.h(z)
-        return (
-            jax_lifted.LiftedGraph.from_sparse(h, *jax_lifted.nr5g_maps(bg, z)),
-            torch_lifted.LiftedGraph.from_sparse(h, *torch_lifted.nr5g_maps(bg, z)),
-        )
+        return codes.nr5g.BaseGraph.BG2, 16
     if name == "ccsds-c2":
-        from ldpc_toolbox_tpu.codes.ccsds import C2Code
+        return codes.ccsds.C2Code()
+    return codes.dvbs2.Code[name]
 
-        code = C2Code()
-    else:
-        code = DvbCode[name]
-    return jax_lifted.lifted_graph_for(code), torch_lifted.lifted_graph_for(code)
+
+def parity_check(name, codes):
+    """The parity-check matrix of a test code, from a package's codes."""
+    obj = code_objects(name, codes)
+    return obj[0].h(obj[1]) if isinstance(obj, tuple) else obj.h()
+
+
+def _lifted(name, codes, lifted):
+    obj = code_objects(name, codes)
+    if isinstance(obj, tuple):
+        bg, z = obj
+        return lifted.LiftedGraph.from_sparse(bg.h(z), *lifted.nr5g_maps(bg, z))
+    return lifted.lifted_graph_for(obj)
+
+
+def lifted_graphs(name):
+    """(JAX LiftedGraph, port LiftedGraph) of a test code, each built from
+    its own package's code objects."""
+    return (
+        _lifted(name, jax_codes, jax_lifted),
+        _lifted(name, torch_codes, torch_lifted),
+    )
 
 
 def llrs(n, batch, sigma, seed):
@@ -60,3 +76,28 @@ def assert_same_decode(jax_out, torch_out):
 
 def as_torch(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+#: flooding decode cases, code -> (batch, sigma, iterations): each gives a
+#: mix of converged and failed frames
+FLOODING_CASES = {"bg2z16": (256, 1.3, 8), "R1_4short": (128, 0.85, 6)}
+FLOODING_DECODERS = ["Minsumf32", "Minsumbf16", "Normminsumbf16"]
+
+
+def jax_flooding_case(code, decoder, resident):
+    """(port LiftedGraph, LLRs, JAX output) of a flooding case, the JAX side
+    through its fused kernels (``fused=True``), resident or streaming."""
+    import jax.numpy as jnp
+
+    from ldpc_toolbox_tpu.decoder import factory as jax_factory
+    from ldpc_toolbox_tpu.decoder.lifted_flooding import lifted_flooding_decode
+
+    jlg, tlg = lifted_graphs(code)
+    batch, sigma, iters = FLOODING_CASES[code]
+    x = llrs(tlg.n, batch, sigma, seed=5)
+    _, ja = jax_factory.make_arithmetic(decoder)
+    out = lifted_flooding_decode(
+        jlg, ja, jnp.asarray(x), iters, fused=True, resident=resident,
+        compact=False,
+    )
+    return tlg, x, out
