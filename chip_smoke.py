@@ -4,21 +4,28 @@
 
 Builds the CUDA kernels from the checkout's sources (one nvcc a source,
 all at once), holds every kernel bit for bit against its plain PyTorch
-version, and drives the port's two main paths on the flagship code
+version (5G BG2 z=16, DVB-S2 R1_4short and R1_2, CCSDS C2; three min-sum
+names each), and drives the port's main paths on the flagship code
 (DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most 30 iterations):
 
 1. the layered decode through ``Decoder(Code.R1_2, "HLMinsumbf16")``;
 2. the flooding decode through ``Decoder(Code.R1_2, "Minsumbf16")`` (the
    resident kernel), and the same decode on the streaming path
    (``lifted_flooding_decode(..., resident=False)``, the phase kernels);
+3. (a) ``Decoder(Code.R1_2, "HLMinsumf32")``, the compressed layered
+   kernel; (b) ``Decoder(Code.R1_2, "Minsumf32")``, the compressed
+   flooding kernel; (c) ``lifted_layered_decode(..., resident=False)`` on
+   ``HLMinsumbf16``, the streaming layered sweep under staged compaction;
 
-each with its launch counts set to 0 just before and read just after, and
-a two-point BER sweep of each schedule through ``BerTestBuilder``. Times
-are medians of CUDA-event timings. Before the last line it prints a JSON
-line with every kernel's launches, worst difference from its plain
-version, time, plain time and bound; the last line of standard output is
-a JSON object with "ok": true. Any failure raises and exits non-zero, as
-does a machine without a CUDA device.
+each with its launch counts set to 0 just before and read just after;
+both schedules' resident, streaming (staged) and unstaged streaming loops
+at 2.5 dB, where frames converge; and a two-point BER sweep of each
+schedule through ``BerTestBuilder``. Times are medians of CUDA-event
+timings. Before the last line it prints a JSON line with every kernel's
+launches, worst difference from its plain version, time, plain time and
+bound; the last line of standard output is a JSON object with "ok": true.
+Any failure raises and exits non-zero, as does a machine without a CUDA
+device.
 """
 
 import json
@@ -48,10 +55,21 @@ from ldpc_toolbox_torch.decoder.lifted_flooding import (
 from ldpc_toolbox_torch.decoder.lifted_layered import (
     lifted_layered_decode,
     plain_layered_decode,
+    streaming_layered_decode,
     tile_inputs,
     tiles_to_output,
 )
 from ldpc_toolbox_torch.ops import _build
+from ldpc_toolbox_torch.ops.fused_layered import (
+    fused_layered_iteration,
+    fused_layered_iteration_reference,
+)
+from ldpc_toolbox_torch.ops.resident_compressed import (
+    compressed_flooding_decode,
+    compressed_flooding_decode_reference,
+    compressed_layered_decode,
+    compressed_layered_decode_reference,
+)
 from ldpc_toolbox_torch.ops.fused_bp2 import (
     fused_check,
     fused_check_reference,
@@ -61,6 +79,8 @@ from ldpc_toolbox_torch.ops.fused_bp2 import (
     fused_var_reference,
 )
 from ldpc_toolbox_torch.ops.resident_flooding import (
+    decode_loop,
+    flooding_loop,
     resident_flooding_decode,
     resident_flooding_decode_reference,
 )
@@ -84,10 +104,46 @@ F32_OPS_PER_S = 67e12
 #: operations a lane does, counted from the kernels' source: the min-sum
 #: check fold and outputs per edge lane (+1 for the scale), the variable
 #: rule's add and subtract per edge lane and its hard decision per
-#: variable lane, the syndrome's xor per edge lane, and the layered
-#: update's extrinsic and delta per edge lane (with its Qv add)
+#: variable lane, the syndrome's xor per edge lane, the layered update's
+#: extrinsic and delta per edge lane (with its Qv add). A compressed kernel
+#: is bounded by the same count as the message kernel it shares a contract
+#: with: its rebuild of messages from the compressed state is a cost of its
+#: design, not work the decode needs.
 CHECK_OPS, VAR_EDGE_OPS, VAR_LANE_OPS, SYN_OPS, LAYERED_EXTRA_OPS = 11, 2, 1, 1, 3
 PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "resident_layered_decode": (
+        "ldpc_toolbox_torch/csrc/resident_layered.cu",
+        "ldpc_toolbox_tpu/ops/resident_layered.py:193"),
+    "compressed_layered_decode": (
+        "ldpc_toolbox_torch/csrc/compressed.cu",
+        "ldpc_toolbox_tpu/ops/resident_compressed.py:524"),
+    "fused_layered_iteration": (
+        "ldpc_toolbox_torch/csrc/resident_layered.cu",
+        "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
+    "resident_flooding_decode": (
+        "ldpc_toolbox_torch/csrc/flooding.cu",
+        "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
+        "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
+    "compressed_flooding_decode": (
+        "ldpc_toolbox_torch/csrc/compressed.cu",
+        "ldpc_toolbox_tpu/ops/resident_compressed.py:149"),
+    "fused_check": (
+        "ldpc_toolbox_torch/csrc/flooding.cu",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:774"),
+    "fused_var": (
+        "ldpc_toolbox_torch/csrc/flooding.cu",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:910"),
+    "fused_syndrome_bits": (
+        "ldpc_toolbox_torch/csrc/flooding.cu",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:1098"),
+}
+WRAPPERS = (
+    resident_layered_decode, compressed_layered_decode, fused_layered_iteration,
+    resident_flooding_decode, compressed_flooding_decode, fused_check,
+    fused_var, fused_syndrome_bits,
+)
+DECODE_KEYS = ("codeword", "iterations", "success")
 
 
 def sigma_at(rate, ebn0_db):
@@ -102,20 +158,35 @@ def channel_llrs(n, batch, sigma, seed):
     return torch.from_numpy((-2.0 / sigma**2) * x).cuda()
 
 
+def event_ms(fn):
+    """One CUDA-event timing of fn() in milliseconds."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps):
     """Median of ``reps`` timings of fn() in milliseconds, CUDA events,
     after one warm-up call."""
     fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(event_ms(fn) for _ in range(reps))
+
+
+def pair_ms(fa, fb, reps):
+    """Medians of ``reps`` timings each of fa() and fb(), taken in turns
+    (a b, b a, a b, ...) after a warm-up call of each, so that the two are
+    compared on the same card at the same time."""
+    fa()
+    fb()
+    ta, tb = [], []
+    for r in range(reps):
+        for fn, ts in ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta)):
+            ts.append(event_ms(fn))
+    return statistics.median(ta), statistics.median(tb)
 
 
 def max_abs_diff(xs, ys):
@@ -150,10 +221,27 @@ def hold(worst, kernel, label, out, ref):
     assert err == 0, f"{kernel} differs from its plain version: {label}"
 
 
+def same_decode(a, b, what):
+    """Fail unless two decoder outputs agree in codewords, iterations and
+    success."""
+    for key in DECODE_KEYS:
+        assert torch.equal(a[key], b[key]), f"{what}: {key} differs"
+
+
 def reset_counts():
-    for fn in (resident_layered_decode, resident_flooding_decode, fused_check,
-               fused_var, fused_syndrome_bits):
+    for fn in WRAPPERS:
         fn.launches = 0
+
+
+def counts():
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def entry(launches, ms, plain_ms, bound_and_by):
+    """A kernel's measured numbers for the ``kernels`` line."""
+    bound_ms, bound_by = bound_and_by
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def build():
@@ -178,51 +266,72 @@ def test_graphs():
     }
 
 
-def layered_checks(graphs):
-    """The layered kernel against its plain version; worst difference."""
+def zero_rcv(qv0, layout, rule):
+    nbt, _, Z, Bt = qv0.shape
+    return torch.zeros((nbt, layout.E, Z, Bt), dtype=rule.storage_dtype, device=qv0.device)
+
+
+def layered_checks(graphs, worst):
+    """The three layered kernels against their plain versions (the
+    streaming sweep for one and for two sweeps on the same planes), and the
+    whole streaming decode against the resident one; worst differences
+    into ``worst``."""
     cases = [
         ("5G BG2 z=16", 256, 1.3, 10),
         ("DVB-S2 R1_4short", 128, 1.05, 8),
         ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 30),
+        ("CCSDS C2", 128, sigma_at(C2_RATE, 4.0), 10),
     ]
-    worst = 0.0
     for label, batch, sigma, iters in cases:
         lg = graphs[label]
         llrs = channel_llrs(lg.n, batch, sigma, seed=5)
         for name in LAYERED:
+            tag = f"{label} B={batch} {name}"
             args = tile_inputs(lg, make_arithmetic(name)[1], llrs)
             out = resident_layered_decode(*args, iters)
-            ref = resident_layered_decode_reference(*args, iters)
+            hold(worst, "resident_layered_decode", tag, out,
+                 resident_layered_decode_reference(*args, iters))
+            hold(worst, "compressed_layered_decode", tag,
+                 compressed_layered_decode(*args, iters),
+                 compressed_layered_decode_reference(*args, iters))
+            qv0, _, layout, rule = args
+            rcv0 = zero_rcv(qv0, layout, rule)
+            kernel, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+            for sweep in (1, 2):
+                k = fused_layered_iteration(*kernel, layout, rule)
+                p = fused_layered_iteration_reference(*plain, layout, rule)
+                hold(worst, "fused_layered_iteration", f"{tag}, sweep {sweep}", k, p)
+                kernel, plain = k[:2], p[:2]
+            stream = streaming_layered_decode(*args, iters)
+            assert max_abs_diff(out, stream) == 0, f"streaming layered differs: {tag}"
             torch.cuda.synchronize()
-            err = max_abs_diff(out, ref)
-            worst = max(worst, err)
-            print(f"layered kernel vs plain: {label} B={batch} {name}: "
-                  f"{int(out[2].sum())}/{out[2].numel()} converged, "
-                  f"max abs diff {err} (tolerance 0)")
-            assert err == 0, f"kernel differs from its plain version: {label} {name}"
+            print(f"layered kernels vs plain: {tag}: resident, compressed and the "
+                  f"streaming sweep (one and two sweeps) equal (tolerance 0), the "
+                  f"streaming decode equals resident, {int(out[2].sum())}/"
+                  f"{out[2].numel()} converged")
     bg2 = graphs["5G BG2 z=16"]
     llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
-    _, arith = make_arithmetic("HLMinsumbf16")
-    out = lifted_layered_decode(bg2, arith, llrs, 10)
-    ref = plain_layered_decode(bg2, arith, llrs, 10)
-    for key in ("codeword", "iterations", "success"):
-        assert torch.equal(out[key], ref[key]), f"partial tile: {key} differs"
-    print(f"layered kernel vs plain: 5G BG2 z=16 B=130 (partial tile) "
-          f"HLMinsumbf16: {int(out['success'].sum())}/130 converged, equal")
-    return worst
+    for name in ("HLMinsumbf16", "HLMinsumf32"):
+        _, arith = make_arithmetic(name)
+        out = lifted_layered_decode(bg2, arith, llrs, 10)
+        same_decode(out, plain_layered_decode(bg2, arith, llrs, 10), f"partial tile {name}")
+        same_decode(out, lifted_layered_decode(bg2, arith, llrs, 10, resident=False),
+                    f"partial tile streaming {name}")
+        print(f"layered kernels vs plain: 5G BG2 z=16 B=130 (partial tile) {name}: "
+              f"{int(out['success'].sum())}/130 converged; resident, streaming and "
+              "the plain version equal")
 
 
-def flooding_checks(graphs):
+def flooding_checks(graphs, worst):
     """Each flooding kernel against its plain version on the same inputs,
-    and the streaming path against the resident one; worst difference of
-    each kernel."""
+    and the streaming path against the resident one; worst differences
+    into ``worst``."""
     cases = [
         ("5G BG2 z=16", 256, 1.3, 10),
         ("DVB-S2 R1_4short", 128, 0.85, 8),
         ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 30),
         ("CCSDS C2", 128, sigma_at(C2_RATE, 4.0), 10),
     ]
-    worst = dict.fromkeys(PHASES + ("resident_flooding_decode",), 0.0)
     for label, batch, sigma, iters in cases:
         lg = graphs[label]
         llrs = channel_llrs(lg.n, batch, sigma, seed=5)
@@ -242,29 +351,31 @@ def flooding_checks(graphs):
             out = resident_flooding_decode(*args)
             hold(worst, "resident_flooding_decode", tag, out,
                  resident_flooding_decode_reference(*args))
+            hold(worst, "compressed_flooding_decode", tag, compressed_flooding_decode(*args),
+                 compressed_flooding_decode_reference(*args))
             stream = streaming_flooding_decode(*args)
             assert max_abs_diff(out, stream) == 0, f"streaming differs: {tag}"
             torch.cuda.synchronize()
-            print(f"flooding kernels vs plain: {tag}: each phase and the "
-                  f"resident decode equal (tolerance 0), streaming equals "
+            print(f"flooding kernels vs plain: {tag}: each phase, the resident and "
+                  f"the compressed decode equal (tolerance 0), streaming equals "
                   f"resident, {int(out[2].sum())}/{out[2].numel()} converged")
     bg2 = graphs["5G BG2 z=16"]
     llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
-    _, arith = make_arithmetic("Minsumbf16")
-    out = lifted_flooding_decode(bg2, arith, llrs, 10)
-    stream = lifted_flooding_decode(bg2, arith, llrs, 10, resident=False)
-    plain = lifted_flooding_decode(bg2, arith, llrs.cpu(), 10)
-    for key in ("codeword", "iterations", "success"):
-        assert torch.equal(out[key], stream[key]), f"partial tile: {key} differs"
-        assert torch.equal(out[key].cpu(), plain[key]), f"partial tile: {key} differs"
-    print(f"flooding kernels vs plain: 5G BG2 z=16 B=130 (partial tile) "
-          f"Minsumbf16: {int(out['success'].sum())}/130 converged; resident, "
-          "streaming and the plain versions on the CPU equal")
-    return worst
+    for name in ("Minsumbf16", "Minsumf32"):
+        _, arith = make_arithmetic(name)
+        out = lifted_flooding_decode(bg2, arith, llrs, 10)
+        stream = lifted_flooding_decode(bg2, arith, llrs, 10, resident=False)
+        plain = lifted_flooding_decode(bg2, arith, llrs.cpu(), 10)
+        same_decode(out, stream, f"partial tile streaming {name}")
+        same_decode({k: v.cpu() for k, v in out.items()}, plain, f"partial tile plain {name}")
+        print(f"flooding kernels vs plain: 5G BG2 z=16 B=130 (partial tile) {name}: "
+              f"{int(out['success'].sum())}/130 converged; resident, streaming and "
+              "the plain versions on the CPU equal")
 
 
 def flagship_layered(card, llrs):
-    """Main path 1: the layered decode; its kernel's entry."""
+    """Main path 1: the layered decode (HLMinsumbf16, resident); its
+    kernel's numbers."""
     code = Code.R1_2
     dec = Decoder(code, "HLMinsumbf16", device="cuda")
     reset_counts()
@@ -273,8 +384,7 @@ def flagship_layered(card, llrs):
     launches = resident_layered_decode.launches
     assert launches > 0, "the layered main path did not launch its kernel"
     ref = plain_layered_decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS)
-    keys = ("codeword", "iterations", "success")
-    err = max_abs_diff([out[k] for k in keys], [ref[k] for k in keys])
+    err = max_abs_diff([out[k] for k in DECODE_KEYS], [ref[k] for k in DECODE_KEYS])
     assert err == 0, "flagship layered decode differs from the plain version"
     assert out["codeword"].shape == (FLAGSHIP_BATCH, code.n)
     iters = out["iterations"]
@@ -311,29 +421,18 @@ def flagship_layered(card, llrs):
           f"({kernel_ms / executed:.3f} ms/iter); plain version {plain_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms by {bound_by} (inputs and outputs once); "
           f"state-traffic floor {state_ms:.3f} ms ({tile_its} tile-iterations)")
-    return dec.lifted, [{
-        "name": "resident_layered_decode",
-        "route": "cuda",
-        "source": "ldpc_toolbox_torch/csrc/resident_layered.cu",
-        "replaces": "ldpc_toolbox_tpu/ops/resident_layered.py:193",
-        "launches": launches,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
+    return dec, {"resident_layered_decode": entry(launches, kernel_ms, plain_ms,
+                                                  (bound_ms, bound_by))}
 
 
 def flagship_flooding(card, llrs, worst):
     """Main path 2: the flooding decode, resident (through the Decoder) and
     streaming; each phase kernel against its plain version on the
     flagship's planes (worst differences into ``worst``); resident against
-    streaming at 2.5 dB, where frames converge and freeze; the entries of
+    streaming at 2.5 dB, where frames converge and freeze; the numbers of
     its four kernels."""
     code = Code.R1_2
     dec = Decoder(code, "Minsumbf16", device="cuda")
-    keys = ("codeword", "iterations", "success")
     reset_counts()
     out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
     torch.cuda.synchronize()
@@ -344,7 +443,7 @@ def flagship_flooding(card, llrs, worst):
         dec.lifted, *resident_flooding_decode_reference(*tiles, FLAGSHIP_ITERS),
         FLAGSHIP_BATCH,
     )
-    err = max_abs_diff([out[k] for k in keys], [ref[k] for k in keys])
+    err = max_abs_diff([out[k] for k in DECODE_KEYS], [ref[k] for k in DECODE_KEYS])
     assert err == 0, "flagship flooding decode differs from the plain version"
     assert out["codeword"].shape == (FLAGSHIP_BATCH, code.n)
 
@@ -353,12 +452,10 @@ def flagship_flooding(card, llrs, worst):
         dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS, resident=False
     )
     torch.cuda.synchronize()
-    phase_launches = {f.__name__: f.launches for f in
-                      (fused_check, fused_var, fused_syndrome_bits)}
+    phase_launches = {name: n for name, n in counts().items() if name in PHASES}
     assert all(phase_launches.values()), f"streaming path: {phase_launches}"
     assert resident_flooding_decode.launches == 0
-    for key in keys:
-        assert torch.equal(out[key], stream[key]), f"streaming flagship: {key} differs"
+    same_decode(out, stream, "streaming flagship")
     iters = out["iterations"]
     executed = int(iters.max())
     print(f"flagship flooding decode: {resident_launches} resident kernel "
@@ -438,81 +535,287 @@ def flagship_flooding(card, llrs, worst):
           f"{res_by} (inputs and outputs once; {100 * res_bound / resident_ms:.1f}% "
           f"of bound); state-traffic floor {state_ms:.3f} ms ({tile_its} "
           "tile-iterations)")
-    print(f"[{card}] streaming flooding path: {stream_ms:.3f} ms "
+    print(f"[{card}] streaming flooding path (staged): {stream_ms:.3f} ms "
           f"({stream_ms / executed:.3f} ms/iter, median of 3); fused_var init "
           f"{init_ms:.3f} ms")
     for name, (ms, pms, (bms, by)) in timed.items():
         print(f"[{card}] {name}: {ms:.3f} ms per iteration, plain {pms:.3f} ms, "
               f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f}% of bound)")
     flooding_at_working_point(card, dec)
-    entries = [{
-        "name": "resident_flooding_decode",
-        "route": "cuda",
-        "source": "ldpc_toolbox_torch/csrc/flooding.cu",
-        "replaces": "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
-                    "ldpc_toolbox_tpu/ops/resident_flooding.py:144",
-        "launches": resident_launches,
-        "ms": resident_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": res_bound,
-        "bound_by": res_by,
-        "library_ms": None,
-    }]
-    replaces = {
-        "fused_check": "ldpc_toolbox_tpu/ops/fused_bp2.py:774",
-        "fused_var": "ldpc_toolbox_tpu/ops/fused_bp2.py:910",
-        "fused_syndrome_bits": "ldpc_toolbox_tpu/ops/fused_bp2.py:1098",
-    }
-    for name, (ms, pms, (bms, by)) in timed.items():
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "ldpc_toolbox_torch/csrc/flooding.cu",
-            "replaces": replaces[name],
-            "launches": phase_launches[name],
-            "ms": ms,
-            "plain_ms": pms,
-            "bound_ms": bms,
-            "bound_by": by,
-            "library_ms": None,
-        })
-    return entries
+    measured = {"resident_flooding_decode": entry(resident_launches, resident_ms, plain_ms,
+                                                  (res_bound, res_by))}
+    for name, (ms, pms, b) in timed.items():
+        measured[name] = entry(phase_launches[name], ms, pms, b)
+    return measured
+
+
+def flagship_compressed_layered(card, llrs, worst):
+    """Path (a): ``Decoder(Code.R1_2, "HLMinsumf32")`` through the
+    compressed layered kernel, held against its plain version and the jnp
+    twin; the f32 message kernel timed on the same tiles in turns with it
+    (the routing's comparison), and both on the bf16 name's tiles."""
+    code = Code.R1_2
+    dec = Decoder(code, "HLMinsumf32", device="cuda")
+    reset_counts()
+    out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches["compressed_layered_decode"] == 1 \
+        and launches["resident_layered_decode"] == 0, f"path (a): {launches}"
+    args = tile_inputs(dec.lifted, dec.arithmetic, llrs)
+    ref = tiles_to_output(
+        dec.lifted, *compressed_layered_decode_reference(*args, FLAGSHIP_ITERS),
+        FLAGSHIP_BATCH,
+    )
+    hold(worst, "compressed_layered_decode", "flagship B=1024 HLMinsumf32",
+         [out[k] for k in DECODE_KEYS], [ref[k] for k in DECODE_KEYS])
+    same_decode(out, plain_layered_decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS),
+                "path (a) against the jnp twin")
+    iters = out["iterations"]
+    executed = int(iters.max())
+    print(f"path (a) HLMinsumf32: launches {launches}; output equal to the plain "
+          f"version and the jnp twin (tolerance 0); "
+          f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, {executed} "
+          "iterations executed")
+    decode_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
+    kernel_ms, message_ms = pair_ms(
+        lambda: compressed_layered_decode(*args, FLAGSHIP_ITERS),
+        lambda: resident_layered_decode(*args, FLAGSHIP_ITERS), 5,
+    )
+    plain_ms = cuda_ms(lambda: compressed_layered_decode_reference(*args, FLAGSHIP_ITERS), 3)
+    bf16 = tile_inputs(dec.lifted, make_arithmetic("HLMinsumbf16")[1], llrs)
+    bf16_ms, bf16_message_ms = pair_ms(
+        lambda: compressed_layered_decode(*bf16, FLAGSHIP_ITERS),
+        lambda: resident_layered_decode(*bf16, FLAGSHIP_ITERS), 5,
+    )
+    qv0, _, layout, _ = args
+    nbt, VG, Z, Bt = qv0.shape
+    lanes, edge_tile = VG * Z * Bt * nbt, layout.E * Z * Bt
+    tile_its = int(tile_iterations(iters, Bt).sum())
+    ops = tile_its * edge_tile * (CHECK_OPS + LAYERED_EXTRA_OPS + SYN_OPS + 1)
+    b = bound(lanes * (4 + 1 + 1) + nbt * Bt * 8, ops)
+    # per edge lane: sigma read and written, Qv 16 bytes as for the message
+    # kernel; per check lane min1 and min2 f32 read and written
+    state_ms = 1e3 * tile_its * (edge_tile * 18 + layout.CG * Z * Bt * 16) / HBM_BYTES_PER_S
+    mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    print(f"[{card}] path (a) HLMinsumf32 Decoder.decode_batch: {decode_ms:.3f} ms, "
+          f"{mbps:.1f} Mbit/s decoded info, median of 5")
+    print(f"[{card}] compressed_layered_decode kernel (f32): {kernel_ms:.3f} ms; the "
+          f"f32 message kernel resident_layered_decode on the same tiles "
+          f"{message_ms:.3f} ms (in turns, median of 5 each); plain version "
+          f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} "
+          f"({100 * b[0] / kernel_ms:.1f}% of bound); state-traffic floor "
+          f"{state_ms:.3f} ms")
+    print(f"[{card}] on the HLMinsumbf16 tiles: compressed_layered_decode "
+          f"{bf16_ms:.3f} ms, resident_layered_decode {bf16_message_ms:.3f} ms "
+          "(in turns, median of 5 each)")
+    return {"compressed_layered_decode": entry(
+        launches["compressed_layered_decode"], kernel_ms, plain_ms, b)}
+
+
+def flagship_compressed_flooding(card, llrs, worst):
+    """Path (b): ``Decoder(Code.R1_2, "Minsumf32")`` through the compressed
+    flooding kernel, held against its plain version; the f32 message
+    kernel timed on the same tiles in turns with it, and both on the bf16
+    name's tiles."""
+    code = Code.R1_2
+    dec = Decoder(code, "Minsumf32", device="cuda")
+    reset_counts()
+    out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches["compressed_flooding_decode"] == 1 \
+        and launches["resident_flooding_decode"] == 0, f"path (b): {launches}"
+    args = flooding_tiles(dec.lifted, dec.arithmetic, llrs)
+    ref = tiles_to_output(
+        dec.lifted, *compressed_flooding_decode_reference(*args, FLAGSHIP_ITERS),
+        FLAGSHIP_BATCH,
+    )
+    hold(worst, "compressed_flooding_decode", "flagship B=1024 Minsumf32",
+         [out[k] for k in DECODE_KEYS], [ref[k] for k in DECODE_KEYS])
+    message = tiles_to_output(dec.lifted, *resident_flooding_decode(*args, FLAGSHIP_ITERS),
+                              FLAGSHIP_BATCH)
+    same_decode(out, message, "path (b) against the message kernel")
+    iters = out["iterations"]
+    executed = int(iters.max())
+    print(f"path (b) Minsumf32: launches {launches}; output equal to the plain "
+          f"version and the message kernel (tolerance 0); "
+          f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, {executed} "
+          "iterations executed")
+    decode_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
+    kernel_ms, message_ms = pair_ms(
+        lambda: compressed_flooding_decode(*args, FLAGSHIP_ITERS),
+        lambda: resident_flooding_decode(*args, FLAGSHIP_ITERS), 5,
+    )
+    plain_ms = cuda_ms(lambda: compressed_flooding_decode_reference(*args, FLAGSHIP_ITERS), 3)
+    bf16 = flooding_tiles(dec.lifted, make_arithmetic("Minsumbf16")[1], llrs)
+    bf16_ms, bf16_message_ms = pair_ms(
+        lambda: compressed_flooding_decode(*bf16, FLAGSHIP_ITERS),
+        lambda: resident_flooding_decode(*bf16, FLAGSHIP_ITERS), 5,
+    )
+    q, _, layout, rule = args
+    nbt, VG, Z, Bt = q.shape
+    s = q.element_size()
+    lanes, edge_tile, lane_tile = VG * Z * Bt * nbt, layout.E * Z * Bt, VG * Z * Bt
+    tile_its = int(tile_iterations(iters, Bt).sum())
+    scale_op = int(rule.scale != 1.0)
+    ops = tile_its * (edge_tile * (CHECK_OPS + scale_op + VAR_EDGE_OPS + SYN_OPS)
+                      + lane_tile * VAR_LANE_OPS)
+    b = bound(lanes * (s + 1 + 1) + nbt * Bt * 8, ops)
+    # per edge lane: s read by the check and by the syndrome, sigma read and
+    # written, sigma, argm and one magnitude gathered by the variable phase;
+    # per check lane the state read and written; per variable lane q read
+    # and s written
+    state_ms = 1e3 * tile_its * (edge_tile * (4 + 4 + 2 + 2 + s)
+                                 + layout.CG * Z * Bt * 2 * (2 * s + 1)
+                                 + lane_tile * (s + 4)) / HBM_BYTES_PER_S
+    mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    print(f"[{card}] path (b) Minsumf32 Decoder.decode_batch: {decode_ms:.3f} ms, "
+          f"{mbps:.1f} Mbit/s decoded info, median of 5")
+    print(f"[{card}] compressed_flooding_decode kernel (f32): {kernel_ms:.3f} ms; the "
+          f"f32 message kernel resident_flooding_decode on the same tiles "
+          f"{message_ms:.3f} ms (in turns, median of 5 each); plain version "
+          f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} "
+          f"({100 * b[0] / kernel_ms:.1f}% of bound); state-traffic floor "
+          f"{state_ms:.3f} ms")
+    print(f"[{card}] on the Minsumbf16 tiles: compressed_flooding_decode "
+          f"{bf16_ms:.3f} ms, resident_flooding_decode {bf16_message_ms:.3f} ms "
+          "(in turns, median of 5 each)")
+    return {"compressed_flooding_decode": entry(
+        launches["compressed_flooding_decode"], kernel_ms, plain_ms, b)}
+
+
+def flagship_streaming_layered(card, llrs, worst, dec):
+    """Path (c): ``lifted_layered_decode(..., resident=False)`` on
+    HLMinsumbf16, the streaming sweep and the syndrome under staged
+    compaction, equal to the resident path; one sweep on the flagship's
+    planes held against its plain version and timed."""
+    reset_counts()
+    stream = lifted_layered_decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS,
+                                   resident=False)
+    torch.cuda.synchronize()
+    launches = counts()
+    executed = int(stream["iterations"].max())
+    assert launches["fused_layered_iteration"] == executed \
+        and launches["fused_syndrome_bits"] == executed + 1 \
+        and launches["resident_layered_decode"] == 0, f"path (c): {launches}"
+    same_decode(stream, dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS),
+                "path (c) against the resident path")
+    print(f"path (c) streaming HLMinsumbf16: launches {launches}; output equal to "
+          f"the resident path; {int(stream['success'].sum())}/{FLAGSHIP_BATCH} "
+          f"converged, {executed} iterations executed")
+    stream_ms, resident_ms = pair_ms(
+        lambda: lifted_layered_decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS,
+                                      resident=False),
+        lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 3,
+    )
+    qv0, _, layout, rule = tile_inputs(dec.lifted, dec.arithmetic, llrs)
+    rcv0 = zero_rcv(qv0, layout, rule)
+    tag = "flagship B=1024 HLMinsumbf16, one sweep"
+    hold(worst, "fused_layered_iteration", tag,
+         fused_layered_iteration(qv0.clone(), rcv0.clone(), layout, rule),
+         fused_layered_iteration_reference(qv0.clone(), rcv0.clone(), layout, rule))
+    # in place: the timed sweeps go on decoding the same planes
+    qv, rcv = qv0.clone(), rcv0.clone()
+    sweep_ms = cuda_ms(lambda: fused_layered_iteration(qv, rcv, layout, rule), 10)
+    qp, rp = qv0.clone(), rcv0.clone()
+    plain_ms = cuda_ms(lambda: fused_layered_iteration_reference(qp, rp, layout, rule), 3)
+    nbt, VG, Z, Bt = qv0.shape
+    lanes, edges = VG * Z * Bt * nbt, layout.E * Z * Bt * nbt
+    s = rcv0.element_size()
+    b = bound(lanes * (4 + 4 + 1) + edges * 2 * s,
+              edges * (CHECK_OPS + LAYERED_EXTRA_OPS) + lanes * VAR_LANE_OPS)
+    # per edge lane: Rcv read and written, Qv read for x and read and
+    # written for the update; per variable lane the bits written
+    state_ms = 1e3 * (edges * (2 * s + 12) + lanes) / HBM_BYTES_PER_S
+    mbps = 1e-6 * Code.R1_2.k * FLAGSHIP_BATCH / (stream_ms * 1e-3)
+    print(f"[{card}] path (c) streaming layered lifted_layered_decode: "
+          f"{stream_ms:.3f} ms, {mbps:.1f} Mbit/s decoded info; resident "
+          f"Decoder.decode_batch {resident_ms:.3f} ms (in turns, median of 3 each)")
+    print(f"[{card}] fused_layered_iteration: {sweep_ms:.3f} ms a sweep, plain "
+          f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms by {b[1]} "
+          f"({100 * b[0] / sweep_ms:.1f}% of bound); state-traffic floor "
+          f"{state_ms:.3f} ms")
+    return {"fused_layered_iteration": entry(
+        launches["fused_layered_iteration"], sweep_ms, plain_ms, b)}
 
 
 def flooding_at_working_point(card, dec):
-    """Resident against streaming on the flagship at 2.5 dB, where frames
-    converge at different iterations and freeze: equal outputs, equal to
-    the plain version, and both paths' times."""
+    """Resident against streaming (staged compaction) and the unstaged
+    streaming loop on the flagship at 2.5 dB, where frames converge at
+    different iterations and freeze: equal outputs, equal to the plain
+    version, and each path's time."""
     llrs = channel_llrs(dec.lifted.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, 2.5), seed=0)
-    keys = ("codeword", "iterations", "success")
     out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    tiles = flooding_tiles(dec.lifted, dec.arithmetic, llrs)
 
     def streaming():
         return lifted_flooding_decode(
             dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS, resident=False
         )
 
-    stream = streaming()
+    def unstaged():
+        return flooding_loop(*tiles, FLAGSHIP_ITERS, fused_check, fused_var,
+                             fused_syndrome_bits)
+
+    same_decode(out, streaming(), "2.5 dB streaming")
+    same_decode(out, tiles_to_output(dec.lifted, *unstaged(), FLAGSHIP_BATCH),
+                "2.5 dB unstaged streaming")
     ref = tiles_to_output(
-        dec.lifted,
-        *resident_flooding_decode_reference(
-            *flooding_tiles(dec.lifted, dec.arithmetic, llrs), FLAGSHIP_ITERS
-        ),
+        dec.lifted, *resident_flooding_decode_reference(*tiles, FLAGSHIP_ITERS),
         FLAGSHIP_BATCH,
     )
-    for key in keys:
-        assert torch.equal(out[key], stream[key]), f"2.5 dB streaming: {key} differs"
-        assert torch.equal(out[key], ref[key]), f"2.5 dB plain: {key} differs"
+    same_decode(out, ref, "2.5 dB plain")
     iters = out["iterations"]
     converged = int(out["success"].sum())
     assert 0 < converged, "no frame converged at 2.5 dB"
     resident_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
-    stream_ms = cuda_ms(streaming, 5)
+    stream_ms, unstaged_ms = pair_ms(streaming, unstaged, 5)
     print(f"[{card}] flagship flooding at 2.5 dB: {converged}/{FLAGSHIP_BATCH} "
           f"converged, average iterations {float(iters.float().mean()):.2f}, "
-          f"{int(iters.max())} at most; resident (Decoder.decode_batch) and "
-          f"streaming equal each other and the plain version; resident "
-          f"{resident_ms:.3f} ms, streaming {stream_ms:.3f} ms, median of 5")
+          f"{int(iters.max())} at most; resident (Decoder.decode_batch), "
+          f"streaming with compaction, the unstaged streaming loop and the plain "
+          f"version equal; resident {resident_ms:.3f} ms, streaming with "
+          f"compaction {stream_ms:.3f} ms, unstaged {unstaged_ms:.3f} ms "
+          "(the last two in turns), median of 5")
+
+
+def layered_at_working_point(card, dec):
+    """The layered counterpart of ``flooding_at_working_point``
+    (HLMinsumbf16 at 2.5 dB)."""
+    llrs = channel_llrs(dec.lifted.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, 2.5), seed=0)
+    out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    qv0, bits0, layout, rule = tile_inputs(dec.lifted, dec.arithmetic, llrs)
+
+    def streaming():
+        return lifted_layered_decode(
+            dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS, resident=False
+        )
+
+    def unstaged():
+        qv, rcv = qv0.clone(), zero_rcv(qv0, layout, rule)
+        return decode_loop(
+            bits0, bits0, lambda: fused_layered_iteration(qv, rcv, layout, rule)[2],
+            lambda bits: fused_syndrome_bits(bits, layout), FLAGSHIP_ITERS,
+        )
+
+    same_decode(out, streaming(), "layered 2.5 dB streaming")
+    same_decode(out, tiles_to_output(dec.lifted, *unstaged(), FLAGSHIP_BATCH),
+                "layered 2.5 dB unstaged streaming")
+    same_decode(out, plain_layered_decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS),
+                "layered 2.5 dB plain")
+    iters = out["iterations"]
+    converged = int(out["success"].sum())
+    assert 0 < converged, "no frame converged at 2.5 dB"
+    resident_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
+    stream_ms, unstaged_ms = pair_ms(streaming, unstaged, 5)
+    print(f"[{card}] flagship layered at 2.5 dB: {converged}/{FLAGSHIP_BATCH} "
+          f"converged, average iterations {float(iters.float().mean()):.2f}, "
+          f"{int(iters.max())} at most; resident (Decoder.decode_batch), "
+          f"streaming with compaction, the unstaged streaming loop and the plain "
+          f"version equal; resident {resident_ms:.3f} ms, streaming with "
+          f"compaction {stream_ms:.3f} ms, unstaged {unstaged_ms:.3f} ms "
+          "(the last two in turns), median of 5")
 
 
 def ber_sweep(card, lifted, name, points, iters, high_fer):
@@ -547,20 +850,27 @@ def main():
 
     build()
     graphs = test_graphs()
-    layered_worst = layered_checks(graphs)
-    flooding_worst = flooding_checks(graphs)
+    worst = dict.fromkeys(KERNELS, 0.0)
+    layered_checks(graphs, worst)
+    flooding_checks(graphs, worst)
 
     code = Code.R1_2
     llrs = channel_llrs(code.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
-    lifted, kernels = flagship_layered(card, llrs)
-    kernels[0]["max_abs_err"] = layered_worst
-    for entry in flagship_flooding(card, llrs, flooding_worst):
-        entry["max_abs_err"] = flooding_worst[entry["name"]]
-        kernels.append(entry)
-    ber_sweep(card, lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
-    ber_sweep(card, lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)
+    layered, measured = flagship_layered(card, llrs)
+    measured.update(flagship_flooding(card, llrs, worst))
+    measured.update(flagship_compressed_layered(card, llrs, worst))
+    measured.update(flagship_compressed_flooding(card, llrs, worst))
+    measured.update(flagship_streaming_layered(card, llrs, worst, layered))
+    layered_at_working_point(card, layered)
+    ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
+    ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
+    kernels = [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "max_abs_err": worst[name], "library_ms": None, **measured[name]}
+        for name, (source, replaces) in KERNELS.items()
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,22 +6,27 @@ Counterpart of the JAX package's ``decoder.lifted_flooding`` fused path
 message storage type before they are gathered into ``(VG, Z, B)`` planes
 (so for the bf16 names the channel planes and the iteration-0 bits come
 from bf16 values), and the decoded planes are put back into codeword
-order. The tiles then go through
+order. The tiles then go through one of three forms, as the JAX
+package's ``_fused_flooding_decode`` does at the flagship shape:
 
-* ``resident=True`` (the default): ``ops/resident_flooding.py``, the whole
-  decode in one kernel launch;
-* ``resident=False``: the streaming phases of ``ops/fused_bp2.py`` in a
-  host loop (``fused_var`` initialisation, then ``fused_check``,
-  ``fused_var`` and ``fused_syndrome_bits`` an iteration, per-frame
-  freeze), which stops once every frame has converged.
+* ``resident=True`` (the default), f32 storage (``Minsumf32``,
+  ``Normminsumf32``): ``ops/resident_compressed.compressed_flooding_decode``,
+  the whole decode in one launch with the check state compressed;
+* ``resident=True``, bf16 storage: ``ops/resident_flooding.py``, the whole
+  decode in one launch with v2c and c2v messages;
+* ``resident=False``: the streaming phases of ``ops/fused_bp2.py``
+  (``fused_var`` initialisation, then ``fused_check``, ``fused_var`` and
+  ``fused_syndrome_bits`` an iteration) under
+  ``decoder/compaction.staged_while_decode``.
 
-Both give the same bits, iterations and success flags. On CPU tensors
-every kernel wrapper runs its plain version.
+The routing by storage type is ``takes_compressed_state``'s (its reason is
+there). All forms give the same bits, iterations and success flags. On CPU
+tensors every kernel wrapper runs its plain version, so the CPU runs the
+same routing; ``flooding_loop`` stays the plain versions' own loop.
 
 Not ported yet (ROADMAP A7): the plane-gather path that serves rules
-without a kernel, and staged converged-frame compaction
-(``decoder/compaction.py``). The TPU's VMEM pickers and ``LDPC_FORCE_*``
-switches have no counterpart: the port has one resident kernel.
+without a kernel. The TPU's VMEM pickers and ``LDPC_FORCE_*`` switches
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -34,7 +39,12 @@ from ..ops.fused_bp2 import (
     fused_var,
     rule_for,
 )
-from ..ops.resident_flooding import flooding_loop, resident_flooding_decode
+from ..ops.resident_compressed import (
+    compressed_flooding_decode,
+    takes_compressed_state,
+)
+from ..ops.resident_flooding import resident_flooding_decode
+from .compaction import staged_while_decode
 from .lifted import LiftedGraph
 from .lifted_layered import (
     _planes_of,
@@ -55,7 +65,12 @@ def lifted_flooding_decode(
     layout. Returns a dict of tensors on the LLRs' device: ``codeword``
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
-    decode = resident_flooding_decode if resident else streaming_flooding_decode
+    if not resident:
+        decode = streaming_flooding_decode
+    elif takes_compressed_state(rule):
+        decode = compressed_flooding_decode
+    else:
+        decode = resident_flooding_decode
     bits, iters, conv = decode(q_t, bits0_t, layout, rule, max_iterations)
     return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
 
@@ -76,9 +91,19 @@ def flooding_tiles(lg, arithmetic, llrs):
 
 
 def streaming_flooding_decode(q_t, bits0_t, layout, rule, max_iterations):
-    """The flooding decode through the three phase kernels; the arguments
-    and results of ``resident_flooding_decode``."""
-    return flooding_loop(
-        q_t, bits0_t, layout, rule, max_iterations,
-        fused_check, fused_var, fused_syndrome_bits,
+    """The flooding decode through the three phase kernels under staged
+    compaction; the arguments and results of ``resident_flooding_decode``."""
+
+    def iteration(state, const):
+        c2v = fused_check(state[0], layout, rule)
+        v2c, bits = fused_var(c2v, const[0], layout, rule)
+        return (v2c,), bits
+
+    return staged_while_decode(
+        max_iterations=max_iterations,
+        state=(fused_var(None, q_t, layout, rule)[0],),
+        const=(q_t,),
+        bits0=bits0_t,
+        iteration=iteration,
+        syndrome=lambda bits: fused_syndrome_bits(bits, layout),
     )

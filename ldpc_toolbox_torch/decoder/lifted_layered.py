@@ -3,17 +3,28 @@
 Counterpart of ``ldpc_toolbox_tpu.decoder.lifted_layered``. A layer is one
 check group: Z structurally parallel checks, each touching a distinct lane
 of each incident variable group, except where a group holds two base edges
-into the same variable group (DVB-S2); those deltas add against the
-layer-entry Qv in edge order. Layer order is check-bucket-major (the flat
-layout's group order), not the reference's 0..m row sweep.
+into the same variable group (DVB-S2, CCSDS C2); those deltas add against
+the layer-entry Qv in edge order. Layer order is check-bucket-major (the
+flat layout's group order), not the reference's 0..m row sweep.
 
-``lifted_layered_decode`` dispatches by the LLRs' device:
+``lifted_layered_decode`` cuts the batch into tiles of BT frames (the last
+padded with +100-LLR frames) and runs one of three forms, as the JAX
+package's ``_fused_layered_decode`` does at the flagship shape:
 
-* CUDA: the tile glue of ``_fused_layered_decode`` around the hand-written
-  kernel (``ops/resident_layered.py``);
-* CPU: ``plain_layered_decode``, the twin of the JAX package's jnp path.
+* ``resident=True`` (the default), f32 Rcv storage (``HLMinsumf32``,
+  ``HLNormminsumf32``): ``ops/resident_compressed.compressed_layered_decode``,
+  the whole decode in one launch with the check state compressed;
+* ``resident=True``, bf16 storage: ``ops/resident_layered.py``, the whole
+  decode in one launch with Rcv messages;
+* ``resident=False``: the streaming form, ``ops/fused_layered.py``'s
+  sweep and ``fused_syndrome_bits`` one launch each an iteration, under
+  ``decoder/compaction.staged_while_decode``.
 
-Both give the same success, iterations and codewords.
+The routing by storage type is ``takes_compressed_state``'s (its reason is
+there). All forms give the same bits, iterations and success flags. On
+CPU tensors every kernel wrapper runs its plain version, so the CPU runs
+the same routing. ``plain_layered_decode`` is the twin of the JAX
+package's jnp path, for any arithmetic with a layered rule.
 """
 
 from __future__ import annotations
@@ -24,11 +35,17 @@ import numpy as np
 import torch
 
 from ..convert import layout_to_device
-from ..ops.fused_bp2 import BT, build_fused_layout, rule_for
+from ..ops.fused_bp2 import BT, build_fused_layout, fused_syndrome_bits, rule_for
+from ..ops.fused_layered import fused_layered_iteration
+from ..ops.resident_compressed import (
+    compressed_layered_decode,
+    takes_compressed_state,
+)
 from ..ops.resident_layered import (
     layered_decode_planes,
     resident_layered_decode,
 )
+from .compaction import staged_while_decode
 from .lifted import LiftedGraph
 
 __all__ = [
@@ -36,6 +53,7 @@ __all__ = [
     "lifted_layered_decode",
     "pad_to_tiles",
     "plain_layered_decode",
+    "streaming_layered_decode",
     "tile",
     "tile_inputs",
     "tiles_to_output",
@@ -43,14 +61,21 @@ __all__ = [
 
 
 def lifted_layered_decode(
-    lg: LiftedGraph, arithmetic, llrs: torch.Tensor, max_iterations: int
+    lg: LiftedGraph, arithmetic, llrs: torch.Tensor, max_iterations: int,
+    resident: bool = True,
 ):
     """Decode a (B, n) batch of channel LLRs, layered schedule, lifted
     layout. Returns a dict of tensors on the LLRs' device: ``codeword``
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
-    if llrs.device.type == "cuda":
-        return _fused_layered_decode(lg, arithmetic, llrs, max_iterations)
-    return plain_layered_decode(lg, arithmetic, llrs, max_iterations)
+    qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
+    if not resident:
+        decode = streaming_layered_decode
+    elif takes_compressed_state(rule):
+        decode = compressed_layered_decode
+    else:
+        decode = resident_layered_decode
+    bits, iters, conv = decode(qv0_t, bits0_t, layout, rule, max_iterations)
+    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
 
 
 #: (id(graph), device) -> DeviceLayout, each dropped when its graph dies
@@ -168,10 +193,24 @@ def tile_inputs(lg, arithmetic, llrs):
     return tile(qv0), tile((llr_planes <= 0).to(torch.int8)), layout, rule
 
 
-def _fused_layered_decode(lg, arithmetic, llrs, max_iterations):
-    """Tile glue around ``resident_layered_decode``."""
-    qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
-    bits, iters, conv = resident_layered_decode(
-        qv0_t, bits0_t, layout, rule, max_iterations
+def streaming_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations):
+    """The layered decode one sweep a launch (``fused_layered_iteration``,
+    then ``fused_syndrome_bits``) under staged compaction; the arguments
+    and results of ``resident_layered_decode``."""
+    nbt, _, Z, Bt = qv0_t.shape
+    rcv = torch.zeros(
+        (nbt, layout.E, Z, Bt), dtype=rule.storage_dtype, device=qv0_t.device
     )
-    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
+
+    def iteration(state, const):
+        qv, rcv, bits = fused_layered_iteration(*state, layout, rule)
+        return (qv, rcv), bits
+
+    return staged_while_decode(
+        max_iterations=max_iterations,
+        state=(qv0_t.clone(memory_format=torch.contiguous_format), rcv),
+        const=(),
+        bits0=bits0_t,
+        iteration=iteration,
+        syndrome=lambda bits: fused_syndrome_bits(bits, layout),
+    )

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 #: every kernel source of the package, by name
-SOURCES = ("resident_layered", "flooding")
+SOURCES = ("resident_layered", "flooding", "compressed")
 
 
 def _nvcc() -> str:

@@ -1,8 +1,10 @@
 """Flat decode layout, per-plane rules and the flooding phase kernels.
 
 Counterpart of ``ldpc_toolbox_tpu.ops.fused_bp2``. The layout is numpy and
-built once per code; the rules are plain functions on torch tensors, the
-plain versions of what the CUDA kernels inline.
+built once per code (``var_recon_tables`` adds the var-major tables the
+compressed flooding decode rebuilds its messages through); the rules are
+plain functions on torch tensors, the plain versions of what the CUDA
+kernels inline.
 
 Every message plane is stored once, in its consumer's lane coordinates
 and in consumer-major order: check-major ``(E, Z, B)`` planes for the
@@ -49,6 +51,7 @@ __all__ = [
     "build_fused_layout",
     "MinSumRule",
     "rule_for",
+    "var_recon_tables",
     "fused_check",
     "fused_check_reference",
     "fused_var",
@@ -206,6 +209,32 @@ def build_fused_layout(lg) -> FusedLayout:
     )
 
 
+def var_recon_tables(layout):
+    """For each var-major edge p (the c2v plane the variable side reads):
+    the check-major edge that feeds it (its sign plane), its check group,
+    its slot in that group and its check->var roll. The compressed
+    flooding decode rebuilds c2v from the check state through them.
+    Numpy copy of the JAX package's ``ops/resident_compressed.py
+    _var_recon_tables``; works on either package's layout."""
+    E = layout.E
+    plane = np.empty(E, np.int32)
+    group = np.empty(E, np.int32)
+    slot = np.empty(E, np.int32)
+    rot = np.empty(E, np.int32)
+    e = 0
+    for m in layout.chk_meta:
+        for g in range(m.g0, m.g1):
+            cs = int(layout.chk_cs[g])
+            for t in range(m.d):
+                p = int(layout.chk_dest[e])
+                plane[p] = cs + t
+                group[p] = g
+                slot[p] = t
+                rot[p] = int(layout.chk_rot[e])
+                e += 1
+    return plane, group, slot, rot
+
+
 class MinSumRule:
     """(Normalized) min-sum over float planes: the min1/min2/argmin/
     sign-parity fold that ``csrc/resident_layered.cu`` inlines, in the
@@ -217,25 +246,33 @@ class MinSumRule:
         self.big = float(torch.finfo(dtype).max)
         self.scale = float(scale)
 
-    def check(self, planes) -> torch.Tensor:
-        """d planes (a list, or a tensor with the d planes on dim 0) of
-        f32 extrinsics -> the (d, ...) stacked f32 check outputs."""
-        d = len(planes)
+    def fold(self, planes):
+        """The check state of d planes (a list, or a tensor with the d
+        planes on dim 0) of f32 extrinsics: (m1, m2, arg, par, negs), the
+        smallest |x| (the first wins a tie), the second smallest (folded
+        as min(m2, max(m1, |x|)) from big), the slot of m1, the parity of
+        the signs (x < 0) and the list of the d signs. Unscaled."""
         mags = [x.abs() for x in planes]
         negs = [x < 0 for x in planes]
         m1 = mags[0]
         m2 = torch.full_like(m1, self.big)
         arg = torch.zeros(m1.shape, dtype=torch.int32, device=m1.device)
         par = negs[0]
-        for k in range(1, d):
+        for k in range(1, len(planes)):
             mk = mags[k]
             m2 = torch.minimum(m2, torch.maximum(m1, mk))
             take = mk < m1
             m1 = torch.where(take, mk, m1)
             arg = torch.where(take, k, arg)
             par = par ^ negs[k]
+        return m1, m2, arg, par, negs
+
+    def check(self, planes) -> torch.Tensor:
+        """d planes (a list, or a tensor with the d planes on dim 0) of
+        f32 extrinsics -> the (d, ...) stacked f32 check outputs."""
+        m1, m2, arg, par, negs = self.fold(planes)
         outs = []
-        for t in range(d):
+        for t in range(len(planes)):
             loo = torch.where(arg == t, m2, m1)
             if self.scale != 1.0:
                 loo = loo * self.scale

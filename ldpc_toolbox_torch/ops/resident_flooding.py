@@ -47,6 +47,7 @@ __all__ = [
     "resident_flooding_decode",
     "resident_flooding_decode_reference",
     "flooding_loop",
+    "decode_loop",
 ]
 
 
@@ -116,15 +117,36 @@ def flooding_loop(q_t, bits0_t, layout, rule, max_iterations, check, var,
     layout)``; same arguments and results as ``resident_flooding_decode``.
     It stops when every frame has converged (one host read a iteration) or
     after ``max_iterations``."""
-    v2c, _ = var(None, q_t, layout, rule)
-    conv = syndrome(bits0_t, layout) == 0
-    iters = torch.zeros(conv.shape, dtype=torch.int32, device=q_t.device)
-    frozen = bits = bits0_t
+    v2c = var(None, q_t, layout, rule)[0]
+
+    def step():
+        nonlocal v2c
+        v2c, bits = var(check(v2c, layout, rule), q_t, layout, rule)
+        return bits
+
+    return decode_loop(
+        bits0_t, bits0_t, step, lambda bits: syndrome(bits, layout),
+        max_iterations,
+    )
+
+
+def decode_loop(bits0_t, post0_t, step, syndrome, max_iterations):
+    """The host loop of a plain whole decode on (nbt, VG, Z, Bt) tiles:
+    iteration 0 tests the raw-channel bits ``bits0_t``; each iteration
+    ``step()`` returns the posterior hard bits and ``syndrome(bits)`` the
+    (nbt, Bt) unsatisfied-check flags (one host read an iteration); a
+    frame's bits and count freeze at its first passing iteration; the loop
+    stops once every frame has passed or after ``max_iterations``. A frame
+    that never passes gets ``max_iterations`` and its last posterior bits
+    (``post0_t`` when no iteration ran). Returns (bits int8, iters (nbt,
+    Bt) int32, conv (nbt, Bt) int32)."""
+    conv = syndrome(bits0_t) == 0
+    iters = torch.zeros(conv.shape, dtype=torch.int32, device=bits0_t.device)
+    frozen, bits = bits0_t, post0_t
     it = 0
     while it < max_iterations and not bool(conv.all()):
-        c2v = check(v2c, layout, rule)
-        v2c, bits = var(c2v, q_t, layout, rule)
-        ok = syndrome(bits, layout) == 0
+        bits = step()
+        ok = syndrome(bits) == 0
         it += 1
         newly = ok & ~conv
         iters = torch.where(newly, it, iters)

@@ -17,6 +17,13 @@ Rold as loaded from its storage type) are then added to Qv in edge order,
 one rounding per addition, so two edges of one group into the same
 variable group give ``(Qv + d1) + d2``. Iteration 0 tests the raw-channel
 hard bits, so a frame can finish with 0 iterations.
+
+The layered kernels (this one, ``ops/resident_compressed.py``'s and
+``ops/fused_layered.py``'s) share the launch checks and the park of this
+module: a check group parks its deltas between the check update and the
+posterior update, in shared memory when ``max_chk_degree * Z * Bt``
+floats fit a block and in a device-memory scratch otherwise (CCSDS C2:
+261,632 bytes).
 """
 
 from __future__ import annotations
@@ -27,14 +34,18 @@ import functools
 import torch
 
 from . import _build
-from .fused_bp2 import BT
+from .fused_bp2 import _MSG_DTYPES, BT, MAX_CHECK_DEGREE
 
 __all__ = [
     "BT",
     "BLOCK_THREADS",
+    "LAYERED_TABLES",
     "resident_layered_decode",
     "resident_layered_decode_reference",
     "layered_decode_planes",
+    "layered_loop",
+    "message_sweep",
+    "plane_tables",
 ]
 
 #: threads per block; a multiple of BT, so each thread keeps one frame
@@ -42,22 +53,80 @@ BLOCK_THREADS = 512
 #: dynamic shared memory a block may use on Hopper
 MAX_SHARED_BYTES = 232_448
 
-_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the layout tables the layered and compressed kernels read, in the order
+#: of ``Tables`` in ``csrc/layered.cuh``
+LAYERED_TABLES = (
+    "chk_cs", "syn_vg", "syn_rot", "chk_rot", "syn_mask", "var_cs",
+    "rec_plane", "rec_group", "rec_slot", "rec_rot",
+)
 
 
 @functools.cache
 def _lib():
     lib = _build.load("resident_layered")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ldpc_resident_layered_decode.argtypes = [p] * 10 + [i] * 9 + [f, f, i, p]
-    lib.ldpc_resident_layered_decode.restype = i
+    dims = [i] * 7  # nbt, CG, E, VG, Z, Bt, max degree
+    lib.ldpc_resident_layered_decode.argtypes = (
+        [p] * 7 + dims + [i, i, f, f, i, p]
+    )
+    lib.ldpc_fused_layered_iteration.argtypes = [p] * 5 + dims + [i, f, f, i, p]
+    for fn in (lib.ldpc_resident_layered_decode, lib.ldpc_fused_layered_iteration):
+        fn.restype = i
     lib.ldpc_cuda_error_string.argtypes = [i]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _shared_bytes(layout, bt: int) -> int:
-    return 4 * layout.max_chk_degree * layout.Z * bt + 4 * (4 * bt + 2)
+def raise_on(lib, err: int, name: str) -> None:
+    """Raise if a launch's cudaError_t is not 0."""
+    if err:
+        msg = lib.ldpc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
+
+
+def layered_launch(qv, layout, rule, max_iterations: int = 0, with_park=True):
+    """Check the (nbt, VG, Z, Bt) f32 Qv tiles of a layered launch against
+    the layout and rule; returns (table pointer array, dims, park,
+    stream). ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
+    device-memory park, or None when the park fits shared memory (or
+    ``with_park`` is False: the compressed flooding kernel parks nothing)."""
+    if qv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qv.device}")
+    nbt, VG, Z, Bt = qv.shape
+    if qv.dtype != torch.float32 or not qv.is_contiguous():
+        raise TypeError("qv must be contiguous float32")
+    if (VG, Z) != (layout.VG, layout.Z):
+        raise ValueError(f"planes {(VG, Z)} do not match the layout")
+    if rule.storage_dtype not in _MSG_DTYPES:
+        raise TypeError(f"unsupported message storage {rule.storage_dtype}")
+    if BLOCK_THREADS % Bt:
+        raise ValueError(f"tile width {Bt} must divide {BLOCK_THREADS}")
+    if layout.max_chk_degree > MAX_CHECK_DEGREE:
+        raise ValueError(
+            f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
+        )
+    if max_iterations < 0:
+        raise ValueError("max_iterations must be >= 0")
+    tables = [getattr(layout, name) for name in LAYERED_TABLES]
+    if any(
+        t.device != qv.device or t.dtype != torch.int32 or not t.is_contiguous()
+        for t in tables
+    ):
+        raise TypeError("layout tables must be contiguous int32 on the planes' device")
+    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    degree = layout.max_chk_degree
+    park = None
+    if with_park and 4 * (degree * Z * Bt + 4 * Bt + 2) > MAX_SHARED_BYTES:
+        park = torch.empty((nbt, degree, Z, Bt), dtype=torch.float32, device=qv.device)
+    dims = (nbt, layout.CG, layout.E, VG, Z, Bt, degree)
+    return ptrs, dims, park, torch.cuda.current_stream(qv.device).cuda_stream
+
+
+def check_bits(bits0_t, qv0_t):
+    if bits0_t.dtype != torch.int8 or bits0_t.shape != qv0_t.shape:
+        raise TypeError("bits0_t must be int8 of the planes' shape")
+    if bits0_t.device != qv0_t.device:
+        raise ValueError("qv0_t and bits0_t must lie on one device")
 
 
 def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
@@ -74,55 +143,23 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
         return resident_layered_decode_reference(
             qv0_t, bits0_t, layout, rule, max_iterations
         )
-    if qv0_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {qv0_t.device}")
-    nbt, VG, Z, Bt = qv0_t.shape
-    if qv0_t.dtype != torch.float32 or bits0_t.dtype != torch.int8:
-        raise TypeError("qv0_t must be float32 and bits0_t int8")
-    if bits0_t.shape != qv0_t.shape or bits0_t.device != qv0_t.device:
-        raise ValueError("qv0_t and bits0_t must match in shape and device")
-    if (VG, Z) != (layout.VG, layout.Z):
-        raise ValueError(f"planes {(VG, Z)} do not match the layout")
-    if layout.chk_cs.device != qv0_t.device:
-        raise ValueError("layout tables must lie on the decode device")
-    if rule.storage_dtype not in _MSG_DTYPES:
-        raise TypeError(f"unsupported message storage {rule.storage_dtype}")
-    if BLOCK_THREADS % Bt:
-        raise ValueError(f"tile width {Bt} must divide {BLOCK_THREADS}")
-    smem = _shared_bytes(layout, Bt)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"check degree {layout.max_chk_degree} at Z={Z}, Bt={Bt} needs "
-            f"{smem} bytes of shared memory (at most {MAX_SHARED_BYTES})"
-        )
-    if max_iterations < 0:
-        raise ValueError("max_iterations must be >= 0")
-    lib = _lib()
-    dev = qv0_t.device
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
+    check_bits(bits0_t, qv)
+    tables, dims, park, stream = layered_launch(qv, layout, rule, max_iterations)
+    nbt, _, Z, Bt = qv.shape
+    dev = qv.device
     bits = bits0_t.clone(memory_format=torch.contiguous_format)
-    rcv = torch.zeros(
-        (nbt, layout.E, Z, Bt), dtype=rule.storage_dtype, device=dev
-    )
+    rcv = torch.zeros((nbt, layout.E, Z, Bt), dtype=rule.storage_dtype, device=dev)
     iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
     conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
-    tables = [
-        layout.chk_cs, layout.syn_vg, layout.syn_rot, layout.chk_rot,
-        layout.syn_mask,
-    ]
-    if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tables):
-        raise TypeError("layout tables must be contiguous int32")
+    lib = _lib()
     err = lib.ldpc_resident_layered_decode(
         qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
-        conv.data_ptr(), *(t.data_ptr() for t in tables),
-        nbt, layout.CG, layout.E, VG, Z, Bt, layout.max_chk_degree,
-        int(max_iterations), BLOCK_THREADS,
-        rule.big, rule.scale, _MSG_DTYPES[rule.storage_dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
+        conv.data_ptr(), None if park is None else park.data_ptr(), tables,
+        *dims, int(max_iterations), BLOCK_THREADS, rule.big, rule.scale,
+        _MSG_DTYPES[rule.storage_dtype], stream,
     )
-    if err:
-        msg = lib.ldpc_cuda_error_string(err).decode()
-        raise RuntimeError(f"resident_layered_decode launch failed: {msg}")
+    raise_on(lib, err, "resident_layered_decode")
     resident_layered_decode.launches += 1
     return bits, iters, conv
 
@@ -137,12 +174,20 @@ def resident_layered_decode_reference(
     """The plain PyTorch version of ``resident_layered_decode``, on any
     device, same arguments and results. Tiles are independent, so it
     decodes them together; per-tile early exit changes no output."""
+    return on_planes(layered_decode_planes, qv0_t, bits0_t, layout, rule,
+                     max_iterations)
+
+
+def on_planes(decode, qv0_t, bits0_t, layout, rule, max_iterations):
+    """Run a plain decode of (VG, Z, N) planes on (nbt, VG, Z, Bt) tiles:
+    ``decode(qv0, hard0, layout, rule, max_iterations)`` -> the tiled
+    (bits int8, iters (nbt, Bt) int32, conv (nbt, Bt) int32)."""
     nbt, VG, Z, Bt = qv0_t.shape
 
     def untile(x):
         return x.permute(1, 2, 0, 3).reshape(VG, Z, nbt * Bt)
 
-    bits, iters, conv = layered_decode_planes(
+    bits, iters, conv = decode(
         untile(qv0_t), untile(bits0_t) != 0, layout, rule, max_iterations
     )
     bits = bits.to(torch.int8).reshape(VG, Z, nbt, Bt).permute(2, 0, 1, 3)
@@ -153,28 +198,52 @@ def resident_layered_decode_reference(
     )
 
 
-def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
-    """Plain layered decode of (VG, Z, N) planes.
-
-    qv0: f32 posteriors init; hard0: bool raw-channel hard decisions;
-    rule: ``layered_x(qv, rold)``, ``check(x)`` on (d, Z, N), ``big`` (the
-    missing-lane poke) and ``storage_dtype`` (Rcv). Returns bits (VG, Z, N)
-    bool, iterations (N,) int32 and success (N,) bool.
-    """
-    VG, Z, N = qv0.shape
-    dev = qv0.device
+def plane_tables(layout, dev):
+    """(src, valid, groups) of the plain layered sweeps on (VG*Z, N)
+    posteriors: src (E, Z) the flat Qv row check lane c of edge e reads
+    (variable lane (c - s) mod Z), valid (E, Z, 1) False at the missing
+    lanes, groups [(g, first edge, degree)] in layer order."""
+    Z = layout.Z
     lane = torch.arange(Z, device=dev)
     vg = layout.syn_vg.to(device=dev, dtype=torch.long)
     rot = layout.syn_rot.to(device=dev, dtype=torch.long)
-    # flat Qv row read by check lane c of edge e: var lane (c - s) mod Z
-    src = vg[:, None] * Z + (lane[None, :] - rot[:, None]) % Z  # (E, Z)
+    src = vg[:, None] * Z + (lane[None, :] - rot[:, None]) % Z
     valid = (lane[None, :] != layout.syn_mask.to(dev)[:, None])[..., None]
     groups = [
-        (m.ebase + j * m.d, m.d)
+        (m.g0 + j, m.ebase + j * m.d, m.d)
         for m in layout.chk_meta
         if m.d
         for j in range(m.g1 - m.g0)
     ]
+    return src, valid, groups
+
+
+def message_sweep(qv, rcv, layout, rule, tables):
+    """One plain layered sweep in place on qv (VG*Z, N) f32 and rcv (E, Z,
+    N) messages in the rule's storage type; ``tables`` from
+    ``plane_tables``."""
+    src, valid, groups = tables
+    for _, e0, d in groups:
+        idx = src[e0 : e0 + d]  # (d, Z)
+        ok_lane = valid[e0 : e0 + d]
+        rold = rcv[e0 : e0 + d].float()
+        x = torch.where(ok_lane, rule.layered_x(qv[idx], rold), rule.big)
+        rn = torch.where(ok_lane, rule.check(x), 0.0)
+        delta = rn - rold  # before the store: rold may view rcv (f32)
+        rcv[e0 : e0 + d] = rn.to(rule.storage_dtype)
+        # in edge order: two edges into one variable group add in turn
+        for t in range(d):
+            qv[idx[t]] += delta[t]
+
+
+def layered_loop(qv0, hard0, layout, max_iterations, tables, sweep):
+    """The plain layered decode loop on (VG, Z, N) planes: ``sweep(qv)``
+    runs one sweep in place on the (VG*Z, N) posteriors; the syndrome,
+    freeze and stop follow the kernels'. Returns bits (VG, Z, N) bool,
+    iterations (N,) int32 and success (N,) bool."""
+    VG, Z, N = qv0.shape
+    dev = qv0.device
+    src, valid, _ = tables
 
     def check_ok(hard):  # (VG*Z, N) bool -> (N,) all checks satisfied
         h = (hard[src] & valid).to(torch.int32)  # (E, Z, N)
@@ -188,24 +257,13 @@ def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
         return ok
 
     qv = qv0.reshape(VG * Z, N).clone()
-    rcv = torch.zeros((layout.E, Z, N), dtype=rule.storage_dtype, device=dev)
     hard = hard0.reshape(VG * Z, N)
     conv = check_ok(hard)
     iters = torch.zeros(N, dtype=torch.int32, device=dev)
     frozen = hard
     it = 0
     while it < max_iterations and not bool(conv.all()):
-        for e0, d in groups:
-            idx = src[e0 : e0 + d]  # (d, Z)
-            ok_lane = valid[e0 : e0 + d]
-            rold = rcv[e0 : e0 + d].float()
-            x = torch.where(ok_lane, rule.layered_x(qv[idx], rold), rule.big)
-            rn = torch.where(ok_lane, rule.check(x), 0.0)
-            delta = rn - rold  # before the store: rold may view rcv (f32)
-            rcv[e0 : e0 + d] = rn.to(rule.storage_dtype)
-            # in edge order: two edges into one variable group add in turn
-            for t in range(d):
-                qv[idx[t]] += delta[t]
+        sweep(qv)
         it += 1
         hard = qv <= 0
         ok = check_ok(hard)
@@ -216,3 +274,20 @@ def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
     bits = torch.where(conv, frozen, hard).reshape(VG, Z, N)
     iters = torch.where(conv, iters, max_iterations).to(torch.int32)
     return bits, iters, conv
+
+
+def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
+    """Plain layered decode of (VG, Z, N) planes with Rcv messages.
+
+    qv0: f32 posteriors init; hard0: bool raw-channel hard decisions;
+    rule: ``layered_x(qv, rold)``, ``check(x)`` on (d, Z, N), ``big`` (the
+    missing-lane poke) and ``storage_dtype`` (Rcv). Returns bits (VG, Z, N)
+    bool, iterations (N,) int32 and success (N,) bool.
+    """
+    _, Z, N = qv0.shape
+    tables = plane_tables(layout, qv0.device)
+    rcv = torch.zeros((layout.E, Z, N), dtype=rule.storage_dtype, device=qv0.device)
+    return layered_loop(
+        qv0, hard0, layout, max_iterations, tables,
+        lambda qv: message_sweep(qv, rcv, layout, rule, tables),
+    )

@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from ldpc_toolbox_torch.codes.ccsds import C2Code
 from ldpc_toolbox_torch.codes.dvbs2 import Code as DvbCode
 from ldpc_toolbox_torch.codes.nr5g import BaseGraph
+from ldpc_toolbox_torch.decoder import Decoder
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.decoder.lifted_flooding import (
     flooding_tiles,
@@ -30,6 +32,16 @@ from ldpc_toolbox_torch.decoder.lifted_layered import (
     tile_inputs,
 )
 from ldpc_toolbox_torch.ops import fused_bp2
+from ldpc_toolbox_torch.ops.fused_layered import (
+    fused_layered_iteration,
+    fused_layered_iteration_reference,
+)
+from ldpc_toolbox_torch.ops.resident_compressed import (
+    compressed_flooding_decode,
+    compressed_flooding_decode_reference,
+    compressed_layered_decode,
+    compressed_layered_decode_reference,
+)
 from ldpc_toolbox_torch.ops.resident_flooding import (
     resident_flooding_decode,
     resident_flooding_decode_reference,
@@ -137,3 +149,81 @@ def test_flooding_partial_tile_streaming_equals_resident(cuda):
     for key in ("codeword", "iterations", "success"):
         assert torch.equal(out[key], stream[key]), key
         assert torch.equal(out[key].cpu(), plain[key]), key
+
+
+@pytest.mark.parametrize("decoder", DECODERS)
+def test_compressed_layered_kernel_matches_plain_version(cuda, decoder):
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    _, arith = make_arithmetic(decoder)
+    args = tile_inputs(lg, arith, _llrs(lg.n, 128, 1.05, 5, cuda))
+    before = compressed_layered_decode.launches
+    out = compressed_layered_decode(*args, 8)
+    assert compressed_layered_decode.launches == before + 1
+    ref = compressed_layered_decode_reference(*args, 8)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(out, resident_layered_decode(*args, 8)):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+@pytest.mark.parametrize("decoder", FLOODING)
+def test_compressed_flooding_kernel_matches_plain_version(cuda, decoder):
+    _, args = _flooding_case(decoder, cuda)
+    before = compressed_flooding_decode.launches
+    out = compressed_flooding_decode(*args, 6)
+    assert compressed_flooding_decode.launches == before + 1
+    ref = compressed_flooding_decode_reference(*args, 6)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(out, resident_flooding_decode(*args, 6)):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+@pytest.mark.parametrize("decoder", DECODERS)
+def test_fused_layered_iteration_matches_plain_version(cuda, decoder):
+    """One and two sweeps in place on the same planes."""
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    _, arith = make_arithmetic(decoder)
+    qv0, _, layout, rule = tile_inputs(lg, arith, _llrs(lg.n, 128, 1.05, 5, cuda))
+    rcv0 = torch.zeros(
+        (qv0.shape[0], layout.E, layout.Z, qv0.shape[3]), dtype=rule.storage_dtype,
+        device=cuda,
+    )
+    kernel, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+    for _ in range(2):
+        before = fused_layered_iteration.launches
+        out = fused_layered_iteration(*kernel, layout, rule)
+        assert fused_layered_iteration.launches == before + 1
+        ref = fused_layered_iteration_reference(*plain, layout, rule)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        kernel, plain = out[:2], ref[:2]
+
+
+@pytest.mark.parametrize("decoder", ["HLMinsumbf16", "HLMinsumf32"])
+def test_c2_layered_decoder_matches_plain_version(cuda, decoder):
+    """CCSDS C2 (check degree 32, Z = 511: the park lives in device
+    memory) through the Decoder on the card and on the CPU."""
+    x = _llrs(8176, 128, 0.48, 5, cuda)
+    out = Decoder(C2Code(), decoder, device="cuda").decode_batch(x, max_iterations=10)
+    ref = Decoder(C2Code(), decoder, device="cpu").decode_batch(x.cpu(), max_iterations=10)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key].cpu(), ref[key]), key
+    assert 0 < int(ref["success"].sum()) < 128
+
+
+def test_layered_partial_tile_streaming_equals_resident(cuda):
+    """Staged compaction on a batch of 130 (33 tiles, the last padded)."""
+    bg, z = BaseGraph.BG2, 16
+    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
+    _, arith = make_arithmetic("HLMinsumbf16")
+    llrs = _llrs(lg.n, 130, 1.3, 11, cuda)
+    before = fused_layered_iteration.launches
+    stream = lifted_layered_decode(lg, arith, llrs, 10, resident=False)
+    assert fused_layered_iteration.launches > before
+    out = lifted_layered_decode(lg, arith, llrs, 10)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key], stream[key]), key
+    assert len(set(out["iterations"].tolist())) >= 3

@@ -17,6 +17,7 @@ import torch
 from ldpc_toolbox_tpu import codes as jax_codes
 from ldpc_toolbox_tpu import gf2 as jax_gf2
 from ldpc_toolbox_tpu.ops import fused_bp2 as jax_fused_bp2
+from ldpc_toolbox_tpu.ops import resident_compressed as jax_compressed
 from ldpc_toolbox_torch import codes as torch_codes
 from ldpc_toolbox_torch import gf2
 from ldpc_toolbox_torch.convert import layout_to_device
@@ -64,6 +65,20 @@ def test_lifted_graph_and_layout_match_jax(code):
     tl = fused_bp2.build_fused_layout(tlg)
     _assert_equal_fields(jl, tl, [f.name for f in dataclasses.fields(tl)])
     assert tl.max_chk_degree == jl.max_chk_degree
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_recon_tables_match_jax(code):
+    """The port's copy of the compressed flooding decode's reconstruction
+    tables equals the JAX original, and the device layout carries them."""
+    jlg, tlg = lifted_graphs(code)
+    expect = jax_compressed._var_recon_tables(jax_fused_bp2.build_fused_layout(jlg))
+    tables = fused_bp2.var_recon_tables(fused_bp2.build_fused_layout(tlg))
+    layout = lifted_layered.device_layout(tlg, "cpu")
+    for name, a, b in zip(("plane", "group", "slot", "rot"), expect, tables):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        assert b.dtype == np.int32
+        np.testing.assert_array_equal(getattr(layout, f"rec_{name}").numpy(), b)
 
 
 @pytest.mark.parametrize("code", CODES)
@@ -165,3 +180,5 @@ def test_port_never_imports_jax():
     assert "ldpc_toolbox_torch.cli" in proc.stdout
     assert "ldpc_toolbox_torch.codes.dvbs2" in proc.stdout
     assert "ldpc_toolbox_torch.decoder.lifted_flooding" in proc.stdout
+    for module in ("decoder.compaction", "ops.resident_compressed", "ops.fused_layered"):
+        assert f"ldpc_toolbox_torch.{module}" in proc.stdout, module

@@ -1,7 +1,8 @@
 """The port's lifted layered decode against the JAX package's jnp path
 (``fused=False``), bit for bit in success, iterations and codewords, on
-both of the port's CPU routes: the plain twin and the kernel's tile glue
-(which runs the kernel's plain version on the CPU)."""
+both of the port's CPU routes: the plain twin of the jnp path and the
+decoder's tile glue (which runs the kernels' plain versions on the CPU:
+the compressed one for the f32 name, the message one for bf16)."""
 
 import functools
 
@@ -45,8 +46,8 @@ def _case(code, decoder):
 def test_lifted_layered_matches_jax(code, decoder, route):
     tlg, x, jout = _case(code, decoder)
     decode = {
-        "plain": lifted_layered.lifted_layered_decode,
-        "tiles": lifted_layered._fused_layered_decode,
+        "plain": lifted_layered.plain_layered_decode,
+        "tiles": lifted_layered.lifted_layered_decode,
     }[route]
     _, ta = make_arithmetic(decoder)
     tout = decode(tlg, ta, torch.from_numpy(x), CASES[code][2])

@@ -29,10 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from ldpc_toolbox_torch.codes.dvbs2 import Code  # noqa: E402
-from ldpc_toolbox_torch.decoder import Decoder  # noqa: E402
-from ldpc_toolbox_torch.decoder.lifted_flooding import (  # noqa: E402
-    lifted_flooding_decode,
-)
+from ldpc_toolbox_torch.decoder import Decoder, lifted_decode_for  # noqa: E402
 
 #: rows printed by device time; the rest are summed on one line
 TOP = 12
@@ -62,7 +59,7 @@ def main():
 
     def decode():
         if args.streaming:
-            return lifted_flooding_decode(
+            return lifted_decode_for(dec.schedule)(
                 dec.lifted, dec.arithmetic, llrs, args.iters, resident=False
             )
         return dec.decode_batch(llrs, max_iterations=args.iters)
@@ -99,7 +96,9 @@ def main():
           f"idle {100 * (1 - busy / wall_ms):.2f} %")
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"trace_{args.decoder}_{path.split('.')[0]}.json"))
+    prof.export_chrome_trace(
+        str(out / f"trace_{args.decoder}_{path.split('.')[0]}_{args.ebn0}dB.json")
+    )
     if busy > wall_ms:
         sys.exit("device busy time exceeds the wall time: rows counted twice")
 
