@@ -5,8 +5,10 @@
 Builds the CUDA kernels from the checkout's sources (one nvcc a source,
 all at once), holds every kernel bit for bit against its plain PyTorch
 version (5G BG2 z=16, DVB-S2 R1_4short and R1_2, CCSDS C2; three min-sum
-names each), and drives the port's main paths on the flagship code
-(DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most 30 iterations):
+names each, and the normalized f32 names for the compressed kernels;
+batches of 130 for the partial tile), and drives the port's main paths on
+the flagship code (DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most
+30 iterations):
 
 1. the layered decode through ``Decoder(Code.R1_2, "HLMinsumbf16")``;
 2. the flooding decode through ``Decoder(Code.R1_2, "Minsumbf16")`` (the
@@ -371,6 +373,33 @@ def flooding_checks(graphs, worst):
         print(f"flooding kernels vs plain: 5G BG2 z=16 B=130 (partial tile) {name}: "
               f"{int(out['success'].sum())}/130 converged; resident, streaming and "
               "the plain versions on the CPU equal")
+
+
+def compressed_checks(graphs, worst):
+    """The compressed kernels' normalized f32 names (the names they carry
+    besides the checks above) on every test code, against their plain
+    versions."""
+    cases = [
+        ("5G BG2 z=16", 256, 1.3, 10),
+        ("DVB-S2 R1_4short", 128, 1.05, 8),
+        ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 30),
+        ("CCSDS C2", 128, sigma_at(C2_RATE, 4.0), 10),
+    ]
+    for label, batch, sigma, iters in cases:
+        lg = graphs[label]
+        llrs = channel_llrs(lg.n, batch, sigma, seed=5)
+        layered = tile_inputs(lg, make_arithmetic("HLNormminsumf32")[1], llrs)
+        flooding = flooding_tiles(lg, make_arithmetic("Normminsumf32")[1], llrs)
+        tag = f"{label} B={batch}"
+        hold(worst, "compressed_layered_decode", f"{tag} HLNormminsumf32",
+             compressed_layered_decode(*layered, iters),
+             compressed_layered_decode_reference(*layered, iters))
+        hold(worst, "compressed_flooding_decode", f"{tag} Normminsumf32",
+             compressed_flooding_decode(*flooding, iters),
+             compressed_flooding_decode_reference(*flooding, iters))
+        torch.cuda.synchronize()
+        print(f"compressed kernels vs plain: {tag}: HLNormminsumf32 (layered) and "
+              "Normminsumf32 (flooding) equal (tolerance 0)")
 
 
 def flagship_layered(card, llrs):
@@ -853,6 +882,7 @@ def main():
     worst = dict.fromkeys(KERNELS, 0.0)
     layered_checks(graphs, worst)
     flooding_checks(graphs, worst)
+    compressed_checks(graphs, worst)
 
     code = Code.R1_2
     llrs = channel_llrs(code.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)

@@ -1,46 +1,58 @@
 // Min-sum decodes of frame tiles with the check state compressed to signs
-// and two magnitudes a check, one thread block per tile of Bt frames, all
+// and two magnitudes a check, one thread block per tile of 4 frames, all
 // iterations in one launch:
-// - compressed_layered_kernel: the layered schedule (csrc/layered.cuh's
-//   sweep with CompressedState);
+// - compressed_layered_kernel: the layered schedule;
 // - compressed_flooding_kernel: the flooding schedule.
 //
 // Replaces these Pallas TPU kernels of
 // ldpc_toolbox_tpu/ops/resident_compressed.py:
 // - compressed_layered_decode -> compressed_layered_kernel. State: Qv f32
-//   (VG, Z, Bt); sigma int8 (E, Z, Bt) in {-2, -1, 0, 1, 2}, |sigma| = 2 at
-//   the argmin slot, 0 at the missing lane; min1, min2 (CG, Z, Bt) in the
+//   (VG, Z, 4); sigma int8 (E, Z, 4) in {-2, -1, 0, 1, 2}, |sigma| = 2 at
+//   the argmin slot, 0 at the missing lane; min1, min2 (CG, Z, 4) in the
 //   storage type, post-scale.
 // - compressed_flooding_decode -> compressed_flooding_kernel. State: s f32
-//   (VG, Z, Bt), the posterior totals; ssign int8 (E, Z, Bt), each edge's
-//   c2v sign (+-1, 0 at the missing lane); min1, min2 (CG, Z, Bt) in the
-//   storage type and argm int8 (CG, Z, Bt).
+//   (VG, Z, 4), the posterior totals; ssign int8 (E, Z, 4), each edge's
+//   c2v sign (+-1, 0 at the missing lane); min1, min2 (CG, Z, 4) in the
+//   storage type and argm int8 (CG, Z, 4).
 // Min-sum's check outputs are determined by (signs, min1, min2, argmin), so
 // both are lossless: the only internal difference from the message kernels
 // is the sign of some zeros, which no comparison, |.| or hard decision
 // sees. On the TPU they let the f32 names' state fit the vector memory.
 //
-// What bounds them on an H100: the state lives in device memory (flagship
-// DVB-S2 R1_2 at B = 1024: about 0.8 GB either way) and streams through it
-// every iteration. Layered, per edge lane an iteration: sigma read and
-// written (2 bytes), Qv read for the check (4), read and written for the
-// update (8), read for the syndrome (4), and min1/min2 read and written
-// once a check lane (16 bytes in f32, 2.3 per edge lane): about 20.3
-// bytes, against 24 for the f32 message kernel. Flooding, per edge lane:
-// s read for the check (4) and for the syndrome (4), sigma read and written
-// (2), and the variable phase gathers sigma, argm and one magnitude (6 in
-// f32); per check lane min1, min2 and argm read and written (18 in f32,
-// 2.6 per edge lane); per variable lane q read and s written (8, 2.3 per
-// edge lane): about 21 bytes per edge lane, against about 18 for the bf16
-// message kernel and 26 for f32. Min-sum does a few compares
-// per byte, far below the compute roof.
+// What bounds them on an H100: the state (flagship DVB-S2 R1_2 at
+// B = 1024: about 0.8 GB) lives in device memory and streams through it
+// every iteration, and one block walks a tile's check groups in turn, so
+// the latency of each group's dependent loads and barriers sets the pace
+// as much as the bytes do (the earlier form, a thread per (lane, frame)
+// with runtime edge loops, reached half of the state traffic's floor). Per
+// edge lane and iteration this form moves about 16 bytes (layered: sigma
+// read and written 2, Qv gathered, written and read by the syndrome 12,
+// min1/min2 2.3 in f32) and 21 (flooding: s gathered 4, sigma 2, the
+// variable phase's gathers of sigma, argm, min1 and min2 10, the check
+// state 2.6, q and s 2.3); PERF.md has the times.
 //
-// What the design does about it: as the message kernels (frames innermost
-// so accesses coalesce; one block per tile, per-tile early exit); the
-// layered kernel shares their sweep and its park. The flooding kernel's
-// check phase keeps a check's fold in registers and writes its compressed
-// state once; its variable phase rebuilds each c2v from that state through
-// the var-major reconstruction tables (rec_*), so no c2v plane is stored.
+// What the design does about it:
+// - one thread per lane of a tile, all four frames at once: Qv, s and q
+//   move as one 16-byte (f32) or 8-byte (bf16) vector, sigma, argm and
+//   the bits as one 4-byte word, min1 and min2 as one vector each, so each
+//   table load and each mod-Z index is done once a lane, not once a frame;
+// - the edge loops run to a compile-time bound (the degree bucket: 8, 16,
+//   32 or 64), so a check's d gathers and sigma words are all issued
+//   before its fold starts; the sigma words stay in registers until its
+//   outputs;
+// - in a group that reaches no variable group twice, the layered kernel's
+//   check lane adds its deltas to Qv itself (Qv + delta, read again from
+//   the cache it was gathered into, which measured faster than holding it
+//   in registers): no park and one barrier a group. A group that does
+//   (DVB-S2, CCSDS C2) parks its deltas, as the message kernels do, and
+//   each variable lane adds them in edge order from registers;
+// - the flooding variable phase loads argm, min1 and min2 of an edge
+//   together and selects afterwards (no load waits on another), eight
+//   edges at a time;
+// - the flooding syndrome of an iteration is taken by the next
+//   iteration's check phase, which gathers the same s: one pass over s an
+//   iteration, not two;
+// - the layout tables are copied into shared memory once a launch.
 //
 // Bit-exactness with the JAX package: csrc/layered.cuh's rules, and
 // - Rold = w1 * min1 + w2 * min2 and c2v = sigma * select(argm == t, min2,
@@ -50,230 +62,743 @@
 //   rebuilt c2v in var-major slot order (__fadd_rn); the syndrome reads
 //   s <= 0 (Qv <= 0 for layered).
 
+#include <type_traits>
+
 #include "layered.cuh"
 
 namespace {
 
 using namespace ldpc;
 
-template <typename Msg>
-__global__ void compressed_layered_kernel(float* qv_all, int8_t* ssign_all,
-                                          Msg* min1_all, Msg* min2_all,
-                                          int8_t* bits_all, int* iters_out,
-                                          int* conv_out, float* park_all,
-                                          Tables t, int Bt, size_t park_elems,
-                                          int max_iterations, float big,
-                                          float scale) {
-  extern __shared__ int ctl[];
-  const size_t tile = blockIdx.x;
-  const int ZB = t.Z * Bt;
-  float* qv = qv_all + tile * t.VG * ZB;
-  CompressedState<Msg> st{ssign_all + tile * t.E * ZB,
-                          min1_all + tile * t.CG * ZB,
-                          min2_all + tile * t.CG * ZB, ZB, 0.f, 0.f};
-  float* park = tile_park(park_all, park_elems, ctl, Bt);
-  decode_tile(qv, bits_all + tile * t.VG * ZB, iters_out, conv_out, t, Bt,
-              max_iterations, ctl,
-              [&] { layered_sweep(qv, st, t, Bt, big, scale, park); });
+// Frames a tile, and threads a block: two blocks an SM (a flagship batch
+// of 256 tiles is resident at once) at up to 128 registers a thread; at
+// 384 threads (80 registers, a flagship group's 360 lanes in one pass)
+// both kernels spilled and ran slower.
+constexpr int kBt = 4;
+constexpr int kThreads = 256;
+
+// Four frames of one lane.
+struct F4 {
+  float v[kBt];
+};
+
+__device__ __forceinline__ F4 load4(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  return F4{{a.x, a.y, a.z, a.w}};
+}
+__device__ __forceinline__ F4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return F4{{__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)}};
+}
+__device__ __forceinline__ void store4(float* p, const F4& a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& a) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_bits(a.v[0]) | bf16_bits(a.v[1]) << 16,
+                 bf16_bits(a.v[2]) | bf16_bits(a.v[3]) << 16);
+}
+// The four int8 of one lane (sigma, argm, bits) as one word.
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ void store_word(int8_t* p, uint32_t w) {
+  *reinterpret_cast<uint32_t*>(p) = w;
+}
+__device__ __forceinline__ int byte_of(uint32_t w, int f) {
+  return static_cast<int8_t>(w >> (8 * f));
+}
+__device__ __forceinline__ uint32_t byte_at(int v, int f) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
 }
 
-// Check update of check lane c, frame f of check group g in one tile:
-// rebuilds v2c = store(s - c2v_old) from the old state, folds it, and
-// writes the new state in place.
-template <typename Msg>
-__device__ __forceinline__ void compressed_check_item(
-    const float* s, int8_t* ssign, Msg* min1, Msg* min2, int8_t* argm,
-    const Tables& t, int g, int i, int Bt, float big, float scale) {
-  const int ZB = t.Z * Bt;
-  const int c = i / Bt, f = i - c * Bt;
-  const int e0 = t.chk_cs[g], d = group_end(t, g) - e0;
-  const int at = g * ZB + i;
-  const float m1o = load_msg(min1 + at), m2o = load_msg(min2 + at);
-  const int ao = argm[at];
-  float m1 = 0.f, m2 = big;
-  int arg = 0, par = 0;
-  uint64_t negs = 0;  // d <= 64, checked by the wrapper
-  for (int k = 0; k < d; ++k) {
-    const int e = e0 + k;
-    const float c2v =
-        __fmul_rn((float)ssign[(size_t)e * ZB + i], ao == k ? m2o : m1o);
-    float x = round_msg(__fsub_rn(s[qv_at(t, e, c, f, Bt)], c2v), min1);
-    if (c == t.syn_mask[e]) x = big;
+// Rold of one frame from its sigma and its group's stored magnitudes.
+__device__ __forceinline__ float rebuild(int s, float m1o, float m2o) {
+  const int w2 = s - max(-1, min(s, 1));
+  const int w1 = s - 2 * w2;
+  return __fadd_rn(__fmul_rn((float)w1, m1o), __fmul_rn((float)w2, m2o));
+}
+
+// The layout tables in shared memory, with the products the phases use
+// precomputed: qbase = syn_vg * Z, rec_pz = rec_plane * Z, rec_gz =
+// rec_group * Z; chk_cs and var_cs end with E; repeat[g] is 1 when check
+// group g reaches a variable group twice.
+struct LaneTables {
+  const int* chk_cs;
+  const int* qbase;
+  const int* syn_rot;
+  const int* chk_rot;
+  const int* syn_mask;
+  const int* repeat;
+  const int* var_cs;
+  const int* rec_pz;
+  const int* rec_gz;
+  const int* rec_slot;
+  const int* rec_rot;
+  int CG, E, VG, Z;
+};
+
+// Shared-memory ints of the tables, rounded up to whole 16-byte rows.
+__host__ __device__ constexpr int table_ints(int CG, int E, int VG) {
+  return (2 * CG + VG + 2 + 8 * E + 3) / 4 * 4;
+}
+// Shared-memory ints of the decode loop's control words.
+constexpr int kCtlInts = 8;
+
+__device__ LaneTables load_tables(const Tables& t, int* sm) {
+  int* chk_cs = sm;
+  int* repeat = chk_cs + t.CG + 1;
+  int* var_cs = repeat + t.CG;
+  int* qbase = var_cs + t.VG + 1;
+  int* syn_rot = qbase + t.E;
+  int* chk_rot = syn_rot + t.E;
+  int* syn_mask = chk_rot + t.E;
+  int* rec_pz = syn_mask + t.E;
+  int* rec_gz = rec_pz + t.E;
+  int* rec_slot = rec_gz + t.E;
+  int* rec_rot = rec_slot + t.E;
+  for (int i = threadIdx.x; i <= t.CG; i += blockDim.x)
+    chk_cs[i] = i < t.CG ? t.chk_cs[i] : t.E;
+  for (int i = threadIdx.x; i <= t.VG; i += blockDim.x)
+    var_cs[i] = i < t.VG ? t.var_cs[i] : t.E;
+  for (int e = threadIdx.x; e < t.E; e += blockDim.x) {
+    qbase[e] = t.syn_vg[e] * t.Z;
+    syn_rot[e] = t.syn_rot[e];
+    chk_rot[e] = t.chk_rot[e];
+    syn_mask[e] = t.syn_mask[e];
+    rec_pz[e] = t.rec_plane[e] * t.Z;
+    rec_gz[e] = t.rec_group[e] * t.Z;
+    rec_slot[e] = t.rec_slot[e];
+    rec_rot[e] = t.rec_rot[e];
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < t.CG; g += blockDim.x) {
+    int rep = 0;
+    for (int a = chk_cs[g]; a < chk_cs[g + 1]; ++a)
+      for (int b = chk_cs[g]; b < a; ++b) rep |= qbase[a] == qbase[b];
+    repeat[g] = rep;
+  }
+  __syncthreads();
+  return LaneTables{chk_cs, qbase,  syn_rot, chk_rot,  syn_mask, repeat,
+                    var_cs, rec_pz, rec_gz,  rec_slot, rec_rot,  t.CG,
+                    t.E,    t.VG,   t.Z};
+}
+
+// Lane r of a check group's plane reads variable lane r - rot, mod Z.
+__device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
+  const int w = r - rot;
+  return w < 0 ? w + Z : w;
+}
+
+// The min-sum fold of a check's d inputs, in edge order, for each frame f:
+// m1 the least |x| (first minimum), m2 the second, arg its slot, negs the
+// signs (x < 0) by slot; their parity is popc(negs) & 1.
+template <int DMAX>
+struct Fold {
+  using Mask = std::conditional_t<(DMAX > 32), uint64_t, uint32_t>;
+  float m1[kBt] = {}, m2[kBt];
+  int arg[kBt] = {};
+  Mask negs[kBt] = {};
+
+  __device__ __forceinline__ void add(int k, int f, float x) {
     const float mk = fabsf(x);
-    const int neg = x < 0.f;
-    negs |= (uint64_t)neg << k;
+    const Mask neg = x < 0.f;
     if (k == 0) {
-      m1 = mk;
-      par = neg;
+      m1[f] = mk;
+      negs[f] = neg;
     } else {
-      m2 = fminf(m2, fmaxf(m1, mk));
-      if (mk < m1) {
-        m1 = mk;
-        arg = k;
+      m2[f] = fminf(m2[f], fmaxf(m1[f], mk));
+      if (mk < m1[f]) {
+        m1[f] = mk;
+        arg[f] = k;
       }
-      par ^= neg;
+      negs[f] |= neg << k;
     }
   }
-  if (scale != 1.f) {
-    m1 = __fmul_rn(m1, scale);
-    m2 = __fmul_rn(m2, scale);
+  __device__ __forceinline__ void scale_by(float scale) {
+    if (scale != 1.f) {
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        m1[f] = __fmul_rn(m1[f], scale);
+        m2[f] = __fmul_rn(m2[f], scale);
+      }
+    }
   }
-  for (int k = 0; k < d; ++k) {
-    const int e = e0 + k;
-    const int8_t sg = c == t.syn_mask[e]
-                          ? 0
-                          : ((par ^ (int)((negs >> k) & 1u)) ? -1 : 1);
-    ssign[(size_t)e * ZB + i] = sg;
+  // the output sign of slot k (-1 or 1): the parity of the other signs
+  __device__ __forceinline__ int sign(int k, int f) const {
+    int par;
+    if constexpr (DMAX > 32) {
+      par = __popcll(negs[f]);
+    } else {
+      par = __popc(negs[f]);
+    }
+    return ((par ^ (int)(negs[f] >> k)) & 1) ? -1 : 1;
   }
-  store_msg(min1 + at, m1);
-  store_msg(min2 + at, m2);
-  argm[at] = (int8_t)arg;
+};
+
+// Check update of check lane c of group g in one tile (the layered
+// schedule): every x from the layer-entry Qv, the new sigma and magnitudes
+// in place, and the deltas Rnew - Rold either added to Qv (parked false;
+// no other lane touches those cells in this group) or parked at
+// park[(k * Z + c) * 4].
+template <int DMAX, typename Msg>
+__device__ __forceinline__ void layered_check_lane(
+    float* qv, int8_t* ssign, Msg* min1, Msg* min2, float* park,
+    const LaneTables& t, int g, int c, bool parked, float big, float scale) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  const size_t at = ((size_t)g * Z + c) * kBt;
+  const F4 m1o = load4(min1 + at), m2o = load4(min2 + at);
+  F4 q[DMAX];
+  uint32_t sw[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      q[k] = load4(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      sw[k] = load_word(ssign + ((size_t)e * Z + c) * kBt);
+    }
+  }
+  Fold<DMAX> fold;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        const float rold = rebuild(byte_of(sw[k], f), m1o.v[f], m2o.v[f]);
+        fold.add(k, f, missing ? big : __fsub_rn(q[k].v[f], rold));
+      }
+    }
+  }
+  fold.scale_by(scale);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      const bool missing = c == t.syn_mask[e];
+      uint32_t nw = 0;
+      F4 delta;
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        const int sgn = missing ? 0 : fold.sign(k, f);
+        const bool is_arg = fold.arg[f] == k;
+        const float loo = is_arg ? fold.m2[f] : fold.m1[f];
+        const float rn = missing ? 0.f : (sgn < 0 ? -loo : loo);
+        delta.v[f] = __fsub_rn(rn, rebuild(byte_of(sw[k], f), m1o.v[f], m2o.v[f]));
+        nw |= byte_at(is_arg ? 2 * sgn : sgn, f);
+      }
+      store_word(ssign + ((size_t)e * Z + c) * kBt, nw);
+      if (parked) {
+        store4(park + ((size_t)k * Z + c) * kBt, delta);
+      } else {
+        float* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+        F4 qk = load4(cell);
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) qk.v[f] = __fadd_rn(qk.v[f], delta.v[f]);
+        store4(cell, qk);
+      }
+    }
+  }
+  F4 m1s, m2s;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) {
+    m1s.v[f] = fold.m1[f];
+    m2s.v[f] = fold.m2[f];
+  }
+  store4(min1 + at, m1s);
+  store4(min2 + at, m2s);
 }
 
-// Variable update of variable lane w, frame f of variable group vg in one
-// tile: s = q + the group's c2v in var-major slot order, each rebuilt from
-// the check state at check lane w - rec_rot.
+// The parked group's Qv update at variable lane w: each edge's Qv cell
+// gathered once, the parked deltas added in edge order (an edge into a
+// variable group an earlier edge reached continues from that edge's sum),
+// stored.
+template <int DMAX>
+__device__ __forceinline__ void layered_update_lane(float* qv, const float* park,
+                                                    const LaneTables& t, int g,
+                                                    int w) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  F4 v[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      v[k] = load4(qv + ((size_t)t.qbase[e] + w) * kBt);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+#pragma unroll
+      for (int j = 0; j < k; ++j)
+        if (t.qbase[e0 + j] == t.qbase[e0 + k]) v[k] = v[j];
+      const F4 pk = load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) v[k].v[f] = __fadd_rn(v[k].v[f], pk.v[f]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k)
+    if (k < d) store4(qv + ((size_t)t.qbase[e0 + k] + w) * kBt, v[k]);
+}
+
+// One layered sweep of one tile over all check groups.
+template <int DMAX, typename Msg>
+__device__ void layered_sweep4(float* qv, int8_t* ssign, Msg* min1, Msg* min2,
+                               float* park, const LaneTables& t, float big,
+                               float scale) {
+  for (int g = 0; g < t.CG; ++g) {
+    const bool parked = t.repeat[g];
+    for (int c = threadIdx.x; c < t.Z; c += blockDim.x)
+      layered_check_lane<DMAX>(qv, ssign, min1, min2, park, t, g, c, parked,
+                               big, scale);
+    __syncthreads();
+    if (parked) {
+      for (int w = threadIdx.x; w < t.Z; w += blockDim.x)
+        layered_update_lane<DMAX>(qv, park, t, g, w);
+      __syncthreads();
+    }
+  }
+}
+
+// ORs a warp's frames with an unsatisfied check (bit f) into *bad.
+__device__ __forceinline__ void report_odd(uint32_t odd, int* bad) {
+  odd = __reduce_or_sync(0xffffffffu, odd);
+  if (odd && (threadIdx.x & 31) == 0) atomicOr(bad, (int)odd);
+}
+
+// ORs into *bad the frames (bit f) of the tile with an unsatisfied check.
+// The hard decisions are the raw-channel bits (kFromBits, int8 (VG, Z, 4))
+// or post <= 0 (post f32 (VG, Z, 4)).
+template <int DMAX, bool kFromBits>
+__device__ void syndrome4(const float* post, const int8_t* bits,
+                          const LaneTables& t, int* bad) {
+  const int Z = t.Z;
+  uint32_t odd = 0;
+  for (int r = threadIdx.x; r < t.CG * Z; r += blockDim.x) {
+    const int g = r / Z, c = r - g * Z;
+    const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+    uint32_t h[DMAX];
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < d) {
+        const int e = e0 + k;
+        const size_t at = ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+        if constexpr (kFromBits) {
+          h[k] = __vcmpne4(load_word(bits + at), 0u) & 0x01010101u;
+        } else {
+          const F4 p = load4(post + at);
+          h[k] = (p.v[0] <= 0.f) | (p.v[1] <= 0.f) << 8 | (p.v[2] <= 0.f) << 16 |
+                 (p.v[3] <= 0.f) << 24;
+        }
+      }
+    }
+    uint32_t par = 0;
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k)
+      if (k < d && c != t.syn_mask[e0 + k]) par ^= h[k];
+    odd |= (par & 1u) | (par >> 7 & 2u) | (par >> 14 & 4u) | (par >> 21 & 8u);
+  }
+  report_odd(odd, bad);
+}
+
+// The bytes of a 4-bit frame mask, 0xff where set.
+__device__ __forceinline__ uint32_t frame_bytes(int mask) {
+  return (mask & 1 ? 0xffu : 0u) | (mask & 2 ? 0xff00u : 0u) |
+         (mask & 4 ? 0xff0000u : 0u) | (mask & 8 ? 0xff000000u : 0u);
+}
+
+// Sets the bits of the frames in mask to post <= 0 at every lane.
+__device__ void hard_decide(const float* post, int8_t* bits, int lanes, int mask) {
+  if (!mask) return;
+  const uint32_t keep = ~frame_bytes(mask);
+  for (int i = threadIdx.x; i < lanes; i += blockDim.x) {
+    const F4 p = load4(post + (size_t)i * kBt);
+    const uint32_t hw = (p.v[0] <= 0.f) | (p.v[1] <= 0.f) << 8 |
+                        (p.v[2] <= 0.f) << 16 | (p.v[3] <= 0.f) << 24;
+    int8_t* b = bits + (size_t)i * kBt;
+    store_word(b, (load_word(b) & keep) | (hw & ~keep));
+  }
+}
+
+// The whole decode of one tile, csrc/layered.cuh's decode_tile with a
+// thread per lane: post (VG, Z, 4) f32 holds the posteriors, bits the
+// raw-channel bits on entry and the decoded bits on exit. Iteration 0 tests
+// the raw bits; iterate(it, bad) runs iteration it and ORs into *bad the
+// frames whose posteriors then fail a check; a frame's bits and count
+// freeze at its first passing iteration; the tile stops once all its
+// frames passed; a frame that never passes gets max_iterations and
+// post <= 0. ctl is kCtlInts ints of shared memory.
+template <int DMAX, class Iterate>
+__device__ void decode_tile4(const float* post, int8_t* bits, int* iters_out,
+                             int* conv_out, const LaneTables& t,
+                             int max_iterations, int* ctl, Iterate&& iterate) {
+  constexpr int kAll = (1 << kBt) - 1;
+  int* bad = ctl;  // frames with an unsatisfied check, bit f
+  int* conv = ctl + 1;
+  int* newly = ctl + 2;
+  int* done = ctl + 3;
+  int* iters = ctl + 4;  // kBt of them
+  const size_t tile = blockIdx.x;
+  const int lanes = t.VG * t.Z;
+
+  if (threadIdx.x == 0) {
+    *bad = 0;
+    for (int f = 0; f < kBt; ++f) iters[f] = 0;
+  }
+  __syncthreads();
+  syndrome4<DMAX, true>(post, bits, t, bad);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *conv = ~*bad & kAll;
+    *bad = 0;
+    *done = *conv == kAll;
+  }
+  __syncthreads();
+
+  for (int it = 1; it <= max_iterations && !*done; ++it) {
+    iterate(it, bad);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int ok = ~*bad & kAll;
+      *newly = ok & ~*conv;
+      for (int f = 0; f < kBt; ++f)
+        if (*newly >> f & 1) iters[f] = it;
+      *conv |= ok;
+      *bad = 0;
+      *done = *conv == kAll;
+    }
+    __syncthreads();
+    // freeze the bits of frames that converged in this iteration
+    if (*newly) {
+      hard_decide(post, bits, lanes, *newly);
+      __syncthreads();
+    }
+  }
+
+  // frames that never converged keep their final hard decisions
+  hard_decide(post, bits, lanes, ~*conv & kAll);
+  if (threadIdx.x < kBt) {
+    const int f = threadIdx.x, ok = *conv >> f & 1;
+    iters_out[tile * kBt + f] = ok ? iters[f] : max_iterations;
+    conv_out[tile * kBt + f] = ok;
+  }
+}
+
+template <int DMAX, typename Msg>
+__global__ void __launch_bounds__(kThreads, 2) compressed_layered_kernel(
+    float* qv_all, int8_t* ssign_all, Msg* min1_all, Msg* min2_all,
+    int8_t* bits_all, int* iters_out, int* conv_out, float* park_all, Tables t,
+    size_t park_elems, int max_iterations, float big, float scale) {
+  extern __shared__ __align__(16) int smem[];
+  const size_t tile = blockIdx.x;
+  const size_t lanes = (size_t)t.VG * t.Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  float* park = park_all ? park_all + tile * park_elems
+                         : reinterpret_cast<float*>(
+                               smem + kCtlInts + table_ints(t.CG, t.E, t.VG));
+  float* qv = qv_all + tile * lanes * kBt;
+  int8_t* ssign = ssign_all + tile * t.E * t.Z * kBt;
+  Msg* min1 = min1_all + tile * t.CG * t.Z * kBt;
+  Msg* min2 = min2_all + tile * t.CG * t.Z * kBt;
+  int8_t* bits = bits_all + tile * lanes * kBt;
+  decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
+                     [&](int, int* bad) {
+                       layered_sweep4<DMAX>(qv, ssign, min1, min2, park, lt,
+                                            big, scale);
+                       syndrome4<DMAX, false>(qv, bits, lt, bad);
+                     });
+}
+
+// Check update of check lane c of group g in one tile (the flooding
+// schedule): rebuilds v2c = store(s - c2v_old) from the old state, folds it
+// and writes the new state in place. Returns the frames (bit f) for which
+// the check fails on the hard decisions s <= 0 it read (kSyndrome; else 0).
+template <int DMAX, bool kSyndrome, typename Msg>
+__device__ __forceinline__ uint32_t flooding_check_lane(
+    const float* s, int8_t* ssign, Msg* min1, Msg* min2, int8_t* argm,
+    const LaneTables& t, int g, int c, float big, float scale) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  const size_t at = ((size_t)g * Z + c) * kBt;
+  const F4 m1o = load4(min1 + at), m2o = load4(min2 + at);
+  const uint32_t ao = load_word(argm + at);
+  F4 sv[DMAX];
+  uint32_t sw[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      sv[k] = load4(s + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      sw[k] = load_word(ssign + ((size_t)e * Z + c) * kBt);
+    }
+  }
+  Fold<DMAX> fold;
+  uint32_t odd = 0;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        const float c2v = __fmul_rn((float)byte_of(sw[k], f),
+                                    byte_of(ao, f) == k ? m2o.v[f] : m1o.v[f]);
+        const float x = round_msg(__fsub_rn(sv[k].v[f], c2v), min1);
+        fold.add(k, f, missing ? big : x);
+        if (kSyndrome && !missing) odd ^= (uint32_t)(sv[k].v[f] <= 0.f) << f;
+      }
+    }
+  }
+  fold.scale_by(scale);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      const bool missing = c == t.syn_mask[e];
+      uint32_t nw = 0;
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) nw |= byte_at(missing ? 0 : fold.sign(k, f), f);
+      store_word(ssign + ((size_t)e * Z + c) * kBt, nw);
+    }
+  }
+  F4 m1s, m2s;
+  uint32_t aw = 0;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) {
+    m1s.v[f] = fold.m1[f];
+    m2s.v[f] = fold.m2[f];
+    aw |= byte_at(fold.arg[f], f);
+  }
+  store4(min1 + at, m1s);
+  store4(min2 + at, m2s);
+  store_word(argm + at, aw);
+  return odd;
+}
+
+// Edges of a variable lane whose loads go out together.
+constexpr int kVarChunk = 8;
+
+// Variable update of variable lane w of group vg in one tile: s = q + the
+// group's c2v in var-major slot order, each rebuilt from the check state
+// at check lane w - rec_rot.
 template <typename Msg>
-__device__ __forceinline__ void compressed_var_item(
+__device__ __forceinline__ void flooding_var_lane(
     float* s, const Msg* q, const int8_t* ssign, const Msg* min1,
-    const Msg* min2, const int8_t* argm, const Tables& t, int vg, int i,
-    int Bt) {
-  const int ZB = t.Z * Bt;
-  const int w = i / Bt, f = i - w * Bt;
-  const int p0 = t.var_cs[vg];
-  const int p1 = vg + 1 < t.VG ? t.var_cs[vg + 1] : t.E;
-  const int at = vg * ZB + i;
-  float tot = load_msg(q + at);
-  for (int p = p0; p < p1; ++p) {
-    int c = w - t.rec_rot[p];
-    if (c < 0) c += t.Z;
-    const int m = t.rec_group[p] * ZB + c * Bt + f;
-    const float sel = argm[m] == t.rec_slot[p] ? load_msg(min2 + m)
-                                               : load_msg(min1 + m);
-    const float c2v =
-        __fmul_rn((float)ssign[(size_t)t.rec_plane[p] * ZB + c * Bt + f], sel);
-    tot = __fadd_rn(tot, c2v);
+    const Msg* min2, const int8_t* argm, const LaneTables& t, int vg, int w) {
+  const int Z = t.Z;
+  const size_t at = ((size_t)vg * Z + w) * kBt;
+  F4 tot = load4(q + at);
+  for (int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1]; p0 < p1; p0 += kVarChunk) {
+    F4 m1v[kVarChunk], m2v[kVarChunk];
+    uint32_t aw[kVarChunk], sw[kVarChunk];
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j) {
+      const int p = p0 + j;
+      if (p < p1) {
+        const int c = minus_mod(w, t.rec_rot[p], Z);
+        const size_t m = ((size_t)t.rec_gz[p] + c) * kBt;
+        m1v[j] = load4(min1 + m);
+        m2v[j] = load4(min2 + m);
+        aw[j] = load_word(argm + m);
+        sw[j] = load_word(ssign + ((size_t)t.rec_pz[p] + c) * kBt);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j) {
+      const int p = p0 + j;
+      if (p < p1) {
+        const int slot = t.rec_slot[p];
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) {
+          const float sel = byte_of(aw[j], f) == slot ? m2v[j].v[f] : m1v[j].v[f];
+          tot.v[f] = __fadd_rn(tot.v[f], __fmul_rn((float)byte_of(sw[j], f), sel));
+        }
+      }
+    }
   }
-  s[at] = tot;
+  store4(s + at, tot);
 }
 
-template <typename Msg>
-__global__ void __launch_bounds__(512) compressed_flooding_kernel(
+template <int DMAX, typename Msg>
+__global__ void __launch_bounds__(kThreads, 2) compressed_flooding_kernel(
     float* s_all, const Msg* q_all, int8_t* ssign_all, Msg* min1_all,
     Msg* min2_all, int8_t* argm_all, int8_t* bits_all, int* iters_out,
-    int* conv_out, Tables t, int Bt, int max_iterations, float big,
-    float scale) {
-  extern __shared__ int ctl[];
+    int* conv_out, Tables t, int max_iterations, float big, float scale) {
+  extern __shared__ __align__(16) int smem[];
   const size_t tile = blockIdx.x;
-  const int ZB = t.Z * Bt;
-  float* s = s_all + tile * t.VG * ZB;
-  const Msg* q = q_all + tile * t.VG * ZB;
-  int8_t* ssign = ssign_all + tile * t.E * ZB;
-  Msg* min1 = min1_all + tile * t.CG * ZB;
-  Msg* min2 = min2_all + tile * t.CG * ZB;
-  int8_t* argm = argm_all + tile * t.CG * ZB;
-  const int cn = t.CG * ZB, vn = t.VG * ZB;
+  const int Z = t.Z, cn = t.CG * Z, vn = t.VG * Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  float* s = s_all + tile * vn * kBt;
+  const Msg* q = q_all + tile * vn * kBt;
+  int8_t* ssign = ssign_all + tile * t.E * Z * kBt;
+  Msg* min1 = min1_all + tile * cn * kBt;
+  Msg* min2 = min2_all + tile * cn * kBt;
+  int8_t* argm = argm_all + tile * cn * kBt;
+  int8_t* bits = bits_all + tile * vn * kBt;
   // s starts as the channel planes; sigma = 0 everywhere rebuilds c2v = 0,
   // so the first check phase sees v2c = store(q) as the message kernels do
-  for (int r = threadIdx.x; r < vn; r += blockDim.x) s[r] = load_msg(q + r);
-  decode_tile(s, bits_all + tile * t.VG * ZB, iters_out, conv_out, t, Bt,
-              max_iterations, ctl, [&] {
-                for (int r = threadIdx.x; r < cn; r += blockDim.x)
-                  compressed_check_item(s, ssign, min1, min2, argm, t, r / ZB,
-                                        r % ZB, Bt, big, scale);
-                __syncthreads();
-                for (int r = threadIdx.x; r < vn; r += blockDim.x)
-                  compressed_var_item(s, q, ssign, min1, min2, argm, t,
-                                      r / ZB, r % ZB, Bt);
-                __syncthreads();
-              });
+  for (int r = threadIdx.x; r < vn; r += blockDim.x)
+    store4(s + (size_t)r * kBt, load4(q + (size_t)r * kBt));
+  auto check_phase = [&](auto syndrome, int* bad) {
+    uint32_t odd = 0;
+    for (int r = threadIdx.x; r < cn; r += blockDim.x)
+      odd |= flooding_check_lane<DMAX, decltype(syndrome)::value>(
+          s, ssign, min1, min2, argm, lt, r / Z, r % Z, big, scale);
+    if (decltype(syndrome)::value) report_odd(odd, bad);
+  };
+  // Iteration it's check phase runs at the end of iteration it - 1, where
+  // it reads the s whose syndrome that iteration needs: the syndrome of
+  // iteration it - 1 comes with it, and a tile whose frames have then all
+  // passed has run one check phase for nothing (it leaves s as it was).
+  decode_tile4<DMAX>(
+      s, bits, iters_out, conv_out, lt, max_iterations, smem,
+      [&](int it, int* bad) {
+        if (it == 1) {
+          check_phase(std::false_type{}, bad);
+          __syncthreads();
+        }
+        for (int r = threadIdx.x; r < vn; r += blockDim.x)
+          flooding_var_lane(s, q, ssign, min1, min2, argm, lt, r / Z, r % Z);
+        __syncthreads();
+        if (it < max_iterations) {
+          check_phase(std::true_type{}, bad);
+        } else {
+          syndrome4<DMAX, false>(s, bits, lt, bad);
+        }
+      });
 }
 
-template <typename Msg>
-cudaError_t layered_launch(void* qv, void* ssign, void* min1, void* min2,
-                           void* bits, void* iters, void* conv, void* park,
-                           const Tables& t, int nbt, int Bt,
-                           size_t park_elems, int max_iterations, int threads,
-                           float big, float scale, cudaStream_t stream) {
-  const size_t smem = layered_smem(Bt, park ? 0 : park_elems);
-  auto kernel = compressed_layered_kernel<Msg>;
+// Dynamic shared memory of a launch: the control ints, the tables and,
+// for the layered kernel, the park when it lives there (park_elems floats).
+size_t smem_bytes(const Tables& t, size_t park_elems) {
+  return sizeof(int) * (kCtlInts + table_ints(t.CG, t.E, t.VG)) +
+         sizeof(float) * park_elems;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int nbt, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nbt, threads, smem, stream>>>(
-      static_cast<float*>(qv), static_cast<int8_t*>(ssign),
-      static_cast<Msg*>(min1), static_cast<Msg*>(min2),
-      static_cast<int8_t*>(bits), static_cast<int*>(iters),
-      static_cast<int*>(conv), static_cast<float*>(park), t, Bt, park_elems,
-      max_iterations, big, scale);
+  kernel<<<nbt, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename Msg>
+template <int DMAX, typename Msg>
+cudaError_t layered_launch(void* qv, void* ssign, void* min1, void* min2,
+                           void* bits, void* iters, void* conv, void* park,
+                           const Tables& t, int nbt, size_t park_elems,
+                           int max_iterations, int threads, float big,
+                           float scale, cudaStream_t stream) {
+  return launch(compressed_layered_kernel<DMAX, Msg>, nbt, threads,
+                smem_bytes(t, park ? 0 : park_elems), stream,
+                static_cast<float*>(qv), static_cast<int8_t*>(ssign),
+                static_cast<Msg*>(min1), static_cast<Msg*>(min2),
+                static_cast<int8_t*>(bits), static_cast<int*>(iters),
+                static_cast<int*>(conv), static_cast<float*>(park), t,
+                park_elems, max_iterations, big, scale);
+}
+
+template <int DMAX, typename Msg>
 cudaError_t flooding_launch(void* s, const void* q, void* ssign, void* min1,
                             void* min2, void* argm, void* bits, void* iters,
-                            void* conv, const Tables& t, int nbt, int Bt,
+                            void* conv, const Tables& t, int nbt,
                             int max_iterations, int threads, float big,
                             float scale, cudaStream_t stream) {
-  const size_t smem = layered_smem(Bt, 0);
-  compressed_flooding_kernel<Msg><<<nbt, threads, smem, stream>>>(
-      static_cast<float*>(s), static_cast<const Msg*>(q),
-      static_cast<int8_t*>(ssign), static_cast<Msg*>(min1),
-      static_cast<Msg*>(min2), static_cast<int8_t*>(argm),
-      static_cast<int8_t*>(bits), static_cast<int*>(iters),
-      static_cast<int*>(conv), t, Bt, max_iterations, big, scale);
-  return cudaGetLastError();
+  return launch(compressed_flooding_kernel<DMAX, Msg>, nbt, threads,
+                smem_bytes(t, 0), stream, static_cast<float*>(s),
+                static_cast<const Msg*>(q), static_cast<int8_t*>(ssign),
+                static_cast<Msg*>(min1), static_cast<Msg*>(min2),
+                static_cast<int8_t*>(argm), static_cast<int8_t*>(bits),
+                static_cast<int*>(iters), static_cast<int*>(conv), t,
+                max_iterations, big, scale);
 }
+
+// Calls launch_for<DMAX, Msg>() with the least degree bucket that holds
+// max_degree and the storage type.
+template <template <int, typename> class Launch, typename... Args>
+cudaError_t by_bucket(int max_degree, int msg_bf16, Args&&... args) {
+  if (max_degree < 1 || max_degree > 64) return cudaErrorInvalidValue;
+#define LDPC_BUCKET(D)                                                  \
+  if (max_degree <= D)                                                  \
+    return msg_bf16 ? Launch<D, __nv_bfloat16>::run(args...)            \
+                    : Launch<D, float>::run(args...);
+  LDPC_BUCKET(8)
+  LDPC_BUCKET(16)
+  LDPC_BUCKET(32)
+  LDPC_BUCKET(64)
+#undef LDPC_BUCKET
+  return cudaErrorInvalidValue;
+}
+
+template <int DMAX, typename Msg>
+struct LayeredLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) {
+    return layered_launch<DMAX, Msg>(args...);
+  }
+};
+
+template <int DMAX, typename Msg>
+struct FloodingLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) {
+    return flooding_launch<DMAX, Msg>(args...);
+  }
+};
 
 }  // namespace
 
 // Both entry points take the ten layout tables as an array of device
-// pointers (see Tables in layered.cuh) and the tile shape, and return the
-// launch's cudaError_t. The storage type (min1, min2, and flooding's q) is
-// bf16 when msg_bf16, else f32; threads must be a multiple of Bt.
+// pointers (see Tables in layered.cuh), the tile shape (Bt must be 4) and
+// the largest check degree (at most 64), and return the launch's
+// cudaError_t. The storage type (min1, min2, and flooding's q) is bf16
+// when msg_bf16, else f32; threads is at most 256.
 
-// Layered: qv (nbt, VG, Z, Bt) f32 working posteriors; ssign (nbt, E, Z,
-// Bt) int8, min1 and min2 (nbt, CG, Z, Bt) zeroed state; bits (nbt, VG, Z,
-// Bt) int8 raw-channel bits in, decoded bits out; iters and conv (nbt, Bt)
-// int32 out; park (nbt, max_degree, Z, Bt) f32 in device memory, or null
-// to park in shared memory.
+// Layered: qv (nbt, VG, Z, 4) f32 working posteriors; ssign (nbt, E, Z, 4)
+// int8, min1 and min2 (nbt, CG, Z, 4) zeroed state; bits (nbt, VG, Z, 4)
+// int8 raw-channel bits in, decoded bits out; iters and conv (nbt, 4)
+// int32 out; park (nbt, max_degree, Z, 4) f32 in device memory, or null
+// to park in shared memory after the tables.
 extern "C" int ldpc_compressed_layered_decode(
     void* qv, void* ssign, void* min1, void* min2, void* bits, void* iters,
     void* conv, void* park, const void* const* tables, int nbt, int CG, int E,
     int VG, int Z, int Bt, int max_degree, int max_iterations, int threads,
     float big, float scale, int msg_bf16, void* stream) {
+  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
-  const size_t park_elems = (size_t)max_degree * Z * Bt;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? layered_launch<__nv_bfloat16>(
-                     qv, ssign, min1, min2, bits, iters, conv, park, t, nbt,
-                     Bt, park_elems, max_iterations, threads, big, scale, s)
-               : layered_launch<float>(qv, ssign, min1, min2, bits, iters,
-                                       conv, park, t, nbt, Bt, park_elems,
-                                       max_iterations, threads, big, scale,
-                                       s));
+  const size_t park_elems = (size_t)max_degree * Z * kBt;
+  return static_cast<int>(by_bucket<LayeredLaunch>(
+      max_degree, msg_bf16, qv, ssign, min1, min2, bits, iters, conv, park, t,
+      nbt, park_elems, max_iterations, threads, big, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// Flooding: s (nbt, VG, Z, Bt) f32 scratch; q (nbt, VG, Z, Bt) channel
-// planes; ssign (nbt, E, Z, Bt), min1, min2 and argm (nbt, CG, Z, Bt)
+// Flooding: s (nbt, VG, Z, 4) f32 scratch; q (nbt, VG, Z, 4) channel
+// planes; ssign (nbt, E, Z, 4), min1, min2 and argm (nbt, CG, Z, 4)
 // zeroed state; bits, iters and conv as for layered.
 extern "C" int ldpc_compressed_flooding_decode(
     void* s, const void* q, void* ssign, void* min1, void* min2, void* argm,
     void* bits, void* iters, void* conv, const void* const* tables, int nbt,
-    int CG, int E, int VG, int Z, int Bt, int max_iterations, int threads,
-    float big, float scale, int msg_bf16, void* stream) {
+    int CG, int E, int VG, int Z, int Bt, int max_degree, int max_iterations,
+    int threads, float big, float scale, int msg_bf16, void* stream) {
+  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? flooding_launch<__nv_bfloat16>(s, q, ssign, min1, min2, argm,
-                                                bits, iters, conv, t, nbt, Bt,
-                                                max_iterations, threads, big,
-                                                scale, st)
-               : flooding_launch<float>(s, q, ssign, min1, min2, argm, bits,
-                                        iters, conv, t, nbt, Bt,
-                                        max_iterations, threads, big, scale,
-                                        st));
+  return static_cast<int>(by_bucket<FloodingLaunch>(
+      max_degree, msg_bf16, s, q, ssign, min1, min2, argm, bits, iters, conv,
+      t, nbt, max_iterations, threads, big, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ldpc_compressed_error_string(int err) {

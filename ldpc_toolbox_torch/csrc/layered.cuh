@@ -1,12 +1,13 @@
-// Device code shared by csrc/resident_layered.cu and csrc/compressed.cu:
-// the layout tables, the message load and store, the min-sum layered sweep
-// of one tile over all check groups (generic in how the check state is
-// held), the syndrome of a tile's posteriors and the whole-decode loop
-// (iteration-0 test, per-frame freeze, per-tile early exit).
+// Device code of csrc/resident_layered.cu: the min-sum layered sweep of one
+// tile over all check groups with the check state held as messages, the
+// syndrome of a tile's posteriors and the whole-decode loop (iteration-0
+// test, per-frame freeze, per-tile early exit); and, shared with
+// csrc/compressed.cu, the layout tables and the message load and store.
 //
 // A tile is Bt frames, frames innermost: planes are (P, Z, Bt), item
 // i = lane * Bt + frame. One thread block owns one tile; blockDim.x is a
 // multiple of Bt, so a thread only ever sees one frame of a tile.
+// (csrc/compressed.cu gives a thread all four frames of a lane instead.)
 //
 // Bit-exactness with the JAX package (min-sum, f32 or bf16 storage):
 // - every x of a check group comes from the layer-entry Qv, and the
@@ -84,50 +85,16 @@ template <typename Msg>
 struct MessageState {
   Msg* rcv;
   int ZB;
-  __device__ __forceinline__ void begin(int, int) {}
   __device__ __forceinline__ float rold(int e, int i) const {
     return load_msg(rcv + (size_t)e * ZB + i);
   }
-  __device__ __forceinline__ void store(int e, int i, float rn, int, bool) {
+  __device__ __forceinline__ void store(int e, int i, float rn) {
     store_msg(rcv + (size_t)e * ZB + i, rn);
-  }
-  __device__ __forceinline__ void end(int, int, float, float) {}
-};
-
-// Check state compressed to sigma (E, Z, Bt) int8 in {-2, -1, 0, 1, 2}
-// (|sigma| = 2 marks the argmin slot, 0 the missing lane) and the
-// post-scale magnitudes min1, min2 (CG, Z, Bt) in the storage type:
-// Rold = w1 * min1 + w2 * min2 with w2 = sigma - clip(sigma, -1, 1) and
-// w1 = sigma - 2 * w2, computed op for op as the JAX package does.
-template <typename Msg>
-struct CompressedState {
-  int8_t* ssign;
-  Msg* min1;
-  Msg* min2;
-  int ZB;
-  float m1o, m2o;  // the group's stored magnitudes at the current item
-  __device__ __forceinline__ void begin(int g, int i) {
-    m1o = load_msg(min1 + (size_t)g * ZB + i);
-    m2o = load_msg(min2 + (size_t)g * ZB + i);
-  }
-  __device__ __forceinline__ float rold(int e, int i) const {
-    const int s = ssign[(size_t)e * ZB + i];
-    const int w2 = s - max(-1, min(s, 1));
-    const int w1 = s - 2 * w2;
-    return __fadd_rn(__fmul_rn((float)w1, m1o), __fmul_rn((float)w2, m2o));
-  }
-  __device__ __forceinline__ void store(int e, int i, float, int sgn,
-                                        bool is_arg) {
-    ssign[(size_t)e * ZB + i] = (int8_t)(is_arg ? 2 * sgn : sgn);
-  }
-  __device__ __forceinline__ void end(int g, int i, float m1s, float m2s) {
-    store_msg(min1 + (size_t)g * ZB + i, m1s);
-    store_msg(min2 + (size_t)g * ZB + i, m2s);
   }
 };
 
 // One layered sweep of one tile over all check groups, in place on qv (the
-// tile's (VG, Z, Bt) f32 posteriors) and the check state st.
+// tile's (VG, Z, Bt) f32 posteriors) and the messages st.
 //
 // Every x of a group is formed from the layer-entry Qv; the group's deltas
 // go to park (d, Z, Bt) f32, and after a barrier the thread that owns a Qv
@@ -143,15 +110,15 @@ struct CompressedState {
 // where no variable group repeats, needs neither park nor barrier, but
 // measured slower on an H100: the read-modify-writes of Qv, which the
 // compiler cannot move past the Rcv stores, form a serial chain.)
-template <class State>
-__device__ void layered_sweep(float* qv, State& st, const Tables& t, int Bt,
-                              float big, float scale, float* park) {
+template <typename Msg>
+__device__ void layered_sweep(float* qv, MessageState<Msg>& st,
+                              const Tables& t, int Bt, float big, float scale,
+                              float* park) {
   const int ZB = t.Z * Bt;
   for (int g = 0; g < t.CG; ++g) {
     const int e0 = t.chk_cs[g], d = group_end(t, g) - e0;
     for (int i = threadIdx.x; i < ZB; i += blockDim.x) {
       const int c = i / Bt, f = i - c * Bt;
-      st.begin(g, i);
       float m1 = 0.f, m2 = big;
       int arg = 0, par = 0;
       uint64_t negs = 0;
@@ -186,10 +153,9 @@ __device__ void layered_sweep(float* qv, State& st, const Tables& t, int Bt,
         const float loo = arg == k ? m2 : m1;
         const float rn = missing ? 0.f : (sgn < 0 ? -loo : loo);
         const float delta = __fsub_rn(rn, st.rold(e, i));  // before the store
-        st.store(e, i, rn, sgn, arg == k);
+        st.store(e, i, rn);
         park[k * ZB + i] = delta;
       }
-      st.end(g, i, m1, m2);
     }
     __syncthreads();
     // each thread owns the Qv cells of one (variable lane, frame) and adds

@@ -19,11 +19,12 @@ variable group give ``(Qv + d1) + d2``. Iteration 0 tests the raw-channel
 hard bits, so a frame can finish with 0 iterations.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
-``ops/fused_layered.py``'s) share the launch checks and the park of this
-module: a check group parks its deltas between the check update and the
-posterior update, in shared memory when ``max_chk_degree * Z * Bt``
-floats fit a block and in a device-memory scratch otherwise (CCSDS C2:
-261,632 bytes).
+``ops/fused_layered.py``'s) share the launch checks of this module, and
+the message kernels its park: a check group parks its deltas between the
+check update and the posterior update, in shared memory when
+``max_chk_degree * Z * Bt`` floats fit a block and in a device-memory
+scratch otherwise (CCSDS C2: 261,632 bytes). The compressed layered
+kernel places its own park, after its tables.
 """
 
 from __future__ import annotations

@@ -54,6 +54,11 @@ from ldpc_toolbox_torch.ops.resident_layered import (
 pytestmark = pytest.mark.cuda
 DECODERS = ["HLMinsumf32", "HLMinsumbf16", "HLNormminsumbf16"]
 FLOODING = ["Minsumf32", "Minsumbf16", "Normminsumbf16"]
+#: the compressed kernels' f32, bf16 and normalized names of both schedules
+COMPRESSED = [
+    "HLMinsumf32", "HLMinsumbf16", "HLNormminsumf32",
+    "Minsumf32", "Minsumbf16", "Normminsumf32",
+]
 
 
 @pytest.fixture
@@ -151,7 +156,7 @@ def test_flooding_partial_tile_streaming_equals_resident(cuda):
         assert torch.equal(out[key].cpu(), plain[key]), key
 
 
-@pytest.mark.parametrize("decoder", DECODERS)
+@pytest.mark.parametrize("decoder", DECODERS + ["HLNormminsumf32"])
 def test_compressed_layered_kernel_matches_plain_version(cuda, decoder):
     lg = lifted_graph_for(DvbCode.R1_4short)
     _, arith = make_arithmetic(decoder)
@@ -167,7 +172,7 @@ def test_compressed_layered_kernel_matches_plain_version(cuda, decoder):
     assert 0 < int(out[2].sum()) < out[2].numel()
 
 
-@pytest.mark.parametrize("decoder", FLOODING)
+@pytest.mark.parametrize("decoder", FLOODING + ["Normminsumf32"])
 def test_compressed_flooding_kernel_matches_plain_version(cuda, decoder):
     _, args = _flooding_case(decoder, cuda)
     before = compressed_flooding_decode.launches
@@ -179,6 +184,72 @@ def test_compressed_flooding_kernel_matches_plain_version(cuda, decoder):
     for a, b in zip(out, resident_flooding_decode(*args, 6)):
         assert torch.equal(a, b)
     assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+def _bg2z16():
+    bg, z = BaseGraph.BG2, 16
+    return LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
+
+
+@pytest.mark.parametrize("decoder", COMPRESSED)
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_compressed_kernels_on_small_and_wide_groups(cuda, code, decoder):
+    """5G BG2 z=16 (a check group has 16 lanes, far fewer than a block's
+    threads; degrees 3 to 10, one bucket) and CCSDS C2 (degree 32, the next
+    bucket; Z = 511, more lanes than threads; the layered park in device
+    memory), both schedules, against the plain versions."""
+    if code == "CCSDS C2":
+        lg, batch, sigma = lifted_graph_for(C2Code()), 64, 0.5
+    else:
+        lg, batch, sigma = _bg2z16(), 128, 1.3
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, batch, sigma, 5, cuda)
+    if decoder.startswith("HL"):
+        args = tile_inputs(lg, arith, x)
+        kernel, plain = compressed_layered_decode, compressed_layered_decode_reference
+    else:
+        args = flooding_tiles(lg, arith, x)
+        kernel, plain = compressed_flooding_decode, compressed_flooding_decode_reference
+    before = kernel.launches
+    out = kernel(*args, 10)
+    assert kernel.launches == before + 1
+    for a, b in zip(out, plain(*args, 10)):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+@pytest.mark.parametrize("decoder", [n for n in COMPRESSED if n.endswith("f32")])
+def test_compressed_partial_tile_matches_plain(cuda, decoder):
+    """A batch of 130 (33 tiles, the last padded) through the decoders'
+    glue onto the compressed kernels (the f32 names go there), against the
+    CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    llrs = _llrs(lg.n, 130, 1.3, 11, cuda)
+    decode = lifted_layered_decode if decoder.startswith("HL") else lifted_flooding_decode
+    launches = (compressed_layered_decode.launches, compressed_flooding_decode.launches)
+    out = decode(lg, arith, llrs, 10)
+    assert (compressed_layered_decode.launches, compressed_flooding_decode.launches) \
+        != launches
+    ref = decode(lg, arith, llrs.cpu(), 10)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key].cpu(), ref[key]), key
+
+
+@pytest.mark.parametrize("kernel", ["layered", "flooding"])
+def test_compressed_kernels_raise_on_other_tile_widths(cuda, kernel):
+    """The kernels give a thread all four frames of a lane: a CUDA tile of
+    another width raises before any launch."""
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    _, arith = make_arithmetic("HLMinsumf32" if kernel == "layered" else "Minsumf32")
+    x = _llrs(lg.n, 16, 1.05, 5, cuda)
+    tiles = (tile_inputs if kernel == "layered" else flooding_tiles)(lg, arith, x)
+    wide = [t.reshape(t.shape[0] // 2, *t.shape[1:3], 8).contiguous() for t in tiles[:2]]
+    fn = compressed_layered_decode if kernel == "layered" else compressed_flooding_decode
+    before = fn.launches
+    with pytest.raises(ValueError, match="tile width 8"):
+        fn(*wide, *tiles[2:], 4)
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("decoder", DECODERS)

@@ -24,7 +24,11 @@ from ldpc_toolbox_torch.convert import layout_to_device
 from ldpc_toolbox_torch.decoder import lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.ops import fused_bp2
-from ldpc_toolbox_torch.ops.resident_layered import resident_layered_decode
+from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
+from ldpc_toolbox_torch.ops.resident_layered import (
+    MAX_SHARED_BYTES,
+    resident_layered_decode,
+)
 
 from torch_parity import CODES, as_torch, lifted_graphs, llrs, parity_check
 
@@ -79,6 +83,30 @@ def test_recon_tables_match_jax(code):
         np.testing.assert_array_equal(a, b, err_msg=name)
         assert b.dtype == np.int32
         np.testing.assert_array_equal(getattr(layout, f"rec_{name}").numpy(), b)
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_compressed_kernels_shared_memory(code):
+    """The shared memory of a compressed kernel's block, held against the
+    device layout: its tables hold ``chk_cs`` and ``var_cs`` with an end
+    entry, a repeat flag a check group and eight tables an edge, in whole
+    16-byte rows after the 8 control words; the layered park adds max
+    degree x Z x 4 floats and fits beside them on every test code but
+    CCSDS C2, whose park goes to device memory."""
+    _, tlg = lifted_graphs(code)
+    layout = lifted_layered.device_layout(tlg, "cpu")
+    assert layout.chk_cs.numel() == layout.CG and layout.var_cs.numel() == layout.VG
+    for name in ("syn_vg", "syn_rot", "chk_rot", "syn_mask",
+                 "rec_plane", "rec_group", "rec_slot", "rec_rot"):
+        assert getattr(layout, name).numel() == layout.E, name
+    tables = shared_ints(layout, False) - 8
+    need = (layout.CG + 1) + (layout.VG + 1) + layout.CG + 8 * layout.E
+    assert tables % 4 == 0 and need <= tables < need + 4
+    park = layout.max_chk_degree * layout.Z * fused_bp2.BT
+    assert shared_ints(layout, True) == shared_ints(layout, False) + park
+    assert 4 * shared_ints(layout, False) <= MAX_SHARED_BYTES
+    fits = 4 * shared_ints(layout, True) <= MAX_SHARED_BYTES
+    assert fits == (code != "ccsds-c2")
 
 
 @pytest.mark.parametrize("code", CODES)
