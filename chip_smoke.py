@@ -251,8 +251,8 @@ def build():
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libs)} sources, "
           "one nvcc each, in parallel")
-    for name, lib in libs.items():
-        print(f"  {name}: {lib}")
+    for name, (lib, seconds) in libs.items():
+        print(f"  {name}: ready after {seconds:.1f} s, {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())

@@ -54,7 +54,11 @@
 //   iteration, not two;
 // - the layout tables are copied into shared memory once a launch.
 //
-// Bit-exactness with the JAX package: csrc/layered.cuh's rules, and
+// The thread-per-lane machinery (vectors, tables, fold, sweep, syndrome,
+// decode loop) is csrc/lanes.cuh's, shared with the message kernels.
+//
+// Bit-exactness with the JAX package: csrc/lanes.cuh's and csrc/layered.cuh's
+// rules, and
 // - Rold = w1 * min1 + w2 * min2 and c2v = sigma * select(argm == t, min2,
 //   min1) are computed with __fmul_rn / __fadd_rn, op for op;
 // - flooding v2c = store(s - c2v) (rounded to the storage type, as the
@@ -62,59 +66,11 @@
 //   rebuilt c2v in var-major slot order (__fadd_rn); the syndrome reads
 //   s <= 0 (Qv <= 0 for layered).
 
-#include <type_traits>
-
-#include "layered.cuh"
+#include "lanes.cuh"
 
 namespace {
 
 using namespace ldpc;
-
-// Frames a tile, and threads a block: two blocks an SM (a flagship batch
-// of 256 tiles is resident at once) at up to 128 registers a thread; at
-// 384 threads (80 registers, a flagship group's 360 lanes in one pass)
-// both kernels spilled and ran slower.
-constexpr int kBt = 4;
-constexpr int kThreads = 256;
-
-// Four frames of one lane.
-struct F4 {
-  float v[kBt];
-};
-
-__device__ __forceinline__ F4 load4(const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  return F4{{a.x, a.y, a.z, a.w}};
-}
-__device__ __forceinline__ F4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return F4{{__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)}};
-}
-__device__ __forceinline__ void store4(float* p, const F4& a) {
-  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-}
-__device__ __forceinline__ uint32_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& a) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_bits(a.v[0]) | bf16_bits(a.v[1]) << 16,
-                 bf16_bits(a.v[2]) | bf16_bits(a.v[3]) << 16);
-}
-// The four int8 of one lane (sigma, argm, bits) as one word.
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ void store_word(int8_t* p, uint32_t w) {
-  *reinterpret_cast<uint32_t*>(p) = w;
-}
-__device__ __forceinline__ int byte_of(uint32_t w, int f) {
-  return static_cast<int8_t>(w >> (8 * f));
-}
-__device__ __forceinline__ uint32_t byte_at(int v, int f) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
-}
 
 // Rold of one frame from its sigma and its group's stored magnitudes.
 __device__ __forceinline__ float rebuild(int s, float m1o, float m2o) {
@@ -122,123 +78,6 @@ __device__ __forceinline__ float rebuild(int s, float m1o, float m2o) {
   const int w1 = s - 2 * w2;
   return __fadd_rn(__fmul_rn((float)w1, m1o), __fmul_rn((float)w2, m2o));
 }
-
-// The layout tables in shared memory, with the products the phases use
-// precomputed: qbase = syn_vg * Z, rec_pz = rec_plane * Z, rec_gz =
-// rec_group * Z; chk_cs and var_cs end with E; repeat[g] is 1 when check
-// group g reaches a variable group twice.
-struct LaneTables {
-  const int* chk_cs;
-  const int* qbase;
-  const int* syn_rot;
-  const int* chk_rot;
-  const int* syn_mask;
-  const int* repeat;
-  const int* var_cs;
-  const int* rec_pz;
-  const int* rec_gz;
-  const int* rec_slot;
-  const int* rec_rot;
-  int CG, E, VG, Z;
-};
-
-// Shared-memory ints of the tables, rounded up to whole 16-byte rows.
-__host__ __device__ constexpr int table_ints(int CG, int E, int VG) {
-  return (2 * CG + VG + 2 + 8 * E + 3) / 4 * 4;
-}
-// Shared-memory ints of the decode loop's control words.
-constexpr int kCtlInts = 8;
-
-__device__ LaneTables load_tables(const Tables& t, int* sm) {
-  int* chk_cs = sm;
-  int* repeat = chk_cs + t.CG + 1;
-  int* var_cs = repeat + t.CG;
-  int* qbase = var_cs + t.VG + 1;
-  int* syn_rot = qbase + t.E;
-  int* chk_rot = syn_rot + t.E;
-  int* syn_mask = chk_rot + t.E;
-  int* rec_pz = syn_mask + t.E;
-  int* rec_gz = rec_pz + t.E;
-  int* rec_slot = rec_gz + t.E;
-  int* rec_rot = rec_slot + t.E;
-  for (int i = threadIdx.x; i <= t.CG; i += blockDim.x)
-    chk_cs[i] = i < t.CG ? t.chk_cs[i] : t.E;
-  for (int i = threadIdx.x; i <= t.VG; i += blockDim.x)
-    var_cs[i] = i < t.VG ? t.var_cs[i] : t.E;
-  for (int e = threadIdx.x; e < t.E; e += blockDim.x) {
-    qbase[e] = t.syn_vg[e] * t.Z;
-    syn_rot[e] = t.syn_rot[e];
-    chk_rot[e] = t.chk_rot[e];
-    syn_mask[e] = t.syn_mask[e];
-    rec_pz[e] = t.rec_plane[e] * t.Z;
-    rec_gz[e] = t.rec_group[e] * t.Z;
-    rec_slot[e] = t.rec_slot[e];
-    rec_rot[e] = t.rec_rot[e];
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < t.CG; g += blockDim.x) {
-    int rep = 0;
-    for (int a = chk_cs[g]; a < chk_cs[g + 1]; ++a)
-      for (int b = chk_cs[g]; b < a; ++b) rep |= qbase[a] == qbase[b];
-    repeat[g] = rep;
-  }
-  __syncthreads();
-  return LaneTables{chk_cs, qbase,  syn_rot, chk_rot,  syn_mask, repeat,
-                    var_cs, rec_pz, rec_gz,  rec_slot, rec_rot,  t.CG,
-                    t.E,    t.VG,   t.Z};
-}
-
-// Lane r of a check group's plane reads variable lane r - rot, mod Z.
-__device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
-  const int w = r - rot;
-  return w < 0 ? w + Z : w;
-}
-
-// The min-sum fold of a check's d inputs, in edge order, for each frame f:
-// m1 the least |x| (first minimum), m2 the second, arg its slot, negs the
-// signs (x < 0) by slot; their parity is popc(negs) & 1.
-template <int DMAX>
-struct Fold {
-  using Mask = std::conditional_t<(DMAX > 32), uint64_t, uint32_t>;
-  float m1[kBt] = {}, m2[kBt];
-  int arg[kBt] = {};
-  Mask negs[kBt] = {};
-
-  __device__ __forceinline__ void add(int k, int f, float x) {
-    const float mk = fabsf(x);
-    const Mask neg = x < 0.f;
-    if (k == 0) {
-      m1[f] = mk;
-      negs[f] = neg;
-    } else {
-      m2[f] = fminf(m2[f], fmaxf(m1[f], mk));
-      if (mk < m1[f]) {
-        m1[f] = mk;
-        arg[f] = k;
-      }
-      negs[f] |= neg << k;
-    }
-  }
-  __device__ __forceinline__ void scale_by(float scale) {
-    if (scale != 1.f) {
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) {
-        m1[f] = __fmul_rn(m1[f], scale);
-        m2[f] = __fmul_rn(m2[f], scale);
-      }
-    }
-  }
-  // the output sign of slot k (-1 or 1): the parity of the other signs
-  __device__ __forceinline__ int sign(int k, int f) const {
-    int par;
-    if constexpr (DMAX > 32) {
-      par = __popcll(negs[f]);
-    } else {
-      par = __popc(negs[f]);
-    }
-    return ((par ^ (int)(negs[f] >> k)) & 1) ? -1 : 1;
-  }
-};
 
 // Check update of check lane c of group g in one tile (the layered
 // schedule): every x from the layer-entry Qv, the new sigma and magnitudes
@@ -316,183 +155,6 @@ __device__ __forceinline__ void layered_check_lane(
   store4(min2 + at, m2s);
 }
 
-// The parked group's Qv update at variable lane w: each edge's Qv cell
-// gathered once, the parked deltas added in edge order (an edge into a
-// variable group an earlier edge reached continues from that edge's sum),
-// stored.
-template <int DMAX>
-__device__ __forceinline__ void layered_update_lane(float* qv, const float* park,
-                                                    const LaneTables& t, int g,
-                                                    int w) {
-  const int Z = t.Z;
-  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  F4 v[DMAX];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const int e = e0 + k;
-      v[k] = load4(qv + ((size_t)t.qbase[e] + w) * kBt);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-#pragma unroll
-      for (int j = 0; j < k; ++j)
-        if (t.qbase[e0 + j] == t.qbase[e0 + k]) v[k] = v[j];
-      const F4 pk = load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt);
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) v[k].v[f] = __fadd_rn(v[k].v[f], pk.v[f]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k)
-    if (k < d) store4(qv + ((size_t)t.qbase[e0 + k] + w) * kBt, v[k]);
-}
-
-// One layered sweep of one tile over all check groups.
-template <int DMAX, typename Msg>
-__device__ void layered_sweep4(float* qv, int8_t* ssign, Msg* min1, Msg* min2,
-                               float* park, const LaneTables& t, float big,
-                               float scale) {
-  for (int g = 0; g < t.CG; ++g) {
-    const bool parked = t.repeat[g];
-    for (int c = threadIdx.x; c < t.Z; c += blockDim.x)
-      layered_check_lane<DMAX>(qv, ssign, min1, min2, park, t, g, c, parked,
-                               big, scale);
-    __syncthreads();
-    if (parked) {
-      for (int w = threadIdx.x; w < t.Z; w += blockDim.x)
-        layered_update_lane<DMAX>(qv, park, t, g, w);
-      __syncthreads();
-    }
-  }
-}
-
-// ORs a warp's frames with an unsatisfied check (bit f) into *bad.
-__device__ __forceinline__ void report_odd(uint32_t odd, int* bad) {
-  odd = __reduce_or_sync(0xffffffffu, odd);
-  if (odd && (threadIdx.x & 31) == 0) atomicOr(bad, (int)odd);
-}
-
-// ORs into *bad the frames (bit f) of the tile with an unsatisfied check.
-// The hard decisions are the raw-channel bits (kFromBits, int8 (VG, Z, 4))
-// or post <= 0 (post f32 (VG, Z, 4)).
-template <int DMAX, bool kFromBits>
-__device__ void syndrome4(const float* post, const int8_t* bits,
-                          const LaneTables& t, int* bad) {
-  const int Z = t.Z;
-  uint32_t odd = 0;
-  for (int r = threadIdx.x; r < t.CG * Z; r += blockDim.x) {
-    const int g = r / Z, c = r - g * Z;
-    const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-    uint32_t h[DMAX];
-#pragma unroll
-    for (int k = 0; k < DMAX; ++k) {
-      if (k < d) {
-        const int e = e0 + k;
-        const size_t at = ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
-        if constexpr (kFromBits) {
-          h[k] = __vcmpne4(load_word(bits + at), 0u) & 0x01010101u;
-        } else {
-          const F4 p = load4(post + at);
-          h[k] = (p.v[0] <= 0.f) | (p.v[1] <= 0.f) << 8 | (p.v[2] <= 0.f) << 16 |
-                 (p.v[3] <= 0.f) << 24;
-        }
-      }
-    }
-    uint32_t par = 0;
-#pragma unroll
-    for (int k = 0; k < DMAX; ++k)
-      if (k < d && c != t.syn_mask[e0 + k]) par ^= h[k];
-    odd |= (par & 1u) | (par >> 7 & 2u) | (par >> 14 & 4u) | (par >> 21 & 8u);
-  }
-  report_odd(odd, bad);
-}
-
-// The bytes of a 4-bit frame mask, 0xff where set.
-__device__ __forceinline__ uint32_t frame_bytes(int mask) {
-  return (mask & 1 ? 0xffu : 0u) | (mask & 2 ? 0xff00u : 0u) |
-         (mask & 4 ? 0xff0000u : 0u) | (mask & 8 ? 0xff000000u : 0u);
-}
-
-// Sets the bits of the frames in mask to post <= 0 at every lane.
-__device__ void hard_decide(const float* post, int8_t* bits, int lanes, int mask) {
-  if (!mask) return;
-  const uint32_t keep = ~frame_bytes(mask);
-  for (int i = threadIdx.x; i < lanes; i += blockDim.x) {
-    const F4 p = load4(post + (size_t)i * kBt);
-    const uint32_t hw = (p.v[0] <= 0.f) | (p.v[1] <= 0.f) << 8 |
-                        (p.v[2] <= 0.f) << 16 | (p.v[3] <= 0.f) << 24;
-    int8_t* b = bits + (size_t)i * kBt;
-    store_word(b, (load_word(b) & keep) | (hw & ~keep));
-  }
-}
-
-// The whole decode of one tile, csrc/layered.cuh's decode_tile with a
-// thread per lane: post (VG, Z, 4) f32 holds the posteriors, bits the
-// raw-channel bits on entry and the decoded bits on exit. Iteration 0 tests
-// the raw bits; iterate(it, bad) runs iteration it and ORs into *bad the
-// frames whose posteriors then fail a check; a frame's bits and count
-// freeze at its first passing iteration; the tile stops once all its
-// frames passed; a frame that never passes gets max_iterations and
-// post <= 0. ctl is kCtlInts ints of shared memory.
-template <int DMAX, class Iterate>
-__device__ void decode_tile4(const float* post, int8_t* bits, int* iters_out,
-                             int* conv_out, const LaneTables& t,
-                             int max_iterations, int* ctl, Iterate&& iterate) {
-  constexpr int kAll = (1 << kBt) - 1;
-  int* bad = ctl;  // frames with an unsatisfied check, bit f
-  int* conv = ctl + 1;
-  int* newly = ctl + 2;
-  int* done = ctl + 3;
-  int* iters = ctl + 4;  // kBt of them
-  const size_t tile = blockIdx.x;
-  const int lanes = t.VG * t.Z;
-
-  if (threadIdx.x == 0) {
-    *bad = 0;
-    for (int f = 0; f < kBt; ++f) iters[f] = 0;
-  }
-  __syncthreads();
-  syndrome4<DMAX, true>(post, bits, t, bad);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *conv = ~*bad & kAll;
-    *bad = 0;
-    *done = *conv == kAll;
-  }
-  __syncthreads();
-
-  for (int it = 1; it <= max_iterations && !*done; ++it) {
-    iterate(it, bad);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int ok = ~*bad & kAll;
-      *newly = ok & ~*conv;
-      for (int f = 0; f < kBt; ++f)
-        if (*newly >> f & 1) iters[f] = it;
-      *conv |= ok;
-      *bad = 0;
-      *done = *conv == kAll;
-    }
-    __syncthreads();
-    // freeze the bits of frames that converged in this iteration
-    if (*newly) {
-      hard_decide(post, bits, lanes, *newly);
-      __syncthreads();
-    }
-  }
-
-  // frames that never converged keep their final hard decisions
-  hard_decide(post, bits, lanes, ~*conv & kAll);
-  if (threadIdx.x < kBt) {
-    const int f = threadIdx.x, ok = *conv >> f & 1;
-    iters_out[tile * kBt + f] = ok ? iters[f] : max_iterations;
-    conv_out[tile * kBt + f] = ok;
-  }
-}
-
 template <int DMAX, typename Msg>
 __global__ void __launch_bounds__(kThreads, 2) compressed_layered_kernel(
     float* qv_all, int8_t* ssign_all, Msg* min1_all, Msg* min2_all,
@@ -502,9 +164,7 @@ __global__ void __launch_bounds__(kThreads, 2) compressed_layered_kernel(
   const size_t tile = blockIdx.x;
   const size_t lanes = (size_t)t.VG * t.Z;
   const LaneTables lt = load_tables(t, smem + kCtlInts);
-  float* park = park_all ? park_all + tile * park_elems
-                         : reinterpret_cast<float*>(
-                               smem + kCtlInts + table_ints(t.CG, t.E, t.VG));
+  float* park = lane_park(park_all, park_elems, smem, t);
   float* qv = qv_all + tile * lanes * kBt;
   int8_t* ssign = ssign_all + tile * t.E * t.Z * kBt;
   Msg* min1 = min1_all + tile * t.CG * t.Z * kBt;
@@ -512,9 +172,11 @@ __global__ void __launch_bounds__(kThreads, 2) compressed_layered_kernel(
   int8_t* bits = bits_all + tile * lanes * kBt;
   decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
                      [&](int, int* bad) {
-                       layered_sweep4<DMAX>(qv, ssign, min1, min2, park, lt,
-                                            big, scale);
-                       syndrome4<DMAX, false>(qv, bits, lt, bad);
+                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
+                         layered_check_lane<DMAX>(qv, ssign, min1, min2, park, lt,
+                                                  g, c, parked, big, scale);
+                       });
+                       syndrome4<DMAX>(qv, lt, bad);
                      });
 }
 
@@ -584,9 +246,6 @@ __device__ __forceinline__ uint32_t flooding_check_lane(
   store_word(argm + at, aw);
   return odd;
 }
-
-// Edges of a variable lane whose loads go out together.
-constexpr int kVarChunk = 8;
 
 // Variable update of variable lane w of group vg in one tile: s = q + the
 // group's c2v in var-major slot order, each rebuilt from the check state
@@ -673,26 +332,9 @@ __global__ void __launch_bounds__(kThreads, 2) compressed_flooding_kernel(
         if (it < max_iterations) {
           check_phase(std::true_type{}, bad);
         } else {
-          syndrome4<DMAX, false>(s, bits, lt, bad);
+          syndrome4<DMAX>(s, lt, bad);
         }
       });
-}
-
-// Dynamic shared memory of a launch: the control ints, the tables and,
-// for the layered kernel, the park when it lives there (park_elems floats).
-size_t smem_bytes(const Tables& t, size_t park_elems) {
-  return sizeof(int) * (kCtlInts + table_ints(t.CG, t.E, t.VG)) +
-         sizeof(float) * park_elems;
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int nbt, int threads, size_t smem,
-                   cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<nbt, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 template <int DMAX, typename Msg>
@@ -723,23 +365,6 @@ cudaError_t flooding_launch(void* s, const void* q, void* ssign, void* min1,
                 static_cast<int8_t*>(argm), static_cast<int8_t*>(bits),
                 static_cast<int*>(iters), static_cast<int*>(conv), t,
                 max_iterations, big, scale);
-}
-
-// Calls launch_for<DMAX, Msg>() with the least degree bucket that holds
-// max_degree and the storage type.
-template <template <int, typename> class Launch, typename... Args>
-cudaError_t by_bucket(int max_degree, int msg_bf16, Args&&... args) {
-  if (max_degree < 1 || max_degree > 64) return cudaErrorInvalidValue;
-#define LDPC_BUCKET(D)                                                  \
-  if (max_degree <= D)                                                  \
-    return msg_bf16 ? Launch<D, __nv_bfloat16>::run(args...)            \
-                    : Launch<D, float>::run(args...);
-  LDPC_BUCKET(8)
-  LDPC_BUCKET(16)
-  LDPC_BUCKET(32)
-  LDPC_BUCKET(64)
-#undef LDPC_BUCKET
-  return cudaErrorInvalidValue;
 }
 
 template <int DMAX, typename Msg>

@@ -9,52 +9,68 @@
 //   resident_flooding.py resident_flooding_decode -> resident_flooding_kernel.
 //   The two TPU kernels compute the same function and differ only in how
 //   the state fits the TPU's vector memory (two message arrays, or one
-//   aliased array). Here the state lives in device memory either way, so
-//   one kernel with two arrays serves both.
+//   aliased array). Here the state lives in device memory either way; the
+//   kernel keeps one array, which serves both.
 //
-// Layout (as the JAX package's): a tile is Bt frames, frames innermost.
-// v2c planes (nbt, E, Z, Bt) are check-major in check lane coordinates;
-// c2v planes (nbt, E, Z, Bt) are variable-major in variable lane
-// coordinates; q and the hard bits (nbt, VG, Z, Bt) are per variable group.
-// Moving a message between the sides is a mod-Z lane shift by the edge's
-// lift shift; lanes are indexed mod Z directly (no padded plane height).
+// Layout of the phase kernels (as the JAX package's): a tile is Bt frames,
+// frames innermost. v2c planes (nbt, E, Z, Bt) are check-major in check
+// lane coordinates; c2v planes (nbt, E, Z, Bt) are variable-major in
+// variable lane coordinates; q and the hard bits (nbt, VG, Z, Bt) are per
+// variable group. Moving a message between the sides is a mod-Z lane shift
+// by the edge's lift shift; lanes are indexed mod Z directly (no padded
+// plane height). Each plane has exactly one writer: chk_dest and var_dest
+// are permutations of the edges, so no atomics touch a float.
 //
-// What bounds it on an H100: memory traffic. The flagship code (DVB-S2
+// What bounds them on an H100: memory traffic, and for the resident kernel
+// the latency of a tile's dependent loads. The flagship code (DVB-S2
 // n = 64800, rate 1/2) has 226,800 edge lanes and 64,800 variable lanes a
-// frame. One bf16 iteration at B = 1024 reads and writes v2c and c2v once
-// each (4 x 464 MB), reads q (133 MB), writes the bits (66 MB) and reads
-// them once per edge in the syndrome (232 MB): about 2.3 GB, 0.7 ms at
-// 3.35 TB/s. The state of one tile (2 x 1.8 MB of messages at Bt = 4) does
-// not fit an SM's 227 KB of shared memory, and the batch's state (0.9 GB)
-// does not fit the 50 MB L2, so it streams through device memory every
-// iteration. Min-sum does a few compares per byte, far below the compute
-// roof.
+// frame. A bf16 iteration at B = 1024 reads and writes every message once
+// in each phase (4 x 464 MB), reads q (133 MB), writes the hard bits
+// (66 MB) and reads them once per edge in the syndrome (232 MB): about
+// 2.3 GB, 0.7 ms at 3.35 TB/s, about 10 bytes an edge lane. The state of
+// one tile (1.8 MB of bf16 messages at Bt = 4) does not fit an SM's 227 KB
+// of shared memory, and the batch's (0.5 GB) does not fit the 50 MB L2, so
+// it streams through device memory every iteration. Min-sum does a few
+// compares per byte, far below the compute roof.
 //
-// What the design does about it: frames are innermost, so the threads of a
-// warp touch neighbouring frames of neighbouring lanes of one plane, and
-// every plane read and write coalesces (the mod-Z shift only splits an
-// access at the wrap). Each message plane has exactly one writer: chk_dest
-// and var_dest are permutations of the edges, so no atomics touch a float.
-// The resident kernel runs all iterations of a tile in one block (one
-// launch a decode, per-tile early exit once all its frames converged);
-// the check-side state stays in registers between a check's fold and its
-// outputs. Tensor cores, TMA and a compressed check state are later work.
+// What the resident kernel's design does about it (the form of
+// csrc/compressed.cu's kernels, on csrc/lanes.cuh):
+// - one thread per lane of a tile, all four frames at once: messages and q
+//   move as one 8-byte (bf16) or 16-byte (f32) vector, the hard bits as one
+//   4-byte word, and each table load and mod-Z index is done once a lane;
+// - one message array, check-major in check lane coordinates: the check
+//   lane reads its d v2c from its own cells and writes its d c2v back to
+//   them, and the variable lane reads each c2v from its cell (through the
+//   rec_* tables) and writes its v2c back to the same cell;
+// - the check lane's loop is unrolled to the check-degree bucket (8, 16, 32
+//   or 64), so its d loads go out before its fold; the variable lane loads
+//   its c2v eight at a time and keeps the first eight in registers for its
+//   outputs;
+// - a thread issues its next variable lane's loads (q and the first eight
+//   c2v) before this lane's arithmetic and stores, so a lane of degree 2
+//   or 3 (most of them) does not wait alone; the same for the check phase
+//   gained nothing in bf16 and spilled in f32;
+// - the syndrome is a pass of its own over the variable phase's hard-bit
+//   words (4 bytes a lane): taking it with the next iteration's check
+//   phase, as the compressed flooding kernel does with s, measured slower
+//   here (the check lane's gathers of the bit words cost more than the
+//   pass they save);
+// - the layout tables are copied into shared memory once a launch.
 //
 // Bit-exactness with the JAX package (min-sum, f32 or bf16 storage):
-// - the check fold is the one of csrc/resident_layered.cu: sign x < 0,
-//   first minimum wins, m2 folds as min(m2, max(m1, mk)) from big, the
-//   scale multiplies the magnitude (__fmul_rn) before the sign;
+// - the check fold is the one of csrc/lanes.cuh: sign x < 0, first minimum
+//   wins, m2 folds as min(m2, max(m1, mk)) from big, the scale multiplies
+//   the magnitude (__fmul_rn) before the sign;
 // - the variable rule sums in slot order, tot = q, then tot = tot + y_t
 //   for each slot (__fadd_rn), and emits tot - y_t (__fsub_rn); the hard
 //   bit is tot <= 0; the _rn intrinsics keep nvcc from forming an FMA;
 // - storage is rounded to nearest even (__float2bfloat16_rn);
-// - missing lanes: big into v2c at var_omask (check coordinates), 0 into
-//   c2v at chk_omask (variable coordinates), and the syndrome skips
+// - missing lanes: the check update sees big there and emits 0 there (the
+//   phase kernels: big into v2c at var_omask in check coordinates, 0 into
+//   c2v at chk_omask in variable coordinates), and the syndrome skips
 //   syn_mask.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lanes.cuh"
 
 namespace {
 
@@ -249,104 +265,6 @@ __global__ void fused_syndrome_kernel(const int8_t* bits_all, int* flags,
     flags[tile * t.Bt + f] = bad[f];
 }
 
-// The whole flooding decode of one tile per block. v2c, c2v and post (the
-// posterior hard bits) are the block's scratch in device memory; bits
-// holds the raw-channel bits on entry and the decoded bits on exit.
-template <typename Msg>
-__global__ void __launch_bounds__(512)
-    resident_flooding_kernel(Msg* v2c_all, Msg* c2v_all, const Msg* q_all,
-                             int8_t* post_all, int8_t* bits_all,
-                             int* iters_out, int* conv_out, Tables t,
-                             int max_iterations, float big, float scale) {
-  extern __shared__ int smem[];
-  const int Bt = t.Bt;
-  int* bad = smem;
-  int* conv = bad + Bt;
-  int* iters = conv + Bt;
-  int* newly = iters + Bt;
-  int* any_new = newly + Bt;
-  int* done = any_new + 1;
-
-  const size_t tile = blockIdx.x;
-  const size_t ZB = (size_t)t.Z * Bt;
-  Msg* v2c = v2c_all + tile * t.E * ZB;
-  Msg* c2v = c2v_all + tile * t.E * ZB;
-  const Msg* q = q_all + tile * t.VG * ZB;
-  int8_t* post = post_all + tile * t.VG * ZB;
-  int8_t* bits = bits_all + tile * t.VG * ZB;
-  const int cn = t.CG * (int)ZB, vn = t.VG * (int)ZB;
-
-  for (int f = threadIdx.x; f < Bt; f += blockDim.x) {
-    bad[f] = 0;
-    conv[f] = 0;
-    iters[f] = 0;
-  }
-  // v2c0 = q rolled into check coordinates, big at the missing lanes
-  for (int r = threadIdx.x; r < vn; r += blockDim.x) {
-    const Item x = split(r, t);
-    var_item<Msg, true>(nullptr, q, v2c, post, t, x.g, x.lane, x.f, big);
-  }
-  __syncthreads();
-  // iteration 0 tests the raw-channel bits
-  syndrome_tile(bits, t, bad);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int all = 1;
-    for (int f = 0; f < Bt; ++f) {
-      conv[f] = !bad[f];
-      bad[f] = 0;
-      all &= conv[f];
-    }
-    *done = all;
-  }
-  __syncthreads();
-
-  for (int it = 1; it <= max_iterations && !*done; ++it) {
-    for (int r = threadIdx.x; r < cn; r += blockDim.x) {
-      const Item x = split(r, t);
-      check_item(v2c, c2v, t, x.g, x.lane, x.f, big, scale);
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r < vn; r += blockDim.x) {
-      const Item x = split(r, t);
-      var_item<Msg, false>(c2v, q, v2c, post, t, x.g, x.lane, x.f, big);
-    }
-    __syncthreads();
-    syndrome_tile(post, t, bad);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int all = 1, fresh = 0;
-      for (int f = 0; f < Bt; ++f) {
-        const int ok = !bad[f];
-        newly[f] = ok && !conv[f];
-        if (newly[f]) iters[f] = it;
-        conv[f] |= ok;
-        bad[f] = 0;
-        all &= conv[f];
-        fresh |= newly[f];
-      }
-      *any_new = fresh;
-      *done = all;
-    }
-    __syncthreads();
-    // freeze the bits of the frames that converged in this iteration
-    if (*any_new)
-      for (int r = threadIdx.x; r < vn; r += blockDim.x)
-        if (newly[r % Bt]) bits[r] = post[r];
-    __syncthreads();
-  }
-
-  // frames that never converged take their last posterior bits (the raw
-  // bits when no iteration ran)
-  if (max_iterations > 0)
-    for (int r = threadIdx.x; r < vn; r += blockDim.x)
-      if (!conv[r % Bt]) bits[r] = post[r];
-  for (int f = threadIdx.x; f < Bt; f += blockDim.x) {
-    iters_out[tile * Bt + f] = conv[f] ? iters[f] : max_iterations;
-    conv_out[tile * Bt + f] = conv[f];
-  }
-}
-
 int grid_for(size_t items, int threads) {
   const size_t blocks = (items + threads - 1) / threads;
   const size_t cap = 132 * 32;  // grid-stride beyond a few waves
@@ -387,28 +305,204 @@ cudaError_t var_launch(const void* c2v, const void* q, void* v2c, void* bits,
   return cudaGetLastError();
 }
 
-template <typename Msg>
-cudaError_t resident_launch(void* v2c, void* c2v, const void* q, void* post,
-                            void* bits, void* iters, void* conv,
-                            const Tables& t, int nbt, int max_iterations,
-                            int threads, float big, float scale,
-                            cudaStream_t s) {
-  const size_t smem = sizeof(int) * (4 * t.Bt + 2);
-  resident_flooding_kernel<Msg><<<nbt, threads, smem, s>>>(
-      static_cast<Msg*>(v2c), static_cast<Msg*>(c2v),
-      static_cast<const Msg*>(q), static_cast<int8_t*>(post),
-      static_cast<int8_t*>(bits), static_cast<int*>(iters),
-      static_cast<int*>(conv), t, max_iterations, big, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Every entry point takes the layout's eleven int32 tables as an array of
-// device pointers (chk_cs, chk_dest, chk_rot, chk_omask, var_cs, var_dest,
-// var_rot, var_omask, syn_vg, syn_rot, syn_mask) and the tile shape, and
-// returns the launch's cudaError_t. Messages are bf16 when msg_bf16, else
-// f32; q has the messages' type.
+// The resident decode: a thread per lane of a tile's four frames, on the
+// machinery of csrc/lanes.cuh (the compressed kernels' form, with messages
+// as the check state).
+namespace ldpc {
+namespace {
+
+// The cell of var-major edge p at variable lane w: its message lives in
+// check-major plane rec_plane at check lane w - rec_rot.
+template <typename Msg>
+__device__ __forceinline__ Msg* var_cell(Msg* msg, const LaneTables& t, int p,
+                                         int w) {
+  return msg + ((size_t)t.rec_pz[p] + minus_mod(w, t.rec_rot[p], t.Z)) * kBt;
+}
+
+// What a variable lane loads first: q and the c2v of its first kVarChunk
+// edges.
+template <typename Msg>
+struct VarLoads {
+  Raw<Msg> q;
+  Raw<Msg> y0[kVarChunk];
+};
+
+template <typename Msg>
+__device__ __forceinline__ void var_load(const Msg* msg, const Msg* q,
+                                         const LaneTables& t, int vg, int w,
+                                         VarLoads<Msg>& v) {
+  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
+  v.q = load_raw(q + ((size_t)vg * t.Z + w) * kBt);
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) v.y0[j] = load_raw(var_cell(msg, t, p0 + j, w));
+}
+
+// Variable update of variable lane w of group vg in one tile, from its
+// first loads v: tot = q plus the group's c2v in var-major slot order;
+// output k = store(tot - y_k) goes back to y_k's cell as v2c, and the hard
+// decisions tot <= 0 to post. The first chunk's c2v stay in registers
+// through the outputs; a group of more than kVarChunk edges reads its
+// later chunks again.
+template <typename Msg>
+__device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
+                                           const LaneTables& t, int vg, int w,
+                                           const VarLoads<Msg>& v) {
+  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
+  F4 tot = unpack(v.q);
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j) {
+    if (p0 + j < p1) {
+      const F4 y = unpack(v.y0[j]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) tot.v[f] = __fadd_rn(tot.v[f], y.v[f]);
+    }
+  }
+  for (int c0 = p0 + kVarChunk; c0 < p1; c0 += kVarChunk) {
+    Raw<Msg> y[kVarChunk];
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j)
+      if (c0 + j < p1) y[j] = load_raw(var_cell(msg, t, c0 + j, w));
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j) {
+      if (c0 + j < p1) {
+        const F4 yj = unpack(y[j]);
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) tot.v[f] = __fadd_rn(tot.v[f], yj.v[f]);
+      }
+    }
+  }
+  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
+  auto output = [&](int p, const Raw<Msg>& yr) {
+    const F4 y = unpack(yr);
+    F4 o;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) o.v[f] = __fsub_rn(tot.v[f], y.v[f]);
+    store4(var_cell(msg, t, p, w), o);
+  };
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) output(p0 + j, v.y0[j]);
+  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(var_cell(msg, t, p, w)));
+}
+
+// Check update of check lane c of group g in one tile: folds the group's d
+// v2c, read from its own cells (e, c) (big at the missing lane, whatever
+// the cell holds), and writes its d c2v to the same cells, 0 at the
+// missing lane.
+template <int DMAX, typename Msg>
+__device__ __forceinline__ void message_check_lane(Msg* msg, const LaneTables& t,
+                                                   int g, int c, float big,
+                                                   float scale) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  Raw<Msg> x[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k)
+    if (k < d) x[k] = load_raw(msg + ((size_t)(e0 + k) * Z + c) * kBt);
+  Fold<DMAX> fold;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+      const F4 v = unpack(x[k]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) fold.add(k, f, missing ? big : v.v[f]);
+    }
+  }
+  fold.scale_by(scale);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      const bool missing = c == t.syn_mask[e];
+      F4 o;
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) o.v[f] = missing ? 0.f : fold.out(k, f);
+      store4(msg + ((size_t)e * Z + c) * kBt, o);
+    }
+  }
+}
+
+// The whole flooding decode of one tile per block. msg (E, Z, 4) holds
+// each edge's message in check-major cells, in check lane coordinates:
+// v2c after a variable phase, c2v after a check phase (the aliased single
+// array of resident_flooding.py's TPU kernel); post (VG, Z, 4) int8 the
+// posterior hard decisions; bits the raw-channel bits on entry and the
+// decoded bits on exit.
+template <int DMAX, typename Msg>
+__global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
+    Msg* msg_all, const Msg* q_all, int8_t* post_all, int8_t* bits_all,
+    int* iters_out, int* conv_out, Tables t, int max_iterations, float big,
+    float scale) {
+  extern __shared__ __align__(16) int smem[];
+  const size_t tile = blockIdx.x;
+  const int Z = t.Z, cn = t.CG * Z, vn = t.VG * Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  Msg* msg = msg_all + tile * t.E * Z * kBt;
+  const Msg* q = q_all + tile * vn * kBt;
+  int8_t* post = post_all + tile * vn * kBt;
+  int8_t* bits = bits_all + tile * vn * kBt;
+  // v2c = q at every edge; post starts as the raw bits, which a frame
+  // keeps if no iteration runs
+  for (int r = threadIdx.x; r < vn; r += blockDim.x) {
+    const int vg = r / Z, w = r % Z;
+    const F4 qf = load4(q + (size_t)r * kBt);
+    for (int p = lt.var_cs[vg]; p < lt.var_cs[vg + 1]; ++p)
+      store4(var_cell(msg, lt, p, w), qf);
+    store_word(post + (size_t)r * kBt, load_word(bits + (size_t)r * kBt));
+  }
+  // each iteration: the check phase, the variable phase, then the
+  // syndrome of the hard decisions the variable phase wrote
+  decode_tile4<DMAX>(
+      post, bits, iters_out, conv_out, lt, max_iterations, smem,
+      [&](int, int* bad) {
+        for (int r = threadIdx.x; r < cn; r += blockDim.x)
+          message_check_lane<DMAX>(msg, lt, r / Z, r % Z, big, scale);
+        __syncthreads();
+        // a thread's next variable lane loads before this one stores: in
+        // a phase each cell belongs to one lane, so no load can miss a store
+        VarLoads<Msg> v;
+        int r = threadIdx.x;
+        if (r < vn) var_load(msg, q, lt, r / Z, r % Z, v);
+        for (; r < vn; r += blockDim.x) {
+          VarLoads<Msg> next;
+          const int rn = r + blockDim.x;
+          if (rn < vn) var_load(msg, q, lt, rn / Z, rn % Z, next);
+          var_update(msg, post, lt, r / Z, r % Z, v);
+          v = next;
+        }
+        __syncthreads();
+        syndrome4<DMAX>(post, lt, bad);
+      });
+}
+
+template <int DMAX, typename Msg>
+struct ResidentLaunch {
+  static cudaError_t run(void* msg, const void* q, void* post, void* bits,
+                         void* iters, void* conv, const Tables& t, int nbt,
+                         int max_iterations, int threads, float big,
+                         float scale, cudaStream_t stream) {
+    return launch(resident_flooding_kernel<DMAX, Msg>, nbt, threads,
+                  smem_bytes(t, 0), stream, static_cast<Msg*>(msg),
+                  static_cast<const Msg*>(q), static_cast<int8_t*>(post),
+                  static_cast<int8_t*>(bits), static_cast<int*>(iters),
+                  static_cast<int*>(conv), t, max_iterations, big, scale);
+  }
+};
+
+}  // namespace
+}  // namespace ldpc
+
+// The phase entry points take the layout's eleven int32 tables as an array
+// of device pointers (chk_cs, chk_dest, chk_rot, chk_omask, var_cs,
+// var_dest, var_rot, var_omask, syn_vg, syn_rot, syn_mask) and the tile
+// shape, and return the launch's cudaError_t. Messages are bf16 when
+// msg_bf16, else f32; q has the messages' type.
 
 // c2v (nbt, E, Z, Bt) from v2c (nbt, E, Z, Bt).
 extern "C" int ldpc_fused_check(const void* v2c, void* c2v,
@@ -451,24 +545,22 @@ extern "C" int ldpc_fused_syndrome(const void* bits, void* flags,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole decode: v2c, c2v (nbt, E, Z, Bt) and post (nbt, VG, Z, Bt) int8
-// scratch; q (nbt, VG, Z, Bt); bits (nbt, VG, Z, Bt) int8 raw-channel bits
-// in, decoded bits out; iters and conv (nbt, Bt) int32 out. threads must be
-// a multiple of Bt and at most 512.
+// The whole decode. It takes the ten layered tables instead (see Tables in
+// layered.cuh), the tile shape (Bt must be 4) and the largest check degree
+// (at most 64); threads is at most 256. msg (nbt, E, Z, 4) and post (nbt,
+// VG, Z, 4) int8 scratch; q (nbt, VG, Z, 4) channel planes; bits (nbt, VG,
+// Z, 4) int8 raw-channel bits in, decoded bits out; iters and conv (nbt, 4)
+// int32 out.
 extern "C" int ldpc_resident_flooding_decode(
-    void* v2c, void* c2v, const void* q, void* post, void* bits, void* iters,
-    void* conv, const void* const* tables, int nbt, int CG, int VG, int E,
-    int Z, int Bt, int max_iterations, int threads, float big, float scale,
+    void* msg, const void* q, void* post, void* bits, void* iters, void* conv,
+    const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,
+    int max_degree, int max_iterations, int threads, float big, float scale,
     int msg_bf16, void* stream) {
-  const Tables t = make_tables(tables, CG, VG, E, Z, Bt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? resident_launch<__nv_bfloat16>(v2c, c2v, q, post, bits, iters,
-                                                conv, t, nbt, max_iterations,
-                                                threads, big, scale, s)
-               : resident_launch<float>(v2c, c2v, q, post, bits, iters, conv,
-                                        t, nbt, max_iterations, threads, big,
-                                        scale, s));
+  if (Bt != ldpc::kBt || threads > ldpc::kThreads) return cudaErrorInvalidValue;
+  const ldpc::Tables t = ldpc::make_tables(tables, CG, E, VG, Z);
+  return static_cast<int>(ldpc::by_bucket<ldpc::ResidentLaunch>(
+      max_degree, msg_bf16, msg, q, post, bits, iters, conv, t, nbt,
+      max_iterations, threads, big, scale, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ldpc_flooding_error_string(int err) {

@@ -1,0 +1,435 @@
+// Device code shared by the resident decode kernels that give a thread one
+// lane of a tile's four frames (csrc/compressed.cu, csrc/resident_layered.cu
+// and csrc/flooding.cu's resident_flooding_kernel): the four-frame vectors
+// and words, the layout tables in shared memory, the min-sum fold, the
+// layered sweep with its park, the syndrome, the whole-decode loop and the
+// launch by check-degree bucket.
+//
+// A tile is kBt = 4 frames, frames innermost: planes are (P, Z, 4), and a
+// thread handles all four frames of a lane, so a lane's f32 values move as
+// one 16-byte vector, its bf16 values as one 8-byte vector and its int8
+// values (signs, argmin slots, hard bits) as one 4-byte word; each table
+// load and each mod-Z index is done once a lane, not once a frame. Edge
+// loops run to a compile-time bound DMAX (the degree bucket: 8, 16, 32 or
+// 64), so a check's loads are all issued before its arithmetic starts.
+//
+// Bit-exactness: every f32 operation stays per frame and is the one of the
+// plain versions, with __fadd_rn, __fsub_rn and __fmul_rn (no FMA
+// contraction); bf16 unpacks by shifts (exact) and packs through
+// __float2bfloat16_rn (round to nearest even).
+
+#pragma once
+
+#include <type_traits>
+
+#include "layered.cuh"
+
+namespace ldpc {
+
+// Frames a tile, and threads a block: two blocks an SM (a flagship batch
+// of 256 tiles is resident at once) at up to 128 registers a thread; at
+// 384 threads (80 registers) the compressed kernels spilled and ran slower.
+constexpr int kBt = 4;
+constexpr int kThreads = 256;
+
+// Four frames of one lane.
+struct F4 {
+  float v[kBt];
+};
+
+// A lane's four values as loaded, before they are unpacked: bf16 stays
+// packed in two registers until its values are used.
+__device__ __forceinline__ float4 load_raw(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ uint2 load_raw(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+template <typename Msg>
+using Raw = decltype(load_raw(static_cast<const Msg*>(nullptr)));
+
+__device__ __forceinline__ F4 unpack(float4 a) { return F4{{a.x, a.y, a.z, a.w}}; }
+__device__ __forceinline__ F4 unpack(uint2 u) {
+  return F4{{__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)}};
+}
+template <typename Msg>
+__device__ __forceinline__ F4 load4(const Msg* p) {
+  return unpack(load_raw(p));
+}
+__device__ __forceinline__ void store4(float* p, const F4& a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& a) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_bits(a.v[0]) | bf16_bits(a.v[1]) << 16,
+                 bf16_bits(a.v[2]) | bf16_bits(a.v[3]) << 16);
+}
+// The four int8 of one lane (sigma, argm, bits) as one word.
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ void store_word(int8_t* p, uint32_t w) {
+  *reinterpret_cast<uint32_t*>(p) = w;
+}
+__device__ __forceinline__ int byte_of(uint32_t w, int f) {
+  return static_cast<int8_t>(w >> (8 * f));
+}
+__device__ __forceinline__ uint32_t byte_at(int v, int f) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
+}
+// A lane's four hard decisions as a word of 0/1 bytes: from posteriors
+// (post <= 0) or from stored bits (nonzero).
+__device__ __forceinline__ uint32_t hard_bits(const F4& a) {
+  return (a.v[0] <= 0.f) | (a.v[1] <= 0.f) << 8 | (a.v[2] <= 0.f) << 16 |
+         (a.v[3] <= 0.f) << 24;
+}
+__device__ __forceinline__ uint32_t hard_word(const float* p) {
+  return hard_bits(load4(p));
+}
+__device__ __forceinline__ uint32_t hard_word(const int8_t* p) {
+  return __vcmpne4(load_word(p), 0u) & 0x01010101u;
+}
+
+// The layout tables in shared memory, with the products the phases use
+// precomputed: qbase = syn_vg * Z, rec_pz = rec_plane * Z, rec_gz =
+// rec_group * Z; chk_cs and var_cs end with E; repeat[g] is 1 when check
+// group g reaches a variable group twice.
+struct LaneTables {
+  const int* chk_cs;
+  const int* qbase;
+  const int* syn_rot;
+  const int* chk_rot;
+  const int* syn_mask;
+  const int* repeat;
+  const int* var_cs;
+  const int* rec_pz;
+  const int* rec_gz;
+  const int* rec_slot;
+  const int* rec_rot;
+  int CG, E, VG, Z;
+};
+
+// Shared-memory ints of the tables, rounded up to whole 16-byte rows.
+__host__ __device__ constexpr int table_ints(int CG, int E, int VG) {
+  return (2 * CG + VG + 2 + 8 * E + 3) / 4 * 4;
+}
+// Shared-memory ints of the decode loop's control words.
+constexpr int kCtlInts = 8;
+
+__device__ inline LaneTables load_tables(const Tables& t, int* sm) {
+  int* chk_cs = sm;
+  int* repeat = chk_cs + t.CG + 1;
+  int* var_cs = repeat + t.CG;
+  int* qbase = var_cs + t.VG + 1;
+  int* syn_rot = qbase + t.E;
+  int* chk_rot = syn_rot + t.E;
+  int* syn_mask = chk_rot + t.E;
+  int* rec_pz = syn_mask + t.E;
+  int* rec_gz = rec_pz + t.E;
+  int* rec_slot = rec_gz + t.E;
+  int* rec_rot = rec_slot + t.E;
+  for (int i = threadIdx.x; i <= t.CG; i += blockDim.x)
+    chk_cs[i] = i < t.CG ? t.chk_cs[i] : t.E;
+  for (int i = threadIdx.x; i <= t.VG; i += blockDim.x)
+    var_cs[i] = i < t.VG ? t.var_cs[i] : t.E;
+  for (int e = threadIdx.x; e < t.E; e += blockDim.x) {
+    qbase[e] = t.syn_vg[e] * t.Z;
+    syn_rot[e] = t.syn_rot[e];
+    chk_rot[e] = t.chk_rot[e];
+    syn_mask[e] = t.syn_mask[e];
+    rec_pz[e] = t.rec_plane[e] * t.Z;
+    rec_gz[e] = t.rec_group[e] * t.Z;
+    rec_slot[e] = t.rec_slot[e];
+    rec_rot[e] = t.rec_rot[e];
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < t.CG; g += blockDim.x) {
+    int rep = 0;
+    for (int a = chk_cs[g]; a < chk_cs[g + 1]; ++a)
+      for (int b = chk_cs[g]; b < a; ++b) rep |= qbase[a] == qbase[b];
+    repeat[g] = rep;
+  }
+  __syncthreads();
+  return LaneTables{chk_cs, qbase,  syn_rot, chk_rot,  syn_mask, repeat,
+                    var_cs, rec_pz, rec_gz,  rec_slot, rec_rot,  t.CG,
+                    t.E,    t.VG,   t.Z};
+}
+
+// Lane r of a check group's plane reads variable lane r - rot, mod Z.
+__device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
+  const int w = r - rot;
+  return w < 0 ? w + Z : w;
+}
+
+// Edges of a flooding variable lane whose loads go out together.
+constexpr int kVarChunk = 8;
+
+// The min-sum fold of a check's d inputs, in edge order, for each frame f:
+// m1 the least |x| (first minimum), m2 the second, arg its slot, negs the
+// signs (x < 0) by slot; their parity is popc(negs) & 1.
+template <int DMAX>
+struct Fold {
+  using Mask = std::conditional_t<(DMAX > 32), uint64_t, uint32_t>;
+  float m1[kBt] = {}, m2[kBt];
+  int arg[kBt] = {};
+  Mask negs[kBt] = {};
+
+  __device__ __forceinline__ void add(int k, int f, float x) {
+    const float mk = fabsf(x);
+    const Mask neg = x < 0.f;
+    if (k == 0) {
+      m1[f] = mk;
+      negs[f] = neg;
+    } else {
+      m2[f] = fminf(m2[f], fmaxf(m1[f], mk));
+      if (mk < m1[f]) {
+        m1[f] = mk;
+        arg[f] = k;
+      }
+      negs[f] |= neg << k;
+    }
+  }
+  __device__ __forceinline__ void scale_by(float scale) {
+    if (scale != 1.f) {
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        m1[f] = __fmul_rn(m1[f], scale);
+        m2[f] = __fmul_rn(m2[f], scale);
+      }
+    }
+  }
+  // the output sign of slot k (-1 or 1): the parity of the other signs
+  __device__ __forceinline__ int sign(int k, int f) const {
+    int par;
+    if constexpr (DMAX > 32) {
+      par = __popcll(negs[f]);
+    } else {
+      par = __popc(negs[f]);
+    }
+    return ((par ^ (int)(negs[f] >> k)) & 1) ? -1 : 1;
+  }
+  // the min-sum output of slot k for frame f: the other inputs' least
+  // magnitude with the parity of their signs
+  __device__ __forceinline__ float out(int k, int f) const {
+    const float loo = arg[f] == k ? m2[f] : m1[f];
+    return sign(k, f) < 0 ? -loo : loo;
+  }
+};
+
+// The parked group's Qv update at variable lane w: each edge's Qv cell
+// gathered once, the parked deltas added in edge order (an edge into a
+// variable group an earlier edge reached continues from that edge's sum),
+// stored.
+template <int DMAX>
+__device__ __forceinline__ void layered_update_lane(float* qv, const float* park,
+                                                    const LaneTables& t, int g,
+                                                    int w) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  F4 v[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      v[k] = load4(qv + ((size_t)t.qbase[e] + w) * kBt);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+#pragma unroll
+      for (int j = 0; j < k; ++j)
+        if (t.qbase[e0 + j] == t.qbase[e0 + k]) v[k] = v[j];
+      const F4 pk = load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) v[k].v[f] = __fadd_rn(v[k].v[f], pk.v[f]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k)
+    if (k < d) store4(qv + ((size_t)t.qbase[e0 + k] + w) * kBt, v[k]);
+}
+
+// One layered sweep of one tile over all check groups. check_lane(g, c,
+// parked) updates check lane c of group g and either adds its deltas to
+// Qv itself (parked false: the group reaches no variable group twice, so
+// no other lane touches those cells) or parks them at park[(k * Z + c) *
+// 4]; a parked group's variable lanes then add them in edge order.
+template <int DMAX, class CheckLane>
+__device__ void layered_sweep4(float* qv, const float* park, const LaneTables& t,
+                               CheckLane&& check_lane) {
+  for (int g = 0; g < t.CG; ++g) {
+    const bool parked = t.repeat[g];
+    for (int c = threadIdx.x; c < t.Z; c += blockDim.x) check_lane(g, c, parked);
+    __syncthreads();
+    if (parked) {
+      for (int w = threadIdx.x; w < t.Z; w += blockDim.x)
+        layered_update_lane<DMAX>(qv, park, t, g, w);
+      __syncthreads();
+    }
+  }
+}
+
+// ORs a warp's frames with an unsatisfied check (bit f) into *bad.
+__device__ __forceinline__ void report_odd(uint32_t odd, int* bad) {
+  odd = __reduce_or_sync(0xffffffffu, odd);
+  if (odd && (threadIdx.x & 31) == 0) atomicOr(bad, (int)odd);
+}
+
+// ORs into *bad the frames (bit f) of the tile with an unsatisfied check
+// on the hard decisions of post ((VG, Z, 4) f32 posteriors, or int8 bits).
+template <int DMAX, typename P>
+__device__ void syndrome4(const P* post, const LaneTables& t, int* bad) {
+  const int Z = t.Z;
+  uint32_t odd = 0;
+  for (int r = threadIdx.x; r < t.CG * Z; r += blockDim.x) {
+    const int g = r / Z, c = r - g * Z;
+    const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+    uint32_t h[DMAX];
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < d) {
+        const int e = e0 + k;
+        h[k] = hard_word(post + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      }
+    }
+    uint32_t par = 0;
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k)
+      if (k < d && c != t.syn_mask[e0 + k]) par ^= h[k];
+    odd |= (par & 1u) | (par >> 7 & 2u) | (par >> 14 & 4u) | (par >> 21 & 8u);
+  }
+  report_odd(odd, bad);
+}
+
+// The bytes of a 4-bit frame mask, 0xff where set.
+__device__ __forceinline__ uint32_t frame_bytes(int mask) {
+  return (mask & 1 ? 0xffu : 0u) | (mask & 2 ? 0xff00u : 0u) |
+         (mask & 4 ? 0xff0000u : 0u) | (mask & 8 ? 0xff000000u : 0u);
+}
+
+// Sets the bits of the frames in mask to post's hard decisions at every lane.
+template <typename P>
+__device__ void hard_decide(const P* post, int8_t* bits, int lanes, int mask) {
+  if (!mask) return;
+  const uint32_t keep = ~frame_bytes(mask);
+  for (int i = threadIdx.x; i < lanes; i += blockDim.x) {
+    const uint32_t hw = hard_word(post + (size_t)i * kBt);
+    int8_t* b = bits + (size_t)i * kBt;
+    store_word(b, (load_word(b) & keep) | (hw & ~keep));
+  }
+}
+
+// The whole decode of one tile: post (VG, Z, 4) holds the posteriors (f32)
+// or their hard decisions (int8) whose syndrome decides, bits the
+// raw-channel bits on entry and the decoded bits on exit. Iteration 0 tests
+// the raw bits; iterate(it, bad) runs iteration it and ORs into *bad the
+// frames whose posteriors then fail a check; a frame's bits and count
+// freeze at its first passing iteration; the tile stops once all its
+// frames passed; a frame that never passes gets max_iterations and post's
+// last hard decisions (post must hold the raw bits' if no iteration runs).
+// ctl is kCtlInts ints of shared memory.
+template <int DMAX, typename P, class Iterate>
+__device__ void decode_tile4(const P* post, int8_t* bits, int* iters_out,
+                             int* conv_out, const LaneTables& t,
+                             int max_iterations, int* ctl, Iterate&& iterate) {
+  constexpr int kAll = (1 << kBt) - 1;
+  int* bad = ctl;  // frames with an unsatisfied check, bit f
+  int* conv = ctl + 1;
+  int* newly = ctl + 2;
+  int* done = ctl + 3;
+  int* iters = ctl + 4;  // kBt of them
+  const size_t tile = blockIdx.x;
+  const int lanes = t.VG * t.Z;
+
+  if (threadIdx.x == 0) {
+    *bad = 0;
+    for (int f = 0; f < kBt; ++f) iters[f] = 0;
+  }
+  __syncthreads();
+  syndrome4<DMAX>(static_cast<const int8_t*>(bits), t, bad);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *conv = ~*bad & kAll;
+    *bad = 0;
+    *done = *conv == kAll;
+  }
+  __syncthreads();
+
+  for (int it = 1; it <= max_iterations && !*done; ++it) {
+    iterate(it, bad);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int ok = ~*bad & kAll;
+      *newly = ok & ~*conv;
+      for (int f = 0; f < kBt; ++f)
+        if (*newly >> f & 1) iters[f] = it;
+      *conv |= ok;
+      *bad = 0;
+      *done = *conv == kAll;
+    }
+    __syncthreads();
+    // freeze the bits of frames that converged in this iteration
+    if (*newly) {
+      hard_decide(post, bits, lanes, *newly);
+      __syncthreads();
+    }
+  }
+
+  // frames that never converged keep their final hard decisions
+  hard_decide(post, bits, lanes, ~*conv & kAll);
+  if (threadIdx.x < kBt) {
+    const int f = threadIdx.x, ok = *conv >> f & 1;
+    iters_out[tile * kBt + f] = ok ? iters[f] : max_iterations;
+    conv_out[tile * kBt + f] = ok;
+  }
+}
+
+// Dynamic shared memory of a launch: the control ints, the tables and,
+// for a layered kernel, the park when it lives there (park_elems floats).
+inline size_t smem_bytes(const Tables& t, size_t park_elems) {
+  return sizeof(int) * (kCtlInts + table_ints(t.CG, t.E, t.VG)) +
+         sizeof(float) * park_elems;
+}
+
+// The block's park: its slice of the device park (nbt, park_elems), or,
+// when park_all is null, the shared memory after the tables.
+__device__ __forceinline__ float* lane_park(float* park_all, size_t park_elems,
+                                            int* smem, const Tables& t) {
+  return park_all ? park_all + blockIdx.x * park_elems
+                  : reinterpret_cast<float*>(smem + kCtlInts +
+                                             table_ints(t.CG, t.E, t.VG));
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int nbt, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<nbt, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Calls Launch<DMAX, Msg>::run(args...) with the least degree bucket that
+// holds max_degree and the storage type (bf16 when msg_bf16, else f32).
+template <template <int, typename> class Launch, typename... Args>
+cudaError_t by_bucket(int max_degree, int msg_bf16, Args&&... args) {
+  if (max_degree < 1 || max_degree > 64) return cudaErrorInvalidValue;
+#define LDPC_BUCKET(D)                                                  \
+  if (max_degree <= D)                                                  \
+    return msg_bf16 ? Launch<D, __nv_bfloat16>::run(args...)            \
+                    : Launch<D, float>::run(args...);
+  LDPC_BUCKET(8)
+  LDPC_BUCKET(16)
+  LDPC_BUCKET(32)
+  LDPC_BUCKET(64)
+#undef LDPC_BUCKET
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace ldpc

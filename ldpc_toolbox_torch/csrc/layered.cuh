@@ -1,15 +1,17 @@
-// Device code of csrc/resident_layered.cu: the min-sum layered sweep of one
-// tile over all check groups with the check state held as messages, the
-// syndrome of a tile's posteriors and the whole-decode loop (iteration-0
-// test, per-frame freeze, per-tile early exit); and, shared with
-// csrc/compressed.cu, the layout tables and the message load and store.
+// Device code shared by the kernels of csrc/resident_layered.cu,
+// csrc/compressed.cu and csrc/flooding.cu: the ten layout tables the
+// layered and resident kernels read and the message load and store; and
+// the streaming layered kernel's sweep (a thread per (lane, frame), the
+// check state held as messages, every group's deltas parked).
+// csrc/lanes.cuh builds the thread-per-lane kernels on it.
 //
 // A tile is Bt frames, frames innermost: planes are (P, Z, Bt), item
-// i = lane * Bt + frame. One thread block owns one tile; blockDim.x is a
-// multiple of Bt, so a thread only ever sees one frame of a tile.
-// (csrc/compressed.cu gives a thread all four frames of a lane instead.)
+// i = lane * Bt + frame. In layered_sweep one thread block owns one tile;
+// blockDim.x is a multiple of Bt, so a thread only ever sees one frame of
+// a tile.
 //
-// Bit-exactness with the JAX package (min-sum, f32 or bf16 storage):
+// Bit-exactness with the JAX package (min-sum, f32 or bf16 storage), for
+// every layered kernel:
 // - every x of a check group comes from the layer-entry Qv, and the
 //   group's deltas Rnew - Rold are added to Qv one rounding each, in edge
 //   order, so two edges of one group into one variable group give
@@ -174,107 +176,8 @@ __device__ void layered_sweep(float* qv, MessageState<Msg>& st,
   }
 }
 
-// Sets bad[f] for every frame f of the tile with an unsatisfied check. The
-// hard decisions are the raw-channel bits (kFromBits) or post <= 0.
-template <bool kFromBits>
-__device__ void syndrome(const float* post, const int8_t* bits,
-                         const Tables& t, int Bt, int* bad) {
-  const int ZB = t.Z * Bt;
-  int odd = 0;
-  for (int g = 0; g < t.CG; ++g) {
-    const int e0 = t.chk_cs[g], e1 = group_end(t, g);
-    for (int i = threadIdx.x; i < ZB; i += blockDim.x) {
-      const int c = i / Bt, f = i - c * Bt;
-      int par = 0;
-      for (int e = e0; e < e1; ++e) {
-        if (c == t.syn_mask[e]) continue;
-        const int at = qv_at(t, e, c, f, Bt);
-        par ^= kFromBits ? (bits[at] != 0) : (post[at] <= 0.f);
-      }
-      odd |= par;
-    }
-  }
-  if (odd) atomicOr(&bad[threadIdx.x % Bt], 1);
-}
-
-// Shared-memory ints of decode_tile: 4 * Bt + 2.
+// Shared-memory ints before the streaming sweep's park: 4 * Bt + 2.
 __host__ __device__ constexpr int control_ints(int Bt) { return 4 * Bt + 2; }
-
-// The whole decode of one tile: post (VG, Z, Bt) f32 holds the posteriors
-// the syndrome reads (Qv, or flooding's totals), bits the raw-channel bits
-// on entry and the decoded bits on exit. Iteration 0 tests the raw bits,
-// so a frame can finish with 0 iterations; iterate() runs one iteration on
-// the tile and ends with a barrier; a frame's bits and count freeze at its
-// first passing iteration; the tile stops once all its frames passed; a
-// frame that never passes gets max_iterations and post <= 0. ctl is
-// control_ints(Bt) ints of shared memory.
-template <class Iterate>
-__device__ void decode_tile(const float* post, int8_t* bits, int* iters_out,
-                            int* conv_out, const Tables& t, int Bt,
-                            int max_iterations, int* ctl, Iterate&& iterate) {
-  int* bad = ctl;
-  int* conv = bad + Bt;
-  int* iters = conv + Bt;
-  int* newly = iters + Bt;
-  int* any_new = newly + Bt;
-  int* done = any_new + 1;
-  const size_t tile = blockIdx.x;
-  const int vn = t.VG * t.Z * Bt;
-
-  for (int f = threadIdx.x; f < Bt; f += blockDim.x) {
-    bad[f] = 0;
-    conv[f] = 0;
-    iters[f] = 0;
-  }
-  __syncthreads();
-  syndrome<true>(post, bits, t, Bt, bad);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int all = 1;
-    for (int f = 0; f < Bt; ++f) {
-      conv[f] = !bad[f];
-      bad[f] = 0;
-      all &= conv[f];
-    }
-    *done = all;
-  }
-  __syncthreads();
-
-  for (int it = 1; it <= max_iterations && !*done; ++it) {
-    iterate();
-    syndrome<false>(post, bits, t, Bt, bad);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int all = 1, fresh = 0;
-      for (int f = 0; f < Bt; ++f) {
-        const int ok = !bad[f];
-        newly[f] = ok && !conv[f];
-        if (newly[f]) iters[f] = it;
-        conv[f] |= ok;
-        bad[f] = 0;
-        all &= conv[f];
-        fresh |= newly[f];
-      }
-      *any_new = fresh;
-      *done = all;
-    }
-    __syncthreads();
-    // freeze the bits of frames that converged in this iteration
-    if (*any_new) {
-      for (int i = threadIdx.x; i < vn; i += blockDim.x)
-        if (newly[i % Bt]) bits[i] = post[i] <= 0.f;
-    }
-    __syncthreads();
-  }
-
-  // frames that never converged keep their final hard decisions
-  for (int i = threadIdx.x; i < vn; i += blockDim.x)
-    if (!conv[i % Bt]) bits[i] = post[i] <= 0.f;
-  for (int f = threadIdx.x; f < Bt; f += blockDim.x) {
-    iters_out[tile * Bt + f] = conv[f] ? iters[f] : max_iterations;
-    conv_out[tile * Bt + f] = conv[f];
-  }
-}
 
 // This block's park: its slice of the device park (nbt, park_elems), or,
 // when park_all is null, the shared memory after the control ints.

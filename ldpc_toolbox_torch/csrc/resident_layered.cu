@@ -1,9 +1,10 @@
 // Horizontal-layered min-sum decode of frame tiles with the check state
-// held as messages (Rcv), one thread block per tile of Bt frames:
-// - resident_layered_kernel: all iterations in one launch;
-// - fused_layered_kernel: one sweep (the streaming form's iteration).
-// The sweep, syndrome and decode loop are shared with the compressed
-// kernels (csrc/layered.cuh).
+// held as messages (Rcv), one thread block per tile:
+// - resident_layered_kernel: all iterations in one launch, a thread per
+//   lane of a tile's four frames (csrc/lanes.cuh, the form of the
+//   compressed kernels of csrc/compressed.cu);
+// - fused_layered_kernel: one sweep (the streaming form's iteration), a
+//   thread per (lane, frame), the sweep of csrc/layered.cuh.
 //
 // Replaces these Pallas TPU kernels of ldpc_toolbox_tpu/ops/:
 // - resident_layered.py resident_layered_decode, which keeps one tile's
@@ -22,40 +23,116 @@
 // 226,800 edge lanes, so one iteration at B = 1024 moves about 4.6 GB:
 // about 1.4 ms at the card's 3.35 TB/s. Min-sum does a few compares per
 // byte, far below the compute roof, so memory traffic and the latency of
-// the dependent index loads bound the kernels.
+// a tile's dependent loads and barriers (one block walks its check groups
+// in turn) bound the kernels.
 //
-// What the design does about it: frames are innermost in every plane, so
-// the threads of a warp touch neighbouring frames of neighbouring lanes and
-// their accesses coalesce. A check group's signs stay in registers (a
-// 64-bit mask) and its deltas in a park between the check update and the
-// posterior update: in shared memory when they fit, in device memory
-// otherwise (CCSDS C2: 32 x 511 x 4 x 4 bytes). The resident kernel runs
-// all iterations in one launch and stops a tile whose frames have all
-// converged. The streaming kernel updates Qv and Rcv in place. Tensor
-// cores, TMA and a resident group pipeline are later work.
+// What the resident kernel's design does about it:
+// - a thread per lane, all four frames at once: Qv moves as one 16-byte
+//   vector, Rcv as one 8-byte (bf16) or 16-byte (f32) vector, and each
+//   table load and mod-Z index is done once a lane;
+// - the check lane's edge loops are unrolled to the check-degree bucket
+//   (8, 16, 32 or 64): its d Qv gathers and d Rcv loads go out before its
+//   fold, and Rold stays in registers (bf16 packed) through its outputs;
+// - a group that reaches no variable group twice (82 of the flagship's 90)
+//   adds its deltas to Qv from the check lane that gathered them: no park
+//   and one barrier. A group that does parks its deltas (in shared memory
+//   after the tables, or in device memory when they do not fit: CCSDS C2,
+//   32 x 511 x 4 x 4 bytes) and its variable lanes add them in edge order;
+// - the layout tables live in shared memory, 256 threads a block, two
+//   blocks an SM.
+// The streaming kernel keeps a thread per (lane, frame) and parks every
+// group's deltas, in shared memory when they fit.
 
-#include "layered.cuh"
+#include "lanes.cuh"
 
 namespace {
 
 using namespace ldpc;
 
-template <typename Msg>
-__global__ void resident_layered_kernel(float* qv_all, Msg* rcv_all,
-                                        int8_t* bits_all, int* iters_out,
-                                        int* conv_out, float* park_all,
-                                        Tables t, int Bt, size_t park_elems,
-                                        int max_iterations, float big,
-                                        float scale) {
-  extern __shared__ int ctl[];
+// Check update of check lane c of group g in one tile: every x = Qv - Rold
+// from the layer-entry Qv (big at the missing lane), Rnew in place (0 at
+// the missing lane), and the deltas Rnew - Rold (Rnew unrounded, Rold as
+// loaded) either added to Qv (parked false; no other lane touches those
+// cells in this group) or parked at park[(k * Z + c) * 4].
+template <int DMAX, typename Msg>
+__device__ __forceinline__ void message_check_lane(float* qv, Msg* rcv,
+                                                   float* park,
+                                                   const LaneTables& t, int g,
+                                                   int c, bool parked,
+                                                   float big, float scale) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  F4 q[DMAX];
+  Raw<Msg> r[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      q[k] = load4(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      r[k] = load_raw(rcv + ((size_t)e * Z + c) * kBt);
+    }
+  }
+  Fold<DMAX> fold;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+      const F4 rold = unpack(r[k]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f)
+        fold.add(k, f, missing ? big : __fsub_rn(q[k].v[f], rold.v[f]));
+    }
+  }
+  fold.scale_by(scale);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      const bool missing = c == t.syn_mask[e];
+      const F4 rold = unpack(r[k]);
+      F4 rn, delta;
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) {
+        rn.v[f] = missing ? 0.f : fold.out(k, f);
+        delta.v[f] = __fsub_rn(rn.v[f], rold.v[f]);
+      }
+      store4(rcv + ((size_t)e * Z + c) * kBt, rn);
+      if (parked) {
+        store4(park + ((size_t)k * Z + c) * kBt, delta);
+      } else {
+        float* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+        F4 qk = load4(cell);
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) qk.v[f] = __fadd_rn(qk.v[f], delta.v[f]);
+        store4(cell, qk);
+      }
+    }
+  }
+}
+
+template <int DMAX, typename Msg>
+__global__ void __launch_bounds__(kThreads, 2) resident_layered_kernel(
+    float* qv_all, Msg* rcv_all, int8_t* bits_all, int* iters_out,
+    int* conv_out, float* park_all, Tables t, size_t park_elems,
+    int max_iterations, float big, float scale) {
+  extern __shared__ __align__(16) int smem[];
   const size_t tile = blockIdx.x;
-  const int ZB = t.Z * Bt;
-  float* qv = qv_all + tile * t.VG * ZB;
-  MessageState<Msg> st{rcv_all + tile * t.E * ZB, ZB};
-  float* park = tile_park(park_all, park_elems, ctl, Bt);
-  decode_tile(qv, bits_all + tile * t.VG * ZB, iters_out, conv_out, t, Bt,
-              max_iterations, ctl,
-              [&] { layered_sweep(qv, st, t, Bt, big, scale, park); });
+  const size_t lanes = (size_t)t.VG * t.Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  float* park = lane_park(park_all, park_elems, smem, t);
+  float* qv = qv_all + tile * lanes * kBt;
+  Msg* rcv = rcv_all + tile * t.E * t.Z * kBt;
+  int8_t* bits = bits_all + tile * lanes * kBt;
+  decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
+                     [&](int, int* bad) {
+                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
+                         message_check_lane<DMAX>(qv, rcv, park, lt, g, c,
+                                                  parked, big, scale);
+                       });
+                       syndrome4<DMAX>(qv, lt, bad);
+                     });
 }
 
 template <typename Msg>
@@ -73,24 +150,20 @@ __global__ void fused_layered_kernel(float* qv_all, Msg* rcv_all,
   for (int i = threadIdx.x; i < t.VG * ZB; i += blockDim.x) bits[i] = qv[i] <= 0.f;
 }
 
-template <typename Msg>
-cudaError_t resident_launch(void* qv, void* rcv, void* bits, void* iters,
-                            void* conv, void* park, const Tables& t, int nbt,
-                            int Bt, size_t park_elems, int max_iterations,
-                            int threads, float big, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = layered_smem(Bt, park ? 0 : park_elems);
-  auto kernel = resident_layered_kernel<Msg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<nbt, threads, smem, stream>>>(
-      static_cast<float*>(qv), static_cast<Msg*>(rcv),
-      static_cast<int8_t*>(bits), static_cast<int*>(iters),
-      static_cast<int*>(conv), static_cast<float*>(park), t, Bt, park_elems,
-      max_iterations, big, scale);
-  return cudaGetLastError();
-}
+template <int DMAX, typename Msg>
+struct ResidentLaunch {
+  static cudaError_t run(void* qv, void* rcv, void* bits, void* iters,
+                         void* conv, void* park, const Tables& t, int nbt,
+                         size_t park_elems, int max_iterations, int threads,
+                         float big, float scale, cudaStream_t stream) {
+    return launch(resident_layered_kernel<DMAX, Msg>, nbt, threads,
+                  smem_bytes(t, park ? 0 : park_elems), stream,
+                  static_cast<float*>(qv), static_cast<Msg*>(rcv),
+                  static_cast<int8_t*>(bits), static_cast<int*>(iters),
+                  static_cast<int*>(conv), static_cast<float*>(park), t,
+                  park_elems, max_iterations, big, scale);
+  }
+};
 
 template <typename Msg>
 cudaError_t fused_launch(void* qv, void* rcv, void* bits, void* park,
@@ -111,30 +184,28 @@ cudaError_t fused_launch(void* qv, void* rcv, void* bits, void* park,
 
 }  // namespace
 
-// Every entry point takes the ten layout tables as an array of device
-// pointers (see Tables in layered.cuh) and the tile shape, and returns the
+// Both entry points take the ten layout tables as an array of device
+// pointers (see Tables in layered.cuh) and the tile shape, and return the
 // launch's cudaError_t. Messages are bf16 when msg_bf16, else f32. park is
 // (nbt, max_degree, Z, Bt) f32 scratch in device memory, or null to park
-// in shared memory; threads must be a multiple of Bt.
+// in shared memory.
 
-// Decodes nbt tiles in place: qv (nbt, VG, Z, Bt) f32 working posteriors,
-// rcv (nbt, E, Z, Bt) zeroed messages, bits (nbt, VG, Z, Bt) int8
-// raw-channel bits in, decoded bits out; iters and conv (nbt, Bt) int32 out.
+// Decodes nbt tiles in place: qv (nbt, VG, Z, 4) f32 working posteriors,
+// rcv (nbt, E, Z, 4) zeroed messages, bits (nbt, VG, Z, 4) int8
+// raw-channel bits in, decoded bits out; iters and conv (nbt, 4) int32 out.
+// Bt must be 4, the check degree at most 64 and threads at most 256.
 extern "C" int ldpc_resident_layered_decode(
     void* qv, void* rcv, void* bits, void* iters, void* conv, void* park,
     const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,
     int max_degree, int max_iterations, int threads, float big, float scale,
     int msg_bf16, void* stream) {
+  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
-  const size_t park_elems = (size_t)max_degree * Z * Bt;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? resident_launch<__nv_bfloat16>(
-                     qv, rcv, bits, iters, conv, park, t, nbt, Bt, park_elems,
-                     max_iterations, threads, big, scale, s)
-               : resident_launch<float>(qv, rcv, bits, iters, conv, park, t,
-                                        nbt, Bt, park_elems, max_iterations,
-                                        threads, big, scale, s));
+  const size_t park_elems = (size_t)max_degree * Z * kBt;
+  return static_cast<int>(by_bucket<ResidentLaunch>(
+      max_degree, msg_bf16, qv, rcv, bits, iters, conv, park, t, nbt,
+      park_elems, max_iterations, threads, big, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // One layered sweep of nbt tiles, in place on qv (nbt, VG, Z, Bt) f32 and

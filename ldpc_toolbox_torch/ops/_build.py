@@ -15,12 +15,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "compile_source", "library_path", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,23 +61,36 @@ def library_path(name: str) -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    so.with_suffix(".log").write_text(compile_source(src, tmp, nvcc))
+    os.replace(tmp, so)
+    return so
+
+
+def compile_source(src: Path, out: Path, nvcc: str | None = None) -> str:
+    """nvcc with the package's flags, ``src`` (a ``.cu`` that may include
+    the headers beside it) into the shared library ``out``; returns nvcc's
+    report (registers, shared memory, spills)."""
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc or _nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
         capture_output=True,
         text=True,
     )
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    return proc.stdout + proc.stderr
 
 
 def build_all(names=SOURCES) -> dict:
     """Builds the named sources at once, one nvcc each, all started
-    together; returns {name: library path}."""
+    together; returns {name: (library path, seconds until it was ready)}."""
+    t0 = time.perf_counter()
+
+    def timed(name):
+        path = library_path(name)
+        return path, time.perf_counter() - t0
+
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return dict(zip(names, pool.map(library_path, names)))
+        return dict(zip(names, pool.map(timed, names)))
 
 
 @functools.cache

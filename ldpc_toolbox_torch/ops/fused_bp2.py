@@ -306,8 +306,8 @@ def rule_for(arithmetic):
 _MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads per block of the check and variable phase kernels
 PHASE_THREADS = 256
-#: threads per block of the kernels that give one block to a tile (the
-#: syndrome and the resident decode); a multiple of the tile width
+#: threads per block of the syndrome kernel, which gives one block to a
+#: tile; a multiple of the tile width
 TILE_THREADS = 512
 #: the check kernels keep the signs of a group's inputs in 64 bits
 MAX_CHECK_DEGREE = 64
@@ -322,14 +322,20 @@ _TABLES = (
 @functools.cache
 def flooding_lib():
     """The loaded library of ``csrc/flooding.cu`` (built at first use)."""
-    lib = _build.load("flooding")
+    return bind_flooding(_build.load("flooding"))
+
+
+def bind_flooding(lib):
+    """Declares the C interface of a library built from
+    ``csrc/flooding.cu``; returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * 6  # nbt, CG, VG, E, Z, Bt
     lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [f, f, i, i, p]
     lib.ldpc_fused_var.argtypes = [p, p, p, p, p] + dims + [f, i, i, p]
     lib.ldpc_fused_syndrome.argtypes = [p, p, p] + dims + [i, p]
+    # the resident decode takes the layered tables and a degree bucket
     lib.ldpc_resident_flooding_decode.argtypes = (
-        [p] * 8 + dims + [i, i, f, f, i, p]
+        [p] * 7 + [i] * 7 + [i, i, f, f, i, p]
     )
     for fn in (
         lib.ldpc_fused_check, lib.ldpc_fused_var, lib.ldpc_fused_syndrome,

@@ -27,7 +27,7 @@ CUDA tensor each wrapper launches its kernel of ``csrc/compressed.cu`` or
 raises; on a CPU tensor it runs its plain version, which keeps the same
 compressed state and rebuilds messages from it as the kernel does. The
 kernels give a thread all four frames of a lane, so they take tiles of
-exactly ``BT = 4`` frames and raise on any other width; the plain versions
+exactly 4 frames and raise on any other width; the plain versions
 take any width.
 """
 
@@ -39,15 +39,16 @@ import functools
 import torch
 
 from . import _build
-from .fused_bp2 import BT, _MSG_DTYPES, _roll_planes, fused_syndrome_bits_reference
+from .fused_bp2 import _MSG_DTYPES, _roll_planes, fused_syndrome_bits_reference
 from .resident_flooding import decode_loop
 from .resident_layered import (
-    MAX_SHARED_BYTES,
+    LANE_THREADS,
     check_bits,
-    layered_launch,
+    lane_launch,
     layered_loop,
     on_planes,
     plane_tables,
+    shared_ints,
 )
 
 __all__ = [
@@ -58,13 +59,6 @@ __all__ = [
     "shared_ints",
     "takes_compressed_state",
 ]
-
-#: threads per block of the compressed kernels, a thread per lane of the
-#: tile's 4 frames (the most they are built for, ``csrc/compressed.cu``)
-COMPRESSED_THREADS = 256
-#: shared-memory ints of the kernels' decode-loop control words
-_CONTROL_INTS = 8
-
 
 def takes_compressed_state(rule) -> bool:
     """Whether the resident decodes of a rule keep the compressed check
@@ -109,40 +103,6 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
-def shared_ints(layout, with_park: bool) -> int:
-    """Dynamic shared memory, in 4-byte words, of a compressed kernel's
-    block (``smem_bytes`` of ``csrc/compressed.cu``): the control words;
-    the layout tables it copies, rounded up to 16-byte rows (``chk_cs`` and
-    ``var_cs`` with an end entry, a repeat flag a check group, and eight
-    tables an edge: ``syn_vg``, ``rec_plane`` and ``rec_group`` times Z,
-    ``syn_rot``, ``chk_rot``, ``syn_mask``, ``rec_slot`` and ``rec_rot``
-    as they are); and, ``with_park``, the layered park of max degree x Z x
-    4 floats."""
-    tables = 2 * layout.CG + layout.VG + 2 + 8 * layout.E
-    park = layout.max_chk_degree * layout.Z * BT if with_park else 0
-    return _CONTROL_INTS + -(-tables // 4) * 4 + park
-
-
-def _launch(x, layout, rule, max_iterations, with_park):
-    """``layered_launch``'s checks and arguments for the (nbt, P, Z, Bt)
-    f32 tiles x, with the compressed kernels' own: tiles of exactly 4
-    frames (a thread per lane holds all four) and the tables in shared
-    memory. The park (``with_park``: the layered kernel) goes after them
-    when it fits there, else in device memory."""
-    if x.shape[-1] != BT:
-        raise ValueError(f"tile width {x.shape[-1]}: the compressed kernels take {BT}")
-    tables, dims, _, stream = layered_launch(x, layout, rule, max_iterations,
-                                             with_park=False)
-    if 4 * shared_ints(layout, False) > MAX_SHARED_BYTES:
-        raise ValueError("the layout tables do not fit a block's shared memory")
-    park = None
-    if with_park and 4 * shared_ints(layout, True) > MAX_SHARED_BYTES:
-        nbt, _, Z, Bt = x.shape
-        park = torch.empty((nbt, layout.max_chk_degree, Z, Bt),
-                           dtype=torch.float32, device=x.device)
-    return tables, dims, park, stream
-
-
 def _state(nbt, layout, Z, Bt, store, dev):
     """Zeroed (ssign, min1, min2): sigma = 0 rebuilds every message as 0."""
     return (
@@ -161,7 +121,9 @@ def compressed_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int)
         )
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
     check_bits(bits0_t, qv)
-    tables, dims, park, stream = _launch(qv, layout, rule, max_iterations, True)
+    if qv.dtype != torch.float32:
+        raise TypeError("qv0_t must be float32")
+    tables, dims, park, stream = lane_launch(qv, layout, rule, max_iterations, True)
     nbt, _, Z, Bt = qv.shape
     dev = qv.device
     ssign, min1, min2 = _state(nbt, layout, Z, Bt, rule.storage_dtype, dev)
@@ -173,7 +135,7 @@ def compressed_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int)
             qv.data_ptr(), ssign.data_ptr(), min1.data_ptr(), min2.data_ptr(),
             bits.data_ptr(), iters.data_ptr(), conv.data_ptr(),
             None if park is None else park.data_ptr(), tables, *dims,
-            int(max_iterations), COMPRESSED_THREADS, rule.big, rule.scale,
+            int(max_iterations), LANE_THREADS, rule.big, rule.scale,
             _MSG_DTYPES[rule.storage_dtype], stream,
         ),
         "compressed_layered_decode",
@@ -197,7 +159,7 @@ def compressed_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
     check_bits(bits0_t, s)
     if q_t.data_ptr() % 16:
         raise ValueError("q_t must start on a 16-byte boundary")
-    tables, dims, _, stream = _launch(s, layout, rule, max_iterations, False)
+    tables, dims, _, stream = lane_launch(s, layout, rule, max_iterations, False)
     dev = q_t.device
     ssign, min1, min2 = _state(nbt, layout, Z, Bt, rule.storage_dtype, dev)
     argm = torch.zeros((nbt, layout.CG, Z, Bt), dtype=torch.int8, device=dev)
@@ -209,7 +171,7 @@ def compressed_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
             s.data_ptr(), q_t.data_ptr(), ssign.data_ptr(), min1.data_ptr(),
             min2.data_ptr(), argm.data_ptr(), bits.data_ptr(), iters.data_ptr(),
             conv.data_ptr(), tables, *dims, int(max_iterations),
-            COMPRESSED_THREADS, rule.big, rule.scale,
+            LANE_THREADS, rule.big, rule.scale,
             _MSG_DTYPES[rule.storage_dtype], stream,
         ),
         "compressed_flooding_decode",

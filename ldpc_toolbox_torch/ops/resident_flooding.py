@@ -14,9 +14,11 @@ aliased between the phases). On this card the state lives in device
 memory either way, so the CUDA kernel keeps two arrays.
 
 On a CUDA tensor it launches ``resident_flooding_kernel`` of
-``csrc/flooding.cu`` (one thread block per tile, all iterations in one
-launch) or raises; on a CPU tensor it runs the plain version
-``resident_flooding_decode_reference``, built from the plain phases.
+``csrc/flooding.cu`` (one thread block per tile of 4 frames, a thread per
+lane, all iterations in one launch, one message array in check-major
+cells) or raises, also for a tile of another width; on a CPU tensor it
+runs the plain version ``resident_flooding_decode_reference``, built from
+the plain phases (any width).
 
 Semantics (bit-identical to the JAX package's kernels): v2c starts as the
 channel planes rolled into check coordinates with big at the missing
@@ -33,15 +35,14 @@ import torch
 
 from .fused_bp2 import (
     _MSG_DTYPES,
-    TILE_THREADS,
     _check_planes,
     flooding_lib,
     fused_check_reference,
     fused_syndrome_bits_reference,
     fused_var_reference,
-    launch_args,
     raise_on,
 )
+from .resident_layered import LANE_THREADS, lane_launch
 
 __all__ = [
     "resident_flooding_decode",
@@ -68,22 +69,21 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
     _check_planes(bits0_t, layout.VG, layout, torch.int8, "bits0_t")
     if bits0_t.shape != q_t.shape or bits0_t.device != q_t.device:
         raise ValueError("q_t and bits0_t must match in shape and device")
-    if max_iterations < 0:
-        raise ValueError("max_iterations must be >= 0")
-    tables, dims, stream = launch_args(q_t, layout, rule)
+    tables, dims, _, stream = lane_launch(q_t, layout, rule, max_iterations, False)
+    if q_t.data_ptr() % 16:
+        raise ValueError("q_t must start on a 16-byte boundary")
     nbt, VG, Z, Bt = q_t.shape
     dev = q_t.device
-    v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev)
-    c2v = torch.empty_like(v2c)
-    post = torch.empty_like(bits0_t)
+    msg = torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev)
+    post = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=dev)
     bits = bits0_t.clone(memory_format=torch.contiguous_format)
     iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
     conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
     raise_on(
         flooding_lib().ldpc_resident_flooding_decode(
-            v2c.data_ptr(), c2v.data_ptr(), q_t.data_ptr(), post.data_ptr(),
-            bits.data_ptr(), iters.data_ptr(), conv.data_ptr(), tables, *dims,
-            int(max_iterations), TILE_THREADS, rule.big, rule.scale,
+            msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
+            iters.data_ptr(), conv.data_ptr(), tables, *dims,
+            int(max_iterations), LANE_THREADS, rule.big, rule.scale,
             _MSG_DTYPES[rule.storage_dtype], stream,
         ),
         "resident_flooding_decode",

@@ -6,9 +6,10 @@ a batch cut into tiles of Bt frames, ``(nbt, VG, Z, Bt)`` planes, runs all
 iterations (layered sweep, syndrome test, per-frame freeze at first
 convergence, per-tile early exit) and returns the hard bits, iteration
 counts and convergence flags. On a CUDA tensor it launches the hand-written
-kernel of ``csrc/resident_layered.cu`` (one thread block per tile) or
-raises; on a CPU tensor it runs the plain version
-``resident_layered_decode_reference``.
+kernel of ``csrc/resident_layered.cu`` (one thread block per tile of 4
+frames, a thread per lane) or raises, also for a tile of another width; on
+a CPU tensor it runs the plain version ``resident_layered_decode_reference``
+(any width).
 
 Semantics (bit-identical to the JAX package's kernel and jnp path): layers
 are the check groups in bucket-major order; every x of a group is formed
@@ -19,12 +20,16 @@ variable group give ``(Qv + d1) + d2``. Iteration 0 tests the raw-channel
 hard bits, so a frame can finish with 0 iterations.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
-``ops/fused_layered.py``'s) share the launch checks of this module, and
-the message kernels its park: a check group parks its deltas between the
-check update and the posterior update, in shared memory when
-``max_chk_degree * Z * Bt`` floats fit a block and in a device-memory
-scratch otherwise (CCSDS C2: 261,632 bytes). The compressed layered
-kernel places its own park, after its tables.
+``ops/fused_layered.py``'s) share the launch checks of this module. The
+four resident kernels that give a thread one lane of a tile's four frames
+(this one, the two compressed ones and ``ops/resident_flooding.py``'s)
+also share ``lane_launch``: they copy the same layout tables into shared
+memory (``shared_ints``). A layered check group that reaches a variable
+group twice parks its deltas between the check update and the posterior
+update: after the tables when ``max_chk_degree * Z * 4`` floats fit there
+too, in a device-memory scratch otherwise (CCSDS C2: 261,632 bytes). The
+streaming sweep (``ops/fused_layered.py``) parks every group's deltas, in
+shared memory when they fit a block.
 """
 
 from __future__ import annotations
@@ -40,17 +45,27 @@ from .fused_bp2 import _MSG_DTYPES, BT, MAX_CHECK_DEGREE
 __all__ = [
     "BT",
     "BLOCK_THREADS",
+    "LANE_THREADS",
     "LAYERED_TABLES",
+    "lane_launch",
     "resident_layered_decode",
     "resident_layered_decode_reference",
     "layered_decode_planes",
     "layered_loop",
     "message_sweep",
+    "parks_in_device_memory",
     "plane_tables",
+    "shared_ints",
 ]
 
-#: threads per block; a multiple of BT, so each thread keeps one frame
+#: threads per block of the streaming sweep; a multiple of BT, so each
+#: thread keeps one frame
 BLOCK_THREADS = 512
+#: threads per block of the kernels with a thread per lane of a tile's 4
+#: frames (the most ``csrc/lanes.cuh`` builds them for)
+LANE_THREADS = 256
+#: shared-memory ints of their decode-loop control words
+_CONTROL_INTS = 8
 #: dynamic shared memory a block may use on Hopper
 MAX_SHARED_BYTES = 232_448
 
@@ -64,7 +79,12 @@ LAYERED_TABLES = (
 
 @functools.cache
 def _lib():
-    lib = _build.load("resident_layered")
+    return bind(_build.load("resident_layered"))
+
+
+def bind(lib):
+    """Declares the C interface of a library built from
+    ``csrc/resident_layered.cu``; returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * 7  # nbt, CG, E, VG, Z, Bt, max degree
     lib.ldpc_resident_layered_decode.argtypes = (
@@ -85,23 +105,36 @@ def raise_on(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
-def layered_launch(qv, layout, rule, max_iterations: int = 0, with_park=True):
-    """Check the (nbt, VG, Z, Bt) f32 Qv tiles of a layered launch against
-    the layout and rule; returns (table pointer array, dims, park,
+def layered_launch(qv, layout, rule):
+    """Check the (nbt, VG, Z, Bt) f32 Qv tiles of a streaming sweep's launch
+    against the layout and rule; returns (table pointer array, dims, park,
     stream). ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
-    device-memory park, or None when the park fits shared memory (or
-    ``with_park`` is False: the compressed flooding kernel parks nothing)."""
-    if qv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qv.device}")
+    device-memory park, or None when the park fits shared memory."""
+    tables, dims, stream = _launch_args(qv, layout, rule, 0)
+    if qv.dtype != torch.float32:
+        raise TypeError("qv must be float32")
     nbt, VG, Z, Bt = qv.shape
-    if qv.dtype != torch.float32 or not qv.is_contiguous():
-        raise TypeError("qv must be contiguous float32")
+    if BLOCK_THREADS % Bt:
+        raise ValueError(f"tile width {Bt} must divide {BLOCK_THREADS}")
+    degree = layout.max_chk_degree
+    park = None
+    if 4 * (degree * Z * Bt + 4 * Bt + 2) > MAX_SHARED_BYTES:
+        park = torch.empty((nbt, degree, Z, Bt), dtype=torch.float32, device=qv.device)
+    return tables, dims, park, stream
+
+
+def _launch_args(x, layout, rule, max_iterations):
+    """The checks every layered or lane launch makes on its (nbt, P, Z, Bt)
+    tiles x; returns (table pointer array, dims, stream)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    nbt, VG, Z, Bt = x.shape
+    if not x.is_contiguous():
+        raise TypeError("planes must be contiguous")
     if (VG, Z) != (layout.VG, layout.Z):
         raise ValueError(f"planes {(VG, Z)} do not match the layout")
     if rule.storage_dtype not in _MSG_DTYPES:
         raise TypeError(f"unsupported message storage {rule.storage_dtype}")
-    if BLOCK_THREADS % Bt:
-        raise ValueError(f"tile width {Bt} must divide {BLOCK_THREADS}")
     if layout.max_chk_degree > MAX_CHECK_DEGREE:
         raise ValueError(
             f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
@@ -110,17 +143,54 @@ def layered_launch(qv, layout, rule, max_iterations: int = 0, with_park=True):
         raise ValueError("max_iterations must be >= 0")
     tables = [getattr(layout, name) for name in LAYERED_TABLES]
     if any(
-        t.device != qv.device or t.dtype != torch.int32 or not t.is_contiguous()
+        t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous()
         for t in tables
     ):
         raise TypeError("layout tables must be contiguous int32 on the planes' device")
     ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
-    degree = layout.max_chk_degree
+    dims = (nbt, layout.CG, layout.E, VG, Z, Bt, layout.max_chk_degree)
+    return ptrs, dims, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def shared_ints(layout, with_park: bool) -> int:
+    """Dynamic shared memory, in 4-byte words, of a block of a kernel with a
+    thread per lane (``smem_bytes`` of ``csrc/lanes.cuh``): the control
+    words; the layout tables it copies, rounded up to 16-byte rows
+    (``chk_cs`` and ``var_cs`` with an end entry, a repeat flag a check
+    group, and eight tables an edge: ``syn_vg``, ``rec_plane`` and
+    ``rec_group`` times Z, ``syn_rot``, ``chk_rot``, ``syn_mask``,
+    ``rec_slot`` and ``rec_rot`` as they are); and, ``with_park``, the
+    layered park of max degree x Z x 4 floats."""
+    tables = 2 * layout.CG + layout.VG + 2 + 8 * layout.E
+    park = layout.max_chk_degree * layout.Z * BT if with_park else 0
+    return _CONTROL_INTS + -(-tables // 4) * 4 + park
+
+
+def parks_in_device_memory(layout) -> bool:
+    """Whether a layered kernel with a thread per lane parks its deltas in
+    device memory: the tables and the park do not fit a block's shared
+    memory together (CCSDS C2)."""
+    return 4 * shared_ints(layout, True) > MAX_SHARED_BYTES
+
+
+def lane_launch(x, layout, rule, max_iterations, with_park):
+    """The checks and arguments of a launch of a kernel with a thread per
+    lane, on its (nbt, VG, Z, Bt) tiles x: those of every layered launch,
+    tiles of exactly 4 frames (a thread holds all four) and the tables in
+    shared memory; returns (table pointer array, dims, park, stream) as
+    ``layered_launch`` does. The park (``with_park``: the layered kernels)
+    goes after the tables when it fits there, else in device memory."""
+    if x.shape[-1] != BT:
+        raise ValueError(f"tile width {x.shape[-1]}: the kernel takes {BT}")
+    tables, dims, stream = _launch_args(x, layout, rule, max_iterations)
+    if 4 * shared_ints(layout, False) > MAX_SHARED_BYTES:
+        raise ValueError("the layout tables do not fit a block's shared memory")
     park = None
-    if with_park and 4 * (degree * Z * Bt + 4 * Bt + 2) > MAX_SHARED_BYTES:
-        park = torch.empty((nbt, degree, Z, Bt), dtype=torch.float32, device=qv.device)
-    dims = (nbt, layout.CG, layout.E, VG, Z, Bt, degree)
-    return ptrs, dims, park, torch.cuda.current_stream(qv.device).cuda_stream
+    if with_park and parks_in_device_memory(layout):
+        nbt, _, Z, Bt = x.shape
+        park = torch.empty((nbt, layout.max_chk_degree, Z, Bt),
+                           dtype=torch.float32, device=x.device)
+    return tables, dims, park, stream
 
 
 def check_bits(bits0_t, qv0_t):
@@ -146,7 +216,9 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
         )
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
     check_bits(bits0_t, qv)
-    tables, dims, park, stream = layered_launch(qv, layout, rule, max_iterations)
+    if qv.dtype != torch.float32:
+        raise TypeError("qv0_t must be float32")
+    tables, dims, park, stream = lane_launch(qv, layout, rule, max_iterations, True)
     nbt, _, Z, Bt = qv.shape
     dev = qv.device
     bits = bits0_t.clone(memory_format=torch.contiguous_format)
@@ -157,7 +229,7 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
     err = lib.ldpc_resident_layered_decode(
         qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
         conv.data_ptr(), None if park is None else park.data_ptr(), tables,
-        *dims, int(max_iterations), BLOCK_THREADS, rule.big, rule.scale,
+        *dims, int(max_iterations), LANE_THREADS, rule.big, rule.scale,
         _MSG_DTYPES[rule.storage_dtype], stream,
     )
     raise_on(lib, err, "resident_layered_decode")

@@ -252,6 +252,77 @@ def test_compressed_kernels_raise_on_other_tile_widths(cuda, kernel):
     assert fn.launches == before
 
 
+def _small_or_wide(code):
+    """(graph, batch, sigma) of 5G BG2 z=16 (a check group has 16 lanes, far
+    fewer than a block's threads; degrees 3 to 10, one bucket) or CCSDS C2
+    (degree 32, the next bucket; Z = 511, more lanes than threads; the
+    layered park in device memory)."""
+    if code == "CCSDS C2":
+        return lifted_graph_for(C2Code()), 64, 0.5
+    return _bg2z16(), 128, 1.3
+
+
+@pytest.mark.parametrize("decoder", DECODERS + FLOODING)
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_message_kernels_on_small_and_wide_groups(cuda, code, decoder):
+    """The message kernels (a thread per lane) on both codes for the f32,
+    bf16 and normalized bf16 names of both schedules, against the plain
+    versions."""
+    lg, batch, sigma = _small_or_wide(code)
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, batch, sigma, 5, cuda)
+    if decoder.startswith("HL"):
+        args = tile_inputs(lg, arith, x)
+        kernel, plain = resident_layered_decode, resident_layered_decode_reference
+    else:
+        args = flooding_tiles(lg, arith, x)
+        kernel, plain = resident_flooding_decode, resident_flooding_decode_reference
+    before = kernel.launches
+    out = kernel(*args, 10)
+    assert kernel.launches == before + 1
+    for a, b in zip(out, plain(*args, 10)):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+@pytest.mark.parametrize(
+    "decoder", ["HLMinsumbf16", "HLNormminsumbf16", "Minsumbf16", "Normminsumbf16"]
+)
+def test_message_partial_tile_matches_plain(cuda, decoder):
+    """A batch of 130 (33 tiles, the last padded) through the decoders'
+    glue onto the message kernels (the bf16 names go there), against the
+    CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    llrs = _llrs(lg.n, 130, 1.3, 11, cuda)
+    layered = decoder.startswith("HL")
+    kernel = resident_layered_decode if layered else resident_flooding_decode
+    before = kernel.launches
+    out = (lifted_layered_decode if layered else lifted_flooding_decode)(lg, arith, llrs, 10)
+    assert kernel.launches == before + 1
+    ref = (lifted_layered_decode if layered else lifted_flooding_decode)(
+        lg, arith, llrs.cpu(), 10
+    )
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key].cpu(), ref[key]), key
+
+
+@pytest.mark.parametrize("kernel", ["layered", "flooding"])
+def test_message_kernels_raise_on_other_tile_widths(cuda, kernel):
+    """A thread holds all four frames of a lane: a CUDA tile of another
+    width raises before any launch."""
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    _, arith = make_arithmetic("HLMinsumbf16" if kernel == "layered" else "Minsumbf16")
+    x = _llrs(lg.n, 16, 1.05, 5, cuda)
+    tiles = (tile_inputs if kernel == "layered" else flooding_tiles)(lg, arith, x)
+    wide = [t.reshape(t.shape[0] // 2, *t.shape[1:3], 8).contiguous() for t in tiles[:2]]
+    fn = resident_layered_decode if kernel == "layered" else resident_flooding_decode
+    before = fn.launches
+    with pytest.raises(ValueError, match="tile width 8"):
+        fn(*wide, *tiles[2:], 4)
+    assert fn.launches == before
+
+
 @pytest.mark.parametrize("decoder", DECODERS)
 def test_fused_layered_iteration_matches_plain_version(cuda, decoder):
     """One and two sweeps in place on the same planes."""

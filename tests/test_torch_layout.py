@@ -26,7 +26,9 @@ from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.ops import fused_bp2
 from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
 from ldpc_toolbox_torch.ops.resident_layered import (
+    LAYERED_TABLES,
     MAX_SHARED_BYTES,
+    parks_in_device_memory,
     resident_layered_decode,
 )
 
@@ -107,6 +109,35 @@ def test_compressed_kernels_shared_memory(code):
     assert 4 * shared_ints(layout, False) <= MAX_SHARED_BYTES
     fits = 4 * shared_ints(layout, True) <= MAX_SHARED_BYTES
     assert fits == (code != "ccsds-c2")
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_message_kernels_shared_memory(code):
+    """The message kernels (resident layered and flooding) copy the
+    compressed kernels' tables, so one ``shared_ints`` gives the shared
+    memory of all four: the flooding kernels' block holds the tables only,
+    the layered kernels' the tables and their park, except on CCSDS C2,
+    whose park goes to device memory. Held against the device layout, the
+    flooding kernel's one message array is consistent: the cell var-major
+    edge p reads at variable lane w through ``rec_plane`` and ``rec_rot``
+    is the v2c cell the phase kernels write (``var_dest``, w + ``var_rot``),
+    and its missing lane is ``var_omask``."""
+    _, tlg = lifted_graphs(code)
+    layout = lifted_layered.device_layout(tlg, "cpu")
+    for name in LAYERED_TABLES:
+        want = {"chk_cs": layout.CG, "var_cs": layout.VG}.get(name, layout.E)
+        assert getattr(layout, name).numel() == want, name
+    assert 4 * shared_ints(layout, False) <= MAX_SHARED_BYTES
+    device_park = parks_in_device_memory(layout)
+    assert device_park == (code == "ccsds-c2")
+    assert device_park == (4 * shared_ints(layout, True) > MAX_SHARED_BYTES)
+    Z = layout.Z
+    w = torch.arange(Z)
+    plane = layout.rec_plane.long()
+    assert torch.equal(plane, layout.var_dest.long())
+    cell = (w[None, :] - layout.rec_rot.long()[:, None]) % Z
+    assert torch.equal(cell, (w[None, :] + layout.var_rot.long()[:, None]) % Z)
+    assert torch.equal(layout.syn_mask[plane], layout.var_omask)
 
 
 @pytest.mark.parametrize("code", CODES)

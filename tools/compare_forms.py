@@ -1,0 +1,212 @@
+"""Time forms of a kernel source in turns on one GPU.
+
+    python3 tools/compare_forms.py --source {compressed,flooding,resident_layered}
+        [--form NAME=DIR[:THREADS] ...] [--base DIR] [--reps 5]
+
+A form is a directory holding a version of ``csrc/<source>.cu`` and the
+headers it includes, built here with the package's nvcc flags; "repo" is
+the package's own ``csrc/``. ``--form`` forms share the package's C
+interface and run at the package's block size, or at THREADS a block where
+given. ``--base`` names a directory holding the sources of commit c5040f6
+(``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for the three sources
+and ``layered.cuh``), whose message kernels give a thread one (lane,
+frame); they run as they ran there: the compressed kernels at 256
+threads, the message kernels at 512 threads a block, the resident flooding
+kernel through its own C interface (two message arrays, the eleven
+flooding tables). Each form is built into the package's git-ignored
+``build/forms/``, nvcc's report beside it as ``<source>-NAME.log``.
+
+Each source's resident kernels run the flagship decode (DVB-S2 R1_2,
+B = 1024, 1.0 dB, at most 30 iterations) on the tiles of the bf16 and the
+f32 min-sum names of their schedule. On each tile set it holds every
+form's bits, iterations and flags equal to the package kernel's, then
+times all forms and the package's kernel of the other check state (the
+compressed kernel for a message source, the message kernel for the
+compressed one) on the same tiles in turns (the order reversed every round;
+CUDA events, median of ``--reps``). Prints the card's name and power limit,
+a line a tile set and one JSON line with every time in milliseconds.
+"""
+
+import argparse
+import ctypes
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from chip_smoke import (  # noqa: E402
+    FLAGSHIP_BATCH,
+    FLAGSHIP_EBN0,
+    FLAGSHIP_ITERS,
+    R1_2_RATE,
+    channel_llrs,
+    event_ms,
+    sigma_at,
+)
+from ldpc_toolbox_torch.codes.dvbs2 import Code  # noqa: E402
+from ldpc_toolbox_torch.decoder.factory import make_arithmetic  # noqa: E402
+from ldpc_toolbox_torch.decoder.lifted import lifted_graph_for  # noqa: E402
+from ldpc_toolbox_torch.decoder.lifted_flooding import flooding_tiles  # noqa: E402
+from ldpc_toolbox_torch.decoder.lifted_layered import tile_inputs  # noqa: E402
+from ldpc_toolbox_torch.ops import (  # noqa: E402
+    _build,
+    fused_bp2,
+    resident_compressed,
+    resident_flooding,
+    resident_layered,
+)
+
+OUT = _build.BUILD_DIR / "forms"
+#: per source: (schedule, the wrapper's module, the name there of its
+#: library getter, the wrapper, the other check state's kernel, the
+#: library binder)
+PLAN = {
+    "compressed": [
+        ("layered", resident_compressed, "_lib", "compressed_layered_decode",
+         resident_layered.resident_layered_decode, resident_compressed.bind),
+        ("flooding", resident_compressed, "_lib", "compressed_flooding_decode",
+         resident_flooding.resident_flooding_decode, resident_compressed.bind),
+    ],
+    "resident_layered": [
+        ("layered", resident_layered, "_lib", "resident_layered_decode",
+         resident_compressed.compressed_layered_decode, resident_layered.bind),
+    ],
+    "flooding": [
+        ("flooding", resident_flooding, "flooding_lib", "resident_flooding_decode",
+         resident_compressed.compressed_flooding_decode, fused_bp2.bind_flooding),
+    ],
+}
+NAMES = {"layered": ("HLMinsumbf16", "HLMinsumf32"), "flooding": ("Minsumbf16", "Minsumf32")}
+#: block sizes of the c5040f6 forms, by source
+BASE_THREADS = {"compressed": 256, "resident_layered": 512, "flooding": 512}
+
+
+def build(source, name, src_dir):
+    """Builds ``src_dir/<source>.cu`` into ``OUT``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    so = OUT / f"{source}-{name}.so"
+    report = _build.compile_source(pathlib.Path(src_dir) / f"{source}.cu", so)
+    so.with_suffix(".log").write_text(report)
+    return ctypes.CDLL(str(so))
+
+
+def with_lib(module, getter, lib, threads, fn, *args):
+    """fn(*args) with ``module``'s wrappers launching ``lib`` at
+    ``threads`` threads a block."""
+    saved = getattr(module, getter), module.LANE_THREADS
+    setattr(module, getter, lambda: lib)
+    module.LANE_THREADS = threads
+    try:
+        return fn(*args)
+    finally:
+        setattr(module, getter, saved[0])
+        module.LANE_THREADS = saved[1]
+
+
+def base_flooding(lib, q_t, bits0_t, layout, rule, max_iterations):
+    """The c5040f6 resident flooding kernel through its own C interface
+    (v2c and c2v arrays, the eleven flooding tables, 512 threads a
+    block)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldpc_resident_flooding_decode.argtypes = [p] * 8 + [i] * 6 + [i, i, f, f, i, p]
+    tables, dims, stream = fused_bp2.launch_args(q_t, layout, rule)
+    nbt, VG, Z, Bt = q_t.shape
+    v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=q_t.device)
+    c2v = torch.empty_like(v2c)
+    post = torch.empty_like(bits0_t)
+    bits = bits0_t.clone()
+    iters = torch.empty((nbt, Bt), dtype=torch.int32, device=q_t.device)
+    conv = torch.empty_like(iters)
+    err = lib.ldpc_resident_flooding_decode(
+        v2c.data_ptr(), c2v.data_ptr(), q_t.data_ptr(), post.data_ptr(),
+        bits.data_ptr(), iters.data_ptr(), conv.data_ptr(), tables, *dims,
+        int(max_iterations), 512, rule.big, rule.scale,
+        fused_bp2._MSG_DTYPES[rule.storage_dtype], stream,
+    )
+    if err:
+        raise RuntimeError(f"base flooding launch failed: {err}")
+    return bits, iters, conv
+
+
+def turns(fns, reps):
+    """Medians of ``reps`` timings of each fn in turns, after a warm-up."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(reps):
+        for name in order if r % 2 == 0 else order[::-1]:
+            times[name].append(event_ms(fns[name]))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--source", required=True, choices=sorted(PLAN))
+    p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
+    p.add_argument("--base", metavar="DIR")
+    p.add_argument("--reps", type=int, default=5)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    source = args.source
+    sources = {"repo": _build.CSRC}
+    block = {}
+    for form in args.form:
+        name, spec = form.split("=", 1)
+        sources[name], _, n = spec.partition(":")
+        if n:
+            block[name] = int(n)
+    if args.base:
+        sources["base"] = args.base
+        block["base"] = BASE_THREADS[source]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build, [source] * len(sources),
+                                            sources, sources.values())))
+    print(f"{source}: nvcc's reports in {OUT}/{source}-<form>.log")
+
+    lg = lifted_graph_for(Code.R1_2)
+    llrs = channel_llrs(lg.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
+    result = {"card": card, "source": source}
+    for schedule, module, getter, kernel, other, bind in PLAN[source]:
+        tiles = tile_inputs if schedule == "layered" else flooding_tiles
+        wrapper = getattr(module, kernel)
+        fns_of = {}
+        for name in NAMES[schedule]:
+            t = tiles(lg, make_arithmetic(name)[1], llrs)
+            fns = {}
+            for form, lib in built.items():
+                if form == "base" and source == "flooding":
+                    fns[form] = lambda lib=lib, t=t: base_flooding(lib, *t, FLAGSHIP_ITERS)
+                else:
+                    n = block.get(form, module.LANE_THREADS)
+                    fns[form] = lambda lib=bind(lib), n=n, t=t: with_lib(
+                        module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
+            fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
+            fns_of[name] = fns
+        for name, fns in fns_of.items():
+            ref = fns["repo"]()
+            for form, fn in fns.items():
+                for a, b in zip(fn(), ref):
+                    assert torch.equal(a, b), f"{name}: {form} differs from repo"
+            ms = turns(fns, args.reps)
+            result[f"{kernel} {name}"] = ms
+            print(f"[{card}] {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all forms "
+                  "equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                  + f" (in turns, median of {args.reps})")
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
