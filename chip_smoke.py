@@ -5,10 +5,12 @@
 Builds the CUDA kernels from the checkout's sources (one nvcc a source,
 all at once), holds every kernel bit for bit against its plain PyTorch
 version (5G BG2 z=16, DVB-S2 R1_4short and R1_2, CCSDS C2; three min-sum
-names each, and the normalized f32 names for the compressed kernels;
-batches of 130 for the partial tile), and drives the port's main paths on
-the flagship code (DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most
-30 iterations):
+names each, and the normalized f32 names for the compressed kernels; two
+i8 names a schedule for the int8 instances of the message kernels, with
+large-magnitude frames on 5G BG2 z=16; CCSDS AR4JA K=1024 rates 1/2 and
+4/5 and 5G BG1 z=16 for the resident kernels; batches of 130 for the
+partial tile), and drives the port's main paths on the flagship code
+(DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most 30 iterations):
 
 1. the layered decode through ``Decoder(Code.R1_2, "HLMinsumbf16")``;
 2. the flooding decode through ``Decoder(Code.R1_2, "Minsumbf16")`` (the
@@ -18,16 +20,19 @@ the flagship code (DVB-S2 rate 1/2, n = 64800, B = 1024, 1.0 dB, at most
    kernel; (b) ``Decoder(Code.R1_2, "Minsumf32")``, the compressed
    flooding kernel; (c) ``lifted_layered_decode(..., resident=False)`` on
    ``HLMinsumbf16``, the streaming layered sweep under staged compaction;
+4. the i8 decodes ``Decoder(Code.R1_2, "HLMinstarapproxi8")`` and
+   ``Decoder(Code.R1_2, "Minstarapproxi8")``, the int8 instances of the
+   two message kernels;
 
 each with its launch counts set to 0 just before and read just after;
 both schedules' resident, streaming (staged) and unstaged streaming loops
 at 2.5 dB, where frames converge; and a two-point BER sweep of each
-schedule through ``BerTestBuilder``. Times are medians of CUDA-event
-timings. Before the last line it prints a JSON line with every kernel's
-launches, worst difference from its plain version, time, plain time and
-bound; the last line of standard output is a JSON object with "ok": true.
-Any failure raises and exits non-zero, as does a machine without a CUDA
-device.
+schedule, and of ``HLMinstarapproxi8``, through ``BerTestBuilder``. Times
+are medians of CUDA-event timings. Before the last line it prints a JSON
+line with every kernel's launches, worst difference from its plain
+version, time, plain time and bound; the last line of standard output is
+a JSON object with "ok": true. Any failure raises and exits non-zero, as
+does a machine without a CUDA device.
 """
 
 import json
@@ -39,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from ldpc_toolbox_torch.codes.ccsds import C2Code
+from ldpc_toolbox_torch.codes.ccsds import AR4JACode, AR4JAInfoSize, AR4JARate, C2Code
 from ldpc_toolbox_torch.codes.dvbs2 import Code
 from ldpc_toolbox_torch.codes.nr5g import BaseGraph
 from ldpc_toolbox_torch.decoder import Decoder
@@ -84,10 +89,12 @@ from ldpc_toolbox_torch.ops.resident_flooding import (
     decode_loop,
     flooding_loop,
     resident_flooding_decode,
+    resident_flooding_decode_i8,
     resident_flooding_decode_reference,
 )
 from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode,
+    resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
 from ldpc_toolbox_torch.simulation import BerTestBuilder
@@ -103,6 +110,10 @@ C2_RATE = 7154 / 8176  # nominal (CCSDS 131.0-B-5, Table 7-1)
 #: and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: INT32 operations/s: half the f32 rate, an SM having 64 INT32 lanes
+#: against 128 FP32 lanes (NVIDIA's Hopper white paper), counted as the
+#: f32 rate is (which counts a fused multiply-add as two operations)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
 #: operations a lane does, counted from the kernels' source: the min-sum
 #: check fold and outputs per edge lane (+1 for the scale), the variable
 #: rule's add and subtract per edge lane and its hard decision per
@@ -112,6 +123,20 @@ F32_OPS_PER_S = 67e12
 #: with: its rebuild of messages from the compressed state is a cost of its
 #: design, not work the decode needs.
 CHECK_OPS, VAR_EDGE_OPS, VAR_LANE_OPS, SYN_OPS, LAYERED_EXTRA_OPS = 11, 2, 1, 1, 3
+#: integer operations of the i8 rules on one frame, counted from
+#: csrc/i8.cuh and the int8 instances. The folds work on a word of four
+#: frames, so a fold costs its word operations over four: MinstarApprox's
+#: fold 14 (min, |a - b|, the correction table's 6 compares and 5 adds,
+#: the saturating subtract), Aminstar's full min* 28 (that, plus the
+#: saturating a + b, its min with 127, the second table and its add) and
+#: 4 more a slot for its argmin and selects. Per frame: per edge lane of a
+#: check the magnitude and sign, the parity, the output's sign and the
+#: partial hard limit; per edge lane of the layered update the extrinsic
+#: and its clip, the delta and the Qv add; per edge lane of the variable
+#: phase the add, the subtract and its clip, and per variable lane the
+#: Deg1Clip, the Jones clip and the hard decision
+I8_FOLD_OPS, I8_FULL_OPS, I8_SLOT_OPS = 14 / 4, 28 / 4, 4 / 4
+I8_EDGE_OPS, I8_LAYERED_EXTRA_OPS, I8_VAR_EDGE_OPS, I8_VAR_LANE_OPS = 7, 5, 4, 5
 PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_layered_decode": (
@@ -139,12 +164,25 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_syndrome_bits": (
         "ldpc_toolbox_torch/csrc/flooding.cu",
         "ldpc_toolbox_tpu/ops/fused_bp2.py:1098"),
+    # the int8 instances of #1 and #4/#5, for the i8 rules those TPU
+    # kernels inline (ldpc_toolbox_tpu/ops/fused_bp2.py:546-697)
+    "resident_layered_decode_i8": (
+        "ldpc_toolbox_torch/csrc/resident_layered_i8.cu",
+        "ldpc_toolbox_tpu/ops/resident_layered.py:193"),
+    "resident_flooding_decode_i8": (
+        "ldpc_toolbox_torch/csrc/flooding_i8.cu",
+        "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
+        "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
 }
 WRAPPERS = (
     resident_layered_decode, compressed_layered_decode, fused_layered_iteration,
     resident_flooding_decode, compressed_flooding_decode, fused_check,
-    fused_var, fused_syndrome_bits,
+    fused_var, fused_syndrome_bits, resident_layered_decode_i8,
+    resident_flooding_decode_i8,
 )
+#: the i8 names the kernel checks run, two a schedule
+I8_LAYERED = ["HLMinstarapproxi8", "HLAminstari8PartialHardLimit"]
+I8_FLOODING = ["Minstarapproxi8JonesDeg1Clip", "Aminstari8PartialHardLimitDeg1Clip"]
 DECODE_KEYS = ("codeword", "iterations", "success")
 
 
@@ -158,6 +196,16 @@ def channel_llrs(n, batch, sigma, seed):
     rng = np.random.default_rng(seed)
     x = -1.0 + sigma * rng.standard_normal((batch, n), dtype=np.float32)
     return torch.from_numpy((-2.0 / sigma**2) * x).cuda()
+
+
+def strong_llrs(n, batch, seed):
+    """Large-magnitude LLRs (6 to 20) with 1 to 6 % of the signs flipped:
+    the i8 checks then see magnitudes near 127, where the partial hard
+    limit, the Jones clip and the Deg1Clip act."""
+    rng = np.random.default_rng(seed)
+    mag = rng.uniform(6.0, 20.0, (batch, n))
+    flip = rng.random((batch, n)) < rng.uniform(0.01, 0.06, (batch, 1))
+    return torch.from_numpy(np.where(flip, -mag, mag).astype(np.float32)).cuda()
 
 
 def event_ms(fn):
@@ -201,12 +249,38 @@ def max_abs_diff(xs, ys):
     return worst
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """(ms, "bytes" or "operations"): the least time of the work on the
     card, the larger of the bytes over the memory rate and the operations
-    over the f32 rate."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    over their type's rate (f32 unless given)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def i8_check_ops(kind, d):
+    """Integer operations of one check of degree d under an i8 rule, on one
+    frame: MinstarApprox's folds (the prefixes and each slot's rest, with
+    prefix reuse), or Aminstar's argmin, its full min* fold over every
+    slot and its shared output; plus the per-edge work."""
+    if kind == 0:
+        folds = 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0
+        rule_ops = folds * I8_FOLD_OPS
+    else:
+        rule_ops = d * I8_SLOT_OPS + (d + 1) * I8_FULL_OPS
+    return rule_ops + d * I8_EDGE_OPS
+
+
+def i8_iteration_ops(layout, rule, layered):
+    """Integer operations of one iteration of one frame of a tile lane
+    under an i8 rule: every check group's rule work, and the layered
+    update's or the variable phase's, and the syndrome's, per edge lane
+    and variable lane; times Z."""
+    checks = sum((m.g1 - m.g0) * i8_check_ops(rule.kind, m.d) for m in layout.chk_meta)
+    if layered:
+        rest = layout.E * (I8_LAYERED_EXTRA_OPS + SYN_OPS)
+    else:
+        rest = layout.E * (I8_VAR_EDGE_OPS + SYN_OPS) + layout.VG * I8_VAR_LANE_OPS
+    return (checks + rest) * layout.Z
 
 
 def tile_iterations(iters, bt):
@@ -260,11 +334,15 @@ def build():
 
 def test_graphs():
     bg2 = LiftedGraph.from_sparse(BaseGraph.BG2.h(16), *nr5g_maps(BaseGraph.BG2, 16))
+    bg1 = LiftedGraph.from_sparse(BaseGraph.BG1.h(16), *nr5g_maps(BaseGraph.BG1, 16))
     return {
         "5G BG2 z=16": bg2,
         "DVB-S2 R1_4short": lifted_graph_for(Code.R1_4short),
         "DVB-S2 R1_2": lifted_graph_for(Code.R1_2),
         "CCSDS C2": lifted_graph_for(C2Code()),
+        "AR4JA K1024 R1_2": lifted_graph_for(AR4JACode(AR4JARate.R1_2, AR4JAInfoSize.K1024)),
+        "AR4JA K1024 R4_5": lifted_graph_for(AR4JACode(AR4JARate.R4_5, AR4JAInfoSize.K1024)),
+        "5G BG1 z=16": bg1,
     }
 
 
@@ -769,6 +847,143 @@ def flagship_streaming_layered(card, llrs, worst, dec):
         launches["fused_layered_iteration"], sweep_ms, plain_ms, b)}
 
 
+def i8_kernel_and_plain(name):
+    """(kernel wrapper, plain version, tiling) of an i8 name's schedule."""
+    if name.startswith("HL"):
+        return resident_layered_decode_i8, resident_layered_decode_reference, tile_inputs
+    return resident_flooding_decode_i8, resident_flooding_decode_reference, flooding_tiles
+
+
+def i8_checks(graphs, worst):
+    """The int8 instances of the message kernels against their plain
+    versions on the four test codes, two i8 names a schedule (on 5G BG2
+    z=16 with 64 large-magnitude frames besides, where the clips and the
+    partial hard limit act), and a partial tile of each schedule through
+    the decoders' glue against the CPU; worst differences into ``worst``."""
+    cases = [
+        ("5G BG2 z=16", 256, 1.3, 10),
+        ("DVB-S2 R1_4short", 128, 0.9, 8),
+        ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 30),
+        ("CCSDS C2", 128, 0.49, 8),
+    ]
+    for label, batch, sigma, iters in cases:
+        lg = graphs[label]
+        llrs = channel_llrs(lg.n, batch, sigma, seed=5)
+        if label == "5G BG2 z=16":
+            llrs = torch.cat([llrs, strong_llrs(lg.n, 64, seed=6)])
+        for name in I8_LAYERED + I8_FLOODING:
+            tag = f"{label} B={llrs.shape[0]} {name}"
+            kernel, plain, tiles = i8_kernel_and_plain(name)
+            args = tiles(lg, make_arithmetic(name)[1], llrs)
+            out = kernel(*args, iters)
+            hold(worst, kernel.__name__, tag, out, plain(*args, iters))
+            torch.cuda.synchronize()
+            print(f"i8 kernels vs plain: {tag}: {kernel.__name__} equal (tolerance 0), "
+                  f"{int(out[2].sum())}/{out[2].numel()} converged")
+    bg2 = graphs["5G BG2 z=16"]
+    llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
+    for name in ("HLMinstarapproxi8", "Aminstari8JonesPartialHardLimitDeg1Clip"):
+        kernel = i8_kernel_and_plain(name)[0]
+        decode = lifted_layered_decode if name.startswith("HL") else lifted_flooding_decode
+        _, arith = make_arithmetic(name)
+        before = kernel.launches
+        out = decode(bg2, arith, llrs, 10)
+        assert kernel.launches == before + 1, f"partial tile {name}: no launch"
+        same_decode({k: v.cpu() for k, v in out.items()},
+                    decode(bg2, arith, llrs.cpu(), 10), f"partial tile {name}")
+        print(f"i8 kernels vs plain: 5G BG2 z=16 B=130 (partial tile) {name}: "
+              f"{int(out['success'].sum())}/130 converged; the kernel and the plain "
+              "version on the CPU equal")
+
+
+def family_checks(graphs, worst):
+    """The resident kernels (message, compressed and int8 instances, both
+    schedules) against their plain versions on CCSDS AR4JA K=1024 rates
+    1/2 and 4/5 (punctured columns; Z = 128 and 32) and 5G BG1 z=16 (check
+    degree 19, the 32 bucket), 48 frames at three noise levels each."""
+    cases = [
+        ("AR4JA K1024 R1_2", (0.75, 0.85, 0.95)),
+        ("AR4JA K1024 R4_5", (0.5, 0.6, 0.7)),
+        ("5G BG1 z=16", (0.9, 1.0, 1.1)),
+    ]
+    layered = [("HLMinsumbf16", resident_layered_decode, resident_layered_decode_reference),
+               ("HLMinsumf32", compressed_layered_decode, compressed_layered_decode_reference),
+               ("HLMinstarapproxi8", resident_layered_decode_i8,
+                resident_layered_decode_reference)]
+    flooding = [("Minsumbf16", resident_flooding_decode, resident_flooding_decode_reference),
+                ("Minsumf32", compressed_flooding_decode, compressed_flooding_decode_reference),
+                ("Minstarapproxi8", resident_flooding_decode_i8,
+                 resident_flooding_decode_reference)]
+    for label, sigmas in cases:
+        lg = graphs[label]
+        llrs = torch.cat([channel_llrs(lg.n, 16, s, seed=7 + i) for i, s in enumerate(sigmas)])
+        for tiles, kernels in ((tile_inputs, layered), (flooding_tiles, flooding)):
+            for name, kernel, plain in kernels:
+                args = tiles(lg, make_arithmetic(name)[1], llrs)
+                out = kernel(*args, 8)
+                hold(worst, kernel.__name__, f"{label} {name}", out, plain(*args, 8))
+                torch.cuda.synchronize()
+                print(f"family kernels vs plain: {label} B=48 {name}: {kernel.__name__} "
+                      f"equal (tolerance 0), {int(out[2].sum())}/48 converged")
+
+
+def flagship_i8(card, llrs, worst, name):
+    """Main path 4: ``Decoder(Code.R1_2, name)`` for an i8 name, through
+    the int8 instance of its schedule's message kernel; held against the
+    plain version; its kernel's numbers."""
+    code = Code.R1_2
+    dec = Decoder(code, name, device="cuda")
+    kernel, plain, tiles = i8_kernel_and_plain(name)
+    layered = dec.schedule == "layered"
+    reset_counts()
+    out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches[kernel.__name__] == 1 and sum(launches.values()) == 1, \
+        f"{name} main path: {launches}"
+    args = tiles(dec.lifted, dec.arithmetic, llrs)
+    ref = tiles_to_output(dec.lifted, *plain(*args, FLAGSHIP_ITERS), FLAGSHIP_BATCH)
+    hold(worst, kernel.__name__, f"flagship B={FLAGSHIP_BATCH} {name}",
+         [out[k] for k in DECODE_KEYS], [ref[k] for k in DECODE_KEYS])
+    assert out["codeword"].shape == (FLAGSHIP_BATCH, code.n)
+    iters = out["iterations"]
+    executed = int(iters.max())
+    print(f"flagship {name} decode: launches {launches}; output equal to the plain "
+          f"version (tolerance 0); {int(out['success'].sum())}/{FLAGSHIP_BATCH} "
+          f"converged, average iterations {float(iters.float().mean()):.2f}, "
+          f"{executed} executed")
+    decode_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
+    kernel_ms = cuda_ms(lambda: kernel(*args, FLAGSHIP_ITERS), 5)
+    plain_ms = cuda_ms(lambda: plain(*args, FLAGSHIP_ITERS), 1)
+    q0, _, layout, rule = args
+    nbt, VG, Z, Bt = q0.shape
+    lanes, edge_tile, lane_tile = VG * Z * Bt * nbt, layout.E * Z * Bt, VG * Z * Bt
+    tile_its = int(tile_iterations(iters, Bt).sum())
+    ops = tile_its * Bt * i8_iteration_ops(layout, rule, layered)
+    b = bound(lanes * (q0.element_size() + 1 + 1) + nbt * Bt * 8, ops, INT32_OPS_PER_S)
+    if layered:
+        # per edge lane: Rcv int8 read and written, Qv int16 read for x,
+        # read and written for the update and read for the syndrome
+        state = tile_its * edge_tile * 10
+    else:
+        # per edge lane: the message read and written in each phase, the
+        # bit word read by the syndrome; per variable lane q read, the
+        # hard bits written
+        state = tile_its * (edge_tile * 5 + lane_tile * 2)
+    state_ms = 1e3 * state / HBM_BYTES_PER_S
+    mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    print(f"[{card}] flagship {name} Decoder.decode_batch: {decode_ms:.3f} ms, "
+          f"{mbps:.1f} Mbit/s decoded info, {decode_ms / executed:.3f} ms/iter, "
+          "median of 5")
+    print(f"[{card}] {kernel.__name__} kernel ({name}): {kernel_ms:.3f} ms "
+          f"({kernel_ms / executed:.3f} ms/iter, median of 5); plain version "
+          f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} (INT32 "
+          f"operations at {INT32_OPS_PER_S:.3g}/s; {100 * b[0] / kernel_ms:.1f}% of "
+          f"bound); state-traffic floor {state_ms:.3f} ms "
+          f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations)")
+    return {kernel.__name__: entry(launches[kernel.__name__], kernel_ms, plain_ms, b)}
+
+
 def flooding_at_working_point(card, dec):
     """Resident against streaming (staged compaction) and the unstaged
     streaming loop on the flagship at 2.5 dB, where frames converge at
@@ -883,6 +1098,8 @@ def main():
     layered_checks(graphs, worst)
     flooding_checks(graphs, worst)
     compressed_checks(graphs, worst)
+    i8_checks(graphs, worst)
+    family_checks(graphs, worst)
 
     code = Code.R1_2
     llrs = channel_llrs(code.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
@@ -891,9 +1108,12 @@ def main():
     measured.update(flagship_compressed_layered(card, llrs, worst))
     measured.update(flagship_compressed_flooding(card, llrs, worst))
     measured.update(flagship_streaming_layered(card, llrs, worst, layered))
+    for name in ("HLMinstarapproxi8", "Minstarapproxi8"):
+        measured.update(flagship_i8(card, llrs, worst, name))
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)
+    ber_sweep(card, layered.lifted, "HLMinstarapproxi8", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     kernels = [

@@ -2,9 +2,10 @@
 
 ``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
 reference CLI (cli/ber.rs) on the port, for the code specs
-``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum decoders of
-both schedules (``--decoder Minsumbf16`` floods, ``HLMinsumbf16`` is
-layered). It prints the reference's table, one row per Eb/N0 point once
+``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum and i8
+decoders of both schedules (``--decoder Minsumbf16`` floods,
+``HLMinsumbf16`` and ``HLMinstarapproxi8`` are layered; the i8 names
+quantize the channel LLRs inside the decode). It prints the reference's table, one row per Eb/N0 point once
 the point ends, and writes the same rows to ``--output-file``: the columns
 and formatting of the JAX package's ``ber``, from this module's own copies
 of its helpers (``parse_duration``, ``_BER_HEADER``, ``_format_duration``,

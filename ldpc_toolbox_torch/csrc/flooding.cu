@@ -313,33 +313,6 @@ cudaError_t var_launch(const void* c2v, const void* q, void* v2c, void* bits,
 namespace ldpc {
 namespace {
 
-// The cell of var-major edge p at variable lane w: its message lives in
-// check-major plane rec_plane at check lane w - rec_rot.
-template <typename Msg>
-__device__ __forceinline__ Msg* var_cell(Msg* msg, const LaneTables& t, int p,
-                                         int w) {
-  return msg + ((size_t)t.rec_pz[p] + minus_mod(w, t.rec_rot[p], t.Z)) * kBt;
-}
-
-// What a variable lane loads first: q and the c2v of its first kVarChunk
-// edges.
-template <typename Msg>
-struct VarLoads {
-  Raw<Msg> q;
-  Raw<Msg> y0[kVarChunk];
-};
-
-template <typename Msg>
-__device__ __forceinline__ void var_load(const Msg* msg, const Msg* q,
-                                         const LaneTables& t, int vg, int w,
-                                         VarLoads<Msg>& v) {
-  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
-  v.q = load_raw(q + ((size_t)vg * t.Z + w) * kBt);
-#pragma unroll
-  for (int j = 0; j < kVarChunk; ++j)
-    if (p0 + j < p1) v.y0[j] = load_raw(var_cell(msg, t, p0 + j, w));
-}
-
 // Variable update of variable lane w of group vg in one tile, from its
 // first loads v: tot = q plus the group's c2v in var-major slot order;
 // output k = store(tot - y_k) goes back to y_k's cell as v2c, and the hard
@@ -447,14 +420,12 @@ __global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
   const Msg* q = q_all + tile * vn * kBt;
   int8_t* post = post_all + tile * vn * kBt;
   int8_t* bits = bits_all + tile * vn * kBt;
-  // v2c = q at every edge; post starts as the raw bits, which a frame
-  // keeps if no iteration runs
+  // v2c = q at every edge
   for (int r = threadIdx.x; r < vn; r += blockDim.x) {
     const int vg = r / Z, w = r % Z;
     const F4 qf = load4(q + (size_t)r * kBt);
     for (int p = lt.var_cs[vg]; p < lt.var_cs[vg + 1]; ++p)
       store4(var_cell(msg, lt, p, w), qf);
-    store_word(post + (size_t)r * kBt, load_word(bits + (size_t)r * kBt));
   }
   // each iteration: the check phase, the variable phase, then the
   // syndrome of the hard decisions the variable phase wrote
@@ -464,18 +435,9 @@ __global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
         for (int r = threadIdx.x; r < cn; r += blockDim.x)
           message_check_lane<DMAX>(msg, lt, r / Z, r % Z, big, scale);
         __syncthreads();
-        // a thread's next variable lane loads before this one stores: in
-        // a phase each cell belongs to one lane, so no load can miss a store
-        VarLoads<Msg> v;
-        int r = threadIdx.x;
-        if (r < vn) var_load(msg, q, lt, r / Z, r % Z, v);
-        for (; r < vn; r += blockDim.x) {
-          VarLoads<Msg> next;
-          const int rn = r + blockDim.x;
-          if (rn < vn) var_load(msg, q, lt, rn / Z, rn % Z, next);
-          var_update(msg, post, lt, r / Z, r % Z, v);
-          v = next;
-        }
+        var_phase(msg, q, lt, [&](int vg, int w, const VarLoads<Msg>& v) {
+          var_update(msg, post, lt, vg, w, v);
+        });
         __syncthreads();
         syndrome4<DMAX>(post, lt, bad);
       });

@@ -16,7 +16,9 @@
 // Bit-exactness: every f32 operation stays per frame and is the one of the
 // plain versions, with __fadd_rn, __fsub_rn and __fmul_rn (no FMA
 // contraction); bf16 unpacks by shifts (exact) and packs through
-// __float2bfloat16_rn (round to nearest even).
+// __float2bfloat16_rn (round to nearest even). The int8 instances
+// (csrc/i8.cuh) keep layered posteriors as int16, four frames in one
+// 8-byte vector, and park int32 deltas; their sums wrap as int16 sums do.
 
 #pragma once
 
@@ -45,6 +47,11 @@ __device__ __forceinline__ float4 load_raw(const float* p) {
 __device__ __forceinline__ uint2 load_raw(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint2*>(p);
 }
+// The four int8 of one lane (sigma, argm, bits, i8 messages) as one word.
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t load_raw(const int8_t* p) { return load_word(p); }
 template <typename Msg>
 using Raw = decltype(load_raw(static_cast<const Msg*>(nullptr)));
 
@@ -68,10 +75,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& a) {
       make_uint2(bf16_bits(a.v[0]) | bf16_bits(a.v[1]) << 16,
                  bf16_bits(a.v[2]) | bf16_bits(a.v[3]) << 16);
 }
-// The four int8 of one lane (sigma, argm, bits) as one word.
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 __device__ __forceinline__ void store_word(int8_t* p, uint32_t w) {
   *reinterpret_cast<uint32_t*>(p) = w;
 }
@@ -81,13 +84,57 @@ __device__ __forceinline__ int byte_of(uint32_t w, int f) {
 __device__ __forceinline__ uint32_t byte_at(int v, int f) {
   return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
 }
+
+// Four frames of one lane as ints: int16 posteriors widened, int32 deltas.
+struct I4 {
+  int v[kBt];
+};
+// four int16 as loaded (8 bytes), widened
+__device__ __forceinline__ I4 widen16(uint2 u) {
+  return I4{{static_cast<int16_t>(u.x), static_cast<int16_t>(u.x >> 16),
+             static_cast<int16_t>(u.y), static_cast<int16_t>(u.y >> 16)}};
+}
+__device__ __forceinline__ uint2 load_i16x4(const int16_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ I4 load4(const int16_t* p) { return widen16(load_i16x4(p)); }
+// stored as int16: each value wraps, as an int16 sum does
+__device__ __forceinline__ void store4(int16_t* p, const I4& a) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2((a.v[0] & 0xffff) | (uint32_t)a.v[1] << 16,
+                 (a.v[2] & 0xffff) | (uint32_t)a.v[3] << 16);
+}
+__device__ __forceinline__ I4 load4(const int* p) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  return I4{{u.x, u.y, u.z, u.w}};
+}
+__device__ __forceinline__ void store4(int* p, const I4& a) {
+  *reinterpret_cast<int4*>(p) = make_int4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+// v plus a parked delta d, per frame: one f32 rounding, or an int add
+__device__ __forceinline__ void add4(F4& v, const F4& d) {
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) v.v[f] = __fadd_rn(v.v[f], d.v[f]);
+}
+__device__ __forceinline__ void add4(I4& v, const I4& d) {
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) v.v[f] += d.v[f];
+}
+
 // A lane's four hard decisions as a word of 0/1 bytes: from posteriors
-// (post <= 0) or from stored bits (nonzero).
+// (post <= 0, f32 or int16) or from stored bits (nonzero).
 __device__ __forceinline__ uint32_t hard_bits(const F4& a) {
   return (a.v[0] <= 0.f) | (a.v[1] <= 0.f) << 8 | (a.v[2] <= 0.f) << 16 |
          (a.v[3] <= 0.f) << 24;
 }
+__device__ __forceinline__ uint32_t hard_bits(const I4& a) {
+  return (a.v[0] <= 0) | (a.v[1] <= 0) << 8 | (a.v[2] <= 0) << 16 |
+         (a.v[3] <= 0) << 24;
+}
 __device__ __forceinline__ uint32_t hard_word(const float* p) {
+  return hard_bits(load4(p));
+}
+__device__ __forceinline__ uint32_t hard_word(const int16_t* p) {
   return hard_bits(load4(p));
 }
 __device__ __forceinline__ uint32_t hard_word(const int8_t* p) {
@@ -168,6 +215,54 @@ __device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
 // Edges of a flooding variable lane whose loads go out together.
 constexpr int kVarChunk = 8;
 
+// The resident flooding kernels keep one message array in check-major
+// cells. The cell of var-major edge p at variable lane w: its message lives
+// in check-major plane rec_plane at check lane w - rec_rot.
+template <typename Msg>
+__device__ __forceinline__ Msg* var_cell(Msg* msg, const LaneTables& t, int p,
+                                         int w) {
+  return msg + ((size_t)t.rec_pz[p] + minus_mod(w, t.rec_rot[p], t.Z)) * kBt;
+}
+
+// What a flooding variable lane loads first: q and the c2v of its first
+// kVarChunk edges.
+template <typename Msg>
+struct VarLoads {
+  Raw<Msg> q;
+  Raw<Msg> y0[kVarChunk];
+};
+
+template <typename Msg>
+__device__ __forceinline__ void var_load(const Msg* msg, const Msg* q,
+                                         const LaneTables& t, int vg, int w,
+                                         VarLoads<Msg>& v) {
+  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
+  v.q = load_raw(q + ((size_t)vg * t.Z + w) * kBt);
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) v.y0[j] = load_raw(var_cell(msg, t, p0 + j, w));
+}
+
+// The variable phase of a resident flooding tile, each thread issuing its
+// next variable lane's loads before this lane's stores (in a phase each
+// cell belongs to one lane, so no load can miss a store):
+// update(vg, w, loads) updates lane w of group vg.
+template <typename Msg, class Update>
+__device__ __forceinline__ void var_phase(const Msg* msg, const Msg* q,
+                                          const LaneTables& t, Update&& update) {
+  const int Z = t.Z, vn = t.VG * Z;
+  VarLoads<Msg> v;
+  int r = threadIdx.x;
+  if (r < vn) var_load(msg, q, t, r / Z, r % Z, v);
+  for (; r < vn; r += blockDim.x) {
+    VarLoads<Msg> next;
+    const int rn = r + blockDim.x;
+    if (rn < vn) var_load(msg, q, t, rn / Z, rn % Z, next);
+    update(r / Z, r % Z, v);
+    v = next;
+  }
+}
+
 // The min-sum fold of a check's d inputs, in edge order, for each frame f:
 // m1 the least |x| (first minimum), m2 the second, arg its slot, negs the
 // signs (x < 0) by slot; their parity is popc(negs) & 1.
@@ -223,14 +318,14 @@ struct Fold {
 // The parked group's Qv update at variable lane w: each edge's Qv cell
 // gathered once, the parked deltas added in edge order (an edge into a
 // variable group an earlier edge reached continues from that edge's sum),
-// stored.
-template <int DMAX>
-__device__ __forceinline__ void layered_update_lane(float* qv, const float* park,
+// stored. Qv f32 with f32 deltas, or int16 with int32 deltas.
+template <int DMAX, typename Q, typename P>
+__device__ __forceinline__ void layered_update_lane(Q* qv, const P* park,
                                                     const LaneTables& t, int g,
                                                     int w) {
   const int Z = t.Z;
   const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  F4 v[DMAX];
+  decltype(load4(qv)) v[DMAX];
 #pragma unroll
   for (int k = 0; k < DMAX; ++k) {
     if (k < d) {
@@ -244,9 +339,7 @@ __device__ __forceinline__ void layered_update_lane(float* qv, const float* park
 #pragma unroll
       for (int j = 0; j < k; ++j)
         if (t.qbase[e0 + j] == t.qbase[e0 + k]) v[k] = v[j];
-      const F4 pk = load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt);
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) v[k].v[f] = __fadd_rn(v[k].v[f], pk.v[f]);
+      add4(v[k], load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt));
     }
   }
 #pragma unroll
@@ -259,8 +352,8 @@ __device__ __forceinline__ void layered_update_lane(float* qv, const float* park
 // Qv itself (parked false: the group reaches no variable group twice, so
 // no other lane touches those cells) or parks them at park[(k * Z + c) *
 // 4]; a parked group's variable lanes then add them in edge order.
-template <int DMAX, class CheckLane>
-__device__ void layered_sweep4(float* qv, const float* park, const LaneTables& t,
+template <int DMAX, typename Q, typename P, class CheckLane>
+__device__ void layered_sweep4(Q* qv, const P* park, const LaneTables& t,
                                CheckLane&& check_lane) {
   for (int g = 0; g < t.CG; ++g) {
     const bool parked = t.repeat[g];
@@ -281,7 +374,8 @@ __device__ __forceinline__ void report_odd(uint32_t odd, int* bad) {
 }
 
 // ORs into *bad the frames (bit f) of the tile with an unsatisfied check
-// on the hard decisions of post ((VG, Z, 4) f32 posteriors, or int8 bits).
+// on the hard decisions of post ((VG, Z, 4) f32 or int16 posteriors, or
+// int8 bits).
 template <int DMAX, typename P>
 __device__ void syndrome4(const P* post, const LaneTables& t, int* bad) {
   const int Z = t.Z;
@@ -324,15 +418,16 @@ __device__ void hard_decide(const P* post, int8_t* bits, int lanes, int mask) {
   }
 }
 
-// The whole decode of one tile: post (VG, Z, 4) holds the posteriors (f32)
-// or their hard decisions (int8) whose syndrome decides, bits the
-// raw-channel bits on entry and the decoded bits on exit. Iteration 0 tests
-// the raw bits; iterate(it, bad) runs iteration it and ORs into *bad the
-// frames whose posteriors then fail a check; a frame's bits and count
+// The whole decode of one tile: post (VG, Z, 4) holds the posteriors (f32
+// or int16) or their hard decisions (int8) whose syndrome decides, bits
+// the raw-channel bits on entry and the decoded bits on exit. Iteration 0
+// tests the raw bits; iterate(it, bad) runs iteration it and ORs into *bad
+// the frames whose posteriors then fail a check; a frame's bits and count
 // freeze at its first passing iteration; the tile stops once all its
 // frames passed; a frame that never passes gets max_iterations and post's
-// last hard decisions (post must hold the raw bits' if no iteration runs).
-// ctl is kCtlInts ints of shared memory.
+// last hard decisions, or keeps the raw bits if no iteration ran (an i8
+// posterior's sign is not the raw bit: a tiny positive LLR quantizes to
+// 0). ctl is kCtlInts ints of shared memory.
 template <int DMAX, typename P, class Iterate>
 __device__ void decode_tile4(const P* post, int8_t* bits, int* iters_out,
                              int* conv_out, const LaneTables& t,
@@ -380,8 +475,9 @@ __device__ void decode_tile4(const P* post, int8_t* bits, int* iters_out,
     }
   }
 
-  // frames that never converged keep their final hard decisions
-  hard_decide(post, bits, lanes, ~*conv & kAll);
+  // frames that never converged keep their final hard decisions (the raw
+  // bits when no iteration ran)
+  if (max_iterations > 0) hard_decide(post, bits, lanes, ~*conv & kAll);
   if (threadIdx.x < kBt) {
     const int f = threadIdx.x, ok = *conv >> f & 1;
     iters_out[tile * kBt + f] = ok ? iters[f] : max_iterations;
@@ -390,7 +486,8 @@ __device__ void decode_tile4(const P* post, int8_t* bits, int* iters_out,
 }
 
 // Dynamic shared memory of a launch: the control ints, the tables and,
-// for a layered kernel, the park when it lives there (park_elems floats).
+// for a layered kernel, the park when it lives there (park_elems 4-byte
+// deltas, f32 or int32).
 inline size_t smem_bytes(const Tables& t, size_t park_elems) {
   return sizeof(int) * (kCtlInts + table_ints(t.CG, t.E, t.VG)) +
          sizeof(float) * park_elems;
@@ -398,11 +495,13 @@ inline size_t smem_bytes(const Tables& t, size_t park_elems) {
 
 // The block's park: its slice of the device park (nbt, park_elems), or,
 // when park_all is null, the shared memory after the tables.
-__device__ __forceinline__ float* lane_park(float* park_all, size_t park_elems,
-                                            int* smem, const Tables& t) {
+template <typename P>
+__device__ __forceinline__ P* lane_park(P* park_all, size_t park_elems,
+                                        int* smem, const Tables& t) {
+  static_assert(sizeof(P) == sizeof(int), "a park holds 4-byte deltas");
   return park_all ? park_all + blockIdx.x * park_elems
-                  : reinterpret_cast<float*>(smem + kCtlInts +
-                                             table_ints(t.CG, t.E, t.VG));
+                  : reinterpret_cast<P*>(smem + kCtlInts +
+                                         table_ints(t.CG, t.E, t.VG));
 }
 
 template <typename Kernel, typename... Args>

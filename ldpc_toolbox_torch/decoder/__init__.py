@@ -12,9 +12,9 @@ decision, the iteration count (0 if the input already satisfied H,
 ``max_iterations`` on failure) and a success flag.
 
 Ported so far: standards code objects and 5G ``(BaseGraph, Z)`` pairs on
-the lifted layout, with the min-sum names of both schedules: the ``HL*``
-names decode layered (``lifted_layered``), the others flooding
-(``lifted_flooding``). The other rules wait for ROADMAP A6, a generic
+the lifted layout, with the min-sum and i8 names of both schedules: the
+``HL*`` names decode layered (``lifted_layered``), the others flooding
+(``lifted_flooding``). The float rules wait for ROADMAP A6, a generic
 ``SparseMatrix`` for A8.
 """
 

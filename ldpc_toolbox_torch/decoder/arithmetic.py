@@ -6,15 +6,45 @@ maps the incoming variable messages of every check node, a
 to the leave-one-out outgoing messages of the same shape (the reference's
 ``send_check_messages``, arithmetic.rs:100-102).
 
-Only the min-sum extension is ported so far. The Phi, Tanh, Minstarapprox
-and Aminstar families and the i8 families wait (ROADMAP A6).
+Ported so far: the min-sum extension and the two i8 families of the
+reference (Minstarapprox and Aminstar, each with its Jones,
+PartialHardLimit and Deg1Clip variants, arithmetic.rs:585-1304). The Phi,
+Tanh, Minstarapprox and Aminstar float families wait (ROADMAP A6).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-__all__ = ["Arithmetic", "MinSumArithmetic"]
+__all__ = [
+    "Arithmetic",
+    "AminstarI8Arithmetic",
+    "I8_QUANTIZER_C",
+    "MinSumArithmetic",
+    "MinstarApproxI8Arithmetic",
+    "i8_correction_table",
+]
+
+I8_QUANTIZER_C = 8.0
+
+
+def i8_correction_table() -> np.ndarray:
+    """Quantized ``C*ln(1+e^(-t/C))`` correction lookup (arithmetic.rs:589-602).
+
+    Entry t holds round(8*ln(1+e^(-t/8))) for as long as that rounds
+    positive; beyond, zero (the reference's out-of-table lookup returns 0).
+    Rounding is half-away-from-zero like Rust's f64::round.
+    """
+    table = np.zeros(128, dtype=np.int32)
+    for t in range(128):
+        x = math.floor(I8_QUANTIZER_C * math.log1p(math.exp(-t / I8_QUANTIZER_C)) + 0.5)
+        if x <= 0:
+            break
+        table[t] = x
+    return table
 
 
 def _loo_sign(x, mask_e):
@@ -129,3 +159,182 @@ class MinSumArithmetic(Arithmetic):
         if self.scale != 1.0:
             out = out * self.scale
         return out
+
+
+# -- the i8 families -----------------------------------------------------------
+#
+# Messages are int8-valued but computed in int32 (identical results: every
+# reference step clips into i8/i16 range before use). The variable LLR domain
+# is int16-valued (VarLlr = i16, arithmetic.rs:684-688).
+
+
+def _clip127(x):
+    return x.clamp(-127, 127)
+
+
+def _partial_hard_limit(x):
+    # arithmetic.rs:812-824
+    return torch.where(x <= -100, -127, torch.where(x >= 100, 127, x))
+
+
+class _I8Base(Arithmetic):
+    is_int8 = True
+
+    def __init__(self, jones: bool = False, hard_limit: bool = False,
+                 deg1_clip: bool = False):
+        super().__init__(torch.int8)
+        self.jones = jones
+        self.hard_limit = hard_limit
+        self.deg1_clip = deg1_clip
+        table = i8_correction_table()
+        # the table is non-increasing, so table[t] is the number of its
+        # values v with t < thr_v, thr_v the count of entries >= v
+        assert np.all(np.diff(table) <= 0), "correction table not monotone"
+        self._thresholds = tuple(
+            int(np.sum(table >= v)) for v in range(1, int(table.max()) + 1)
+        )
+
+    @property
+    def storage_dtype(self):
+        return torch.int8
+
+    @property
+    def compute_dtype(self):
+        return torch.int32
+
+    @property
+    def var_llr_storage_dtype(self):
+        return torch.int16
+
+    def quantize(self, llr):
+        """C=8 quantizer with +-127 saturation and half-away rounding
+        (arithmetic.rs:690-699), in f32 as the JAX package computes it:
+        ``sign(x) * floor(|x| + 0.5)`` of ``x = 8 * llr``, so a value just
+        under a half whose ``|x| + 0.5`` rounds up to 1 in f32 goes to 1."""
+        x = I8_QUANTIZER_C * llr.to(torch.float32)
+        r = (torch.sign(x) * torch.floor(x.abs() + 0.5)).to(torch.int32)
+        return torch.where(x >= 127.0, 127, torch.where(x <= -127.0, -127, r))
+
+    def llr_to_var_llr(self, llr):
+        return llr
+
+    def var_llr_to_llr(self, var_llr):
+        return _clip127(var_llr)
+
+    def _lookup(self, t):
+        """table[t] for t in [0, 127], 0 beyond (arithmetic.rs:604-607), as
+        a sum of compares against the table's steps."""
+        out = torch.zeros_like(t)
+        for thr in self._thresholds:
+            out = out + (t < thr).to(t.dtype)
+        return out
+
+    def var_update(self, input_llr, c2v, mask=None):
+        """The variable rule with its clips (arithmetic.rs:622-654):
+        input_llr (n, batch) and c2v (n, d, batch) int32 -> (v2c (n, d,
+        batch), the clipped posterior (n, batch))."""
+        inp = input_llr
+        if self.deg1_clip:
+            if mask is None:
+                if c2v.shape[1] == 1:
+                    inp = input_llr.clamp(-116, 116)
+            else:
+                deg = mask.sum(dim=1, dtype=torch.int32)
+                inp = torch.where(
+                    (deg == 1)[:, None], input_llr.clamp(-116, 116), input_llr
+                )
+        inc = c2v if mask is None else torch.where(mask[..., None], c2v, 0)
+        total = inp + inc.sum(dim=1, dtype=torch.int32)
+        if self.jones:
+            total = _clip127(total)
+        v2c = _clip127(total[:, None, :] - c2v)
+        return v2c, _clip127(total)
+
+    def layered_x(self, qv, rold):
+        # x = clip(vars[dest] - i16(rcv))
+        return _clip127(qv.to(torch.int32) - rold)
+
+    def layered_qv_delta(self, rnew, rold):
+        return rnew - rold
+
+
+class MinstarApproxI8Arithmetic(_I8Base):
+    """Quantized pairwise min* with table-lookup correction
+    (arithmetic.rs:718-754): fold over the other valid slots in order with
+    ``max(min(acc,v) - table[|acc-v|], 0)``; optional partial hard limit on
+    the signed output."""
+
+    def check_messages(self, x, mask=None):
+        rows, d, batch = x.shape
+        mask_e = None if mask is None else mask[..., None]
+        mag = x.abs()
+        acc = torch.zeros_like(x)
+        notk = ~np.eye(d, dtype=bool)
+
+        def fold(acc, vk):
+            return torch.clamp_min(
+                torch.minimum(acc, vk) - self._lookup((acc - vk).abs()), 0
+            )
+
+        if mask is None:
+            started = np.zeros((d,), dtype=bool)
+            for k in range(d):
+                vk = mag[:, k : k + 1, :]
+                sel = torch.from_numpy(notk[k])[None, :, None]
+                first = torch.from_numpy(notk[k] & ~started)[None, :, None]
+                acc = torch.where(first, vk, torch.where(sel, fold(acc, vk), acc))
+                started |= notk[k]
+        else:
+            cnt = torch.zeros((rows, d, 1), dtype=torch.int32, device=x.device)
+            for k in range(d):
+                vk = mag[:, k : k + 1, :]
+                elig = (mask[:, k : k + 1] & torch.from_numpy(notk[k])[None, :])[..., None]
+                first = elig & (cnt == 0)
+                acc = torch.where(first, vk, torch.where(elig, fold(acc, vk), acc))
+                cnt = cnt + elig.to(torch.int32)
+        out = _loo_sign(x, mask_e) * acc
+        if self.hard_limit:
+            out = _partial_hard_limit(out)
+        return out
+
+
+class AminstarI8Arithmetic(_I8Base):
+    """Quantized A-Min*-BP (arithmetic.rs:1129-1192): full min* fold (both
+    correction lookups, saturating add) against non-minimum edges."""
+
+    def _minstar_full(self, a, b):
+        return torch.clamp_min(
+            torch.minimum(a, b)
+            - self._lookup((a - b).abs())
+            + self._lookup(torch.clamp_max(a + b, 127)),
+            0,
+        )
+
+    def check_messages(self, x, mask=None):
+        rows, d, batch = x.shape
+        mask_e = None if mask is None else mask[..., None]
+        mag = x.abs()
+        masked_mag = mag if mask_e is None else torch.where(mask_e, mag, 128)
+        # the first minimum, as jnp.argmin takes it
+        vmin = masked_mag.amin(dim=1, keepdim=True)
+        slot = torch.arange(d, device=x.device)[None, :, None]
+        argmin = torch.where(masked_mag == vmin, slot, d).amin(dim=1, keepdim=True)
+        onehot = slot == argmin
+        acc = torch.zeros((rows, 1, batch), dtype=x.dtype, device=x.device)
+        cnt = torch.zeros((rows, 1, batch), dtype=torch.int32, device=x.device)
+        for k in range(d):
+            vk = mag[:, k : k + 1, :]
+            elig = ~onehot[:, k : k + 1, :]
+            if mask is not None:
+                elig = mask[:, k : k + 1, None] & elig
+            first = elig & (cnt == 0)
+            folded = self._minstar_full(acc, vk)
+            acc = torch.where(first, vk, torch.where(elig, folded, acc))
+            cnt = cnt + elig.to(torch.int32)
+        delta = acc
+        delta_min_edge = _partial_hard_limit(delta) if self.hard_limit else delta
+        delta_others = self._minstar_full(delta, vmin)
+        if self.hard_limit:
+            delta_others = _partial_hard_limit(delta_others)
+        magnitude = torch.where(onehot, delta_min_edge, delta_others)
+        return _loo_sign(x, mask_e) * magnitude

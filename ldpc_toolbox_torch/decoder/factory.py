@@ -2,8 +2,9 @@
 
 All 44 names of ``ldpc_toolbox_tpu.decoder.factory.DECODER_IMPLEMENTATIONS``
 resolve here: 28 flooding names and 16 ``HL*`` horizontal-layered names.
-The 8 min-sum names (``Minsum*``, ``Normminsum*``, plain and ``HL``) build
-an arithmetic; every other name raises ``NotImplementedError`` naming the
+The 8 min-sum names (``Minsum*``, ``Normminsum*``, plain and ``HL``) and
+the 20 i8 names (``Minstarapproxi8*``, ``Aminstari8*``) build an
+arithmetic; every other name raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.
 """
 
@@ -13,7 +14,12 @@ from typing import Callable
 
 import torch
 
-from .arithmetic import Arithmetic, MinSumArithmetic
+from .arithmetic import (
+    AminstarI8Arithmetic,
+    Arithmetic,
+    MinSumArithmetic,
+    MinstarApproxI8Arithmetic,
+)
 
 __all__ = ["DECODER_IMPLEMENTATIONS", "make_arithmetic"]
 
@@ -27,12 +33,19 @@ def _not_ported(name: str) -> Callable[[], Arithmetic]:
     return factory
 
 
-_I8_SUFFIXES = [
-    "Jones" * j + "PartialHardLimit" * h + "Deg1Clip" * c
-    for j in (0, 1)
-    for h in (0, 1)
-    for c in (0, 1)
-]
+def _i8_combos(prefix: str, ctor) -> dict:
+    """The 8 Jones/PartialHardLimit/Deg1Clip combinations of an i8 family
+    (arithmetic.rs:850-897, 1262-1304)."""
+    return {
+        prefix + "Jones" * j + "PartialHardLimit" * h + "Deg1Clip" * c: (
+            lambda j=j, h=h, c=c: ctor(
+                jones=bool(j), hard_limit=bool(h), deg1_clip=bool(c)
+            )
+        )
+        for j in (0, 1)
+        for h in (0, 1)
+        for c in (0, 1)
+    }
 
 _FLOODING_ARITHS: dict[str, Callable[[], Arithmetic]] = {
     **{
@@ -53,11 +66,8 @@ _FLOODING_ARITHS: dict[str, Callable[[], Arithmetic]] = {
     "Normminsumbf16": lambda: MinSumArithmetic(
         torch.float32, scale=0.75, storage=torch.bfloat16
     ),
-    **{
-        prefix + s: _not_ported(prefix + s)
-        for prefix in ("Minstarapproxi8", "Aminstari8")
-        for s in _I8_SUFFIXES
-    },
+    **_i8_combos("Minstarapproxi8", MinstarApproxI8Arithmetic),
+    **_i8_combos("Aminstari8", AminstarI8Arithmetic),
 }
 
 # the HL (horizontal layered) subset exposed by the reference

@@ -5,22 +5,26 @@ Counterpart of the JAX package's ``decoder.lifted_flooding`` fused path
 (the last padded with +100-LLR frames), the channel LLRs are cast to the
 message storage type before they are gathered into ``(VG, Z, B)`` planes
 (so for the bf16 names the channel planes and the iteration-0 bits come
-from bf16 values), and the decoded planes are put back into codeword
-order. The tiles then go through one of three forms, as the JAX
-package's ``_fused_flooding_decode`` does at the flagship shape:
+from bf16 values; the i8 names gather f32 planes, quantize them to int8
+and take the iteration-0 bits from the f32 planes), and the decoded
+planes are put back into codeword order. The tiles then go through one of
+three forms, as the JAX package's ``_fused_flooding_decode`` does at the
+flagship shape:
 
 * ``resident=True`` (the default), f32 storage (``Minsumf32``,
   ``Normminsumf32``): ``ops/resident_compressed.compressed_flooding_decode``,
   the whole decode in one launch with the check state compressed;
-* ``resident=True``, bf16 storage: ``ops/resident_flooding.py``, the whole
-  decode in one launch with v2c and c2v messages;
+* ``resident=True``, bf16 storage and the i8 names:
+  ``ops/resident_flooding.py``, the whole decode in one launch with v2c
+  and c2v messages;
 * ``resident=False``: the streaming phases of ``ops/fused_bp2.py``
   (``fused_var`` initialisation, then ``fused_check``, ``fused_var`` and
   ``fused_syndrome_bits`` an iteration) under
-  ``decoder/compaction.staged_while_decode``.
+  ``decoder/compaction.staged_while_decode``; it raises for the i8 names,
+  whose streaming instances are still to be ported (ROADMAP B1).
 
-The routing by storage type is ``takes_compressed_state``'s (its reason is
-there). All forms give the same bits, iterations and success flags. On CPU
+The routing is ``takes_compressed_state``'s (its reason is there). All
+forms give the same bits, iterations and success flags. On CPU
 tensors every kernel wrapper runs its plain version, so the CPU runs the
 same routing; ``flooding_loop`` stays the plain versions' own loop.
 
@@ -37,6 +41,8 @@ from ..ops.fused_bp2 import (
     fused_check,
     fused_syndrome_bits,
     fused_var,
+    is_i8,
+    refuse_streaming_i8,
     rule_for,
 )
 from ..ops.resident_compressed import (
@@ -66,6 +72,7 @@ def lifted_flooding_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
     if not resident:
+        refuse_streaming_i8(rule)
         decode = streaming_flooding_decode
     elif takes_compressed_state(rule):
         decode = compressed_flooding_decode
@@ -84,10 +91,18 @@ def flooding_tiles(lg, arithmetic, llrs):
         raise NotImplementedError(
             f"{type(arithmetic).__name__} has no kernel yet (ROADMAP A6)"
         )
-    # cast before the gather, as the JAX package does
-    planes, _ = _planes_of(lg, pad_to_tiles(llrs), rule.storage_dtype)
+    llrs = pad_to_tiles(llrs)
+    if is_i8(rule):
+        # gather in f32, then quantize; the raw bits come from the f32
+        # planes (a tiny positive LLR quantizes to 0)
+        planes, _ = _planes_of(lg, llrs)
+        q = arithmetic.quantize(planes).to(torch.int8)
+    else:
+        # cast before the gather, as the JAX package does
+        planes, _ = _planes_of(lg, llrs, rule.storage_dtype)
+        q = planes
     layout = device_layout(lg, llrs.device)
-    return tile(planes), tile((planes <= 0).to(torch.int8)), layout, rule
+    return tile(q), tile((planes <= 0).to(torch.int8)), layout, rule
 
 
 def streaming_flooding_decode(q_t, bits0_t, layout, rule, max_iterations):

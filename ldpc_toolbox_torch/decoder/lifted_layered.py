@@ -14,14 +14,16 @@ package's ``_fused_layered_decode`` does at the flagship shape:
 * ``resident=True`` (the default), f32 Rcv storage (``HLMinsumf32``,
   ``HLNormminsumf32``): ``ops/resident_compressed.compressed_layered_decode``,
   the whole decode in one launch with the check state compressed;
-* ``resident=True``, bf16 storage: ``ops/resident_layered.py``, the whole
-  decode in one launch with Rcv messages;
+* ``resident=True``, bf16 storage and the i8 names:
+  ``ops/resident_layered.py``, the whole decode in one launch with Rcv
+  messages (int8 Rcv and int16 Qv for i8);
 * ``resident=False``: the streaming form, ``ops/fused_layered.py``'s
   sweep and ``fused_syndrome_bits`` one launch each an iteration, under
-  ``decoder/compaction.staged_while_decode``.
+  ``decoder/compaction.staged_while_decode``; it raises for the i8 names,
+  whose streaming instances are still to be ported (ROADMAP B1).
 
-The routing by storage type is ``takes_compressed_state``'s (its reason is
-there). All forms give the same bits, iterations and success flags. On
+The routing is ``takes_compressed_state``'s (its reason is there). All
+forms give the same bits, iterations and success flags. On
 CPU tensors every kernel wrapper runs its plain version, so the CPU runs
 the same routing. ``plain_layered_decode`` is the twin of the JAX
 package's jnp path, for any arithmetic with a layered rule.
@@ -35,7 +37,13 @@ import numpy as np
 import torch
 
 from ..convert import layout_to_device
-from ..ops.fused_bp2 import BT, build_fused_layout, fused_syndrome_bits, rule_for
+from ..ops.fused_bp2 import (
+    BT,
+    build_fused_layout,
+    fused_syndrome_bits,
+    refuse_streaming_i8,
+    rule_for,
+)
 from ..ops.fused_layered import fused_layered_iteration
 from ..ops.resident_compressed import (
     compressed_layered_decode,
@@ -69,6 +77,7 @@ def lifted_layered_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
     if not resident:
+        refuse_streaming_i8(rule)
         decode = streaming_layered_decode
     elif takes_compressed_state(rule):
         decode = compressed_layered_decode
@@ -115,13 +124,14 @@ def _codeword_from_planes(lg, col_of, hard_planes):
 
 class _ArithmeticRule:
     """The jnp path's view of an arithmetic for ``layered_decode_planes``:
-    its own check rule on one layer, and +inf in the missing lanes."""
-
-    big = float("inf")
+    its own check rule on one layer, and +inf in the missing lanes (127
+    for an i8 arithmetic)."""
 
     def __init__(self, arithmetic):
         self.arithmetic = arithmetic
         self.storage_dtype = arithmetic.storage_dtype
+        self.compute_dtype = arithmetic.compute_dtype
+        self.big = 127 if arithmetic.is_int8 else float("inf")
 
     def layered_x(self, qv, rold):
         return self.arithmetic.layered_x(qv, rold)

@@ -31,8 +31,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
-#: every kernel source of the package, by name
-SOURCES = ("resident_layered", "flooding", "compressed")
+#: every kernel source of the package, by name (the int8 instances of the
+#: two message kernels in sources of their own, so that the parallel build
+#: keeps its length)
+SOURCES = ("resident_layered", "flooding", "compressed", "resident_layered_i8",
+           "flooding_i8")
 
 
 def _nvcc() -> str:

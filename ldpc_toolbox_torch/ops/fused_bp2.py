@@ -25,12 +25,16 @@ planes with frames innermost:
   frame.
 
 On a CUDA tensor each launches its hand-written kernel of
-``csrc/flooding.cu`` or raises; on a CPU tensor it runs its plain version
-(the ``*_reference`` functions). A roll by s means ``out[i] = x[(i - s)
-mod Z]``, on unpadded planes.
+``csrc/flooding.cu`` or raises (also for an i8 rule: these kernels have no
+i8 instances yet); on a CPU tensor it runs its plain version (the
+``*_reference`` functions, in the rule's compute type). A roll by s means
+``out[i] = x[(i - s) mod Z]``, on unpadded planes.
 
-Still to be ported from the JAX module: the rules of the Phi, Tanh,
-Minstarapprox, Aminstar and i8 families (ROADMAP queue A).
+The rules: ``MinSumRule`` and the two i8 rules, ``MinstarApproxI8Rule``
+and ``AminstarI8Rule`` (int8 messages, int32 compute, int16 layered
+posteriors), which the resident message kernels inline. Still to be
+ported from the JAX module: the rules of the Phi, Tanh, Minstarapprox and
+Aminstar float families (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ __all__ = [
     "FusedLayout",
     "build_fused_layout",
     "MinSumRule",
+    "MinstarApproxI8Rule",
+    "AminstarI8Rule",
+    "is_i8",
+    "refuse_streaming_i8",
     "rule_for",
     "var_recon_tables",
     "fused_check",
@@ -240,6 +248,8 @@ class MinSumRule:
     sign-parity fold that ``csrc/resident_layered.cu`` inlines, in the
     same order and with the same rounding points."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, dtype, scale: float = 1.0):
         self.storage_dtype = dtype
         # missing-lane poke and initial second minimum
@@ -292,18 +302,199 @@ class MinSumRule:
         return qv - rold
 
 
+def _i8_thresholds():
+    """The i8 correction table (arithmetic.rs:589-602) as compare
+    thresholds: table[t] == sum_k [t <= T_k], the table being
+    non-increasing. ``csrc/i8.cuh`` compiles them in as ``kI8Thresholds``."""
+    from ..decoder.arithmetic import i8_correction_table
+
+    tab = i8_correction_table()
+    assert (np.diff(tab) <= 0).all()
+    return [int(np.max(np.nonzero(tab >= k)[0])) for k in range(1, int(tab[0]) + 1)]
+
+
+def _phl(x):
+    """Partial hard limit (arithmetic.rs:812-824)."""
+    return torch.where(x <= -100, -127, torch.where(x >= 100, 127, x))
+
+
+class _I8RuleBase:
+    """The i8 rules: int8 storage, int32 compute, int16 layered posteriors
+    and the reference's clips (arithmetic.rs:585-897). ``jones``,
+    ``hard_limit`` and ``deg1_clip`` give the 8 variants of a family;
+    ``kind`` names the family to the kernels and ``flags`` the variant."""
+
+    storage_dtype = torch.int8
+    compute_dtype = torch.int32
+    #: the missing-lane poke of x (the one-lane i8 approximation)
+    big = 127
+
+    def __init__(self, jones=False, hard_limit=False, deg1_clip=False):
+        self.jones = jones
+        self.hard_limit = hard_limit
+        self.deg1_clip = deg1_clip
+        self.thr = _i8_thresholds()
+
+    @property
+    def flags(self) -> int:
+        """The variant as the kernels take it: bit 0 PartialHardLimit,
+        bit 1 Jones, bit 2 Deg1Clip."""
+        return int(self.hard_limit) | int(self.jones) << 1 | int(self.deg1_clip) << 2
+
+    def _tab(self, t):
+        """The correction table at t in [0, 127] as a balanced select tree
+        over the thresholds (JAX ``_tab_tree``, the same values as the
+        table)."""
+        bps = sorted(self.thr)
+        vals = list(range(len(bps), -1, -1))
+
+        def tree(bps, vals):
+            if len(vals) == 1:
+                return torch.full_like(t, vals[0])
+            mid = len(bps) // 2
+            left = tree(bps[:mid], vals[: mid + 1])
+            right = tree(bps[mid + 1 :], vals[mid + 1 :])
+            return torch.where(t <= bps[mid], left, right)
+
+        return tree(bps, vals)
+
+    @staticmethod
+    def _signs(planes):
+        negs = [x < 0 for x in planes]
+        par = negs[0]
+        for k in range(1, len(planes)):
+            par = par ^ negs[k]
+        return negs, par
+
+    def var(self, q, xs, degree):
+        """Sum-minus-own with the clips: (the d outputs clipped to +-127,
+        the posterior total), the Deg1Clip of q for a degree-1 group and
+        the Jones clip of the total."""
+        inp = q.clamp(-116, 116) if (self.deg1_clip and degree == 1) else q
+        tot = inp
+        for x in xs:
+            tot = tot + x
+        if self.jones:
+            tot = tot.clamp(-127, 127)
+        return [(tot - x).clamp(-127, 127) for x in xs], tot
+
+    # x = clip(Qv - Rcv) with int16 posteriors (arithmetic.rs:684-688)
+    def layered_x(self, qv, rold):
+        return (qv.to(torch.int32) - rold).clamp(-127, 127)
+
+
+class MinstarApproxI8Rule(_I8RuleBase):
+    """Quantized pairwise min* (arithmetic.rs:718-754): the exact left fold
+    of the other slots in slot order, with prefix reuse, as the kernels
+    compute it."""
+
+    kind = 0
+
+    def _fold(self, a, b):
+        return torch.clamp_min(torch.minimum(a, b) - self._tab((a - b).abs()), 0)
+
+    def check(self, planes) -> torch.Tensor:
+        """d int32 planes (a list, or a tensor with the d planes on dim 0)
+        -> the (d, ...) stacked int32 check outputs."""
+        d = len(planes)
+        mags = [x.abs() for x in planes]
+        negs, par = self._signs(planes)
+        pre = [None] * d
+        acc = None
+        for t in range(d):
+            pre[t] = acc
+            acc = mags[t] if acc is None else self._fold(acc, mags[t])
+        outs = []
+        for t in range(d):
+            a = pre[t]
+            for k in range(t + 1, d):
+                a = mags[k] if a is None else self._fold(a, mags[k])
+            if a is None:  # degree-1 check: no other edges
+                a = torch.zeros_like(mags[t])
+            o = torch.where(par ^ negs[t], -a, a)
+            outs.append(_phl(o) if self.hard_limit else o)
+        return torch.stack(outs)
+
+
+class AminstarI8Rule(_I8RuleBase):
+    """Quantized A-Min*-BP (arithmetic.rs:1129-1192): the first minimum's
+    slot, a full min* fold over the other slots; the minimum's slot gets
+    the fold, every other slot min*(fold, minimum)."""
+
+    kind = 1
+
+    def _minstar_full(self, a, b):
+        return torch.clamp_min(
+            torch.minimum(a, b)
+            - self._tab((a - b).abs())
+            + self._tab(torch.clamp_max(a + b, 127)),
+            0,
+        )
+
+    def check(self, planes) -> torch.Tensor:
+        d = len(planes)
+        mags = [x.abs() for x in planes]
+        negs, par = self._signs(planes)
+        m1 = mags[0]
+        arg = torch.zeros(m1.shape, dtype=torch.int32, device=m1.device)
+        for k in range(1, d):
+            take = mags[k] < m1
+            m1 = torch.where(take, mags[k], m1)
+            arg = torch.where(take, k, arg)
+        acc = torch.zeros_like(m1)
+        cnt = torch.zeros(m1.shape, dtype=torch.int32, device=m1.device)
+        for k in range(d):
+            elig = arg != k
+            first = elig & (cnt == 0)
+            folded = self._minstar_full(acc, mags[k])
+            acc = torch.where(first, mags[k], torch.where(elig, folded, acc))
+            cnt = cnt + elig.to(torch.int32)
+        d_min = _phl(acc) if self.hard_limit else acc
+        d_oth = self._minstar_full(acc, m1)
+        if self.hard_limit:
+            d_oth = _phl(d_oth)
+        outs = []
+        for t in range(d):
+            mag = torch.where(arg == t, d_min, d_oth)
+            outs.append(torch.where(par ^ negs[t], -mag, mag))
+        return torch.stack(outs)
+
+
+def is_i8(rule) -> bool:
+    """Whether a kernel rule is one of the i8 rules (int8 messages)."""
+    return isinstance(rule, _I8RuleBase)
+
+
+def refuse_streaming_i8(rule) -> None:
+    """The streaming kernels (the flooding phases and the layered sweep)
+    have no i8 instances yet: raise for an i8 rule."""
+    if is_i8(rule):
+        raise NotImplementedError(
+            f"{type(rule).__name__}: the streaming kernels have no i8 "
+            "instances yet (ROADMAP B1); decode it with resident=True"
+        )
+
+
 def rule_for(arithmetic):
     """The kernel rule of an arithmetic, or None when it has none yet."""
-    from ..decoder.arithmetic import MinSumArithmetic
+    from ..decoder.arithmetic import (
+        AminstarI8Arithmetic,
+        MinSumArithmetic,
+        MinstarApproxI8Arithmetic,
+    )
 
     if isinstance(arithmetic, MinSumArithmetic):
         return MinSumRule(arithmetic.storage_dtype, arithmetic.scale)
+    for arith, rule in ((MinstarApproxI8Arithmetic, MinstarApproxI8Rule),
+                        (AminstarI8Arithmetic, AminstarI8Rule)):
+        if isinstance(arithmetic, arith):
+            return rule(arithmetic.jones, arithmetic.hard_limit, arithmetic.deg1_clip)
     return None
 
 
 # -- the streaming flooding phases -------------------------------------------
 
-_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: threads per block of the check and variable phase kernels
 PHASE_THREADS = 256
 #: threads per block of the syndrome kernel, which gives one block to a
@@ -359,8 +550,10 @@ def launch_args(x, layout, rule=None):
         raise ValueError(f"tile width {Bt} must divide {TILE_THREADS}")
     if not x.is_contiguous():
         raise ValueError("planes must be contiguous")
-    if rule is not None and rule.storage_dtype not in _MSG_DTYPES:
-        raise TypeError(f"unsupported message storage {rule.storage_dtype}")
+    if rule is not None:
+        refuse_streaming_i8(rule)
+        if rule.storage_dtype not in _MSG_DTYPES:
+            raise TypeError(f"unsupported message storage {rule.storage_dtype}")
     if layout.max_chk_degree > MAX_CHECK_DEGREE:
         raise ValueError(
             f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
@@ -483,7 +676,8 @@ def _poke(x, mask, value):
 
 
 def fused_check_reference(v2c, layout, rule):
-    """The plain PyTorch version of ``fused_check``, on any device."""
+    """The plain PyTorch version of ``fused_check``, on any device, in the
+    rule's compute type."""
     nbt, E, Z, Bt = v2c.shape
     c2v = torch.empty_like(v2c)
     for m in layout.chk_meta:
@@ -491,27 +685,28 @@ def fused_check_reference(v2c, layout, rule):
             continue
         G = m.g1 - m.g0
         e0, e1 = m.ebase, m.ebase + G * m.d
-        x = v2c[:, e0:e1].float().reshape(nbt, G, m.d, Z, Bt)
+        x = v2c[:, e0:e1].to(rule.compute_dtype).reshape(nbt, G, m.d, Z, Bt)
         outs = rule.check([x[:, :, t] for t in range(m.d)])  # (d, nbt, G, ...)
         o = outs.permute(1, 2, 0, 3, 4).reshape(nbt, G * m.d, Z, Bt)
-        o = _poke(_roll_planes(o, layout.chk_rot[e0:e1]), layout.chk_omask[e0:e1], 0.0)
+        o = _poke(_roll_planes(o, layout.chk_rot[e0:e1]), layout.chk_omask[e0:e1], 0)
         c2v[:, layout.chk_dest[e0:e1].long()] = o.to(v2c.dtype)
     return c2v
 
 
 def fused_var_reference(c2v, q, layout, rule):
-    """The plain PyTorch version of ``fused_var``, on any device."""
+    """The plain PyTorch version of ``fused_var``, on any device, in the
+    rule's compute type."""
     nbt, VG, Z, Bt = q.shape
     v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q.dtype, device=q.device)
     bits = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=q.device)
     for m in layout.var_meta:
         G = m.g1 - m.g0
         e0, e1 = m.ebase, m.ebase + G * m.d
-        qf = q[:, m.g0 : m.g1].float()
+        qf = q[:, m.g0 : m.g1].to(rule.compute_dtype)
         if c2v is None:
             outs, tot = [qf] * m.d, qf
         else:
-            y = c2v[:, e0:e1].float().reshape(nbt, G, m.d, Z, Bt)
+            y = c2v[:, e0:e1].to(rule.compute_dtype).reshape(nbt, G, m.d, Z, Bt)
             outs, tot = rule.var(qf, [y[:, :, t] for t in range(m.d)], m.d)
         bits[:, m.g0 : m.g1] = (tot <= 0).to(torch.int8)
         if not m.d:

@@ -22,7 +22,7 @@ the smallest. So the state of a decode compresses losslessly:
 
 Both give the bits, iterations and success flags of the message kernels
 (the sign of some zeros differs inside, which nothing downstream sees).
-The decoders send the f32 names here (``takes_compressed_state``). On a
+The decoders send the f32 min-sum names here (``takes_compressed_state``). On a
 CUDA tensor each wrapper launches its kernel of ``csrc/compressed.cu`` or
 raises; on a CPU tensor it runs its plain version, which keeps the same
 compressed state and rebuilds messages from it as the kernel does. The
@@ -39,7 +39,12 @@ import functools
 import torch
 
 from . import _build
-from .fused_bp2 import _MSG_DTYPES, _roll_planes, fused_syndrome_bits_reference
+from .fused_bp2 import (
+    _MSG_DTYPES,
+    MinSumRule,
+    _roll_planes,
+    fused_syndrome_bits_reference,
+)
 from .resident_flooding import decode_loop
 from .resident_layered import (
     LANE_THREADS,
@@ -62,7 +67,10 @@ __all__ = [
 
 def takes_compressed_state(rule) -> bool:
     """Whether the resident decodes of a rule keep the compressed check
-    state: the f32 min-sum names do, the bf16 ones keep messages.
+    state: the f32 min-sum names do; the bf16 ones and every other rule
+    (the i8 rules) keep messages. The compressed state holds min-sum's
+    check outputs only, so no rule but ``MinSumRule`` may reach it (the
+    JAX package's ``isinstance(rule, MinSumRule)``).
 
     This reproduces the JAX package's choice at the flagship shape (DVB-S2
     R1_2) for all four min-sum combinations of schedule and storage type,
@@ -71,7 +79,14 @@ def takes_compressed_state(rule) -> bool:
     memory) do not hold on this card, where every form keeps its state in
     device memory; the card's measurements of both forms stand in PERF.md
     and a benchmark cell is to settle the rule."""
-    return rule.storage_dtype == torch.float32
+    return isinstance(rule, MinSumRule) and rule.storage_dtype == torch.float32
+
+
+def _require_min_sum(rule) -> None:
+    if not isinstance(rule, MinSumRule):
+        raise TypeError(
+            f"the compressed kernels carry min-sum only, not {type(rule).__name__}"
+        )
 
 
 @functools.cache
@@ -119,6 +134,7 @@ def compressed_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int)
         return compressed_layered_decode_reference(
             qv0_t, bits0_t, layout, rule, max_iterations
         )
+    _require_min_sum(rule)
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
     check_bits(bits0_t, qv)
     if qv.dtype != torch.float32:
@@ -152,6 +168,7 @@ def compressed_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
         return compressed_flooding_decode_reference(
             q_t, bits0_t, layout, rule, max_iterations
         )
+    _require_min_sum(rule)
     if q_t.dtype != rule.storage_dtype or not q_t.is_contiguous():
         raise TypeError(f"q_t must be contiguous {rule.storage_dtype}")
     nbt, VG, Z, Bt = q_t.shape

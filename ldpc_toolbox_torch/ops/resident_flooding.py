@@ -11,7 +11,7 @@ iteration counts and convergence flags. One function serves both TPU
 kernels because they compute the same thing: they differ only in how the
 state fits the TPU's vector memory (two message arrays, or one array
 aliased between the phases). On this card the state lives in device
-memory either way, so the CUDA kernel keeps two arrays.
+memory either way, and the CUDA kernel keeps one array.
 
 On a CUDA tensor it launches ``resident_flooding_kernel`` of
 ``csrc/flooding.cu`` (one thread block per tile of 4 frames, a thread per
@@ -26,13 +26,26 @@ lanes; each iteration runs the whole check phase, then the whole variable
 phase; the syndrome tests the posterior hard bits; a frame's bits and
 count freeze at its first passing iteration; iteration 0 tests the
 raw-channel bits, so a frame can finish with 0 iterations; a frame that
-never converges gets ``max_iterations`` and its last posterior bits.
+never converges gets ``max_iterations`` and its last posterior bits (the
+raw-channel bits if no iteration ran).
+
+The i8 rules (``MinstarApproxI8Rule``, ``AminstarI8Rule``) take int8
+channel planes (the quantized LLRs) and int8 messages and compute in
+int32: v2c = clip(tot - c2v, +-127), tot = q (clipped to +-116 for a
+degree-1 group under Deg1Clip) plus the c2v, clipped to +-127 under Jones;
+the hard decision is tot <= 0. On a CUDA tensor ``resident_flooding_decode``
+passes them to ``resident_flooding_decode_i8``, the wrapper of the kernel's
+int8 instances (``csrc/flooding_i8.cu``), which counts their launches apart.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from . import _build
 from .fused_bp2 import (
     _MSG_DTYPES,
     _check_planes,
@@ -40,31 +53,42 @@ from .fused_bp2 import (
     fused_check_reference,
     fused_syndrome_bits_reference,
     fused_var_reference,
+    is_i8,
     raise_on,
 )
 from .resident_layered import LANE_THREADS, lane_launch
 
 __all__ = [
     "resident_flooding_decode",
+    "resident_flooding_decode_i8",
     "resident_flooding_decode_reference",
     "flooding_loop",
     "decode_loop",
 ]
 
 
-def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
-    """(q, bits0) -> (bits, iters, conv) for every tile.
+@functools.cache
+def _lib_i8():
+    return bind_i8(_build.load("flooding_i8"))
 
-    q_t: (nbt, VG, Z, Bt) channel planes in the rule's storage type;
-    bits0_t: (nbt, VG, Z, Bt) int8 hard decisions of the raw channel LLRs;
-    layout: a ``convert.DeviceLayout`` on the same device; rule: a
-    ``MinSumRule``. Returns bits (nbt, VG, Z, Bt) int8, iters (nbt, Bt)
-    int32 and conv (nbt, Bt) int32.
-    """
-    if q_t.device.type == "cpu":
-        return resident_flooding_decode_reference(
-            q_t, bits0_t, layout, rule, max_iterations
-        )
+
+def bind_i8(lib):
+    """Declares the C interface of a library built from
+    ``csrc/flooding_i8.cu``; returns it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, flags, stream
+    lib.ldpc_resident_flooding_i8_decode.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.ldpc_resident_flooding_i8_decode.restype = i
+    lib.ldpc_flooding_i8_error_string.argtypes = [i]
+    lib.ldpc_flooding_i8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_planes(q_t, bits0_t, layout, rule, max_iterations):
+    """The checks of a resident flooding launch on its tiles; returns the
+    ``lane_launch`` arguments and the kernel's scratch and outputs (msg,
+    post, bits, iters, conv)."""
     _check_planes(q_t, layout.VG, layout, rule.storage_dtype, "q_t")
     _check_planes(bits0_t, layout.VG, layout, torch.int8, "bits0_t")
     if bits0_t.shape != q_t.shape or bits0_t.device != q_t.device:
@@ -74,11 +98,36 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
         raise ValueError("q_t must start on a 16-byte boundary")
     nbt, VG, Z, Bt = q_t.shape
     dev = q_t.device
-    msg = torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev)
-    post = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=dev)
-    bits = bits0_t.clone(memory_format=torch.contiguous_format)
-    iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
-    conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    state = (
+        torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev),
+        torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=dev),
+        bits0_t.clone(memory_format=torch.contiguous_format),
+        torch.empty((nbt, Bt), dtype=torch.int32, device=dev),
+        torch.empty((nbt, Bt), dtype=torch.int32, device=dev),
+    )
+    return tables, dims, stream, state
+
+
+def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
+    """(q, bits0) -> (bits, iters, conv) for every tile.
+
+    q_t: (nbt, VG, Z, Bt) channel planes in the rule's storage type (int8
+    quantized LLRs for an i8 rule); bits0_t: (nbt, VG, Z, Bt) int8 hard
+    decisions of the raw channel LLRs; layout: a ``convert.DeviceLayout``
+    on the same device; rule: a ``MinSumRule`` or an i8 rule (on a CUDA
+    tensor passed to ``resident_flooding_decode_i8``). Returns bits (nbt,
+    VG, Z, Bt) int8, iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
+    """
+    if q_t.device.type == "cpu":
+        return resident_flooding_decode_reference(
+            q_t, bits0_t, layout, rule, max_iterations
+        )
+    if is_i8(rule):
+        return resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations)
+    tables, dims, stream, state = _launch_planes(
+        q_t, bits0_t, layout, rule, max_iterations
+    )
+    msg, post, bits, iters, conv = state
     raise_on(
         flooding_lib().ldpc_resident_flooding_decode(
             msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
@@ -92,8 +141,39 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
     return bits, iters, conv
 
 
-#: kernel launches since the count was last set to 0
+def resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations: int):
+    """``resident_flooding_decode`` for an i8 rule, through the kernel's
+    int8 instances (``csrc/flooding_i8.cu``): int8 channel planes and
+    messages, int32 arithmetic, the rule's Jones, PartialHardLimit and
+    Deg1Clip flags; same arguments and results. Check degree at most
+    ``resident_layered.I8_MAX_CHECK_DEGREE``."""
+    if q_t.device.type == "cpu":
+        return resident_flooding_decode_reference(
+            q_t, bits0_t, layout, rule, max_iterations
+        )
+    if not is_i8(rule):
+        raise TypeError(f"{type(rule).__name__} is not an i8 rule")
+    tables, dims, stream, state = _launch_planes(
+        q_t, bits0_t, layout, rule, max_iterations
+    )
+    msg, post, bits, iters, conv = state
+    lib = _lib_i8()
+    err = lib.ldpc_resident_flooding_i8_decode(
+        msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
+        iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),
+        LANE_THREADS, rule.kind, rule.flags, stream,
+    )
+    if err:
+        text = lib.ldpc_flooding_i8_error_string(err).decode()
+        raise RuntimeError(f"resident_flooding_decode_i8 launch failed: {text}")
+    resident_flooding_decode_i8.launches += 1
+    return bits, iters, conv
+
+
+#: kernel launches since the count was last set to 0 (the float instances;
+#: the int8 instances count on resident_flooding_decode_i8)
 resident_flooding_decode.launches = 0
+resident_flooding_decode_i8.launches = 0
 
 
 def resident_flooding_decode_reference(

@@ -17,7 +17,17 @@ from the layer-entry Qv; the group's deltas ``Rnew - Rold`` (Rnew in f32,
 Rold as loaded from its storage type) are then added to Qv in edge order,
 one rounding per addition, so two edges of one group into the same
 variable group give ``(Qv + d1) + d2``. Iteration 0 tests the raw-channel
-hard bits, so a frame can finish with 0 iterations.
+hard bits, so a frame can finish with 0 iterations; a frame that never
+converges keeps the raw-channel bits if no iteration ran.
+
+The i8 rules (``MinstarApproxI8Rule``, ``AminstarI8Rule``) keep Qv in
+int16 and Rcv in int8 and compute in int32: ``x = clip(Qv - Rold, +-127)``
+(127 at the missing lane), Rnew from the rule, ``Qv += Rnew - Rold`` in
+int16 without saturation, as the JAX package does. On a CUDA tensor
+``resident_layered_decode`` passes them to ``resident_layered_decode_i8``,
+the wrapper of the kernel's int8 instances (``csrc/resident_layered_i8.cu``,
+check degree at most ``I8_MAX_CHECK_DEGREE``), which counts their launches
+apart from the float instances'.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
 ``ops/fused_layered.py``'s) share the launch checks of this module. The
@@ -40,15 +50,23 @@ import functools
 import torch
 
 from . import _build
-from .fused_bp2 import _MSG_DTYPES, BT, MAX_CHECK_DEGREE
+from .fused_bp2 import (
+    _MSG_DTYPES,
+    BT,
+    MAX_CHECK_DEGREE,
+    is_i8,
+    refuse_streaming_i8,
+)
 
 __all__ = [
     "BT",
     "BLOCK_THREADS",
+    "I8_MAX_CHECK_DEGREE",
     "LANE_THREADS",
     "LAYERED_TABLES",
     "lane_launch",
     "resident_layered_decode",
+    "resident_layered_decode_i8",
     "resident_layered_decode_reference",
     "layered_decode_planes",
     "layered_loop",
@@ -68,6 +86,9 @@ LANE_THREADS = 256
 _CONTROL_INTS = 8
 #: dynamic shared memory a block may use on Hopper
 MAX_SHARED_BYTES = 232_448
+#: the largest check degree of the i8 kernels: their exact-order min*
+#: fold is O(d^2) and unrolled to the degree bucket (8, 16 or 32)
+I8_MAX_CHECK_DEGREE = 32
 
 #: the layout tables the layered and compressed kernels read, in the order
 #: of ``Tables`` in ``csrc/layered.cuh``
@@ -98,6 +119,24 @@ def bind(lib):
     return lib
 
 
+@functools.cache
+def _lib_i8():
+    return bind_i8(_build.load("resident_layered_i8"))
+
+
+def bind_i8(lib):
+    """Declares the C interface of a library built from
+    ``csrc/resident_layered_i8.cu``; returns it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, flags, stream
+    lib.ldpc_resident_layered_i8_decode.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.ldpc_resident_layered_i8_decode.restype = i
+    lib.ldpc_cuda_error_string.argtypes = [i]
+    lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def raise_on(lib, err: int, name: str) -> None:
     """Raise if a launch's cudaError_t is not 0."""
     if err:
@@ -110,6 +149,7 @@ def layered_launch(qv, layout, rule):
     against the layout and rule; returns (table pointer array, dims, park,
     stream). ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
     device-memory park, or None when the park fits shared memory."""
+    refuse_streaming_i8(rule)
     tables, dims, stream = _launch_args(qv, layout, rule, 0)
     if qv.dtype != torch.float32:
         raise TypeError("qv must be float32")
@@ -135,9 +175,11 @@ def _launch_args(x, layout, rule, max_iterations):
         raise ValueError(f"planes {(VG, Z)} do not match the layout")
     if rule.storage_dtype not in _MSG_DTYPES:
         raise TypeError(f"unsupported message storage {rule.storage_dtype}")
-    if layout.max_chk_degree > MAX_CHECK_DEGREE:
+    cap = I8_MAX_CHECK_DEGREE if is_i8(rule) else MAX_CHECK_DEGREE
+    if layout.max_chk_degree > cap:
         raise ValueError(
-            f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
+            f"check degree {layout.max_chk_degree} above {cap}, the most the "
+            f"{'i8 ' if is_i8(rule) else ''}kernels take"
         )
     if max_iterations < 0:
         raise ValueError("max_iterations must be >= 0")
@@ -178,8 +220,9 @@ def lane_launch(x, layout, rule, max_iterations, with_park):
     lane, on its (nbt, VG, Z, Bt) tiles x: those of every layered launch,
     tiles of exactly 4 frames (a thread holds all four) and the tables in
     shared memory; returns (table pointer array, dims, park, stream) as
-    ``layered_launch`` does. The park (``with_park``: the layered kernels)
-    goes after the tables when it fits there, else in device memory."""
+    ``layered_launch`` does. The park (``with_park``: the layered kernels;
+    f32 deltas, int32 for an i8 rule) goes after the tables when it fits
+    there, else in device memory."""
     if x.shape[-1] != BT:
         raise ValueError(f"tile width {x.shape[-1]}: the kernel takes {BT}")
     tables, dims, stream = _launch_args(x, layout, rule, max_iterations)
@@ -189,7 +232,8 @@ def lane_launch(x, layout, rule, max_iterations, with_park):
     if with_park and parks_in_device_memory(layout):
         nbt, _, Z, Bt = x.shape
         park = torch.empty((nbt, layout.max_chk_degree, Z, Bt),
-                           dtype=torch.float32, device=x.device)
+                           dtype=torch.int32 if is_i8(rule) else torch.float32,
+                           device=x.device)
     return tables, dims, park, stream
 
 
@@ -203,17 +247,19 @@ def check_bits(bits0_t, qv0_t):
 def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
     """(qv0, bits0) -> (bits, iters, conv) for every tile.
 
-    qv0_t: (nbt, VG, Z, Bt) f32 posteriors init (quantized channel LLRs);
-    bits0_t: (nbt, VG, Z, Bt) int8 hard decisions of the *raw* channel
-    LLRs; layout: a ``convert.DeviceLayout`` on the same device; rule: a
-    ``MinSumRule``. Returns bits (nbt, VG, Z, Bt) int8 (frozen at per-frame
-    convergence, final posterior sign otherwise), iters (nbt, Bt) int32 and
-    conv (nbt, Bt) int32.
+    qv0_t: (nbt, VG, Z, Bt) posteriors init (quantized channel LLRs), f32,
+    or int16 for an i8 rule; bits0_t: (nbt, VG, Z, Bt) int8 hard decisions
+    of the *raw* channel LLRs; layout: a ``convert.DeviceLayout`` on the
+    same device; rule: a ``MinSumRule`` or an i8 rule. Returns bits (nbt,
+    VG, Z, Bt) int8 (frozen at per-frame convergence, final posterior sign
+    otherwise), iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
     """
     if qv0_t.device.type == "cpu":
         return resident_layered_decode_reference(
             qv0_t, bits0_t, layout, rule, max_iterations
         )
+    if is_i8(rule):
+        return resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations)
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
     check_bits(bits0_t, qv)
     if qv.dtype != torch.float32:
@@ -237,8 +283,43 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
     return bits, iters, conv
 
 
-#: kernel launches since the count was last set to 0
+def resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations: int):
+    """``resident_layered_decode`` for an i8 rule, through the kernel's int8
+    instances: qv0_t (nbt, VG, Z, 4) int16, Rcv int8, int32 arithmetic;
+    same arguments and results. Check degree at most
+    ``I8_MAX_CHECK_DEGREE``."""
+    if qv0_t.device.type == "cpu":
+        return resident_layered_decode_reference(
+            qv0_t, bits0_t, layout, rule, max_iterations
+        )
+    if not is_i8(rule):
+        raise TypeError(f"{type(rule).__name__} is not an i8 rule")
+    qv = qv0_t.clone(memory_format=torch.contiguous_format)
+    check_bits(bits0_t, qv)
+    if qv.dtype != torch.int16:
+        raise TypeError("qv0_t must be int16 for an i8 rule")
+    tables, dims, park, stream = lane_launch(qv, layout, rule, max_iterations, True)
+    nbt, _, Z, Bt = qv.shape
+    dev = qv.device
+    bits = bits0_t.clone(memory_format=torch.contiguous_format)
+    rcv = torch.zeros((nbt, layout.E, Z, Bt), dtype=torch.int8, device=dev)
+    iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    lib = _lib_i8()
+    err = lib.ldpc_resident_layered_i8_decode(
+        qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+        conv.data_ptr(), None if park is None else park.data_ptr(), tables,
+        *dims, int(max_iterations), LANE_THREADS, rule.kind, rule.flags, stream,
+    )
+    raise_on(lib, err, "resident_layered_decode_i8")
+    resident_layered_decode_i8.launches += 1
+    return bits, iters, conv
+
+
+#: kernel launches since the count was last set to 0 (the float instances;
+#: the int8 instances count on resident_layered_decode_i8)
 resident_layered_decode.launches = 0
+resident_layered_decode_i8.launches = 0
 
 
 def resident_layered_decode_reference(
@@ -292,21 +373,23 @@ def plane_tables(layout, dev):
 
 
 def message_sweep(qv, rcv, layout, rule, tables):
-    """One plain layered sweep in place on qv (VG*Z, N) f32 and rcv (E, Z,
-    N) messages in the rule's storage type; ``tables`` from
+    """One plain layered sweep in place on qv (VG*Z, N) posteriors (f32, or
+    int16 for an i8 rule) and rcv (E, Z, N) messages in the rule's storage
+    type, computing in the rule's compute type; ``tables`` from
     ``plane_tables``."""
     src, valid, groups = tables
     for _, e0, d in groups:
         idx = src[e0 : e0 + d]  # (d, Z)
         ok_lane = valid[e0 : e0 + d]
-        rold = rcv[e0 : e0 + d].float()
+        rold = rcv[e0 : e0 + d].to(rule.compute_dtype)
         x = torch.where(ok_lane, rule.layered_x(qv[idx], rold), rule.big)
-        rn = torch.where(ok_lane, rule.check(x), 0.0)
+        rn = torch.where(ok_lane, rule.check(x), 0)
         delta = rn - rold  # before the store: rold may view rcv (f32)
         rcv[e0 : e0 + d] = rn.to(rule.storage_dtype)
         # in edge order: two edges into one variable group add in turn
+        # (int16 Qv wraps as the JAX package's does)
         for t in range(d):
-            qv[idx[t]] += delta[t]
+            qv[idx[t]] += delta[t].to(qv.dtype)
 
 
 def layered_loop(qv0, hard0, layout, max_iterations, tables, sweep):
@@ -352,10 +435,11 @@ def layered_loop(qv0, hard0, layout, max_iterations, tables, sweep):
 def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
     """Plain layered decode of (VG, Z, N) planes with Rcv messages.
 
-    qv0: f32 posteriors init; hard0: bool raw-channel hard decisions;
-    rule: ``layered_x(qv, rold)``, ``check(x)`` on (d, Z, N), ``big`` (the
-    missing-lane poke) and ``storage_dtype`` (Rcv). Returns bits (VG, Z, N)
-    bool, iterations (N,) int32 and success (N,) bool.
+    qv0: posteriors init (f32, or int16 for an i8 rule); hard0: bool
+    raw-channel hard decisions; rule: ``layered_x(qv, rold)``, ``check(x)``
+    on (d, Z, N), ``big`` (the missing-lane poke), ``storage_dtype`` (Rcv)
+    and ``compute_dtype``. Returns bits (VG, Z, N) bool, iterations (N,)
+    int32 and success (N,) bool.
     """
     _, Z, N = qv0.shape
     tables = plane_tables(layout, qv0.device)

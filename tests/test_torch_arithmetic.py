@@ -102,13 +102,18 @@ def test_registry_names_match_jax():
         jax_factory.DECODER_IMPLEMENTATIONS
     )
     assert len(factory.DECODER_IMPLEMENTATIONS) == 44
+    built = 0
     for name, (schedule, _) in factory.DECODER_IMPLEMENTATIONS.items():
         assert schedule == jax_factory.DECODER_IMPLEMENTATIONS[name][0]
-        if "insum" in name:
+        if "insum" in name or "i8" in name:
             _, a = factory.make_arithmetic(name)
-            assert type(a).__name__ == "MinSumArithmetic"
+            assert type(a).__name__ == type(jax_factory.make_arithmetic(name)[1]).__name__
+            built += 1
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP A6"):
                 factory.make_arithmetic(name)
+    # 8 min-sum names and 20 i8 names (16 flooding, 4 HL); the 16 float
+    # names still raise
+    assert built == 28
     with pytest.raises(ValueError):
         factory.make_arithmetic("Nosuchdecoder")

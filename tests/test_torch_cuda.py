@@ -8,6 +8,8 @@ there without the repository's conftest::
 Elsewhere every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -44,10 +46,12 @@ from ldpc_toolbox_torch.ops.resident_compressed import (
 )
 from ldpc_toolbox_torch.ops.resident_flooding import (
     resident_flooding_decode,
+    resident_flooding_decode_i8,
     resident_flooding_decode_reference,
 )
 from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode,
+    resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
 
@@ -369,3 +373,86 @@ def test_layered_partial_tile_streaming_equals_resident(cuda):
     for key in ("codeword", "iterations", "success"):
         assert torch.equal(out[key], stream[key]), key
     assert len(set(out["iterations"].tolist())) >= 3
+
+
+#: the i8 names of the int8 instances' checks, two a schedule
+I8_DECODERS = [
+    "HLMinstarapproxi8", "HLAminstari8PartialHardLimit",
+    "Minstarapproxi8JonesDeg1Clip", "Aminstari8PartialHardLimitDeg1Clip",
+]
+
+
+def _strong_llrs(n, batch, seed, device):
+    """Large-magnitude LLRs (6 to 20) with 1 to 6 % of the signs flipped,
+    where the i8 clips and the partial hard limit act."""
+    rng = np.random.default_rng(seed)
+    mag = rng.uniform(6.0, 20.0, (batch, n))
+    flip = rng.random((batch, n)) < rng.uniform(0.01, 0.06, (batch, 1))
+    return torch.as_tensor(np.where(flip, -mag, mag), dtype=torch.float32, device=device)
+
+
+def _i8_kernel(decoder):
+    if decoder.startswith("HL"):
+        return resident_layered_decode_i8, resident_layered_decode_reference, tile_inputs
+    return resident_flooding_decode_i8, resident_flooding_decode_reference, flooding_tiles
+
+
+@pytest.mark.parametrize("decoder", I8_DECODERS)
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_i8_kernels_match_plain_versions(cuda, code, decoder):
+    """The int8 instances of the message kernels on 5G BG2 z=16 (64
+    large-magnitude frames besides) and CCSDS C2 (degree 32, the i8
+    instances' widest bucket; the layered park in device memory) against
+    the plain versions; the float wrappers count no launch."""
+    lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, cuda)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, cuda)])
+    kernel, plain, tiles = _i8_kernel(decoder)
+    args = tiles(lg, make_arithmetic(decoder)[1], x)
+    before = (kernel.launches, resident_layered_decode.launches,
+              resident_flooding_decode.launches)
+    out = (resident_layered_decode if decoder.startswith("HL") else resident_flooding_decode)(
+        *args, 10)
+    assert (kernel.launches, resident_layered_decode.launches,
+            resident_flooding_decode.launches) == (before[0] + 1, *before[1:])
+    for a, b in zip(out, plain(*args, 10)):
+        assert torch.equal(a, b)
+    assert 0 < int(out[2].sum()) < out[2].numel()
+
+
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "Aminstari8JonesPartialHardLimitDeg1Clip"])
+def test_i8_partial_tile_matches_plain(cuda, decoder):
+    """A batch of 130 through the decoders' glue onto the int8 instances,
+    against the CPU; and no iteration at all keeps the raw-channel bits."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    kernel = _i8_kernel(decoder)[0]
+    decode = lifted_layered_decode if decoder.startswith("HL") else lifted_flooding_decode
+    llrs = _llrs(lg.n, 130, 1.3, 11, cuda)
+    tiny = torch.rand((16, lg.n), generator=torch.Generator().manual_seed(3)) * 0.06
+    tiny[:, ::7] *= -1
+    for x, iters in ((llrs, 10), (tiny.to(cuda), 0)):
+        before = kernel.launches
+        out = decode(lg, arith, x, iters)
+        assert kernel.launches == before + 1
+        ref = decode(lg, arith, x.cpu(), iters)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key].cpu(), ref[key]), key
+    assert torch.equal(out["codeword"].cpu(), (tiny <= 0).to(torch.uint8))
+
+
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "Aminstari8"])
+def test_i8_kernels_refuse_checks_above_their_cap(cuda, decoder):
+    """The int8 instances take check degree 32 at most: a layout whose
+    checks are wider is refused before any launch, naming the cap."""
+    lg = _bg2z16()
+    kernel, _, tiles = _i8_kernel(decoder)
+    q, bits0, layout, rule = tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, 8, 1.3, 5, cuda))
+    m = layout.chk_meta[0]
+    wide = dataclasses.replace(layout, chk_meta=(dataclasses.replace(m, d=33),)
+                               + layout.chk_meta[1:])
+    before = kernel.launches
+    with pytest.raises(ValueError, match="above 32"):
+        kernel(q, bits0, wide, rule, 4)
+    assert kernel.launches == before

@@ -1,0 +1,236 @@
+"""The port's i8 arithmetic, kernel rules and layered decodes against the
+JAX package's, bit for bit (tolerance 0: integer arithmetic).
+
+The JAX side runs eagerly (arithmetic, rules) or through its jnp layered
+path (``fused=False``), never in Pallas interpret mode; JAX's own tests
+hold its i8 Pallas kernels equal to that path (tests/test_lifted_layered.py
+test_fused_layered_matches_jnp). The flooding decodes are in
+test_torch_i8_flooding.py."""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ldpc_toolbox_tpu.decoder import arithmetic as jax_arithmetic
+from ldpc_toolbox_tpu.decoder import factory as jax_factory
+from ldpc_toolbox_tpu.decoder.lifted_layered import lifted_layered_decode as jax_layered
+from ldpc_toolbox_tpu.ops import fused_bp2 as jax_fused_bp2
+from ldpc_toolbox_torch import codes as torch_codes
+from ldpc_toolbox_torch.codes.nr5g import BaseGraph
+from ldpc_toolbox_torch.decoder import Decoder, arithmetic
+from ldpc_toolbox_torch.decoder import lifted_flooding, lifted_layered
+from ldpc_toolbox_torch.decoder.factory import make_arithmetic
+from ldpc_toolbox_torch.ops import fused_bp2
+
+from torch_parity import (
+    I8_NAMES,
+    assert_same_decode,
+    code_objects,
+    lifted_graphs,
+    llrs,
+    strong_llrs,
+)
+
+HL_I8 = ["HLMinstarapproxi8", "HLMinstarapproxi8PartialHardLimit", "HLAminstari8",
+         "HLAminstari8PartialHardLimit"]
+
+
+def test_correction_table_and_thresholds_match_jax():
+    """The port's own copy of the table and its thresholds; the kernel
+    rule's select tree and the arithmetic's compare sum give the table at
+    every t in 0..255 (0 beyond 127)."""
+    table = arithmetic.i8_correction_table()
+    np.testing.assert_array_equal(table, jax_arithmetic.i8_correction_table())
+    assert table.dtype == np.int32
+    assert fused_bp2._i8_thresholds() == jax_fused_bp2._i8_thresholds()
+    expect = np.concatenate([table, np.zeros(128, np.int32)])
+    t = torch.arange(256, dtype=torch.int32)
+    rule = fused_bp2.rule_for(make_arithmetic("Minstarapproxi8")[1])
+    np.testing.assert_array_equal(rule._tab(t).numpy(), expect)
+    _, arith = make_arithmetic("Aminstari8")
+    np.testing.assert_array_equal(arith._lookup(t).numpy(), expect)
+
+
+def test_quantize_matches_jax():
+    """The C=8 quantizer on its edges: every half-way point k/16, values
+    just above and under them (0.49999997 rounds up in f32 through
+    |x| + 0.5, as in the JAX package), the saturation at +-127/8, +-100."""
+    halves = np.arange(-2100, 2101, dtype=np.float32) / 16
+    around = np.concatenate([
+        np.nextafter(halves, np.float32(np.inf)), np.nextafter(halves, np.float32(-np.inf)),
+    ])
+    special = np.array(
+        [0.49999997 / 8, -0.49999997 / 8, 0.0, -0.0, 127 / 8, -127 / 8, 15.8, -15.8,
+         100.0, -100.0, 1e-30, -1e-30, 3e38, -3e38], np.float32,
+    )
+    x = np.concatenate([halves, around, special]).astype(np.float32)
+    # no subnormals: XLA on the CPU flushes them to zero, torch does not
+    x = x[(np.abs(x) >= np.finfo(np.float32).tiny) | (x == 0)]
+    for name in ("Minstarapproxi8", "Aminstari8JonesPartialHardLimitDeg1Clip"):
+        _, ja = jax_factory.make_arithmetic(name)
+        _, ta = make_arithmetic(name)
+        q = ta.quantize(torch.from_numpy(x))
+        assert q.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(ja.quantize(jnp.asarray(x))), q.numpy())
+    assert int(ta.quantize(torch.tensor([0.49999997 / 8]))[0]) == 1
+
+
+@functools.cache
+def _blocks():
+    """int8-range check inputs: unmasked (rows, d, batch) blocks at several
+    degrees, and one d=20 block whose masks leave 1 to 20 valid slots."""
+    rng = np.random.default_rng(11)
+
+    def values(shape):
+        v = rng.integers(-127, 128, shape)
+        special = rng.choice([0, 127, -127, 100, -100, 99, 1, -1], shape)
+        return np.where(rng.random(shape) < 0.3, special, v).astype(np.int32)
+
+    plain = {d: values((5, d, 48)) for d in (1, 2, 3, 7, 20)}
+    mask = np.zeros((20, 20), bool)
+    for r in range(20):
+        mask[r, rng.permutation(20)[: r + 1]] = True
+    return plain, (values((20, 20, 48)), mask)
+
+
+@pytest.mark.parametrize("name", I8_NAMES)
+def test_check_messages_and_var_update_match_jax(name):
+    """Both families, all eight variants, with and without a mask, at
+    degrees 1 to 20."""
+    _, ja = jax_factory.make_arithmetic(name)
+    _, ta = make_arithmetic(name)
+    plain, (xm, mask) = _blocks()
+    rng = np.random.default_rng(12)
+    cases = [(x, None) for x in plain.values()] + [(xm, mask)]
+    for x, m in cases:
+        jm = None if m is None else jnp.asarray(m)
+        tm = None if m is None else torch.from_numpy(m)
+        out = ta.check_messages(torch.from_numpy(x), tm)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(
+            np.asarray(ja.check_messages(jnp.asarray(x), jm)), out.numpy()
+        )
+        q = rng.integers(-127, 128, (x.shape[0], x.shape[2])).astype(np.int32)
+        jv = ja.var_update(jnp.asarray(q), jnp.asarray(x), jm)
+        tv = ta.var_update(torch.from_numpy(q), torch.from_numpy(x), tm)
+        for a, b in zip(jv, tv):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("name", I8_NAMES)
+def test_rules_match_jax(name):
+    """``MinstarApproxI8Rule`` and ``AminstarI8Rule``: ``check`` and ``var``
+    on planes, at degrees 1 to 19, and the layered extrinsic."""
+    jrule = jax_fused_bp2.rule_for(jax_factory.make_arithmetic(name)[1])
+    trule = fused_bp2.rule_for(make_arithmetic(name)[1])
+    assert type(trule).__name__ == type(jrule).__name__
+    assert (trule.jones, trule.hard_limit, trule.deg1_clip) == (
+        jrule.jones, jrule.hard_limit, jrule.deg1_clip)
+    assert trule.big == jrule.big == 127 and fused_bp2.is_i8(trule)
+    assert (trule.storage_dtype, trule.compute_dtype) == (torch.int8, torch.int32)
+    plain, _ = _blocks()
+    for d in (1, 2, 3, 7, 19):
+        planes = np.concatenate([plain[20][:, :d].transpose(1, 0, 2)] * 2, axis=1)
+        jout = jrule.check([jnp.asarray(p) for p in planes])
+        tout = trule.check(torch.from_numpy(planes))
+        for t in range(d):
+            np.testing.assert_array_equal(np.asarray(jout[t]), tout[t].numpy())
+        q = planes[0] * 3 // 2  # beyond +-127 too, as a posterior total
+        jv, jt = jrule.var(jnp.asarray(q), [jnp.asarray(p) for p in planes], d)
+        tv, tt = trule.var(torch.from_numpy(q), list(torch.from_numpy(planes)), d)
+        np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+        for a, b in zip(jv, tv):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    qv = torch.from_numpy((plain[7][:, 0] * 5).astype(np.int16))
+    rold = torch.from_numpy(plain[7][:, 1])
+    np.testing.assert_array_equal(
+        np.asarray(jrule.layered_x(jnp.asarray(qv.numpy()).astype(jnp.int32),
+                                   jnp.asarray(rold.numpy()))),
+        trule.layered_x(qv, rold).numpy(),
+    )
+
+
+def test_i8_arithmetic_dtypes_and_variants():
+    for name in I8_NAMES:
+        _, ja = jax_factory.make_arithmetic(name)
+        _, ta = make_arithmetic(name)
+        assert type(ta).__name__ == type(ja).__name__ and ta.is_int8
+        for prop in ("storage_dtype", "compute_dtype", "var_llr_storage_dtype"):
+            assert str(getattr(ta, prop)).split(".")[-1] == jnp.dtype(
+                getattr(ja, prop)).name, prop
+        assert (ta.jones, ta.hard_limit, ta.deg1_clip) == (
+            ja.jones, ja.hard_limit, ja.deg1_clip)
+
+
+#: layered cases: code -> (batch, sigma, iterations), a convergence mix each;
+#: the 5G BG2 z=16 batch holds 64 large-magnitude frames besides
+LAYERED_CASES = {"bg2z16": (136, 1.45, 8), "R1_4short": (64, 1.05, 6),
+                 "ccsds-c2": (48, 0.5, 6)}
+#: the names each code decodes: all four HL i8 names on 5G BG2 z=16, both
+#: families on the others
+LAYERED_NAMES = {"bg2z16": HL_I8, "R1_4short": ["HLMinstarapproxi8", "HLAminstari8"],
+                 "ccsds-c2": ["HLMinstarapproxi8PartialHardLimit", "HLAminstari8"]}
+
+
+@functools.cache
+def _layered_case(code, decoder):
+    jlg, tlg = lifted_graphs(code)
+    batch, sigma, iters = LAYERED_CASES[code]
+    x = llrs(tlg.n, batch, sigma, seed=5)
+    if code == "bg2z16":
+        x = np.concatenate([x, strong_llrs(tlg.n, 64, seed=6)])
+    _, ja = jax_factory.make_arithmetic(decoder)
+    return tlg, x, jax_layered(jlg, ja, jnp.asarray(x), iters)
+
+
+@pytest.mark.parametrize(
+    "code,decoder", [(c, n) for c, names in LAYERED_NAMES.items() for n in names]
+)
+def test_layered_decode_matches_jax(code, decoder):
+    """``Decoder(..., device="cpu")`` (the tile glue onto the message
+    kernel's plain version) and ``plain_layered_decode`` (the twin of the
+    jnp path) against the JAX jnp path."""
+    tlg, x, jout = _layered_case(code, decoder)
+    iters = LAYERED_CASES[code][2]
+    dec = Decoder(code_objects(code, torch_codes), decoder, device="cpu")
+    assert dec.schedule == "layered"
+    assert_same_decode(jout, dec.decode_batch(x, max_iterations=iters))
+    if code == "bg2z16":
+        _, ta = make_arithmetic(decoder)
+        assert_same_decode(
+            jout, lifted_layered.plain_layered_decode(tlg, ta, torch.from_numpy(x), iters)
+        )
+
+
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "Aminstari8PartialHardLimit"])
+def test_no_iteration_keeps_the_raw_bits(decoder):
+    """With max_iterations = 0 a frame that fails its checks keeps the hard
+    decisions of the raw channel LLRs, not of the quantized ones: LLRs in
+    (0, 1/16) quantize to 0, whose hard decision is 1. (The JAX package's
+    decodes return the raw decisions there too: ``hard0``.)"""
+    _, tlg = lifted_graphs("bg2z16")
+    rng = np.random.default_rng(4)
+    x = rng.uniform(1e-4, 0.06, (16, tlg.n)).astype(np.float32)
+    x[:, ::7] *= -1.0
+    x[0] = np.abs(x[0])  # the all-zero word: satisfied at iteration 0
+    out = Decoder((BaseGraph.BG2, 16), decoder, device="cpu").decode_batch(x, max_iterations=0)
+    np.testing.assert_array_equal(out["codeword"].numpy(), (x <= 0).astype(np.uint8))
+    assert out["success"].tolist() == [True] + [False] * 15
+    assert not out["iterations"].any()
+
+
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "Aminstari8"])
+def test_streaming_refuses_i8(decoder):
+    """The streaming kernels have no i8 instances yet: ``resident=False``
+    raises, on the CPU as on the card."""
+    _, tlg = lifted_graphs("bg2z16")
+    _, ta = make_arithmetic(decoder)
+    decode = (lifted_layered.lifted_layered_decode if decoder.startswith("HL")
+              else lifted_flooding.lifted_flooding_decode)
+    x = torch.from_numpy(llrs(tlg.n, 4, 1.3, seed=1))
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        decode(tlg, ta, x, 4, resident=False)
+    assert decode(tlg, ta, x, 4)["codeword"].shape == (4, tlg.n)

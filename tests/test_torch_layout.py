@@ -7,6 +7,7 @@ import dataclasses
 import gc
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -26,6 +27,7 @@ from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.ops import fused_bp2
 from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
 from ldpc_toolbox_torch.ops.resident_layered import (
+    I8_MAX_CHECK_DEGREE,
     LAYERED_TABLES,
     MAX_SHARED_BYTES,
     parks_in_device_memory,
@@ -138,6 +140,29 @@ def test_message_kernels_shared_memory(code):
     cell = (w[None, :] - layout.rec_rot.long()[:, None]) % Z
     assert torch.equal(cell, (w[None, :] + layout.var_rot.long()[:, None]) % Z)
     assert torch.equal(layout.syn_mask[plane], layout.var_omask)
+
+
+def test_i8_kernel_constants_match_the_rules():
+    """The i8 kernels' compiled-in correction table (``csrc/i8.cuh``, read
+    from the source) is the port's ``_i8_thresholds()``, which equals the
+    JAX package's; their family kinds, variant flags and degree cap are the
+    wrappers'."""
+    src = (REPO / "ldpc_toolbox_torch" / "csrc" / "i8.cuh").read_text()
+    steps = re.search(r"using I8Correction = Steps<([\d,\s]+)>;", src)
+    assert steps, "the correction table's steps are not in csrc/i8.cuh"
+    compiled = [int(v) for v in steps.group(1).split(",")]
+    assert compiled == fused_bp2._i8_thresholds() == jax_fused_bp2._i8_thresholds()
+
+    def constant(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+    for name, kind in (("Minstarapproxi8", "kMinstarApprox"), ("Aminstari8", "kAminstar")):
+        assert fused_bp2.rule_for(make_arithmetic(name)[1]).kind == constant(kind)
+    for suffix, flag in (("PartialHardLimit", "kPartialHardLimit"), ("Jones", "kJones"),
+                         ("Deg1Clip", "kDeg1Clip")):
+        rule = fused_bp2.rule_for(make_arithmetic("Aminstari8" + suffix)[1])
+        assert rule.flags == constant(flag), suffix
+    assert constant("kI8MaxDegree") == I8_MAX_CHECK_DEGREE
 
 
 @pytest.mark.parametrize("code", CODES)

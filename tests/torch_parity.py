@@ -22,11 +22,18 @@ CODES = ("R1_2", "R1_4short", "bg2z16", "ccsds-c2")
 
 def code_objects(name, codes):
     """The test code ``name`` from a package's ``codes`` module: a code
-    object, or a ``(BaseGraph, Z)`` pair for 5G."""
-    if name == "bg2z16":
-        return codes.nr5g.BaseGraph.BG2, 16
+    object, or a ``(BaseGraph, Z)`` pair for 5G. Besides ``CODES``: 5G
+    ``bg1z16`` and the AR4JA K=1024 codes ``ar4ja-1/2`` and ``ar4ja-4/5``
+    (tests/test_torch_families.py)."""
+    if name in ("bg2z16", "bg1z16"):
+        return getattr(codes.nr5g.BaseGraph, name[:3].upper()), 16
     if name == "ccsds-c2":
         return codes.ccsds.C2Code()
+    if name.startswith("ar4ja-"):
+        rate = {"1/2": "R1_2", "4/5": "R4_5"}[name[6:]]
+        return codes.ccsds.AR4JACode(
+            codes.ccsds.AR4JARate[rate], codes.ccsds.AR4JAInfoSize.K1024
+        )
     return codes.dvbs2.Code[name]
 
 
@@ -72,6 +79,26 @@ def assert_same_decode(jax_out, torch_out):
         np.asarray(jax_out["codeword"]), torch_out["codeword"].numpy()
     )
     assert 0 < s.sum() < s.size, f"no convergence mix: {s.sum()}/{s.size}"
+
+
+def strong_llrs(n, batch, seed):
+    """Large-magnitude LLRs (6 to 20) with 1 to 6 % of the signs flipped,
+    float32 (batch, n): the i8 checks then see magnitudes near 127, where
+    the partial hard limit, the Jones clip and the Deg1Clip act."""
+    rng = np.random.default_rng(seed)
+    mag = rng.uniform(6.0, 20.0, (batch, n))
+    flip = rng.random((batch, n)) < rng.uniform(0.01, 0.06, (batch, 1))
+    return np.where(flip, -mag, mag).astype(np.float32)
+
+
+#: the 16 flooding i8 names: both families, each with its 8 variants
+I8_NAMES = [
+    prefix + "Jones" * j + "PartialHardLimit" * h + "Deg1Clip" * c
+    for prefix in ("Minstarapproxi8", "Aminstari8")
+    for j in (0, 1)
+    for h in (0, 1)
+    for c in (0, 1)
+]
 
 
 def as_torch(x):
