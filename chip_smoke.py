@@ -23,11 +23,17 @@ partial tile), and drives the port's main paths on the flagship code
 4. the i8 decodes ``Decoder(Code.R1_2, "HLMinstarapproxi8")`` and
    ``Decoder(Code.R1_2, "Minstarapproxi8")``, the int8 instances of the
    two message kernels;
+5. the float decodes ``Decoder(Code.R1_2)`` (no name: the reference's
+   default, ``Phif64``, flooding) and ``Decoder(Code.R1_2, "HLPhif32")``,
+   the float-rule instances of the two message kernels (all 16 float names
+   held against the plain versions on the test codes first, R1_2 at 8
+   iterations);
 
 each with its launch counts set to 0 just before and read just after;
 both schedules' resident, streaming (staged) and unstaged streaming loops
 at 2.5 dB, where frames converge; and a two-point BER sweep of each
-schedule, and of ``HLMinstarapproxi8``, through ``BerTestBuilder``. Times
+schedule, and of ``HLMinstarapproxi8`` and ``HLPhif32``, through
+``BerTestBuilder``. Times
 are medians of CUDA-event timings. Before the last line it prints a JSON
 line with every kernel's launches, worst difference from its plain
 version, time, plain time and bound; the last line of standard output is
@@ -89,11 +95,13 @@ from ldpc_toolbox_torch.ops.resident_flooding import (
     decode_loop,
     flooding_loop,
     resident_flooding_decode,
+    resident_flooding_decode_float,
     resident_flooding_decode_i8,
     resident_flooding_decode_reference,
 )
 from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode,
+    resident_layered_decode_float,
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
@@ -137,6 +145,26 @@ CHECK_OPS, VAR_EDGE_OPS, VAR_LANE_OPS, SYN_OPS, LAYERED_EXTRA_OPS = 11, 2, 1, 1,
 #: Deg1Clip, the Jones clip and the hard decision
 I8_FOLD_OPS, I8_FULL_OPS, I8_SLOT_OPS = 14 / 4, 28 / 4, 4 / 4
 I8_EDGE_OPS, I8_LAYERED_EXTRA_OPS, I8_VAR_EDGE_OPS, I8_VAR_LANE_OPS = 7, 5, 4, 5
+#: FP64 operations/s outside the tensor cores (NVIDIA's data sheet, H100
+#: SXM): the rate of the float rules' f64 instances
+F64_OPS_PER_S = 34e12
+#: SASS instructions of the CUDA math library's transcendentals on sm_90a
+#: (static counts, slow paths included, tools/count_math_sass.py on the
+#: card, PERF.md §6): a call in a float rule counts as this many
+#: operations; phi's ln(1 - t) counts as a log1p (log is 27 and 83)
+MATH_OPS = {
+    "float": {"exp": 10, "log1p": 32, "tanh": 17},
+    "double": {"exp": 60, "log1p": 231, "tanh": 101},
+}
+#: operations of the float rules on one frame besides the transcendentals,
+#: counted from csrc/float_rules.cuh (the common path: phi's 1 - e^-x by
+#: subtraction): phi's max, negate, two compares, subtract and final
+#: subtract; a MinstarApprox fold's subtract, abs, negate, min, subtract
+#: and max; Aminstar's full min* that with the second correction's add,
+#: negate and add; per slot the sign (compare, mask, parity and apply) and
+#: the magnitude; Tanh per slot the half, the clamps, the three products,
+#: the product clamps, the negate and the subtract
+PHI_OPS, FOLD_OPS, FULL_OPS, SLOT_OPS, TANH_SLOT_OPS = 6, 6, 9, 5, 10
 PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_layered_decode": (
@@ -173,16 +201,30 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
         "ldpc_toolbox_torch/csrc/flooding_i8.cu",
         "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
         "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
+    # the float-rule instances of #1 and #4/#5 (f32 in *_f32.cu, f64 in
+    # *_f64.cu), for the float rules those TPU kernels inline
+    # (ldpc_toolbox_tpu/ops/fused_bp2.py:331-527)
+    "resident_layered_decode_float": (
+        "ldpc_toolbox_torch/csrc/resident_layered_float.cuh",
+        "ldpc_toolbox_tpu/ops/resident_layered.py:193"),
+    "resident_flooding_decode_float": (
+        "ldpc_toolbox_torch/csrc/flooding_float.cuh",
+        "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
+        "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
 }
 WRAPPERS = (
     resident_layered_decode, compressed_layered_decode, fused_layered_iteration,
     resident_flooding_decode, compressed_flooding_decode, fused_check,
     fused_var, fused_syndrome_bits, resident_layered_decode_i8,
-    resident_flooding_decode_i8,
+    resident_flooding_decode_i8, resident_layered_decode_float,
+    resident_flooding_decode_float,
 )
 #: the i8 names the kernel checks run, two a schedule
 I8_LAYERED = ["HLMinstarapproxi8", "HLAminstari8PartialHardLimit"]
 I8_FLOODING = ["Minstarapproxi8JonesDeg1Clip", "Aminstari8PartialHardLimitDeg1Clip"]
+#: the 16 float names: four rules, two precisions, two schedules
+FLOAT_NAMES = [s + r + p for s in ("", "HL") for r in ("Phi", "Tanh", "Minstarapprox", "Aminstar")
+               for p in ("f32", "f64")]
 DECODE_KEYS = ("codeword", "iterations", "success")
 
 
@@ -280,6 +322,38 @@ def i8_iteration_ops(layout, rule, layered):
         rest = layout.E * (I8_LAYERED_EXTRA_OPS + SYN_OPS)
     else:
         rest = layout.E * (I8_VAR_EDGE_OPS + SYN_OPS) + layout.VG * I8_VAR_LANE_OPS
+    return (checks + rest) * layout.Z
+
+
+def float_check_ops(rule, d, math):
+    """Operations of one check of degree d under a float rule, on one
+    frame, with ``math`` the transcendentals' counts of its type: Phi's two
+    phis a slot (an exp and two log1p or log each) and its sum; Tanh's
+    tanh, two log1p and products a slot; MinstarApprox's folds (an exp and
+    a log1p each; the prefixes and each slot's rest, with prefix reuse);
+    Aminstar's argmin and d full min* (two of each); plus the signs."""
+    exp, log1p = math["exp"], math["log1p"]
+    if rule.kind == 0:
+        return d * (2 * (exp + 2 * log1p + PHI_OPS) + 2 + SLOT_OPS)
+    if rule.kind == 1:
+        return d * (math["tanh"] + 2 * log1p + TANH_SLOT_OPS)
+    if rule.kind == 2:
+        folds = 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0
+        return folds * (exp + log1p + FOLD_OPS) + d * SLOT_OPS
+    return d * (2 * (exp + log1p) + FULL_OPS + 2 + SLOT_OPS)
+
+
+def float_iteration_ops(layout, rule, layered):
+    """Operations of one iteration of one frame of a tile lane under a
+    float rule: every check group's rule work, and the layered update's or
+    the variable phase's, and the syndrome's, per edge lane and variable
+    lane (as for min-sum); times Z."""
+    math = MATH_OPS["double" if rule.storage_dtype == torch.float64 else "float"]
+    checks = sum((m.g1 - m.g0) * float_check_ops(rule, m.d, math) for m in layout.chk_meta)
+    if layered:
+        rest = layout.E * (LAYERED_EXTRA_OPS + SYN_OPS + 1)
+    else:
+        rest = layout.E * (VAR_EDGE_OPS + SYN_OPS) + layout.VG * VAR_LANE_OPS
     return (checks + rest) * layout.Z
 
 
@@ -896,9 +970,60 @@ def i8_checks(graphs, worst):
               "version on the CPU equal")
 
 
+def float_kernel_and_plain(name):
+    """(kernel wrapper, plain version, tiling) of a float name's schedule."""
+    if name.startswith("HL"):
+        return resident_layered_decode_float, resident_layered_decode_reference, tile_inputs
+    return resident_flooding_decode_float, resident_flooding_decode_reference, flooding_tiles
+
+
+def float_checks(graphs, worst):
+    """The float-rule instances of the message kernels against their plain
+    versions on the four test codes, all 16 float names (on 5G BG2 z=16
+    with 64 large-magnitude frames besides; R1_2 at 8 iterations, not 30,
+    to keep the plain layered sweeps' time), and a partial tile of each
+    schedule through the decoders' glue against the CPU; worst differences
+    into ``worst``."""
+    cases = [
+        ("5G BG2 z=16", 256, 1.3, 10),
+        ("DVB-S2 R1_4short", 128, 0.9, 8),
+        ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 8),
+        ("CCSDS C2", 128, sigma_at(C2_RATE, 4.0), 10),
+    ]
+    for label, batch, sigma, iters in cases:
+        lg = graphs[label]
+        llrs = channel_llrs(lg.n, batch, sigma, seed=5)
+        if label == "5G BG2 z=16":
+            llrs = torch.cat([llrs, strong_llrs(lg.n, 64, seed=6)])
+        for name in FLOAT_NAMES:
+            tag = f"{label} B={llrs.shape[0]} {name}"
+            kernel, plain, tiles = float_kernel_and_plain(name)
+            args = tiles(lg, make_arithmetic(name)[1], llrs)
+            out = kernel(*args, iters)
+            hold(worst, kernel.__name__, tag, out, plain(*args, iters))
+        torch.cuda.synchronize()
+        print(f"float kernels vs plain: {label} B={llrs.shape[0]}: all 16 float names "
+              f"equal (tolerance 0), {int(out[2].sum())}/{out[2].numel()} converged "
+              f"({name})")
+    bg2 = graphs["5G BG2 z=16"]
+    llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
+    for name in ("HLPhif32", "Aminstarf64"):
+        kernel = float_kernel_and_plain(name)[0]
+        decode = lifted_layered_decode if name.startswith("HL") else lifted_flooding_decode
+        _, arith = make_arithmetic(name)
+        before = kernel.launches
+        out = decode(bg2, arith, llrs, 10)
+        assert kernel.launches == before + 1, f"partial tile {name}: no launch"
+        same_decode({k: v.cpu() for k, v in out.items()},
+                    decode(bg2, arith, llrs.cpu(), 10), f"partial tile {name}")
+        print(f"float kernels vs plain: 5G BG2 z=16 B=130 (partial tile) {name}: "
+              f"{int(out['success'].sum())}/130 converged; the kernel and the plain "
+              "version on the CPU equal")
+
+
 def family_checks(graphs, worst):
-    """The resident kernels (message, compressed and int8 instances, both
-    schedules) against their plain versions on CCSDS AR4JA K=1024 rates
+    """The resident kernels (message, compressed, int8 and float-rule
+    instances, both schedules) against their plain versions on CCSDS AR4JA K=1024 rates
     1/2 and 4/5 (punctured columns; Z = 128 and 32) and 5G BG1 z=16 (check
     degree 19, the 32 bucket), 48 frames at three noise levels each."""
     cases = [
@@ -909,10 +1034,16 @@ def family_checks(graphs, worst):
     layered = [("HLMinsumbf16", resident_layered_decode, resident_layered_decode_reference),
                ("HLMinsumf32", compressed_layered_decode, compressed_layered_decode_reference),
                ("HLMinstarapproxi8", resident_layered_decode_i8,
+                resident_layered_decode_reference),
+               ("HLPhif64", resident_layered_decode_float, resident_layered_decode_reference),
+               ("HLMinstarapproxf32", resident_layered_decode_float,
                 resident_layered_decode_reference)]
     flooding = [("Minsumbf16", resident_flooding_decode, resident_flooding_decode_reference),
                 ("Minsumf32", compressed_flooding_decode, compressed_flooding_decode_reference),
                 ("Minstarapproxi8", resident_flooding_decode_i8,
+                 resident_flooding_decode_reference),
+                ("Phif32", resident_flooding_decode_float, resident_flooding_decode_reference),
+                ("Aminstarf64", resident_flooding_decode_float,
                  resident_flooding_decode_reference)]
     for label, sigmas in cases:
         lg = graphs[label]
@@ -982,6 +1113,77 @@ def flagship_i8(card, llrs, worst, name):
           f"bound); state-traffic floor {state_ms:.3f} ms "
           f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations)")
     return {kernel.__name__: entry(launches[kernel.__name__], kernel_ms, plain_ms, b)}
+
+
+def flagship_float(card, llrs, worst, name):
+    """Main path 5: ``Decoder(Code.R1_2)`` (``name`` None: the default,
+    Phif64, flooding) or ``Decoder(Code.R1_2, name)``, through the
+    float-rule instance of its schedule's message kernel; held against the
+    plain version; its kernel's numbers; and the other precision's instance
+    of the same kernel on the same LLRs, held and timed beside it."""
+    code = Code.R1_2
+    dec = Decoder(code, device="cuda") if name is None else Decoder(code, name, device="cuda")
+    name = dec.implementation
+    kernel, plain, tiles = float_kernel_and_plain(name)
+    layered = dec.schedule == "layered"
+    reset_counts()
+    out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches[kernel.__name__] == 1 and sum(launches.values()) == 1, \
+        f"{name} main path: {launches}"
+    assert out["codeword"].shape == (FLAGSHIP_BATCH, code.n)
+    iters = out["iterations"]
+    executed = int(iters.max())
+    decode_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
+    other = name[:-3] + ("f32" if name.endswith("f64") else "f64")
+    measured = {}
+    for which in (name, other):
+        args = tiles(dec.lifted, make_arithmetic(which)[1], llrs)
+        ref = []
+        plain_ms = event_ms(lambda: ref.append(plain(*args, FLAGSHIP_ITERS)))
+        kout = kernel(*args, FLAGSHIP_ITERS)
+        hold(worst, kernel.__name__, f"flagship B={FLAGSHIP_BATCH} {which}", kout, ref[0])
+        if which == name:
+            mine = tiles_to_output(dec.lifted, *kout, FLAGSHIP_BATCH)
+            same_decode(out, mine, f"{name}: Decoder against its kernel")
+        kernel_ms = cuda_ms(lambda: kernel(*args, FLAGSHIP_ITERS), 5 if which == name else 3)
+        q0, _, layout, rule = args
+        nbt, VG, Z, Bt = q0.shape
+        s = q0.element_size()
+        lanes, edge_tile, lane_tile = VG * Z * Bt * nbt, layout.E * Z * Bt, VG * Z * Bt
+        kits = kout[1]
+        tile_its = int(tile_iterations(kits, Bt).sum())
+        rate = F64_OPS_PER_S if s == 8 else F32_OPS_PER_S
+        ops = tile_its * Bt * float_iteration_ops(layout, rule, layered)
+        b = bound(lanes * (s + 1 + 1) + nbt * Bt * 8, ops, rate)
+        if layered:
+            # per edge lane: Rcv read and written, Qv read for x, read and
+            # written for the update and read for the syndrome
+            state = tile_its * edge_tile * 6 * s
+        else:
+            # per edge lane: the message read and written in each phase, the
+            # bit word read by the syndrome; per variable lane q read, the
+            # hard bits written
+            state = tile_its * (edge_tile * (4 * s + 1) + lane_tile * (s + 1))
+        state_ms = 1e3 * state / HBM_BYTES_PER_S
+        print(f"[{card}] {kernel.__name__} kernel ({which}): {kernel_ms:.3f} ms "
+              f"({kernel_ms / max(int(kits.max()), 1):.3f} ms/iter); plain version "
+              f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} ("
+              f"{'FP64' if s == 8 else 'f32'} operations at {rate:.3g}/s, "
+              f"transcendentals at their SASS counts; {100 * b[0] / kernel_ms:.1f}% of "
+              f"bound); state-traffic floor {state_ms:.3f} ms "
+              f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations); "
+              f"mean iterations {float(kits.float().mean()):.2f}, at most "
+              f"{int(kits.max())}; output equal to the plain version (tolerance 0)")
+        measured[which] = entry(launches[kernel.__name__], kernel_ms, plain_ms, b)
+    mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    print(f"[{card}] flagship {name} Decoder.decode_batch: {decode_ms:.3f} ms, "
+          f"{mbps:.1f} Mbit/s decoded info, {decode_ms / executed:.3f} ms/iter, "
+          f"median of 5; launches {launches}; "
+          f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, average "
+          f"iterations {float(iters.float().mean()):.2f}, {executed} at most")
+    return {kernel.__name__: measured[name]}
 
 
 def flooding_at_working_point(card, dec):
@@ -1099,6 +1301,7 @@ def main():
     flooding_checks(graphs, worst)
     compressed_checks(graphs, worst)
     i8_checks(graphs, worst)
+    float_checks(graphs, worst)
     family_checks(graphs, worst)
 
     code = Code.R1_2
@@ -1110,10 +1313,13 @@ def main():
     measured.update(flagship_streaming_layered(card, llrs, worst, layered))
     for name in ("HLMinstarapproxi8", "Minstarapproxi8"):
         measured.update(flagship_i8(card, llrs, worst, name))
+    for name in (None, "HLPhif32"):
+        measured.update(flagship_float(card, llrs, worst, name))
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "HLMinstarapproxi8", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
+    ber_sweep(card, layered.lifted, "HLPhif32", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     kernels = [

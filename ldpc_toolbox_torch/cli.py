@@ -2,10 +2,11 @@
 
 ``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
 reference CLI (cli/ber.rs) on the port, for the code specs
-``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and the min-sum and i8
-decoders of both schedules (``--decoder Minsumbf16`` floods,
-``HLMinsumbf16`` and ``HLMinstarapproxi8`` are layered; the i8 names
-quantize the channel LLRs inside the decode). It prints the reference's table, one row per Eb/N0 point once
+``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and all 44 decoder names
+of both schedules (``--decoder`` defaults to the reference's ``Phif64``,
+which floods; ``HLMinsumbf16`` and ``HLMinstarapproxi8`` are layered; the
+i8 names quantize the channel LLRs inside the decode). It prints the
+reference's table, one row per Eb/N0 point once
 the point ends, and writes the same rows to ``--output-file``: the columns
 and formatting of the JAX package's ``ber``, from this module's own copies
 of its helpers (``parse_duration``, ``_BER_HEADER``, ``_format_duration``,
@@ -170,7 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("ber", help="Performs a BER simulation")
     s.add_argument("code", help="code spec: dvbs2:RATE[:short] or 5g:BG:Z")
     s.add_argument("--output-file")
-    s.add_argument("--decoder", default="HLMinsumbf16")
+    s.add_argument("--decoder", default="Phif64")
     s.add_argument("--min-ebn0", type=float, required=True)
     s.add_argument("--max-ebn0", type=float, required=True)
     s.add_argument("--step-ebn0", type=float, required=True)

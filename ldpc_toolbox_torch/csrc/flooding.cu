@@ -313,54 +313,6 @@ cudaError_t var_launch(const void* c2v, const void* q, void* v2c, void* bits,
 namespace ldpc {
 namespace {
 
-// Variable update of variable lane w of group vg in one tile, from its
-// first loads v: tot = q plus the group's c2v in var-major slot order;
-// output k = store(tot - y_k) goes back to y_k's cell as v2c, and the hard
-// decisions tot <= 0 to post. The first chunk's c2v stay in registers
-// through the outputs; a group of more than kVarChunk edges reads its
-// later chunks again.
-template <typename Msg>
-__device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
-                                           const LaneTables& t, int vg, int w,
-                                           const VarLoads<Msg>& v) {
-  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
-  F4 tot = unpack(v.q);
-#pragma unroll
-  for (int j = 0; j < kVarChunk; ++j) {
-    if (p0 + j < p1) {
-      const F4 y = unpack(v.y0[j]);
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) tot.v[f] = __fadd_rn(tot.v[f], y.v[f]);
-    }
-  }
-  for (int c0 = p0 + kVarChunk; c0 < p1; c0 += kVarChunk) {
-    Raw<Msg> y[kVarChunk];
-#pragma unroll
-    for (int j = 0; j < kVarChunk; ++j)
-      if (c0 + j < p1) y[j] = load_raw(var_cell(msg, t, c0 + j, w));
-#pragma unroll
-    for (int j = 0; j < kVarChunk; ++j) {
-      if (c0 + j < p1) {
-        const F4 yj = unpack(y[j]);
-#pragma unroll
-        for (int f = 0; f < kBt; ++f) tot.v[f] = __fadd_rn(tot.v[f], yj.v[f]);
-      }
-    }
-  }
-  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
-  auto output = [&](int p, const Raw<Msg>& yr) {
-    const F4 y = unpack(yr);
-    F4 o;
-#pragma unroll
-    for (int f = 0; f < kBt; ++f) o.v[f] = __fsub_rn(tot.v[f], y.v[f]);
-    store4(var_cell(msg, t, p, w), o);
-  };
-#pragma unroll
-  for (int j = 0; j < kVarChunk; ++j)
-    if (p0 + j < p1) output(p0 + j, v.y0[j]);
-  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(var_cell(msg, t, p, w)));
-}
-
 // Check update of check lane c of group g in one tile: folds the group's d
 // v2c, read from its own cells (e, c) (big at the missing lane, whatever
 // the cell holds), and writes its d c2v to the same cells, 0 at the

@@ -15,10 +15,14 @@
 //
 // Bit-exactness: every f32 operation stays per frame and is the one of the
 // plain versions, with __fadd_rn, __fsub_rn and __fmul_rn (no FMA
-// contraction); bf16 unpacks by shifts (exact) and packs through
+// contraction; add_rn, sub_rn and mul_rn below pick them, or the f64 ones,
+// by type); bf16 unpacks by shifts (exact) and packs through
 // __float2bfloat16_rn (round to nearest even). The int8 instances
 // (csrc/i8.cuh) keep layered posteriors as int16, four frames in one
 // 8-byte vector, and park int32 deltas; their sums wrap as int16 sums do.
+// The f64 instances of the float rules (csrc/float_rules.cuh) move a
+// lane's four doubles as two 16-byte vectors (32 bytes; a thread loads at
+// most 16 at once) and park f64 deltas.
 
 #pragma once
 
@@ -35,9 +39,20 @@ constexpr int kBt = 4;
 constexpr int kThreads = 256;
 
 // Four frames of one lane.
-struct F4 {
-  float v[kBt];
+template <typename T>
+struct Four {
+  T v[kBt];
 };
+using F4 = Four<float>;
+using D4 = Four<double>;
+
+// One IEEE operation, rounded to nearest, never contracted into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // A lane's four values as loaded, before they are unpacked: bf16 stays
 // packed in two registers until its values are used.
@@ -52,6 +67,12 @@ __device__ __forceinline__ uint32_t load_word(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 __device__ __forceinline__ uint32_t load_raw(const int8_t* p) { return load_word(p); }
+// four doubles as two 16-byte loads
+__device__ __forceinline__ D4 load_raw(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return D4{{a.x, a.y, b.x, b.y}};
+}
 template <typename Msg>
 using Raw = decltype(load_raw(static_cast<const Msg*>(nullptr)));
 
@@ -60,12 +81,17 @@ __device__ __forceinline__ F4 unpack(uint2 u) {
   return F4{{__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
              __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)}};
 }
+__device__ __forceinline__ D4 unpack(const D4& a) { return a; }
 template <typename Msg>
-__device__ __forceinline__ F4 load4(const Msg* p) {
+__device__ __forceinline__ auto load4(const Msg* p) -> decltype(unpack(load_raw(p))) {
   return unpack(load_raw(p));
 }
 __device__ __forceinline__ void store4(float* p, const F4& a) {
   *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const D4& a) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(a.v[0], a.v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(a.v[2], a.v[3]);
 }
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -111,10 +137,12 @@ __device__ __forceinline__ I4 load4(const int* p) {
 __device__ __forceinline__ void store4(int* p, const I4& a) {
   *reinterpret_cast<int4*>(p) = make_int4(a.v[0], a.v[1], a.v[2], a.v[3]);
 }
-// v plus a parked delta d, per frame: one f32 rounding, or an int add
-__device__ __forceinline__ void add4(F4& v, const F4& d) {
+// v plus a parked delta d, per frame: one f32 or f64 rounding, or an int
+// add
+template <typename T>
+__device__ __forceinline__ void add4(Four<T>& v, const Four<T>& d) {
 #pragma unroll
-  for (int f = 0; f < kBt; ++f) v.v[f] = __fadd_rn(v.v[f], d.v[f]);
+  for (int f = 0; f < kBt; ++f) v.v[f] = add_rn(v.v[f], d.v[f]);
 }
 __device__ __forceinline__ void add4(I4& v, const I4& d) {
 #pragma unroll
@@ -122,16 +150,20 @@ __device__ __forceinline__ void add4(I4& v, const I4& d) {
 }
 
 // A lane's four hard decisions as a word of 0/1 bytes: from posteriors
-// (post <= 0, f32 or int16) or from stored bits (nonzero).
-__device__ __forceinline__ uint32_t hard_bits(const F4& a) {
-  return (a.v[0] <= 0.f) | (a.v[1] <= 0.f) << 8 | (a.v[2] <= 0.f) << 16 |
-         (a.v[3] <= 0.f) << 24;
+// (post <= 0; f32, f64 or int16) or from stored bits (nonzero).
+template <typename T>
+__device__ __forceinline__ uint32_t hard_bits(const Four<T>& a) {
+  return (a.v[0] <= T(0)) | (a.v[1] <= T(0)) << 8 | (a.v[2] <= T(0)) << 16 |
+         (a.v[3] <= T(0)) << 24;
 }
 __device__ __forceinline__ uint32_t hard_bits(const I4& a) {
   return (a.v[0] <= 0) | (a.v[1] <= 0) << 8 | (a.v[2] <= 0) << 16 |
          (a.v[3] <= 0) << 24;
 }
 __device__ __forceinline__ uint32_t hard_word(const float* p) {
+  return hard_bits(load4(p));
+}
+__device__ __forceinline__ uint32_t hard_word(const double* p) {
   return hard_bits(load4(p));
 }
 __device__ __forceinline__ uint32_t hard_word(const int16_t* p) {
@@ -261,6 +293,55 @@ __device__ __forceinline__ void var_phase(const Msg* msg, const Msg* q,
     update(r / Z, r % Z, v);
     v = next;
   }
+}
+
+// Variable update of variable lane w of group vg in one flooding tile, from
+// its first loads v: tot = q plus the group's c2v in var-major slot order
+// (add_rn); output k = store(tot - y_k) (sub_rn) goes back to y_k's cell as
+// v2c, and the hard decisions tot <= 0 to post. The first chunk's c2v stay
+// in registers through the outputs; a group of more than kVarChunk edges
+// reads its later chunks again. Computed in f32 for f32 and bf16 messages,
+// in f64 for f64 ones.
+template <typename Msg>
+__device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
+                                           const LaneTables& t, int vg, int w,
+                                           const VarLoads<Msg>& v) {
+  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
+  auto tot = unpack(v.q);
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j) {
+    if (p0 + j < p1) {
+      const auto y = unpack(v.y0[j]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) tot.v[f] = add_rn(tot.v[f], y.v[f]);
+    }
+  }
+  for (int c0 = p0 + kVarChunk; c0 < p1; c0 += kVarChunk) {
+    Raw<Msg> y[kVarChunk];
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j)
+      if (c0 + j < p1) y[j] = load_raw(var_cell(msg, t, c0 + j, w));
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j) {
+      if (c0 + j < p1) {
+        const auto yj = unpack(y[j]);
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) tot.v[f] = add_rn(tot.v[f], yj.v[f]);
+      }
+    }
+  }
+  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
+  auto output = [&](int p, const Raw<Msg>& yr) {
+    const auto y = unpack(yr);
+    decltype(tot) o;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) o.v[f] = sub_rn(tot.v[f], y.v[f]);
+    store4(var_cell(msg, t, p, w), o);
+  };
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) output(p0 + j, v.y0[j]);
+  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(var_cell(msg, t, p, w)));
 }
 
 // The min-sum fold of a check's d inputs, in edge order, for each frame f:
@@ -486,19 +567,21 @@ __device__ void decode_tile4(const P* post, int8_t* bits, int* iters_out,
 }
 
 // Dynamic shared memory of a launch: the control ints, the tables and,
-// for a layered kernel, the park when it lives there (park_elems 4-byte
-// deltas, f32 or int32).
-inline size_t smem_bytes(const Tables& t, size_t park_elems) {
+// for a layered kernel, the park when it lives there (park_elems deltas of
+// park_elem_bytes: 4 for f32 or int32, 8 for f64).
+inline size_t smem_bytes(const Tables& t, size_t park_elems,
+                         size_t park_elem_bytes = sizeof(float)) {
   return sizeof(int) * (kCtlInts + table_ints(t.CG, t.E, t.VG)) +
-         sizeof(float) * park_elems;
+         park_elem_bytes * park_elems;
 }
 
 // The block's park: its slice of the device park (nbt, park_elems), or,
-// when park_all is null, the shared memory after the tables.
+// when park_all is null, the shared memory after the tables (whole 16-byte
+// rows, so an f64 park is aligned too).
 template <typename P>
 __device__ __forceinline__ P* lane_park(P* park_all, size_t park_elems,
                                         int* smem, const Tables& t) {
-  static_assert(sizeof(P) == sizeof(int), "a park holds 4-byte deltas");
+  static_assert(sizeof(P) == 4 || sizeof(P) == 8, "a park holds 4- or 8-byte deltas");
   return park_all ? park_all + blockIdx.x * park_elems
                   : reinterpret_cast<P*>(smem + kCtlInts +
                                          table_ints(t.CG, t.E, t.VG));

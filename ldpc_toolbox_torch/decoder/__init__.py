@@ -12,10 +12,11 @@ decision, the iteration count (0 if the input already satisfied H,
 ``max_iterations`` on failure) and a success flag.
 
 Ported so far: standards code objects and 5G ``(BaseGraph, Z)`` pairs on
-the lifted layout, with the min-sum and i8 names of both schedules: the
-``HL*`` names decode layered (``lifted_layered``), the others flooding
-(``lifted_flooding``). The float rules wait for ROADMAP A6, a generic
-``SparseMatrix`` for A8.
+the lifted layout, with all 44 names of both schedules (the float, i8 and
+min-sum rules; ``Phif64``, the reference's default, when no name is
+given): the ``HL*`` names decode layered (``lifted_layered``), the others
+flooding (``lifted_flooding``). A generic ``SparseMatrix`` waits for
+ROADMAP A8.
 """
 
 from __future__ import annotations

@@ -6,10 +6,14 @@ maps the incoming variable messages of every check node, a
 to the leave-one-out outgoing messages of the same shape (the reference's
 ``send_check_messages``, arithmetic.rs:100-102).
 
-Ported so far: the min-sum extension and the two i8 families of the
+Ported so far: the min-sum extension, the two i8 families of the
 reference (Minstarapprox and Aminstar, each with its Jones,
-PartialHardLimit and Deg1Clip variants, arithmetic.rs:585-1304). The Phi,
-Tanh, Minstarapprox and Aminstar float families wait (ROADMAP A6).
+PartialHardLimit and Deg1Clip variants, arithmetic.rs:585-1304), and the
+four float families (Phi, Tanh, Minstarapprox and Aminstar,
+arithmetic.rs:158-580, 899-1072) as their types and parameters: the
+decoders run them through the kernel rules of ``ops/fused_bp2.py``. Their
+``check_messages`` plane forms serve only the plane-gather and generic
+paths, which wait for ROADMAP A7 and A8.
 """
 
 from __future__ import annotations
@@ -21,10 +25,14 @@ import torch
 
 __all__ = [
     "Arithmetic",
+    "AminstarArithmetic",
     "AminstarI8Arithmetic",
     "I8_QUANTIZER_C",
     "MinSumArithmetic",
+    "MinstarApproxArithmetic",
     "MinstarApproxI8Arithmetic",
+    "PhiArithmetic",
+    "TanhArithmetic",
     "i8_correction_table",
 ]
 
@@ -159,6 +167,43 @@ class MinSumArithmetic(Arithmetic):
         if self.scale != 1.0:
             out = out * self.scale
         return out
+
+
+# -- the float families ----------------------------------------------------------
+#
+# Messages, posteriors and arithmetic in ``dtype`` (float32, or float64 on
+# every device: the card has f64), identity quantization. The check rules
+# are ``ops/fused_bp2.py``'s PhiRule, TanhRule, MinstarApproxRule and
+# AminstarRule.
+
+
+class PhiArithmetic(Arithmetic):
+    """phi involution sum-product (arithmetic.rs:158-298)."""
+
+
+class TanhArithmetic(Arithmetic):
+    """tanh product rule (arithmetic.rs:300-435) with the reference's input
+    clamp (18.0 for f64, 9.0 for f32, where tanh still rounds below 1) and
+    the product clamp to the largest value below 1 in ``dtype``, which
+    keeps 2 atanh finite wherever tanh rounds to 1."""
+
+    def __init__(self, dtype=torch.float32, clamp=None):
+        super().__init__(dtype)
+        if clamp is None:
+            clamp = 18.0 if dtype == torch.float64 else 9.0
+        self.clamp = clamp
+        one = np.ones((), np.float64 if dtype == torch.float64 else np.float32)
+        self.prod_max = float(np.nextafter(one, one * 0))
+
+
+class MinstarApproxArithmetic(Arithmetic):
+    """Pairwise min* approximation in the reference's fold order
+    (arithmetic.rs:487-521): ``max(min(a, b) - ln(1 + e^-|a - b|), 0)``."""
+
+
+class AminstarArithmetic(Arithmetic):
+    """A-Min*-BP (arithmetic.rs:899-1072): the exact min* of the edges other
+    than the least, shared with min* of the least by the others."""
 
 
 # -- the i8 families -----------------------------------------------------------

@@ -1,11 +1,10 @@
 """Decoder registry keyed by the reference's implementation names.
 
 All 44 names of ``ldpc_toolbox_tpu.decoder.factory.DECODER_IMPLEMENTATIONS``
-resolve here: 28 flooding names and 16 ``HL*`` horizontal-layered names.
-The 8 min-sum names (``Minsum*``, ``Normminsum*``, plain and ``HL``) and
-the 20 i8 names (``Minstarapproxi8*``, ``Aminstari8*``) build an
-arithmetic; every other name raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+resolve here: 28 flooding names and 16 ``HL*`` horizontal-layered names,
+each to its arithmetic: the reference's Phi, Tanh, Minstarapprox and
+Aminstar families in f64 and f32 and their i8 forms, and the min-sum
+extensions. ``*f64`` names compute in float64 on every device.
 """
 
 from __future__ import annotations
@@ -15,22 +14,17 @@ from typing import Callable
 import torch
 
 from .arithmetic import (
+    AminstarArithmetic,
     AminstarI8Arithmetic,
     Arithmetic,
-    MinSumArithmetic,
+    MinstarApproxArithmetic,
     MinstarApproxI8Arithmetic,
+    MinSumArithmetic,
+    PhiArithmetic,
+    TanhArithmetic,
 )
 
 __all__ = ["DECODER_IMPLEMENTATIONS", "make_arithmetic"]
-
-
-def _not_ported(name: str) -> Callable[[], Arithmetic]:
-    def factory():
-        raise NotImplementedError(
-            f"decoder arithmetic {name!r} is not ported yet (ROADMAP A6)"
-        )
-
-    return factory
 
 
 def _i8_combos(prefix: str, ctor) -> dict:
@@ -48,14 +42,14 @@ def _i8_combos(prefix: str, ctor) -> dict:
     }
 
 _FLOODING_ARITHS: dict[str, Callable[[], Arithmetic]] = {
-    **{
-        name: _not_ported(name)
-        for name in (
-            "Phif64", "Phif32", "Tanhf64", "Tanhf32",
-            "Minstarapproxf64", "Minstarapproxf32",
-            "Aminstarf64", "Aminstarf32",
-        )
-    },
+    "Phif64": lambda: PhiArithmetic(torch.float64),
+    "Phif32": lambda: PhiArithmetic(torch.float32),
+    "Tanhf64": lambda: TanhArithmetic(torch.float64, clamp=18.0),
+    "Tanhf32": lambda: TanhArithmetic(torch.float32, clamp=9.0),
+    "Minstarapproxf64": lambda: MinstarApproxArithmetic(torch.float64),
+    "Minstarapproxf32": lambda: MinstarApproxArithmetic(torch.float32),
+    "Aminstarf64": lambda: AminstarArithmetic(torch.float64),
+    "Aminstarf32": lambda: AminstarArithmetic(torch.float32),
     # framework extensions: plain and normalized (scale 0.75) min-sum,
     # with f32 or bf16 message storage
     "Minsumf32": lambda: MinSumArithmetic(torch.float32),

@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``decoder.lifted_flooding`` fused path
 (the last padded with +100-LLR frames), the channel LLRs are cast to the
 message storage type before they are gathered into ``(VG, Z, B)`` planes
 (so for the bf16 names the channel planes and the iteration-0 bits come
-from bf16 values; the i8 names gather f32 planes, quantize them to int8
+from bf16 values, for the f64 names from f64 values; the i8 names gather f32 planes, quantize them to int8
 and take the iteration-0 bits from the f32 planes), and the decoded
 planes are put back into codeword order. The tiles then go through one of
 three forms, as the JAX package's ``_fused_flooding_decode`` does at the
@@ -14,14 +14,19 @@ flagship shape:
 * ``resident=True`` (the default), f32 storage (``Minsumf32``,
   ``Normminsumf32``): ``ops/resident_compressed.compressed_flooding_decode``,
   the whole decode in one launch with the check state compressed;
-* ``resident=True``, bf16 storage and the i8 names:
+* ``resident=True``, bf16 storage, the i8 names and the float names
+  (Phi, Tanh, Minstarapprox, Aminstar in f32 and f64):
   ``ops/resident_flooding.py``, the whole decode in one launch with v2c
   and c2v messages;
 * ``resident=False``: the streaming phases of ``ops/fused_bp2.py``
   (``fused_var`` initialisation, then ``fused_check``, ``fused_var`` and
   ``fused_syndrome_bits`` an iteration) under
-  ``decoder/compaction.staged_while_decode``; it raises for the i8 names,
-  whose streaming instances are still to be ported (ROADMAP B1).
+  ``decoder/compaction.staged_while_decode``; it raises for every name but
+  the min-sum ones, whose i8 and float streaming instances are still to be
+  ported (ROADMAP B1).
+
+A check wider than the rule's kernels take raises a ValueError on every
+device (``check_degree_cap``).
 
 The routing is ``takes_compressed_state``'s (its reason is there). All
 forms give the same bits, iterations and success flags. On CPU
@@ -38,11 +43,12 @@ from __future__ import annotations
 import torch
 
 from ..ops.fused_bp2 import (
+    check_degree_cap,
     fused_check,
     fused_syndrome_bits,
     fused_var,
     is_i8,
-    refuse_streaming_i8,
+    refuse_streaming,
     rule_for,
 )
 from ..ops.resident_compressed import (
@@ -72,7 +78,7 @@ def lifted_flooding_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
     if not resident:
-        refuse_streaming_i8(rule)
+        refuse_streaming(rule)
         decode = streaming_flooding_decode
     elif takes_compressed_state(rule):
         decode = compressed_flooding_decode
@@ -88,9 +94,9 @@ def flooding_tiles(lg, arithmetic, llrs):
     device layout and the rule."""
     rule = rule_for(arithmetic)
     if rule is None:
-        raise NotImplementedError(
-            f"{type(arithmetic).__name__} has no kernel yet (ROADMAP A6)"
-        )
+        raise NotImplementedError(f"{type(arithmetic).__name__} has no kernel rule")
+    layout = device_layout(lg, llrs.device)
+    check_degree_cap(layout, rule)
     llrs = pad_to_tiles(llrs)
     if is_i8(rule):
         # gather in f32, then quantize; the raw bits come from the f32
@@ -98,10 +104,10 @@ def flooding_tiles(lg, arithmetic, llrs):
         planes, _ = _planes_of(lg, llrs)
         q = arithmetic.quantize(planes).to(torch.int8)
     else:
-        # cast before the gather, as the JAX package does
+        # cast before the gather, as the JAX package does (f32 -> f64 is
+        # exact)
         planes, _ = _planes_of(lg, llrs, rule.storage_dtype)
         q = planes
-    layout = device_layout(lg, llrs.device)
     return tile(q), tile((planes <= 0).to(torch.int8)), layout, rule
 
 

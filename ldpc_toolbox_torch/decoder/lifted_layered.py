@@ -14,13 +14,18 @@ package's ``_fused_layered_decode`` does at the flagship shape:
 * ``resident=True`` (the default), f32 Rcv storage (``HLMinsumf32``,
   ``HLNormminsumf32``): ``ops/resident_compressed.compressed_layered_decode``,
   the whole decode in one launch with the check state compressed;
-* ``resident=True``, bf16 storage and the i8 names:
+* ``resident=True``, bf16 storage, the i8 names and the float names
+  (Phi, Tanh, Minstarapprox, Aminstar in f32 and f64):
   ``ops/resident_layered.py``, the whole decode in one launch with Rcv
-  messages (int8 Rcv and int16 Qv for i8);
+  messages (int8 Rcv and int16 Qv for i8, f64 both for the f64 names);
 * ``resident=False``: the streaming form, ``ops/fused_layered.py``'s
   sweep and ``fused_syndrome_bits`` one launch each an iteration, under
-  ``decoder/compaction.staged_while_decode``; it raises for the i8 names,
-  whose streaming instances are still to be ported (ROADMAP B1).
+  ``decoder/compaction.staged_while_decode``; it raises for every name but
+  the min-sum ones, whose i8 and float streaming instances are still to be
+  ported (ROADMAP B1).
+
+A check wider than the rule's kernels take raises a ValueError on every
+device (``check_degree_cap``).
 
 The routing is ``takes_compressed_state``'s (its reason is there). All
 forms give the same bits, iterations and success flags. On
@@ -40,8 +45,9 @@ from ..convert import layout_to_device
 from ..ops.fused_bp2 import (
     BT,
     build_fused_layout,
+    check_degree_cap,
     fused_syndrome_bits,
-    refuse_streaming_i8,
+    refuse_streaming,
     rule_for,
 )
 from ..ops.fused_layered import fused_layered_iteration
@@ -77,7 +83,7 @@ def lifted_layered_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
     if not resident:
-        refuse_streaming_i8(rule)
+        refuse_streaming(rule)
         decode = streaming_layered_decode
     elif takes_compressed_state(rule):
         decode = compressed_layered_decode
@@ -193,13 +199,14 @@ def tile_inputs(lg, arithmetic, llrs):
     ``pad_to_tiles``), the device layout and the rule."""
     rule = rule_for(arithmetic)
     if rule is None:
-        raise NotImplementedError(
-            f"{type(arithmetic).__name__} has no kernel yet (ROADMAP A6)"
-        )
+        raise NotImplementedError(f"{type(arithmetic).__name__} has no kernel rule")
+    layout = device_layout(lg, llrs.device)
+    check_degree_cap(layout, rule)
+    # f32 planes, then the posteriors' storage type (f64 for an f64 rule),
+    # as the JAX package does
     llr_planes, _ = _planes_of(lg, pad_to_tiles(llrs))
     q = arithmetic.quantize(llr_planes)
     qv0 = arithmetic.llr_to_var_llr(q).to(arithmetic.var_llr_storage_dtype)
-    layout = device_layout(lg, llrs.device)
     return tile(qv0), tile((llr_planes <= 0).to(torch.int8)), layout, rule
 
 

@@ -31,11 +31,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
-#: every kernel source of the package, by name (the int8 instances of the
-#: two message kernels in sources of their own, so that the parallel build
-#: keeps its length)
+#: every kernel source of the package, by name (the int8 and float-rule
+#: instances of the two message kernels in sources of their own, the
+#: float-rule ones one a precision, so that the parallel build keeps its
+#: length)
 SOURCES = ("resident_layered", "flooding", "compressed", "resident_layered_i8",
-           "flooding_i8")
+           "flooding_i8", "resident_layered_f32", "resident_layered_f64",
+           "flooding_f32", "flooding_f64")
 
 
 def _nvcc() -> str:

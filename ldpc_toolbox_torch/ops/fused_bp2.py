@@ -25,16 +25,17 @@ planes with frames innermost:
   frame.
 
 On a CUDA tensor each launches its hand-written kernel of
-``csrc/flooding.cu`` or raises (also for an i8 rule: these kernels have no
-i8 instances yet); on a CPU tensor it runs its plain version (the
-``*_reference`` functions, in the rule's compute type). A roll by s means
-``out[i] = x[(i - s) mod Z]``, on unpadded planes.
+``csrc/flooding.cu`` or raises (also for a rule other than min-sum: these
+kernels have no i8 or float-rule instances yet, ROADMAP B1); on a CPU
+tensor it runs its plain version (the ``*_reference`` functions, in the
+rule's compute type). A roll by s means ``out[i] = x[(i - s) mod Z]``, on
+unpadded planes.
 
-The rules: ``MinSumRule`` and the two i8 rules, ``MinstarApproxI8Rule``
-and ``AminstarI8Rule`` (int8 messages, int32 compute, int16 layered
-posteriors), which the resident message kernels inline. Still to be
-ported from the JAX module: the rules of the Phi, Tanh, Minstarapprox and
-Aminstar float families (ROADMAP A6).
+The rules, which the resident message kernels inline: ``MinSumRule``; the
+two i8 rules, ``MinstarApproxI8Rule`` and ``AminstarI8Rule`` (int8
+messages, int32 compute, int16 layered posteriors); and the four float
+rules, ``PhiRule``, ``TanhRule``, ``MinstarApproxRule`` and
+``AminstarRule`` (f32 or f64 messages, posteriors and compute).
 """
 
 from __future__ import annotations
@@ -54,10 +55,16 @@ __all__ = [
     "FusedLayout",
     "build_fused_layout",
     "MinSumRule",
+    "PhiRule",
+    "TanhRule",
+    "MinstarApproxRule",
+    "AminstarRule",
     "MinstarApproxI8Rule",
     "AminstarI8Rule",
+    "check_degree_cap",
+    "is_float_rule",
     "is_i8",
-    "refuse_streaming_i8",
+    "refuse_streaming",
     "rule_for",
     "var_recon_tables",
     "fused_check",
@@ -71,6 +78,12 @@ __all__ = [
 #: frames per tile of the port's kernels: B = 1024 gives 256 tiles, about
 #: two per SM of an H100 (132 SMs), with frames innermost and coalesced
 BT = 4
+#: the check kernels keep the signs of a group's inputs in 64 bits
+MAX_CHECK_DEGREE = 64
+#: the largest check degree of the kernels' exact-order min* folds (the i8
+#: rules and MinstarApproxRule): O(d^2), unrolled to the degree bucket (8,
+#: 16 or 32)
+I8_MAX_CHECK_DEGREE = 32
 
 
 @dataclass(frozen=True)
@@ -249,6 +262,7 @@ class MinSumRule:
     same order and with the same rounding points."""
 
     compute_dtype = torch.float32
+    max_check_degree = MAX_CHECK_DEGREE
 
     def __init__(self, dtype, scale: float = 1.0):
         self.storage_dtype = dtype
@@ -302,6 +316,198 @@ class MinSumRule:
         return qv - rold
 
 
+class _FloatRuleBase:
+    """The float rules: f32 or f64 storage, computed in f32 (f64 when the
+    storage is f64), the plain sum-minus-own variable rule
+    (arithmetic.rs:140-156) and the Qv - Rcv layered extrinsic. ``kind``
+    names the rule to the kernels' float instances; ``big``, the
+    missing-lane poke, is the storage type's largest value, which each
+    rule treats as an infinitely reliable bit-0 message (phi -> 0, tanh ->
+    tanh(clamp), min* -> neutral)."""
+
+    max_check_degree = MAX_CHECK_DEGREE
+    #: Tanh's input and product clamps (0 for the other rules, which the
+    #: kernels take them from too)
+    clamp = prod_max = 0.0
+
+    def __init__(self, dtype):
+        self.storage_dtype = dtype
+        self.compute_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+        self.big = float(torch.finfo(dtype).max)
+
+    def var(self, q, xs, degree):
+        """Sum-minus-own in slot order: (the d outputs, the posterior)."""
+        tot = q
+        for x in xs:
+            tot = tot + x
+        return [tot - x for x in xs], tot
+
+    def layered_x(self, qv, rold):
+        return qv - rold
+
+    def _const(self, value, like):
+        """``value`` as a 0-d tensor of the compute type on like's device."""
+        return torch.tensor(value, dtype=self.compute_dtype, device=like.device)
+
+    @staticmethod
+    def _parity(planes):
+        negs = [x < 0 for x in planes]
+        par = negs[0]
+        for k in range(1, len(planes)):
+            par = par ^ negs[k]
+        return negs, par
+
+
+class PhiRule(_FloatRuleBase):
+    """phi-involution sum-product (arithmetic.rs:158-298): the sum of the
+    inputs' phis, each output phi(sum - own phi) with the parity of the
+    other signs. phi(x) = ln(1 + e^-x) - ln(1 - e^-x), x at least 1e-30,
+    with 1 - e^-x as a 3-term series below 2^-5 (the JAX kernel rule's
+    form, not the plane path's expm1)."""
+
+    kind = 0
+    MIN_X = 1e-30
+
+    def _phi(self, x):
+        x = torch.maximum(x, self._const(self.MIN_X, x))
+        t = torch.exp(-x)
+        series = x * ((1.0 - 0.5 * x) + self._const(1.0 / 6.0, x) * (x * x))
+        one_minus_t = torch.where(x < 0.03125, series, 1.0 - t)
+        ln_1mt = torch.where(t < 0.5, torch.log1p(-t), torch.log(one_minus_t))
+        return torch.log1p(t) - ln_1mt
+
+    def check(self, planes) -> torch.Tensor:
+        """d planes (a list, or a tensor with the d planes on dim 0) in the
+        compute type -> the (d, ...) stacked check outputs."""
+        d = len(planes)
+        negs, par = self._parity(planes)
+        phis = [self._phi(x.abs()) for x in planes]
+        tot = phis[0]
+        for k in range(1, d):
+            tot = tot + phis[k]
+        outs = []
+        for t in range(d):
+            y = self._phi(tot - phis[t])
+            outs.append(torch.where(par ^ negs[t], -y, y))
+        return torch.stack(outs)
+
+
+class TanhRule(_FloatRuleBase):
+    """tanh product rule (arithmetic.rs:300-435): 2 atanh of the product of
+    the other slots' tanh(x / 2), x / 2 clamped to +-clamp, the product by
+    exclusive prefix and suffix products (``pre[t] * suf[t]``, no
+    division) clamped to +-prod_max, and 2 atanh(p) as log1p(p) -
+    log1p(-p). The signs ride inside the product."""
+
+    kind = 1
+
+    def __init__(self, dtype, clamp, prod_max):
+        super().__init__(dtype)
+        self.clamp = float(clamp)
+        self.prod_max = float(prod_max)
+
+    def check(self, planes) -> torch.Tensor:
+        d = len(planes)
+        ts = [torch.tanh(torch.clamp(0.5 * x, -self.clamp, self.clamp)) for x in planes]
+        pre = [None] * d
+        acc = None
+        for k in range(d):
+            pre[k] = acc
+            acc = ts[k] if acc is None else acc * ts[k]
+        suf = [None] * d
+        acc = None
+        for k in reversed(range(d)):
+            suf[k] = acc
+            acc = ts[k] if acc is None else acc * ts[k]
+        outs = []
+        for t in range(d):
+            p, s = pre[t], suf[t]
+            if p is None and s is None:  # a degree-1 check: the empty product
+                prod = torch.ones_like(ts[t])
+            else:
+                prod = s if p is None else p if s is None else p * s
+            prod = torch.clamp(prod, -self.prod_max, self.prod_max)
+            outs.append(torch.log1p(prod) - torch.log1p(-prod))
+        return torch.stack(outs)
+
+
+class MinstarApproxRule(_FloatRuleBase):
+    """Pairwise min* approximation in the reference's fold order
+    (arithmetic.rs:487-521): each slot's left fold over the other slots in
+    slot order, with the prefixes of the slots before it reused;
+    ``fold(a, b) = max(min(a, b) - log1p(exp(-|a - b|)), 0)``. The kernels
+    unroll the O(d^2) fold to the degree bucket, so they take check degree
+    up to 32."""
+
+    kind = 2
+    max_check_degree = I8_MAX_CHECK_DEGREE
+
+    def _fold(self, a, b):
+        return torch.clamp_min(
+            torch.minimum(a, b) - torch.log1p(torch.exp(-(a - b).abs())), 0.0
+        )
+
+    def check(self, planes) -> torch.Tensor:
+        d = len(planes)
+        negs, par = self._parity(planes)
+        mags = [x.abs() for x in planes]
+        pre = [None] * d
+        acc = None
+        for t in range(d):
+            pre[t] = acc
+            acc = mags[t] if acc is None else self._fold(acc, mags[t])
+        outs = []
+        for t in range(d):
+            a = pre[t]
+            for k in range(t + 1, d):
+                a = mags[k] if a is None else self._fold(a, mags[k])
+            if a is None:  # degree-1 check: no other edges
+                a = torch.zeros_like(mags[t])
+            outs.append(torch.where(par ^ negs[t], -a, a))
+        return torch.stack(outs)
+
+
+class AminstarRule(_FloatRuleBase):
+    """A-Min*-BP (arithmetic.rs:899-1072): the first minimum's slot gets the
+    exact min* fold of the other slots (from the first of them, in slot
+    order), every other slot min*(fold, minimum); ``min*(a, b) = min(a, b)
+    - log1p(exp(-|a - b|)) + log1p(exp(-(a + b)))``."""
+
+    kind = 3
+
+    def _minstar_full(self, a, b):
+        return (
+            torch.minimum(a, b)
+            - torch.log1p(torch.exp(-(a - b).abs()))
+            + torch.log1p(torch.exp(-(a + b)))
+        )
+
+    def check(self, planes) -> torch.Tensor:
+        d = len(planes)
+        negs, par = self._parity(planes)
+        mags = [x.abs() for x in planes]
+        m1 = mags[0]
+        arg = torch.zeros(m1.shape, dtype=torch.int32, device=m1.device)
+        for k in range(1, d):
+            take = mags[k] < m1
+            m1 = torch.where(take, mags[k], m1)
+            arg = torch.where(take, k, arg)
+        acc = torch.zeros_like(m1)
+        cnt = torch.zeros(m1.shape, dtype=torch.int32, device=m1.device)
+        for k in range(d):
+            elig = arg != k
+            first = elig & (cnt == 0)
+            folded = self._minstar_full(acc, mags[k])
+            acc = torch.where(first, mags[k], torch.where(elig, folded, acc))
+            cnt = cnt + elig.to(torch.int32)
+        d_oth = self._minstar_full(acc, m1)
+        outs = []
+        for t in range(d):
+            mag = torch.where(arg == t, acc, d_oth)
+            outs.append(torch.where(par ^ negs[t], -mag, mag))
+        return torch.stack(outs)
+
+
 def _i8_thresholds():
     """The i8 correction table (arithmetic.rs:589-602) as compare
     thresholds: table[t] == sum_k [t <= T_k], the table being
@@ -326,6 +532,7 @@ class _I8RuleBase:
 
     storage_dtype = torch.int8
     compute_dtype = torch.int32
+    max_check_degree = I8_MAX_CHECK_DEGREE
     #: the missing-lane poke of x (the one-lane i8 approximation)
     big = 127
 
@@ -465,22 +672,45 @@ def is_i8(rule) -> bool:
     return isinstance(rule, _I8RuleBase)
 
 
-def refuse_streaming_i8(rule) -> None:
+def is_float_rule(rule) -> bool:
+    """Whether a kernel rule is one of the four float rules (Phi, Tanh,
+    MinstarApprox, Aminstar)."""
+    return isinstance(rule, _FloatRuleBase)
+
+
+def refuse_streaming(rule) -> None:
     """The streaming kernels (the flooding phases and the layered sweep)
-    have no i8 instances yet: raise for an i8 rule."""
-    if is_i8(rule):
+    carry min-sum only: raise for any other rule (the i8 and float rules,
+    whose streaming instances ROADMAP B1 ports)."""
+    if not isinstance(rule, MinSumRule):
         raise NotImplementedError(
-            f"{type(rule).__name__}: the streaming kernels have no i8 "
-            "instances yet (ROADMAP B1); decode it with resident=True"
+            f"{type(rule).__name__}: the streaming kernels have no i8 or "
+            "float-rule instances yet (ROADMAP B1); decode it with resident=True"
+        )
+
+
+def check_degree_cap(layout, rule) -> None:
+    """Raise a ValueError when the layout's widest check is wider than the
+    rule's kernels take (``rule.max_check_degree``); the decoders ask it on
+    every device."""
+    if layout.max_chk_degree > rule.max_check_degree:
+        raise ValueError(
+            f"check degree {layout.max_chk_degree} above "
+            f"{rule.max_check_degree}, the most the kernels of "
+            f"{type(rule).__name__} take"
         )
 
 
 def rule_for(arithmetic):
-    """The kernel rule of an arithmetic, or None when it has none yet."""
+    """The kernel rule of an arithmetic, or None when it has none."""
     from ..decoder.arithmetic import (
+        AminstarArithmetic,
         AminstarI8Arithmetic,
-        MinSumArithmetic,
+        MinstarApproxArithmetic,
         MinstarApproxI8Arithmetic,
+        MinSumArithmetic,
+        PhiArithmetic,
+        TanhArithmetic,
     )
 
     if isinstance(arithmetic, MinSumArithmetic):
@@ -489,19 +719,26 @@ def rule_for(arithmetic):
                         (AminstarI8Arithmetic, AminstarI8Rule)):
         if isinstance(arithmetic, arith):
             return rule(arithmetic.jones, arithmetic.hard_limit, arithmetic.deg1_clip)
+    if isinstance(arithmetic, TanhArithmetic):
+        return TanhRule(arithmetic.storage_dtype, arithmetic.clamp, arithmetic.prod_max)
+    for arith, rule in ((PhiArithmetic, PhiRule),
+                        (MinstarApproxArithmetic, MinstarApproxRule),
+                        (AminstarArithmetic, AminstarRule)):
+        if isinstance(arithmetic, arith):
+            return rule(arithmetic.storage_dtype)
     return None
 
 
 # -- the streaming flooding phases -------------------------------------------
 
-_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: the message storage types of the kernels, by the code the min-sum
+#: kernels take (the i8 and f64 instances are kernels of their own)
+_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float64: 3}
 #: threads per block of the check and variable phase kernels
 PHASE_THREADS = 256
 #: threads per block of the syndrome kernel, which gives one block to a
 #: tile; a multiple of the tile width
 TILE_THREADS = 512
-#: the check kernels keep the signs of a group's inputs in 64 bits
-MAX_CHECK_DEGREE = 64
 #: the layout tables the flooding kernels read, in their argument order
 _TABLES = (
     "chk_cs", "chk_dest", "chk_rot", "chk_omask",
@@ -551,9 +788,7 @@ def launch_args(x, layout, rule=None):
     if not x.is_contiguous():
         raise ValueError("planes must be contiguous")
     if rule is not None:
-        refuse_streaming_i8(rule)
-        if rule.storage_dtype not in _MSG_DTYPES:
-            raise TypeError(f"unsupported message storage {rule.storage_dtype}")
+        refuse_streaming(rule)
     if layout.max_chk_degree > MAX_CHECK_DEGREE:
         raise ValueError(
             f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
@@ -586,7 +821,7 @@ def _check_planes(x, planes, layout, dtype, what):
 def fused_check(v2c, layout, rule):
     """Check phase: v2c (nbt, E, Z, Bt) -> c2v (nbt, E, Z, Bt), both in the
     rule's storage type. ``layout``: a ``convert.DeviceLayout`` on the
-    planes' device; ``rule``: a ``MinSumRule``."""
+    planes' device; ``rule``: a ``MinSumRule`` (any rule on the CPU)."""
     if v2c.device.type == "cpu":
         return fused_check_reference(v2c, layout, rule)
     _check_planes(v2c, layout.E, layout, rule.storage_dtype, "v2c")

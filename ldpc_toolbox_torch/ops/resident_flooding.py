@@ -36,6 +36,15 @@ degree-1 group under Deg1Clip) plus the c2v, clipped to +-127 under Jones;
 the hard decision is tot <= 0. On a CUDA tensor ``resident_flooding_decode``
 passes them to ``resident_flooding_decode_i8``, the wrapper of the kernel's
 int8 instances (``csrc/flooding_i8.cu``), which counts their launches apart.
+
+The float rules (``PhiRule``, ``TanhRule``, ``MinstarApproxRule``,
+``AminstarRule``) take channel planes and messages in their storage type,
+f32 or f64, and compute in it, with the min-sum variable rule (sum in
+slot order, each output tot - own) and big, the type's largest value, at
+the missing lanes. On a CUDA tensor ``resident_flooding_decode`` passes
+them to ``resident_flooding_decode_float``, the wrapper of the kernel's
+float-rule instances (``csrc/flooding_f32.cu`` and ``_f64.cu``), which
+counts their launches apart.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from .fused_bp2 import (
     fused_check_reference,
     fused_syndrome_bits_reference,
     fused_var_reference,
+    is_float_rule,
     is_i8,
     raise_on,
 )
@@ -60,6 +70,7 @@ from .resident_layered import LANE_THREADS, lane_launch
 
 __all__ = [
     "resident_flooding_decode",
+    "resident_flooding_decode_float",
     "resident_flooding_decode_i8",
     "resident_flooding_decode_reference",
     "flooding_loop",
@@ -82,6 +93,28 @@ def bind_i8(lib):
     lib.ldpc_resident_flooding_i8_decode.restype = i
     lib.ldpc_flooding_i8_error_string.argtypes = [i]
     lib.ldpc_flooding_i8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+#: the sources of the float-rule instances, by storage type
+FLOAT_SOURCES = {torch.float32: "flooding_f32", torch.float64: "flooding_f64"}
+
+
+@functools.cache
+def _lib_float(name):
+    return bind_float(_build.load(name))
+
+
+def bind_float(lib):
+    """Declares the C interface of a library built from
+    ``csrc/flooding_f32.cu`` or ``_f64.cu``; returns it."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, big, clamp, prod_max, stream
+    lib.ldpc_resident_flooding_float_decode.argtypes = [p] * 7 + [i] * 10 + [d] * 3 + [p]
+    lib.ldpc_resident_flooding_float_decode.restype = i
+    lib.ldpc_flooding_float_error_string.argtypes = [i]
+    lib.ldpc_flooding_float_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -114,9 +147,10 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
     q_t: (nbt, VG, Z, Bt) channel planes in the rule's storage type (int8
     quantized LLRs for an i8 rule); bits0_t: (nbt, VG, Z, Bt) int8 hard
     decisions of the raw channel LLRs; layout: a ``convert.DeviceLayout``
-    on the same device; rule: a ``MinSumRule`` or an i8 rule (on a CUDA
-    tensor passed to ``resident_flooding_decode_i8``). Returns bits (nbt,
-    VG, Z, Bt) int8, iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
+    on the same device; rule: a ``MinSumRule``, an i8 rule or a float rule
+    (on a CUDA tensor passed to ``resident_flooding_decode_i8`` or
+    ``resident_flooding_decode_float``). Returns bits (nbt, VG, Z, Bt)
+    int8, iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
     """
     if q_t.device.type == "cpu":
         return resident_flooding_decode_reference(
@@ -124,6 +158,8 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
         )
     if is_i8(rule):
         return resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations)
+    if is_float_rule(rule):
+        return resident_flooding_decode_float(q_t, bits0_t, layout, rule, max_iterations)
     tables, dims, stream, state = _launch_planes(
         q_t, bits0_t, layout, rule, max_iterations
     )
@@ -146,7 +182,7 @@ def resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations: int)
     int8 instances (``csrc/flooding_i8.cu``): int8 channel planes and
     messages, int32 arithmetic, the rule's Jones, PartialHardLimit and
     Deg1Clip flags; same arguments and results. Check degree at most
-    ``resident_layered.I8_MAX_CHECK_DEGREE``."""
+    ``fused_bp2.I8_MAX_CHECK_DEGREE``."""
     if q_t.device.type == "cpu":
         return resident_flooding_decode_reference(
             q_t, bits0_t, layout, rule, max_iterations
@@ -170,10 +206,39 @@ def resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations: int)
     return bits, iters, conv
 
 
-#: kernel launches since the count was last set to 0 (the float instances;
-#: the int8 instances count on resident_flooding_decode_i8)
+def resident_flooding_decode_float(q_t, bits0_t, layout, rule, max_iterations: int):
+    """``resident_flooding_decode`` for a float rule, through the kernel's
+    float-rule instances (``csrc/flooding_f32.cu``, ``_f64.cu``): channel
+    planes and messages in the rule's storage type, computed in it; same
+    arguments and results. Check degree at most ``rule.max_check_degree``."""
+    if q_t.device.type == "cpu":
+        return resident_flooding_decode_reference(
+            q_t, bits0_t, layout, rule, max_iterations
+        )
+    if not is_float_rule(rule):
+        raise TypeError(f"{type(rule).__name__} is not a float rule")
+    tables, dims, stream, state = _launch_planes(
+        q_t, bits0_t, layout, rule, max_iterations
+    )
+    msg, post, bits, iters, conv = state
+    lib = _lib_float(FLOAT_SOURCES[rule.storage_dtype])
+    err = lib.ldpc_resident_flooding_float_decode(
+        msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
+        iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),
+        LANE_THREADS, rule.kind, rule.big, rule.clamp, rule.prod_max, stream,
+    )
+    if err:
+        text = lib.ldpc_flooding_float_error_string(err).decode()
+        raise RuntimeError(f"resident_flooding_decode_float launch failed: {text}")
+    resident_flooding_decode_float.launches += 1
+    return bits, iters, conv
+
+
+#: kernel launches since the count was last set to 0 (the min-sum
+#: instances; the int8 and float-rule instances count on their wrappers)
 resident_flooding_decode.launches = 0
 resident_flooding_decode_i8.launches = 0
+resident_flooding_decode_float.launches = 0
 
 
 def resident_flooding_decode_reference(

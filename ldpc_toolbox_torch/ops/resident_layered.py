@@ -27,7 +27,17 @@ int16 without saturation, as the JAX package does. On a CUDA tensor
 ``resident_layered_decode`` passes them to ``resident_layered_decode_i8``,
 the wrapper of the kernel's int8 instances (``csrc/resident_layered_i8.cu``,
 check degree at most ``I8_MAX_CHECK_DEGREE``), which counts their launches
-apart from the float instances'.
+apart from the min-sum instances'.
+
+The float rules (``PhiRule``, ``TanhRule``, ``MinstarApproxRule``,
+``AminstarRule``) keep Qv and Rcv in their storage type, f32 or f64, and
+compute in it: ``x = Qv - Rold`` (big, the type's largest value, at the
+missing lane), Rnew from the rule, ``Qv += Rnew - Rold`` in edge order. On
+a CUDA tensor ``resident_layered_decode`` passes them to
+``resident_layered_decode_float``, the wrapper of the kernel's float-rule
+instances (``csrc/resident_layered_f32.cu`` and ``_f64.cu``; check degree
+at most the rule's ``max_check_degree``: 64, 32 for MinstarApprox), which
+counts their launches apart.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
 ``ops/fused_layered.py``'s) share the launch checks of this module. The
@@ -37,7 +47,8 @@ also share ``lane_launch``: they copy the same layout tables into shared
 memory (``shared_ints``). A layered check group that reaches a variable
 group twice parks its deltas between the check update and the posterior
 update: after the tables when ``max_chk_degree * Z * 4`` floats fit there
-too, in a device-memory scratch otherwise (CCSDS C2: 261,632 bytes). The
+too, in a device-memory scratch otherwise (CCSDS C2: 261,632 bytes; the
+f64 instances park 8-byte deltas). The
 streaming sweep (``ops/fused_layered.py``) parks every group's deltas, in
 shared memory when they fit a block.
 """
@@ -53,9 +64,11 @@ from . import _build
 from .fused_bp2 import (
     _MSG_DTYPES,
     BT,
-    MAX_CHECK_DEGREE,
+    I8_MAX_CHECK_DEGREE,
+    check_degree_cap,
+    is_float_rule,
     is_i8,
-    refuse_streaming_i8,
+    refuse_streaming,
 )
 
 __all__ = [
@@ -66,11 +79,13 @@ __all__ = [
     "LAYERED_TABLES",
     "lane_launch",
     "resident_layered_decode",
+    "resident_layered_decode_float",
     "resident_layered_decode_i8",
     "resident_layered_decode_reference",
     "layered_decode_planes",
     "layered_loop",
     "message_sweep",
+    "park_dtype",
     "parks_in_device_memory",
     "plane_tables",
     "shared_ints",
@@ -86,9 +101,6 @@ LANE_THREADS = 256
 _CONTROL_INTS = 8
 #: dynamic shared memory a block may use on Hopper
 MAX_SHARED_BYTES = 232_448
-#: the largest check degree of the i8 kernels: their exact-order min*
-#: fold is O(d^2) and unrolled to the degree bucket (8, 16 or 32)
-I8_MAX_CHECK_DEGREE = 32
 
 #: the layout tables the layered and compressed kernels read, in the order
 #: of ``Tables`` in ``csrc/layered.cuh``
@@ -137,6 +149,28 @@ def bind_i8(lib):
     return lib
 
 
+#: the sources of the float-rule instances, by storage type
+FLOAT_SOURCES = {torch.float32: "resident_layered_f32", torch.float64: "resident_layered_f64"}
+
+
+@functools.cache
+def _lib_float(name):
+    return bind_float(_build.load(name))
+
+
+def bind_float(lib):
+    """Declares the C interface of a library built from
+    ``csrc/resident_layered_f32.cu`` or ``_f64.cu``; returns it."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, big, clamp, prod_max, stream
+    lib.ldpc_resident_layered_float_decode.argtypes = [p] * 7 + [i] * 10 + [d] * 3 + [p]
+    lib.ldpc_resident_layered_float_decode.restype = i
+    lib.ldpc_cuda_error_string.argtypes = [i]
+    lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def raise_on(lib, err: int, name: str) -> None:
     """Raise if a launch's cudaError_t is not 0."""
     if err:
@@ -149,7 +183,7 @@ def layered_launch(qv, layout, rule):
     against the layout and rule; returns (table pointer array, dims, park,
     stream). ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
     device-memory park, or None when the park fits shared memory."""
-    refuse_streaming_i8(rule)
+    refuse_streaming(rule)
     tables, dims, stream = _launch_args(qv, layout, rule, 0)
     if qv.dtype != torch.float32:
         raise TypeError("qv must be float32")
@@ -175,12 +209,7 @@ def _launch_args(x, layout, rule, max_iterations):
         raise ValueError(f"planes {(VG, Z)} do not match the layout")
     if rule.storage_dtype not in _MSG_DTYPES:
         raise TypeError(f"unsupported message storage {rule.storage_dtype}")
-    cap = I8_MAX_CHECK_DEGREE if is_i8(rule) else MAX_CHECK_DEGREE
-    if layout.max_chk_degree > cap:
-        raise ValueError(
-            f"check degree {layout.max_chk_degree} above {cap}, the most the "
-            f"{'i8 ' if is_i8(rule) else ''}kernels take"
-        )
+    check_degree_cap(layout, rule)
     if max_iterations < 0:
         raise ValueError("max_iterations must be >= 0")
     tables = [getattr(layout, name) for name in LAYERED_TABLES]
@@ -194,7 +223,7 @@ def _launch_args(x, layout, rule, max_iterations):
     return ptrs, dims, torch.cuda.current_stream(x.device).cuda_stream
 
 
-def shared_ints(layout, with_park: bool) -> int:
+def shared_ints(layout, with_park: bool, park_bytes: int = 4) -> int:
     """Dynamic shared memory, in 4-byte words, of a block of a kernel with a
     thread per lane (``smem_bytes`` of ``csrc/lanes.cuh``): the control
     words; the layout tables it copies, rounded up to 16-byte rows
@@ -202,17 +231,26 @@ def shared_ints(layout, with_park: bool) -> int:
     group, and eight tables an edge: ``syn_vg``, ``rec_plane`` and
     ``rec_group`` times Z, ``syn_rot``, ``chk_rot``, ``syn_mask``,
     ``rec_slot`` and ``rec_rot`` as they are); and, ``with_park``, the
-    layered park of max degree x Z x 4 floats."""
+    layered park of max degree x Z x 4 deltas of ``park_bytes`` each (8
+    for the f64 instances)."""
     tables = 2 * layout.CG + layout.VG + 2 + 8 * layout.E
-    park = layout.max_chk_degree * layout.Z * BT if with_park else 0
+    park = layout.max_chk_degree * layout.Z * BT * park_bytes // 4 if with_park else 0
     return _CONTROL_INTS + -(-tables // 4) * 4 + park
 
 
-def parks_in_device_memory(layout) -> bool:
+def park_dtype(rule):
+    """The type of a layered kernel's parked deltas: int32 for an i8 rule,
+    f64 for an f64 rule, f32 otherwise."""
+    if is_i8(rule):
+        return torch.int32
+    return torch.float64 if rule.storage_dtype == torch.float64 else torch.float32
+
+
+def parks_in_device_memory(layout, park_bytes: int = 4) -> bool:
     """Whether a layered kernel with a thread per lane parks its deltas in
     device memory: the tables and the park do not fit a block's shared
     memory together (CCSDS C2)."""
-    return 4 * shared_ints(layout, True) > MAX_SHARED_BYTES
+    return 4 * shared_ints(layout, True, park_bytes) > MAX_SHARED_BYTES
 
 
 def lane_launch(x, layout, rule, max_iterations, with_park):
@@ -221,18 +259,18 @@ def lane_launch(x, layout, rule, max_iterations, with_park):
     tiles of exactly 4 frames (a thread holds all four) and the tables in
     shared memory; returns (table pointer array, dims, park, stream) as
     ``layered_launch`` does. The park (``with_park``: the layered kernels;
-    f32 deltas, int32 for an i8 rule) goes after the tables when it fits
-    there, else in device memory."""
+    deltas of ``park_dtype``) goes after the tables when it fits there,
+    else in device memory."""
     if x.shape[-1] != BT:
         raise ValueError(f"tile width {x.shape[-1]}: the kernel takes {BT}")
     tables, dims, stream = _launch_args(x, layout, rule, max_iterations)
     if 4 * shared_ints(layout, False) > MAX_SHARED_BYTES:
         raise ValueError("the layout tables do not fit a block's shared memory")
     park = None
-    if with_park and parks_in_device_memory(layout):
+    dtype = park_dtype(rule)
+    if with_park and parks_in_device_memory(layout, dtype.itemsize):
         nbt, _, Z, Bt = x.shape
-        park = torch.empty((nbt, layout.max_chk_degree, Z, Bt),
-                           dtype=torch.int32 if is_i8(rule) else torch.float32,
+        park = torch.empty((nbt, layout.max_chk_degree, Z, Bt), dtype=dtype,
                            device=x.device)
     return tables, dims, park, stream
 
@@ -250,9 +288,10 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
     qv0_t: (nbt, VG, Z, Bt) posteriors init (quantized channel LLRs), f32,
     or int16 for an i8 rule; bits0_t: (nbt, VG, Z, Bt) int8 hard decisions
     of the *raw* channel LLRs; layout: a ``convert.DeviceLayout`` on the
-    same device; rule: a ``MinSumRule`` or an i8 rule. Returns bits (nbt,
-    VG, Z, Bt) int8 (frozen at per-frame convergence, final posterior sign
-    otherwise), iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
+    same device; rule: a ``MinSumRule``, an i8 rule or a float rule (f32
+    or f64 Qv, its storage type). Returns bits (nbt, VG, Z, Bt) int8
+    (frozen at per-frame convergence, final posterior sign otherwise),
+    iters (nbt, Bt) int32 and conv (nbt, Bt) int32.
     """
     if qv0_t.device.type == "cpu":
         return resident_layered_decode_reference(
@@ -260,6 +299,8 @@ def resident_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations: int):
         )
     if is_i8(rule):
         return resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations)
+    if is_float_rule(rule):
+        return resident_layered_decode_float(qv0_t, bits0_t, layout, rule, max_iterations)
     qv = qv0_t.clone(memory_format=torch.contiguous_format)
     check_bits(bits0_t, qv)
     if qv.dtype != torch.float32:
@@ -316,10 +357,45 @@ def resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations: int
     return bits, iters, conv
 
 
-#: kernel launches since the count was last set to 0 (the float instances;
-#: the int8 instances count on resident_layered_decode_i8)
+def resident_layered_decode_float(qv0_t, bits0_t, layout, rule, max_iterations: int):
+    """``resident_layered_decode`` for a float rule, through the kernel's
+    float-rule instances: qv0_t (nbt, VG, Z, 4) and Rcv in the rule's
+    storage type (f32 or f64), computed in it; same arguments and results.
+    Check degree at most ``rule.max_check_degree``."""
+    if qv0_t.device.type == "cpu":
+        return resident_layered_decode_reference(
+            qv0_t, bits0_t, layout, rule, max_iterations
+        )
+    if not is_float_rule(rule):
+        raise TypeError(f"{type(rule).__name__} is not a float rule")
+    qv = qv0_t.clone(memory_format=torch.contiguous_format)
+    check_bits(bits0_t, qv)
+    if qv.dtype != rule.storage_dtype:
+        raise TypeError(f"qv0_t must be {rule.storage_dtype} for {type(rule).__name__}")
+    tables, dims, park, stream = lane_launch(qv, layout, rule, max_iterations, True)
+    nbt, _, Z, Bt = qv.shape
+    dev = qv.device
+    bits = bits0_t.clone(memory_format=torch.contiguous_format)
+    rcv = torch.zeros((nbt, layout.E, Z, Bt), dtype=rule.storage_dtype, device=dev)
+    iters = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    conv = torch.empty((nbt, Bt), dtype=torch.int32, device=dev)
+    lib = _lib_float(FLOAT_SOURCES[rule.storage_dtype])
+    err = lib.ldpc_resident_layered_float_decode(
+        qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+        conv.data_ptr(), None if park is None else park.data_ptr(), tables,
+        *dims, int(max_iterations), LANE_THREADS, rule.kind, rule.big, rule.clamp,
+        rule.prod_max, stream,
+    )
+    raise_on(lib, err, "resident_layered_decode_float")
+    resident_layered_decode_float.launches += 1
+    return bits, iters, conv
+
+
+#: kernel launches since the count was last set to 0 (the min-sum
+#: instances; the int8 and float-rule instances count on their wrappers)
 resident_layered_decode.launches = 0
 resident_layered_decode_i8.launches = 0
+resident_layered_decode_float.launches = 0
 
 
 def resident_layered_decode_reference(
@@ -373,10 +449,10 @@ def plane_tables(layout, dev):
 
 
 def message_sweep(qv, rcv, layout, rule, tables):
-    """One plain layered sweep in place on qv (VG*Z, N) posteriors (f32, or
-    int16 for an i8 rule) and rcv (E, Z, N) messages in the rule's storage
-    type, computing in the rule's compute type; ``tables`` from
-    ``plane_tables``."""
+    """One plain layered sweep in place on qv (VG*Z, N) posteriors (f32;
+    int16 for an i8 rule, f64 for an f64 rule) and rcv (E, Z, N) messages
+    in the rule's storage type, computing in the rule's compute type, with
+    ``rule.big`` at the missing lanes; ``tables`` from ``plane_tables``."""
     src, valid, groups = tables
     for _, e0, d in groups:
         idx = src[e0 : e0 + d]  # (d, Z)
@@ -435,7 +511,7 @@ def layered_loop(qv0, hard0, layout, max_iterations, tables, sweep):
 def layered_decode_planes(qv0, hard0, layout, rule, max_iterations: int):
     """Plain layered decode of (VG, Z, N) planes with Rcv messages.
 
-    qv0: posteriors init (f32, or int16 for an i8 rule); hard0: bool
+    qv0: posteriors init (f32; int16 for an i8 rule, f64 for an f64 rule); hard0: bool
     raw-channel hard decisions; rule: ``layered_x(qv, rold)``, ``check(x)``
     on (d, Z, N), ``big`` (the missing-lane poke), ``storage_dtype`` (Rcv)
     and ``compute_dtype``. Returns bits (VG, Z, N) bool, iterations (N,)

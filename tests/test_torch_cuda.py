@@ -46,11 +46,13 @@ from ldpc_toolbox_torch.ops.resident_compressed import (
 )
 from ldpc_toolbox_torch.ops.resident_flooding import (
     resident_flooding_decode,
+    resident_flooding_decode_float,
     resident_flooding_decode_i8,
     resident_flooding_decode_reference,
 )
 from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode,
+    resident_layered_decode_float,
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
@@ -448,6 +450,77 @@ def test_i8_kernels_refuse_checks_above_their_cap(cuda, decoder):
     checks are wider is refused before any launch, naming the cap."""
     lg = _bg2z16()
     kernel, _, tiles = _i8_kernel(decoder)
+    q, bits0, layout, rule = tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, 8, 1.3, 5, cuda))
+    m = layout.chk_meta[0]
+    wide = dataclasses.replace(layout, chk_meta=(dataclasses.replace(m, d=33),)
+                               + layout.chk_meta[1:])
+    before = kernel.launches
+    with pytest.raises(ValueError, match="above 32"):
+        kernel(q, bits0, wide, rule, 4)
+    assert kernel.launches == before
+
+
+#: one name a float rule and precision, the schedules alternating
+FLOAT_DECODERS = [
+    "Phif32", "HLPhif64", "HLTanhf32", "Tanhf64",
+    "Minstarapproxf32", "HLMinstarapproxf64", "HLAminstarf32", "Aminstarf64",
+]
+
+
+def _float_kernel(decoder):
+    if decoder.startswith("HL"):
+        return resident_layered_decode_float, resident_layered_decode_reference, tile_inputs
+    return resident_flooding_decode_float, resident_flooding_decode_reference, flooding_tiles
+
+
+@pytest.mark.parametrize("decoder", FLOAT_DECODERS)
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_float_kernels_match_plain_versions(cuda, code, decoder):
+    """The float-rule instances of the message kernels on 5G BG2 z=16 (64
+    large-magnitude frames besides) and CCSDS C2 (degree 32; the layered
+    park in device memory) against the plain versions on the card, bit for
+    bit; the min-sum wrappers count no launch."""
+    lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, cuda)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, cuda)])
+    kernel, plain, tiles = _float_kernel(decoder)
+    args = tiles(lg, make_arithmetic(decoder)[1], x)
+    assert args[0].dtype == (torch.float64 if decoder.endswith("f64") else torch.float32)
+    before = (kernel.launches, resident_layered_decode.launches,
+              resident_flooding_decode.launches)
+    out = (resident_layered_decode if decoder.startswith("HL") else resident_flooding_decode)(
+        *args, 10)
+    assert (kernel.launches, resident_layered_decode.launches,
+            resident_flooding_decode.launches) == (before[0] + 1, *before[1:])
+    for a, b in zip(out, plain(*args, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0
+
+
+@pytest.mark.parametrize("decoder", ["HLPhif32", "Aminstarf64"])
+def test_float_partial_tile_matches_plain(cuda, decoder):
+    """A batch of 130 through the decoders' glue onto the float instances,
+    against the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    kernel = _float_kernel(decoder)[0]
+    decode = lifted_layered_decode if decoder.startswith("HL") else lifted_flooding_decode
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    before = kernel.launches
+    out = decode(lg, arith, x, 10)
+    assert kernel.launches == before + 1
+    ref = decode(lg, arith, x.cpu(), 10)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key].cpu(), ref[key]), key
+
+
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxf32", "Minstarapproxf64"])
+def test_minstarapprox_kernels_refuse_checks_above_32(cuda, decoder):
+    """MinstarApprox's float instances take check degree 32 at most: a
+    layout whose checks are wider is refused before any launch."""
+    lg = _bg2z16()
+    kernel, _, tiles = _float_kernel(decoder)
     q, bits0, layout, rule = tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, 8, 1.3, 5, cuda))
     m = layout.chk_meta[0]
     wide = dataclasses.replace(layout, chk_meta=(dataclasses.replace(m, d=33),)

@@ -30,6 +30,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     I8_MAX_CHECK_DEGREE,
     LAYERED_TABLES,
     MAX_SHARED_BYTES,
+    park_dtype,
     parks_in_device_memory,
     resident_layered_decode,
 )
@@ -163,6 +164,44 @@ def test_i8_kernel_constants_match_the_rules():
         rule = fused_bp2.rule_for(make_arithmetic("Aminstari8" + suffix)[1])
         assert rule.flags == constant(flag), suffix
     assert constant("kI8MaxDegree") == I8_MAX_CHECK_DEGREE
+
+
+def test_float_kernel_constants_match_the_rules():
+    """The float instances' rule kinds and degree caps (``csrc/
+    float_rules.cuh``, read from the source) are the wrappers': kinds 0 to
+    3 for Phi, Tanh, MinstarApprox and Aminstar, the cap 64 (the signs'
+    64 bits) and MinstarApprox's 32; the rule code's constants are the
+    plain rules' (phi's floor 1e-30 and series bound 2^-5)."""
+    src = (REPO / "ldpc_toolbox_torch" / "csrc" / "float_rules.cuh").read_text()
+
+    def constant(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+    kinds = {"Phif32": "kPhiRule", "Tanhf64": "kTanhRule",
+             "Minstarapproxf32": "kMinstarApproxRule", "Aminstarf64": "kAminstarRule"}
+    for name, kind in kinds.items():
+        assert fused_bp2.rule_for(make_arithmetic(name)[1]).kind == constant(kind), name
+    assert constant("kFloatMaxDegree") == fused_bp2.MAX_CHECK_DEGREE == 64
+    rule = fused_bp2.rule_for(make_arithmetic("Minstarapproxf64")[1])
+    assert constant("kMinstarApproxMaxDegree") == rule.max_check_degree == I8_MAX_CHECK_DEGREE
+    assert "x = max_of(x, T(1e-30));" in src and fused_bp2.PhiRule.MIN_X == 1e-30
+    assert "if (x < T(0.03125))" in src
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_f64_park_shared_memory(code):
+    """The f64 layered instances park 8-byte deltas: twice the f32 park's
+    words, still beside the tables on every test code but CCSDS C2; the
+    wrappers allocate a device park of f64 there."""
+    _, tlg = lifted_graphs(code)
+    layout = lifted_layered.device_layout(tlg, "cpu")
+    park = layout.max_chk_degree * layout.Z * fused_bp2.BT
+    assert shared_ints(layout, True, 8) == shared_ints(layout, False) + 2 * park
+    assert parks_in_device_memory(layout, 8) == (code == "ccsds-c2")
+    f64 = fused_bp2.rule_for(make_arithmetic("HLPhif64")[1])
+    assert park_dtype(f64) == torch.float64
+    assert park_dtype(fused_bp2.rule_for(make_arithmetic("HLPhif32")[1])) == torch.float32
+    assert park_dtype(fused_bp2.rule_for(make_arithmetic("HLAminstari8")[1])) == torch.int32
 
 
 @pytest.mark.parametrize("code", CODES)

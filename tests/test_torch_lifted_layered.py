@@ -73,8 +73,7 @@ def test_decoder_class():
     assert 0 < int(ok.sum()) < ok.numel()
     assert not fout["codeword"][ok].any()
     assert (fout["iterations"][~ok] == 10).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        Decoder(DvbCode.R1_4short, "Phif32", device="cpu")
+    assert Decoder(DvbCode.R1_4short, "HLPhif32", device="cpu").schedule == "layered"
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Decoder(DvbCode.R1_4short.h(), "HLMinsumbf16")
     with pytest.raises(ValueError):
