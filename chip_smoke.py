@@ -43,6 +43,7 @@ does a machine without a CUDA device.
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -148,23 +149,48 @@ I8_EDGE_OPS, I8_LAYERED_EXTRA_OPS, I8_VAR_EDGE_OPS, I8_VAR_LANE_OPS = 7, 5, 4, 5
 #: FP64 operations/s outside the tensor cores (NVIDIA's data sheet, H100
 #: SXM): the rate of the float rules' f64 instances
 F64_OPS_PER_S = 34e12
-#: SASS instructions of the CUDA math library's transcendentals on sm_90a
-#: (static counts, slow paths included, tools/count_math_sass.py on the
-#: card, PERF.md §6): a call in a float rule counts as this many
-#: operations; phi's ln(1 - t) counts as a log1p (log is 27 and 83)
-MATH_OPS = {
-    "float": {"exp": 10, "log1p": 32, "tanh": 17},
-    "double": {"exp": 60, "log1p": 231, "tanh": 101},
+#: MUFU (special-function) operations/s: an SM has 16 SFU lanes against 128
+#: FP32 lanes (NVIDIA's Hopper white paper), counted as the f32 rate is
+SFU_OPS_PER_S = F32_OPS_PER_S / 8
+#: the rate of each class of instruction of tools/count_math_ops.py
+PIPE_OPS_PER_S = {"f32": F32_OPS_PER_S, "f64": F64_OPS_PER_S, "sfu": SFU_OPS_PER_S,
+                  "int": INT32_OPS_PER_S}
+#: instructions a call of each step of the float rules executes, by class:
+#: the fewest any argument in the messages' range takes (the probe kernels'
+#: PTX, tools/count_math_ops.py on the card, PERF.md section 6)
+STEP_OPS = {
+    "float": {
+        "phi": {"f32": 43, "sfu": 1, "int": 15},
+        "minstar_approx": {"f32": 26, "sfu": 1, "int": 11},
+        "minstar_full": {"f32": 48, "sfu": 2, "int": 23},
+        "tanh_half": {"f32": 18, "sfu": 2, "int": 4},
+        "atanh2": {"f32": 37, "int": 15},
+    },
+    "double": {
+        "phi": {"f32": 3, "f64": 50, "int": 9},
+        "minstar_approx": {"f32": 3, "f64": 35, "int": 7},
+        "minstar_full": {"f32": 6, "f64": 66, "int": 13},
+        "tanh_half": {"f64": 19, "int": 2},
+        "atanh2": {"f32": 4, "f64": 35, "int": 6},
+    },
 }
-#: operations of the float rules on one frame besides the transcendentals,
-#: counted from csrc/float_rules.cuh (the common path: phi's 1 - e^-x by
-#: subtraction): phi's max, negate, two compares, subtract and final
-#: subtract; a MinstarApprox fold's subtract, abs, negate, min, subtract
-#: and max; Aminstar's full min* that with the second correction's add,
-#: negate and add; per slot the sign (compare, mask, parity and apply) and
-#: the magnitude; Tanh per slot the half, the clamps, the three products,
-#: the product clamps, the negate and the subtract
-PHI_OPS, FOLD_OPS, FULL_OPS, SLOT_OPS, TANH_SLOT_OPS = 6, 6, 9, 5, 10
+#: operations of the float rules on one frame besides the steps, counted
+#: from csrc/float_rules.cuh, in the storage type's class (fp) or the
+#: integer one: per slot of Phi, MinstarApprox and Aminstar its magnitude
+#: (an abs, int) and sign (the compare, fp; the mask, the parity and the
+#: output's sign, int); per slot of Phi the sum's add and the subtract
+#: before the second phi; of Tanh its three products (the suffix, pre *
+#: suf, pre * tn); of Aminstar the argmin's compare (fp), its two selects
+#: and the output's (int)
+SLOT_FP, SLOT_INT = 1, 4
+PHI_SLOT_FP, TANH_SLOT_FP, AMIN_SLOT_FP, AMIN_SLOT_INT = 2, 3, 1, 3
+#: per edge lane and frame of a float iteration: layered, the extrinsic,
+#: the delta and the Qv add (fp), the two missing-lane selects and the
+#: syndrome's xor (int); flooding, the variable rule's add and subtract
+#: (fp), the two missing-lane selects and the xor (int), and per variable
+#: lane the hard decision (fp)
+FLOAT_LAYERED_EDGE = {"fp": 3, "int": 3}
+FLOAT_FLOODING_EDGE, FLOAT_FLOODING_LANE = {"fp": 2, "int": 3}, {"fp": 1}
 PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_layered_decode": (
@@ -201,14 +227,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
         "ldpc_toolbox_torch/csrc/flooding_i8.cu",
         "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
         "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
-    # the float-rule instances of #1 and #4/#5 (f32 in *_f32.cu, f64 in
-    # *_f64.cu), for the float rules those TPU kernels inline
-    # (ldpc_toolbox_tpu/ops/fused_bp2.py:331-527)
+    # the float-rule instances of #1 and #4/#5 (the kernels of
+    # csrc/message_kernels.cuh on the rules of csrc/float_rules.cuh, f32 in
+    # *_f32.cu, f64 in *_f64.cu), for the float rules those TPU kernels
+    # inline (ldpc_toolbox_tpu/ops/fused_bp2.py:331-527)
     "resident_layered_decode_float": (
-        "ldpc_toolbox_torch/csrc/resident_layered_float.cuh",
+        "ldpc_toolbox_torch/csrc/float_rules.cuh",
         "ldpc_toolbox_tpu/ops/resident_layered.py:193"),
     "resident_flooding_decode_float": (
-        "ldpc_toolbox_torch/csrc/flooding_float.cuh",
+        "ldpc_toolbox_torch/csrc/float_rules.cuh",
         "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
         "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
 }
@@ -325,36 +352,71 @@ def i8_iteration_ops(layout, rule, layered):
     return (checks + rest) * layout.Z
 
 
-def float_check_ops(rule, d, math):
-    """Operations of one check of degree d under a float rule, on one
-    frame, with ``math`` the transcendentals' counts of its type: Phi's two
-    phis a slot (an exp and two log1p or log each) and its sum; Tanh's
-    tanh, two log1p and products a slot; MinstarApprox's folds (an exp and
-    a log1p each; the prefixes and each slot's rest, with prefix reuse);
-    Aminstar's argmin and d full min* (two of each); plus the signs."""
-    exp, log1p = math["exp"], math["log1p"]
+def float_check_ops(rule, d, fp):
+    """Operations of one check of degree d under a float rule on one frame,
+    by class (``fp`` the storage type's): the executed instructions of its
+    steps (``STEP_OPS``): Phi's two phis a slot, Tanh's tanh_half and
+    atanh2 a slot, MinstarApprox's folds (the prefixes and each slot's
+    rest, with prefix reuse), Aminstar's d - 1 full min* (the fold over the
+    d - 1 slots but the first minimum's, then that with the minimum); and
+    the rest (magnitudes, signs, sums, products, the argmin)."""
+    steps = STEP_OPS["double" if fp == "f64" else "float"]
+    ops = Counter()
+
+    def add(step, calls):
+        for cls, n in steps[step].items():
+            ops[cls] += calls * n
+
     if rule.kind == 0:
-        return d * (2 * (exp + 2 * log1p + PHI_OPS) + 2 + SLOT_OPS)
-    if rule.kind == 1:
-        return d * (math["tanh"] + 2 * log1p + TANH_SLOT_OPS)
-    if rule.kind == 2:
-        folds = 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0
-        return folds * (exp + log1p + FOLD_OPS) + d * SLOT_OPS
-    return d * (2 * (exp + log1p) + FULL_OPS + 2 + SLOT_OPS)
+        add("phi", 2 * d)
+        ops[fp] += d * (SLOT_FP + PHI_SLOT_FP)
+        ops["int"] += d * SLOT_INT
+    elif rule.kind == 1:
+        add("tanh_half", d)
+        add("atanh2", d)
+        ops[fp] += d * TANH_SLOT_FP
+    elif rule.kind == 2:
+        add("minstar_approx", 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0)
+        ops[fp] += d * SLOT_FP
+        ops["int"] += d * SLOT_INT
+    else:
+        add("minstar_full", max(d - 1, 1))
+        ops[fp] += d * (SLOT_FP + AMIN_SLOT_FP)
+        ops["int"] += d * (SLOT_INT + AMIN_SLOT_INT)
+    return ops
 
 
 def float_iteration_ops(layout, rule, layered):
     """Operations of one iteration of one frame of a tile lane under a
-    float rule: every check group's rule work, and the layered update's or
-    the variable phase's, and the syndrome's, per edge lane and variable
-    lane (as for min-sum); times Z."""
-    math = MATH_OPS["double" if rule.storage_dtype == torch.float64 else "float"]
-    checks = sum((m.g1 - m.g0) * float_check_ops(rule, m.d, math) for m in layout.chk_meta)
-    if layered:
-        rest = layout.E * (LAYERED_EXTRA_OPS + SYN_OPS + 1)
-    else:
-        rest = layout.E * (VAR_EDGE_OPS + SYN_OPS) + layout.VG * VAR_LANE_OPS
-    return (checks + rest) * layout.Z
+    float rule, by class: every check group's rule work, and the layered
+    update's or the variable phase's, and the syndrome's, per edge lane
+    and variable lane; times Z."""
+    fp = "f64" if rule.storage_dtype == torch.float64 else "f32"
+    ops = Counter()
+    for m in layout.chk_meta:
+        for cls, n in float_check_ops(rule, m.d, fp).items():
+            ops[cls] += (m.g1 - m.g0) * n
+    edge = FLOAT_LAYERED_EDGE if layered else FLOAT_FLOODING_EDGE
+    lane = {} if layered else FLOAT_FLOODING_LANE
+    for per, count in ((edge, layout.E), (lane, layout.VG)):
+        for cls, n in per.items():
+            ops[fp if cls == "fp" else cls] += count * n
+    return Counter({cls: n * layout.Z for cls, n in ops.items()})
+
+
+def bound_pipes(nbytes, ops):
+    """``bound`` of work on several pipes, ``ops`` {class: operations}
+    (``PIPE_OPS_PER_S``): the operations' least time is the most that one
+    pipe needs at its rate, or that all of them need at the issue rate (a
+    sub-partition issues one instruction a clock, the rate of the f32
+    lanes), whichever is more. Returns (ms, "bytes" or "operations", the
+    binding pipe or "issue")."""
+    by_pipe = {cls: n / PIPE_OPS_PER_S[cls] for cls, n in ops.items()}
+    by_pipe["issue"] = sum(ops.values()) / F32_OPS_PER_S
+    pipe = max(by_pipe, key=by_pipe.get)
+    by_ops, by_bytes = by_pipe[pipe], nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            pipe)
 
 
 def tile_iterations(iters, bt):
@@ -1154,9 +1216,9 @@ def flagship_float(card, llrs, worst, name):
         lanes, edge_tile, lane_tile = VG * Z * Bt * nbt, layout.E * Z * Bt, VG * Z * Bt
         kits = kout[1]
         tile_its = int(tile_iterations(kits, Bt).sum())
-        rate = F64_OPS_PER_S if s == 8 else F32_OPS_PER_S
-        ops = tile_its * Bt * float_iteration_ops(layout, rule, layered)
-        b = bound(lanes * (s + 1 + 1) + nbt * Bt * 8, ops, rate)
+        per = float_iteration_ops(layout, rule, layered)
+        ops = Counter({cls: tile_its * Bt * n for cls, n in per.items()})
+        b = bound_pipes(lanes * (s + 1 + 1) + nbt * Bt * 8, ops)
         if layered:
             # per edge lane: Rcv read and written, Qv read for x, read and
             # written for the update and read for the syndrome
@@ -1169,14 +1231,16 @@ def flagship_float(card, llrs, worst, name):
         state_ms = 1e3 * state / HBM_BYTES_PER_S
         print(f"[{card}] {kernel.__name__} kernel ({which}): {kernel_ms:.3f} ms "
               f"({kernel_ms / max(int(kits.max()), 1):.3f} ms/iter); plain version "
-              f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} ("
-              f"{'FP64' if s == 8 else 'f32'} operations at {rate:.3g}/s, "
-              f"transcendentals at their SASS counts; {100 * b[0] / kernel_ms:.1f}% of "
-              f"bound); state-traffic floor {state_ms:.3f} ms "
+              f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} (the "
+              f"{b[2]} pipe's; operations by class "
+              f"{ {cls: f'{n:.4g}' for cls, n in sorted(ops.items())} }, the "
+              f"transcendental steps at their fewest executed instructions; "
+              f"{100 * b[0] / kernel_ms:.1f}% of bound); state-traffic floor "
+              f"{state_ms:.3f} ms "
               f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations); "
               f"mean iterations {float(kits.float().mean()):.2f}, at most "
               f"{int(kits.max())}; output equal to the plain version (tolerance 0)")
-        measured[which] = entry(launches[kernel.__name__], kernel_ms, plain_ms, b)
+        measured[which] = entry(launches[kernel.__name__], kernel_ms, plain_ms, b[:2])
     mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
     print(f"[{card}] flagship {name} Decoder.decode_batch: {decode_ms:.3f} ms, "
           f"{mbps:.1f} Mbit/s decoded info, {decode_ms / executed:.3f} ms/iter, "

@@ -1,11 +1,19 @@
 // The reference's four float check rules (arithmetic.rs:158-580, 899-1072)
-// for the lane kernels (csrc/lanes.cuh): the float-rule instances of the
-// resident message kernels, csrc/resident_layered_float.cuh and
-// csrc/flooding_float.cuh, share them, in f32 (T = float) and f64
-// (T = double). They replace the rule code that the Pallas kernels inline
+// for the resident message kernels of csrc/message_kernels.cuh: FloatRule,
+// their float-rule instances, in f32 (T = float) and f64 (T = double),
+// built by csrc/resident_layered_f32.cu, _f64.cu, csrc/flooding_f32.cu and
+// _f64.cu (one precision a source, so that the parallel build keeps its
+// length). They replace the rule code that the Pallas kernels inline
 // through ldpc_toolbox_tpu/ops/fused_bp2.py rule_for: _FloatRuleBase,
 // PhiRule, TanhRule, MinstarApproxRule and AminstarRule, whose check
 // functions the port's ops/fused_bp2.py repeats as the plain versions.
+//
+// What bounds the float instances on an H100: the state lives in device
+// memory as for min-sum (layered: 6 values an edge lane an iteration, 24
+// bytes in f32 and 48 in f64; flooding: 4 values, 16 and 32 bytes), but
+// the rules are arithmetic: Phi takes two phis (an exp and two logs each)
+// an edge, MinstarApprox O(d) min* folds an edge, each an exp and a log1p,
+// and the math library's f64 routines are tens of FP64 instructions each.
 //
 // A check lane holds its d inputs for four frames, x[k].v[f]. The rules
 // keep O(d) values a frame (the phis, the tanh products, the min* prefixes,
@@ -27,7 +35,7 @@
 
 #pragma once
 
-#include "lanes.cuh"
+#include "message_kernels.cuh"
 
 namespace ldpc {
 
@@ -105,6 +113,20 @@ __device__ __forceinline__ T minstar_full(T a, T b) {
                 ln1p(ex(-add_rn(a, b))));
 }
 
+// Tanh's factor of one slot: tanh(clamp(x / 2, +-clamp)).
+template <typename T>
+__device__ __forceinline__ T tanh_half(T x, T clamp) {
+  return th(min_of(max_of(mul_rn(T(0.5), x), -clamp), clamp));
+}
+
+// Tanh's output from the product p of the other slots' factors: 2 atanh(p)
+// as log1p(p) - log1p(-p), p clamped to +-prod_max.
+template <typename T>
+__device__ __forceinline__ T atanh2(T p, T prod_max) {
+  p = min_of(max_of(p, -prod_max), prod_max);
+  return sub_rn(ln1p(p), ln1p(-p));
+}
+
 // The signs of a frame's d inputs as a mask (bit k: x_k < 0) and the
 // output sign of slot k: the parity of the other slots' signs.
 template <int DMAX>
@@ -165,7 +187,7 @@ __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
     T tn[DMAX], suf[DMAX];
 #pragma unroll (U)
     for (int k = 0; k < DMAX; ++k)
-      if (k < d) tn[k] = th(min_of(max_of(mul_rn(T(0.5), x[k]), -p.clamp), p.clamp));
+      if (k < d) tn[k] = tanh_half(x[k], p.clamp);
     T acc = T(1);
 #pragma unroll (U)
     for (int k = DMAX - 1; k >= 0; --k) {
@@ -184,9 +206,8 @@ __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
         } else {
           prod = t == d - 1 ? pre : mul_rn(pre, suf[t]);
         }
-        prod = min_of(max_of(prod, -p.prod_max), p.prod_max);
         pre = t == 0 ? tn[0] : mul_rn(pre, tn[t]);
-        x[t] = sub_rn(ln1p(prod), ln1p(-prod));
+        x[t] = atanh2(prod, p.prod_max);
       }
     }
   } else if constexpr (RULE == kMinstarApproxRule) {
@@ -281,6 +302,41 @@ __device__ __forceinline__ void float_check(Four<T> (&x)[DMAX], int d,
   }
 }
 
+// The float rule RULE in T, for csrc/message_kernels.cuh: posteriors,
+// messages and deltas in T; x = Qv - Rold, one rounding; the rule's
+// parameters from FloatParams.
+template <typename T, int RULE>
+struct FloatRule : FloatParams<T> {
+  using Q = T;
+  using Msg = T;
+  using P = T;
+
+  __device__ __forceinline__ T extrinsic(T q, T rold) const { return sub_rn(q, rold); }
+  __device__ __forceinline__ T diff(T rn, T rold) const { return sub_rn(rn, rold); }
+
+  template <int DMAX>
+  struct Check {
+    FloatParams<T> p;
+
+    __device__ __forceinline__ explicit Check(const FloatRule& r) : p(r) {}
+    // the inputs stay in the lane's array, which the rule folds in place
+    __device__ __forceinline__ void set(int, const Four<T>&) {}
+    template <class Emit>
+    __device__ __forceinline__ void outputs(Four<T> (&x)[DMAX], int d, Emit&& emit) {
+      float_check<DMAX, T, RULE>(x, d, p);
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k)
+        if (k < d) emit(k, x[k]);
+    }
+  };
+
+  __device__ __forceinline__ void var_update(T* msg, int8_t* post,
+                                             const LaneTables& t, int vg, int w,
+                                             const VarLoads<T>& v) const {
+    ldpc::var_update(msg, post, t, vg, w, v);
+  }
+};
+
 // Calls Launch<DMAX, RULE, T>::run(args...) with the least degree bucket
 // (8, 16, 32 or 64; MinstarApprox 8, 16 or 32) that holds max_degree and
 // the rule kind.
@@ -313,6 +369,67 @@ cudaError_t float_by_bucket(int max_degree, int kind, Args&&... args) {
   LDPC_FLOAT_BUCKET(64)
 #undef LDPC_FLOAT_BUCKET
   return cudaErrorInvalidValue;
+}
+
+template <int DMAX, int RULE, typename T>
+struct FloatLayeredLaunch {
+  static cudaError_t run(void* qv, void* rcv, void* bits, void* iters,
+                         void* conv, void* park, const Tables& t, int nbt,
+                         size_t park_elems, int max_iterations, int threads,
+                         const FloatParams<T>& p, cudaStream_t stream) {
+    return layered_launch<DMAX>(FloatRule<T, RULE>{p}, qv, rcv, bits, iters,
+                                conv, park, t, nbt, park_elems, max_iterations,
+                                threads, stream);
+  }
+};
+
+template <int DMAX, int RULE, typename T>
+struct FloatFloodingLaunch {
+  static cudaError_t run(void* msg, const void* q, void* post, void* bits,
+                         void* iters, void* conv, const Tables& t, int nbt,
+                         int max_iterations, int threads,
+                         const FloatParams<T>& p, cudaStream_t stream) {
+    return flooding_launch<DMAX>(FloatRule<T, RULE>{p}, msg, q, post, bits,
+                                 iters, conv, t, nbt, max_iterations, threads,
+                                 stream);
+  }
+};
+
+// The C entry points' bodies for one precision (see
+// csrc/resident_layered_f32.cu and csrc/flooding_f32.cu for the arguments).
+template <typename T>
+int resident_layered_float_decode(void* qv, void* rcv, void* bits, void* iters,
+                                  void* conv, void* park,
+                                  const void* const* tables, int nbt, int CG,
+                                  int E, int VG, int Z, int Bt, int max_degree,
+                                  int max_iterations, int threads, int kind,
+                                  double big, double clamp, double prod_max,
+                                  void* stream) {
+  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  const Tables t = make_tables(tables, CG, E, VG, Z);
+  const size_t park_elems = (size_t)max_degree * Z * kBt;
+  const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
+                         static_cast<T>(prod_max)};
+  return static_cast<int>(float_by_bucket<T, FloatLayeredLaunch>(
+      max_degree, kind, qv, rcv, bits, iters, conv, park, t, nbt, park_elems,
+      max_iterations, threads, p, static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int resident_flooding_float_decode(void* msg, const void* q, void* post,
+                                   void* bits, void* iters, void* conv,
+                                   const void* const* tables, int nbt, int CG,
+                                   int E, int VG, int Z, int Bt, int max_degree,
+                                   int max_iterations, int threads, int kind,
+                                   double big, double clamp, double prod_max,
+                                   void* stream) {
+  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  const Tables t = make_tables(tables, CG, E, VG, Z);
+  const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
+                         static_cast<T>(prod_max)};
+  return static_cast<int>(float_by_bucket<T, FloatFloodingLaunch>(
+      max_degree, kind, msg, q, post, bits, iters, conv, t, nbt, max_iterations,
+      threads, p, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace ldpc

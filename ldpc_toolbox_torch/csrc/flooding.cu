@@ -70,7 +70,7 @@
 //   c2v at chk_omask in variable coordinates), and the syndrome skips
 //   syn_mask.
 
-#include "lanes.cuh"
+#include "message_kernels.cuh"
 
 namespace {
 
@@ -307,93 +307,10 @@ cudaError_t var_launch(const void* c2v, const void* q, void* v2c, void* bits,
 
 }  // namespace
 
-// The resident decode: a thread per lane of a tile's four frames, on the
-// machinery of csrc/lanes.cuh (the compressed kernels' form, with messages
-// as the check state).
+// The resident decode: resident_flooding_kernel of csrc/message_kernels.cuh
+// on the min-sum rule.
 namespace ldpc {
 namespace {
-
-// Check update of check lane c of group g in one tile: folds the group's d
-// v2c, read from its own cells (e, c) (big at the missing lane, whatever
-// the cell holds), and writes its d c2v to the same cells, 0 at the
-// missing lane.
-template <int DMAX, typename Msg>
-__device__ __forceinline__ void message_check_lane(Msg* msg, const LaneTables& t,
-                                                   int g, int c, float big,
-                                                   float scale) {
-  const int Z = t.Z;
-  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  Raw<Msg> x[DMAX];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k)
-    if (k < d) x[k] = load_raw(msg + ((size_t)(e0 + k) * Z + c) * kBt);
-  Fold<DMAX> fold;
-#pragma unroll
-  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const bool missing = c == t.syn_mask[e0 + k];
-      const F4 v = unpack(x[k]);
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) fold.add(k, f, missing ? big : v.v[f]);
-    }
-  }
-  fold.scale_by(scale);
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const int e = e0 + k;
-      const bool missing = c == t.syn_mask[e];
-      F4 o;
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) o.v[f] = missing ? 0.f : fold.out(k, f);
-      store4(msg + ((size_t)e * Z + c) * kBt, o);
-    }
-  }
-}
-
-// The whole flooding decode of one tile per block. msg (E, Z, 4) holds
-// each edge's message in check-major cells, in check lane coordinates:
-// v2c after a variable phase, c2v after a check phase (the aliased single
-// array of resident_flooding.py's TPU kernel); post (VG, Z, 4) int8 the
-// posterior hard decisions; bits the raw-channel bits on entry and the
-// decoded bits on exit.
-template <int DMAX, typename Msg>
-__global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
-    Msg* msg_all, const Msg* q_all, int8_t* post_all, int8_t* bits_all,
-    int* iters_out, int* conv_out, Tables t, int max_iterations, float big,
-    float scale) {
-  extern __shared__ __align__(16) int smem[];
-  const size_t tile = blockIdx.x;
-  const int Z = t.Z, cn = t.CG * Z, vn = t.VG * Z;
-  const LaneTables lt = load_tables(t, smem + kCtlInts);
-  Msg* msg = msg_all + tile * t.E * Z * kBt;
-  const Msg* q = q_all + tile * vn * kBt;
-  int8_t* post = post_all + tile * vn * kBt;
-  int8_t* bits = bits_all + tile * vn * kBt;
-  // v2c = q at every edge
-  for (int r = threadIdx.x; r < vn; r += blockDim.x) {
-    const int vg = r / Z, w = r % Z;
-    const F4 qf = load4(q + (size_t)r * kBt);
-    for (int p = lt.var_cs[vg]; p < lt.var_cs[vg + 1]; ++p)
-      store4(var_cell(msg, lt, p, w), qf);
-  }
-  // each iteration: the check phase, the variable phase, then the
-  // syndrome of the hard decisions the variable phase wrote
-  decode_tile4<DMAX>(
-      post, bits, iters_out, conv_out, lt, max_iterations, smem,
-      [&](int, int* bad) {
-        for (int r = threadIdx.x; r < cn; r += blockDim.x)
-          message_check_lane<DMAX>(msg, lt, r / Z, r % Z, big, scale);
-        __syncthreads();
-        var_phase(msg, q, lt, [&](int vg, int w, const VarLoads<Msg>& v) {
-          var_update(msg, post, lt, vg, w, v);
-        });
-        __syncthreads();
-        syndrome4<DMAX>(post, lt, bad);
-      });
-}
 
 template <int DMAX, typename Msg>
 struct ResidentLaunch {
@@ -401,11 +318,9 @@ struct ResidentLaunch {
                          void* iters, void* conv, const Tables& t, int nbt,
                          int max_iterations, int threads, float big,
                          float scale, cudaStream_t stream) {
-    return launch(resident_flooding_kernel<DMAX, Msg>, nbt, threads,
-                  smem_bytes(t, 0), stream, static_cast<Msg*>(msg),
-                  static_cast<const Msg*>(q), static_cast<int8_t*>(post),
-                  static_cast<int8_t*>(bits), static_cast<int*>(iters),
-                  static_cast<int*>(conv), t, max_iterations, big, scale);
+    return flooding_launch<DMAX>(MinSumRule<Msg>{big, scale}, msg, q, post,
+                                 bits, iters, conv, t, nbt, max_iterations,
+                                 threads, stream);
   }
 };
 

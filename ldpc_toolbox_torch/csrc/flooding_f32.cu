@@ -1,8 +1,9 @@
-// The f32 (float) instances of the float-rule flooding kernel of
-// csrc/flooding_float.cuh: the four rules (Phi, Tanh, Aminstar at
-// check-degree buckets 8, 16, 32 and 64; MinstarApprox at 8, 16 and 32).
+// The f32 (float) instances of the flooding kernel of csrc/message_kernels.cuh
+// on the float rules of csrc/float_rules.cuh: the four rules (Phi, Tanh,
+// Aminstar at check-degree buckets 8, 16, 32 and 64; MinstarApprox at 8,
+// 16 and 32).
 
-#include "flooding_float.cuh"
+#include "float_rules.cuh"
 
 // The whole decode under a float rule, in float. It takes the ten layered
 // tables (see Tables in layered.cuh), the tile shape (Bt must be 4), the

@@ -1,7 +1,7 @@
-// The i8 rules of the reference (arithmetic.rs:585-1304) for the lane
-// kernels (csrc/lanes.cuh): the int8 instances of the resident message
-// kernels, csrc/resident_layered_i8.cu and csrc/flooding_i8.cu, share
-// them. They replace the rule code that the Pallas kernels inline through
+// The i8 rules of the reference (arithmetic.rs:585-1304) for the resident
+// message kernels of csrc/message_kernels.cuh: I8Rule, their int8
+// instances, built by csrc/resident_layered_i8.cu and csrc/flooding_i8.cu.
+// They replace the rule code that the Pallas kernels inline through
 // ldpc_toolbox_tpu/ops/fused_bp2.py rule_for: _I8RuleBase (int8 messages,
 // int32 arithmetic, the clips), MinstarApproxI8Rule.check and
 // AminstarI8Rule.check.
@@ -25,7 +25,7 @@
 
 #pragma once
 
-#include "lanes.cuh"
+#include "message_kernels.cuh"
 
 namespace ldpc {
 
@@ -181,6 +181,96 @@ __device__ __forceinline__ void i8_outputs(const I8Check<DMAX>& in, int d, bool 
 
 // Calls Launch<DMAX, FAMILY>::run(args...) with the least degree bucket
 // (8, 16 or 32) that holds max_degree and the family kind.
+// The i8 variable update of variable lane w of group vg in one flooding
+// tile, from its first loads v, under flags (Jones, Deg1Clip): see
+// csrc/flooding_i8.cu.
+__device__ __forceinline__ void i8_var_update(int8_t* msg, int8_t* post,
+                                              const LaneTables& t, int vg, int w,
+                                              const VarLoads<int8_t>& v,
+                                              int flags) {
+  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
+  const bool clip_q = (flags & kDeg1Clip) && p1 - p0 == 1;
+  I4 tot;
+#pragma unroll
+  for (int f = 0; f < kBt; ++f) {
+    const int q = byte_of(v.q, f);
+    tot.v[f] = clip_q ? min(max(q, -116), 116) : q;
+  }
+  auto add = [&](uint32_t y) {
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) tot.v[f] += byte_of(y, f);
+  };
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) add(v.y0[j]);
+  for (int c0 = p0 + kVarChunk; c0 < p1; c0 += kVarChunk) {
+    uint32_t y[kVarChunk];
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j)
+      if (c0 + j < p1) y[j] = load_word(var_cell(msg, t, c0 + j, w));
+#pragma unroll
+    for (int j = 0; j < kVarChunk; ++j)
+      if (c0 + j < p1) add(y[j]);
+  }
+  if (flags & kJones) {
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) tot.v[f] = clip127(tot.v[f]);
+  }
+  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
+  auto output = [&](int p, uint32_t y) {
+    uint32_t o = 0;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) o |= byte_at(clip127(tot.v[f] - byte_of(y, f)), f);
+    store_word(var_cell(msg, t, p, w), o);
+  };
+#pragma unroll
+  for (int j = 0; j < kVarChunk; ++j)
+    if (p0 + j < p1) output(p0 + j, v.y0[j]);
+  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_word(var_cell(msg, t, p, w)));
+}
+
+// The i8 rule of FAMILY under flags, for csrc/message_kernels.cuh: int16
+// layered posteriors, int8 messages, int32 deltas; x = clip(Qv - Rold,
+// +-127) and 127 at the missing lane.
+template <int FAMILY>
+struct I8Rule {
+  using Q = int16_t;
+  using Msg = int8_t;
+  using P = int;
+  static constexpr int big = 127;
+  int flags;
+
+  __device__ __forceinline__ int extrinsic(int q, int rold) const {
+    return clip127(q - rold);
+  }
+  __device__ __forceinline__ int diff(int rn, int rold) const { return rn - rold; }
+
+  template <int DMAX>
+  struct Check {
+    I8Check<DMAX> in;
+    bool phl;
+
+    __device__ __forceinline__ explicit Check(const I8Rule& r)
+        : phl(r.flags & kPartialHardLimit) {}
+    __device__ __forceinline__ void set(int k, const I4& x) { in.set(k, x); }
+    template <class Emit>
+    __device__ __forceinline__ void outputs(const I4 (&)[DMAX], int d, Emit&& emit) {
+      i8_outputs<DMAX, FAMILY>(in, d, phl, [&](int k, uint32_t om) {
+        I4 o;
+#pragma unroll
+        for (int f = 0; f < kBt; ++f) o.v[f] = in.out(k, f, om);
+        emit(k, o);
+      });
+    }
+  };
+
+  __device__ __forceinline__ void var_update(int8_t* msg, int8_t* post,
+                                             const LaneTables& t, int vg, int w,
+                                             const VarLoads<int8_t>& v) const {
+    i8_var_update(msg, post, t, vg, w, v, flags);
+  }
+};
+
 template <template <int, int> class Launch, typename... Args>
 cudaError_t i8_by_bucket(int max_degree, int kind, Args&&... args) {
   if (max_degree < 1 || max_degree > kI8MaxDegree) return cudaErrorInvalidValue;

@@ -73,15 +73,44 @@ __device__ __forceinline__ D4 load_raw(const double* p) {
   const double2 b = reinterpret_cast<const double2*>(p)[1];
   return D4{{a.x, a.y, b.x, b.y}};
 }
+// four int16 (8 bytes)
+struct I16x4 {
+  uint2 u;
+};
+__device__ __forceinline__ I16x4 load_raw(const int16_t* p) {
+  return I16x4{*reinterpret_cast<const uint2*>(p)};
+}
 template <typename Msg>
 using Raw = decltype(load_raw(static_cast<const Msg*>(nullptr)));
+
+// Four frames of one lane as ints: int8 messages and int16 posteriors
+// widened, int32 deltas.
+struct I4 {
+  int v[kBt];
+};
+__device__ __forceinline__ int byte_of(uint32_t w, int f) {
+  return static_cast<int8_t>(w >> (8 * f));
+}
+__device__ __forceinline__ uint32_t byte_at(int v, int f) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
+}
 
 __device__ __forceinline__ F4 unpack(float4 a) { return F4{{a.x, a.y, a.z, a.w}}; }
 __device__ __forceinline__ F4 unpack(uint2 u) {
   return F4{{__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
              __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)}};
 }
-__device__ __forceinline__ D4 unpack(const D4& a) { return a; }
+template <typename T>
+__device__ __forceinline__ Four<T> unpack(const Four<T>& a) {
+  return a;
+}
+__device__ __forceinline__ I4 unpack(uint32_t w) {
+  return I4{{byte_of(w, 0), byte_of(w, 1), byte_of(w, 2), byte_of(w, 3)}};
+}
+__device__ __forceinline__ I4 unpack(I16x4 a) {
+  return I4{{static_cast<int16_t>(a.u.x), static_cast<int16_t>(a.u.x >> 16),
+             static_cast<int16_t>(a.u.y), static_cast<int16_t>(a.u.y >> 16)}};
+}
 template <typename Msg>
 __device__ __forceinline__ auto load4(const Msg* p) -> decltype(unpack(load_raw(p))) {
   return unpack(load_raw(p));
@@ -104,26 +133,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& a) {
 __device__ __forceinline__ void store_word(int8_t* p, uint32_t w) {
   *reinterpret_cast<uint32_t*>(p) = w;
 }
-__device__ __forceinline__ int byte_of(uint32_t w, int f) {
-  return static_cast<int8_t>(w >> (8 * f));
-}
-__device__ __forceinline__ uint32_t byte_at(int v, int f) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * f);
+// four int8 (each value in [-128, 127]) as one word
+__device__ __forceinline__ void store4(int8_t* p, const I4& a) {
+  store_word(p, byte_at(a.v[0], 0) | byte_at(a.v[1], 1) | byte_at(a.v[2], 2) |
+                    byte_at(a.v[3], 3));
 }
 
-// Four frames of one lane as ints: int16 posteriors widened, int32 deltas.
-struct I4 {
-  int v[kBt];
-};
-// four int16 as loaded (8 bytes), widened
-__device__ __forceinline__ I4 widen16(uint2 u) {
-  return I4{{static_cast<int16_t>(u.x), static_cast<int16_t>(u.x >> 16),
-             static_cast<int16_t>(u.y), static_cast<int16_t>(u.y >> 16)}};
-}
-__device__ __forceinline__ uint2 load_i16x4(const int16_t* p) {
-  return *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ I4 load4(const int16_t* p) { return widen16(load_i16x4(p)); }
 // stored as int16: each value wraps, as an int16 sum does
 __device__ __forceinline__ void store4(int16_t* p, const I4& a) {
   *reinterpret_cast<uint2*>(p) =

@@ -1,0 +1,331 @@
+// The two resident decode kernels that hold the check state as messages,
+// templated on the check rule, on the thread-per-lane machinery of
+// csrc/lanes.cuh:
+// - resident_layered_kernel: the whole horizontal-layered decode of a tile
+//   in one launch (replaces ldpc_toolbox_tpu/ops/resident_layered.py
+//   resident_layered_decode);
+// - resident_flooding_kernel: the whole flooding decode of a tile in one
+//   launch, one message array in check-major cells (replaces
+//   ldpc_toolbox_tpu/ops/resident_flooding_dual.py
+//   resident_flooding_dual_decode and resident_flooding.py
+//   resident_flooding_decode).
+// The Pallas kernels inline whatever rule ops/fused_bp2.py rule_for gives
+// them; here a rule is a policy type, and each source instantiates the
+// kernels on its rules: csrc/resident_layered.cu and csrc/flooding.cu on
+// MinSumRule below (f32 and bf16 messages), csrc/resident_layered_i8.cu and
+// csrc/flooding_i8.cu on I8Rule (csrc/i8.cuh), and the *_f32.cu and
+// *_f64.cu sources on FloatRule (csrc/float_rules.cuh). So the loads, the
+// missing lane, the deltas, the park and the stores are written once.
+//
+// A rule gives:
+// - Q, Msg, P: the types of the layered posteriors, of the messages (and
+//   of the flooding channel values) and of the layered park's deltas;
+// - big, the missing lane's input, and extrinsic(q, rold) and diff(rn,
+//   rold), one frame's layered x = Qv - Rold and delta Rnew - Rold;
+// - Check<DMAX>, made from the rule, over the lane's array x of the d
+//   slots' inputs (four frames each): set(k, x[k]) as slot k's input is
+//   ready (k = 0, 1, ... in order; min-sum and i8 fold it at once), then
+//   outputs(x, d, emit) calls emit(k, o) with slot k's four outputs for
+//   k = 0 .. d - 1 in order (the float rules fold x there, in place);
+// - var_update(msg, post, t, vg, w, loads), the flooding variable update
+//   of one lane (lanes.cuh var_update for the float messages).
+//
+// Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
+// layered: every x of a check group from the layer-entry Qv, big at the
+// missing lane; Rnew from the rule, 0 at the missing lane, stored (rounded
+// to the storage type); Qv += Rnew - Rold in edge order, with the
+// unrounded Rnew and the Rold as loaded. Flooding: v2c starts as the
+// channel value q at every edge; the check lane folds its d v2c (big at the
+// missing lane) and writes each c2v (0 at the missing lane) to the same
+// cell; the variable lane writes the hard decisions and the v2c.
+//
+// Design: see csrc/resident_layered.cu and csrc/flooding.cu.
+
+#pragma once
+
+#include <type_traits>
+
+#include "lanes.cuh"
+
+namespace ldpc {
+
+// The min-sum rule (normalized by scale when it is not 1) with f32 or
+// bf16 messages and f32 layered posteriors.
+template <typename MsgT>
+struct MinSumRule {
+  using Q = float;
+  using Msg = MsgT;
+  using P = float;
+  float big, scale;
+
+  __device__ __forceinline__ float extrinsic(float q, float rold) const {
+    return __fsub_rn(q, rold);
+  }
+  __device__ __forceinline__ float diff(float rn, float rold) const {
+    return __fsub_rn(rn, rold);
+  }
+
+  template <int DMAX>
+  struct Check {
+    Fold<DMAX> fold;
+    float scale;
+
+    __device__ __forceinline__ explicit Check(const MinSumRule& r) : scale(r.scale) {
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) fold.m2[f] = r.big;
+    }
+    __device__ __forceinline__ void set(int k, const F4& x) {
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) fold.add(k, f, x.v[f]);
+    }
+    template <class Emit>
+    __device__ __forceinline__ void outputs(const F4 (&)[DMAX], int d, Emit&& emit) {
+      fold.scale_by(scale);
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k) {
+        if (k < d) {
+          F4 o;
+#pragma unroll
+          for (int f = 0; f < kBt; ++f) o.v[f] = fold.out(k, f);
+          emit(k, o);
+        }
+      }
+    }
+  };
+
+  __device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
+                                             const LaneTables& t, int vg, int w,
+                                             const VarLoads<Msg>& v) const {
+    ldpc::var_update(msg, post, t, vg, w, v);
+  }
+};
+
+// What a layered check lane gathers of Qv: f32 and f64 as their four
+// values, int16 as loaded, widened when used (in turns on the flagship,
+// tools/compare_forms.py, the faster forms of each type).
+__device__ __forceinline__ F4 gather(const float* p) { return load4(p); }
+__device__ __forceinline__ D4 gather(const double* p) { return load4(p); }
+__device__ __forceinline__ I16x4 gather(const int16_t* p) { return load_raw(p); }
+
+// The array a check lane computes its slots' inputs in: the gathered one
+// itself where it already holds four values (f32 and f64 Qv, f64
+// messages), else a second one. In turns on the flagship
+// (tools/compare_forms.py), the float rules' layered instances ran 10-13 %
+// slower with a second array, and the other forms were as fast either way.
+template <typename G, typename V, int N>
+__device__ __forceinline__ auto& input_array(G (&gathered)[N], V (&own)[N]) {
+  if constexpr (std::is_same_v<G, V>) {
+    return gathered;
+  } else {
+    return own;
+  }
+}
+
+// A lane's four values of type T, and T itself.
+template <typename T>
+using Vec4 = decltype(load4(static_cast<const T*>(nullptr)));
+template <typename T>
+using Elem = std::decay_t<decltype(Vec4<T>{}.v[0])>;
+
+// Check update of check lane c of group g in one layered tile: every x
+// from the layer-entry Qv (big at the missing lane), Rnew in place (0 at
+// the missing lane), and the deltas Rnew - Rold either added to Qv (parked
+// false; no other lane touches those cells in this group) or parked at
+// park[(k * Z + c) * 4]. The edge loops are unrolled to the degree bucket,
+// so a check's d Qv gathers and d Rcv loads go out before its rule; Rold
+// stays in registers as loaded (bf16 packed) through its outputs.
+template <int DMAX, class Rule>
+__device__ __forceinline__ void layered_check_lane(
+    typename Rule::Q* qv, typename Rule::Msg* rcv, typename Rule::P* park,
+    const LaneTables& t, int g, int c, bool parked, const Rule& rule) {
+  using Q = typename Rule::Q;
+  using V = Vec4<Q>;
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  decltype(gather(qv)) q[DMAX];
+  Raw<typename Rule::Msg> r[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      q[k] = gather(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      r[k] = load_raw(rcv + ((size_t)e * Z + c) * kBt);
+    }
+  }
+  typename Rule::template Check<DMAX> check(rule);
+  V own[DMAX];
+  auto& x = input_array(q, own);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+      const V qk = unpack(q[k]), rold = unpack(r[k]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f)
+        x[k].v[f] = missing ? rule.big : rule.extrinsic(qk.v[f], rold.v[f]);
+      check.set(k, x[k]);
+    }
+  }
+  check.outputs(x, d, [&](int k, const V& o) {
+    const int e = e0 + k;
+    const bool missing = c == t.syn_mask[e];
+    const V rold = unpack(r[k]);
+    V rn, delta;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) {
+      rn.v[f] = missing ? Elem<Q>(0) : o.v[f];
+      delta.v[f] = rule.diff(rn.v[f], rold.v[f]);
+    }
+    store4(rcv + ((size_t)e * Z + c) * kBt, rn);
+    if (parked) {
+      store4(park + ((size_t)k * Z + c) * kBt, delta);
+    } else {
+      Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+      V qc = load4(cell);
+      add4(qc, delta);
+      store4(cell, qc);
+    }
+  });
+}
+
+// The whole layered decode of one tile per block under a rule: qv (VG, Z,
+// 4) the working posteriors (the channel values on entry), rcv (E, Z, 4)
+// the messages (zero on entry), bits the raw-channel bits on entry and the
+// decoded bits on exit; park_all the device park, or null to park in
+// shared memory after the tables.
+template <int DMAX, class Rule>
+__global__ void __launch_bounds__(kThreads, 2) resident_layered_kernel(
+    typename Rule::Q* qv_all, typename Rule::Msg* rcv_all, int8_t* bits_all,
+    int* iters_out, int* conv_out, typename Rule::P* park_all, Tables t,
+    size_t park_elems, int max_iterations, Rule rule) {
+  extern __shared__ __align__(16) int smem[];
+  const size_t tile = blockIdx.x;
+  const size_t lanes = (size_t)t.VG * t.Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  auto* park = lane_park(park_all, park_elems, smem, t);
+  auto* qv = qv_all + tile * lanes * kBt;
+  auto* rcv = rcv_all + tile * t.E * t.Z * kBt;
+  int8_t* bits = bits_all + tile * lanes * kBt;
+  decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
+                     [&](int, int* bad) {
+                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
+                         layered_check_lane<DMAX>(qv, rcv, park, lt, g, c, parked, rule);
+                       });
+                       syndrome4<DMAX>(qv, lt, bad);
+                     });
+}
+
+// Launches resident_layered_kernel<DMAX, Rule> on nbt tiles (see the C
+// entry points of csrc/resident_layered.cu for the arguments).
+template <int DMAX, class Rule>
+cudaError_t layered_launch(const Rule& rule, void* qv, void* rcv, void* bits,
+                           void* iters, void* conv, void* park, const Tables& t,
+                           int nbt, size_t park_elems, int max_iterations,
+                           int threads, cudaStream_t stream) {
+  using P = typename Rule::P;
+  return launch(resident_layered_kernel<DMAX, Rule>, nbt, threads,
+                smem_bytes(t, park ? 0 : park_elems, sizeof(P)), stream,
+                static_cast<typename Rule::Q*>(qv),
+                static_cast<typename Rule::Msg*>(rcv), static_cast<int8_t*>(bits),
+                static_cast<int*>(iters), static_cast<int*>(conv),
+                static_cast<P*>(park), t, park_elems, max_iterations, rule);
+}
+
+// Check update of check lane c of group g in one flooding tile: folds the
+// group's d v2c, read from its own cells (e, c) (big at the missing lane,
+// whatever the cell holds), and writes its d c2v to the same cells, 0 at
+// the missing lane.
+template <int DMAX, class Rule>
+__device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
+                                                    const LaneTables& t, int g,
+                                                    int c, const Rule& rule) {
+  using Msg = typename Rule::Msg;
+  using V = Vec4<Msg>;
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  Raw<Msg> raw[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k)
+    if (k < d) raw[k] = load_raw(msg + ((size_t)(e0 + k) * Z + c) * kBt);
+  typename Rule::template Check<DMAX> check(rule);
+  V own[DMAX];
+  auto& x = input_array(raw, own);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const bool missing = c == t.syn_mask[e0 + k];
+      const V v = unpack(raw[k]);
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
+      check.set(k, x[k]);
+    }
+  }
+  check.outputs(x, d, [&](int k, const V& o) {
+    const int e = e0 + k;
+    const bool missing = c == t.syn_mask[e];
+    V out;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) out.v[f] = missing ? Elem<Msg>(0) : o.v[f];
+    store4(msg + ((size_t)e * Z + c) * kBt, out);
+  });
+}
+
+// The whole flooding decode of one tile per block under a rule. msg (E, Z,
+// 4) holds each edge's message in check-major cells, in check lane
+// coordinates: v2c after a variable phase, c2v after a check phase (the
+// aliased single array of resident_flooding.py's TPU kernel); q (VG, Z, 4)
+// the channel values; post (VG, Z, 4) int8 the posterior hard decisions;
+// bits the raw-channel bits on entry and the decoded bits on exit.
+template <int DMAX, class Rule>
+__global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
+    typename Rule::Msg* msg_all, const typename Rule::Msg* q_all,
+    int8_t* post_all, int8_t* bits_all, int* iters_out, int* conv_out,
+    Tables t, int max_iterations, Rule rule) {
+  using Msg = typename Rule::Msg;
+  extern __shared__ __align__(16) int smem[];
+  const size_t tile = blockIdx.x;
+  const int Z = t.Z, cn = t.CG * Z, vn = t.VG * Z;
+  const LaneTables lt = load_tables(t, smem + kCtlInts);
+  Msg* msg = msg_all + tile * t.E * Z * kBt;
+  const Msg* q = q_all + tile * vn * kBt;
+  int8_t* post = post_all + tile * vn * kBt;
+  int8_t* bits = bits_all + tile * vn * kBt;
+  // v2c = q at every edge
+  for (int r = threadIdx.x; r < vn; r += blockDim.x) {
+    const int vg = r / Z, w = r % Z;
+    const auto qr = load4(q + (size_t)r * kBt);
+    for (int p = lt.var_cs[vg]; p < lt.var_cs[vg + 1]; ++p)
+      store4(var_cell(msg, lt, p, w), qr);
+  }
+  // each iteration: the check phase, the variable phase, then the
+  // syndrome of the hard decisions the variable phase wrote
+  decode_tile4<DMAX>(
+      post, bits, iters_out, conv_out, lt, max_iterations, smem,
+      [&](int, int* bad) {
+        for (int r = threadIdx.x; r < cn; r += blockDim.x)
+          flooding_check_lane<DMAX>(msg, lt, r / Z, r % Z, rule);
+        __syncthreads();
+        var_phase(msg, q, lt, [&](int vg, int w, const VarLoads<Msg>& v) {
+          rule.var_update(msg, post, lt, vg, w, v);
+        });
+        __syncthreads();
+        syndrome4<DMAX>(post, lt, bad);
+      });
+}
+
+// Launches resident_flooding_kernel<DMAX, Rule> on nbt tiles (see the C
+// entry points of csrc/flooding.cu for the arguments).
+template <int DMAX, class Rule>
+cudaError_t flooding_launch(const Rule& rule, void* msg, const void* q,
+                            void* post, void* bits, void* iters, void* conv,
+                            const Tables& t, int nbt, int max_iterations,
+                            int threads, cudaStream_t stream) {
+  using Msg = typename Rule::Msg;
+  return launch(resident_flooding_kernel<DMAX, Rule>, nbt, threads,
+                smem_bytes(t, 0), stream, static_cast<Msg*>(msg),
+                static_cast<const Msg*>(q), static_cast<int8_t*>(post),
+                static_cast<int8_t*>(bits), static_cast<int*>(iters),
+                static_cast<int*>(conv), t, max_iterations, rule);
+}
+
+}  // namespace ldpc

@@ -1,8 +1,9 @@
 // Horizontal-layered min-sum decode of frame tiles with the check state
 // held as messages (Rcv), one thread block per tile:
-// - resident_layered_kernel: all iterations in one launch, a thread per
-//   lane of a tile's four frames (csrc/lanes.cuh, the form of the
-//   compressed kernels of csrc/compressed.cu);
+// - resident_layered_kernel (csrc/message_kernels.cuh, on MinSumRule here):
+//   all iterations in one launch, a thread per lane of a tile's four
+//   frames (csrc/lanes.cuh, the form of the compressed kernels of
+//   csrc/compressed.cu);
 // - fused_layered_kernel: one sweep (the streaming form's iteration), a
 //   thread per (lane, frame), the sweep of csrc/layered.cuh.
 //
@@ -43,97 +44,11 @@
 // The streaming kernel keeps a thread per (lane, frame) and parks every
 // group's deltas, in shared memory when they fit.
 
-#include "lanes.cuh"
+#include "message_kernels.cuh"
 
 namespace {
 
 using namespace ldpc;
-
-// Check update of check lane c of group g in one tile: every x = Qv - Rold
-// from the layer-entry Qv (big at the missing lane), Rnew in place (0 at
-// the missing lane), and the deltas Rnew - Rold (Rnew unrounded, Rold as
-// loaded) either added to Qv (parked false; no other lane touches those
-// cells in this group) or parked at park[(k * Z + c) * 4].
-template <int DMAX, typename Msg>
-__device__ __forceinline__ void message_check_lane(float* qv, Msg* rcv,
-                                                   float* park,
-                                                   const LaneTables& t, int g,
-                                                   int c, bool parked,
-                                                   float big, float scale) {
-  const int Z = t.Z;
-  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  F4 q[DMAX];
-  Raw<Msg> r[DMAX];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const int e = e0 + k;
-      q[k] = load4(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
-      r[k] = load_raw(rcv + ((size_t)e * Z + c) * kBt);
-    }
-  }
-  Fold<DMAX> fold;
-#pragma unroll
-  for (int f = 0; f < kBt; ++f) fold.m2[f] = big;
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const bool missing = c == t.syn_mask[e0 + k];
-      const F4 rold = unpack(r[k]);
-#pragma unroll
-      for (int f = 0; f < kBt; ++f)
-        fold.add(k, f, missing ? big : __fsub_rn(q[k].v[f], rold.v[f]));
-    }
-  }
-  fold.scale_by(scale);
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const int e = e0 + k;
-      const bool missing = c == t.syn_mask[e];
-      const F4 rold = unpack(r[k]);
-      F4 rn, delta;
-#pragma unroll
-      for (int f = 0; f < kBt; ++f) {
-        rn.v[f] = missing ? 0.f : fold.out(k, f);
-        delta.v[f] = __fsub_rn(rn.v[f], rold.v[f]);
-      }
-      store4(rcv + ((size_t)e * Z + c) * kBt, rn);
-      if (parked) {
-        store4(park + ((size_t)k * Z + c) * kBt, delta);
-      } else {
-        float* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
-        F4 qk = load4(cell);
-#pragma unroll
-        for (int f = 0; f < kBt; ++f) qk.v[f] = __fadd_rn(qk.v[f], delta.v[f]);
-        store4(cell, qk);
-      }
-    }
-  }
-}
-
-template <int DMAX, typename Msg>
-__global__ void __launch_bounds__(kThreads, 2) resident_layered_kernel(
-    float* qv_all, Msg* rcv_all, int8_t* bits_all, int* iters_out,
-    int* conv_out, float* park_all, Tables t, size_t park_elems,
-    int max_iterations, float big, float scale) {
-  extern __shared__ __align__(16) int smem[];
-  const size_t tile = blockIdx.x;
-  const size_t lanes = (size_t)t.VG * t.Z;
-  const LaneTables lt = load_tables(t, smem + kCtlInts);
-  float* park = lane_park(park_all, park_elems, smem, t);
-  float* qv = qv_all + tile * lanes * kBt;
-  Msg* rcv = rcv_all + tile * t.E * t.Z * kBt;
-  int8_t* bits = bits_all + tile * lanes * kBt;
-  decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
-                     [&](int, int* bad) {
-                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
-                         message_check_lane<DMAX>(qv, rcv, park, lt, g, c,
-                                                  parked, big, scale);
-                       });
-                       syndrome4<DMAX>(qv, lt, bad);
-                     });
-}
 
 template <typename Msg>
 __global__ void fused_layered_kernel(float* qv_all, Msg* rcv_all,
@@ -156,12 +71,9 @@ struct ResidentLaunch {
                          void* conv, void* park, const Tables& t, int nbt,
                          size_t park_elems, int max_iterations, int threads,
                          float big, float scale, cudaStream_t stream) {
-    return launch(resident_layered_kernel<DMAX, Msg>, nbt, threads,
-                  smem_bytes(t, park ? 0 : park_elems), stream,
-                  static_cast<float*>(qv), static_cast<Msg*>(rcv),
-                  static_cast<int8_t*>(bits), static_cast<int*>(iters),
-                  static_cast<int*>(conv), static_cast<float*>(park), t,
-                  park_elems, max_iterations, big, scale);
+    return layered_launch<DMAX>(MinSumRule<Msg>{big, scale}, qv, rcv, bits,
+                                iters, conv, park, t, nbt, park_elems,
+                                max_iterations, threads, stream);
   }
 };
 

@@ -1,8 +1,9 @@
-// The f64 (double) instances of the float-rule layered kernel of
-// csrc/resident_layered_float.cuh: the four rules (Phi, Tanh, Aminstar at
-// check-degree buckets 8, 16, 32 and 64; MinstarApprox at 8, 16 and 32).
+// The f64 (double) instances of the layered kernel of csrc/message_kernels.cuh
+// on the float rules of csrc/float_rules.cuh: the four rules (Phi, Tanh,
+// Aminstar at check-degree buckets 8, 16, 32 and 64; MinstarApprox at 8,
+// 16 and 32).
 
-#include "resident_layered_float.cuh"
+#include "float_rules.cuh"
 
 // Decodes nbt tiles in place under a float rule, in double: qv (nbt, VG, Z, 4)
 // working posteriors (the channel LLRs on entry), rcv (nbt, E, Z, 4) zeroed

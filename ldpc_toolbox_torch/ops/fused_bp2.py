@@ -65,6 +65,7 @@ __all__ = [
     "is_float_rule",
     "is_i8",
     "refuse_streaming",
+    "takes_storage",
     "rule_for",
     "var_recon_tables",
     "fused_check",
@@ -678,6 +679,17 @@ def is_float_rule(rule) -> bool:
     return isinstance(rule, _FloatRuleBase)
 
 
+def takes_storage(rule) -> bool:
+    """Whether the kernels of the rule's family take its message storage
+    type: the min-sum kernels f32 and bf16 (``_MSG_DTYPES``), the i8
+    instances int8, the float-rule instances f32 and f64."""
+    if is_i8(rule):
+        return rule.storage_dtype == torch.int8
+    if is_float_rule(rule):
+        return rule.storage_dtype in (torch.float32, torch.float64)
+    return rule.storage_dtype in _MSG_DTYPES
+
+
 def refuse_streaming(rule) -> None:
     """The streaming kernels (the flooding phases and the layered sweep)
     carry min-sum only: raise for any other rule (the i8 and float rules,
@@ -731,9 +743,9 @@ def rule_for(arithmetic):
 
 # -- the streaming flooding phases -------------------------------------------
 
-#: the message storage types of the kernels, by the code the min-sum
-#: kernels take (the i8 and f64 instances are kernels of their own)
-_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float64: 3}
+#: the min-sum kernels' message storage types, by the code they take
+#: (msg_bf16)
+_MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads per block of the check and variable phase kernels
 PHASE_THREADS = 256
 #: threads per block of the syndrome kernel, which gives one block to a

@@ -69,6 +69,7 @@ from .fused_bp2 import (
     is_float_rule,
     is_i8,
     refuse_streaming,
+    takes_storage,
 )
 
 __all__ = [
@@ -207,7 +208,7 @@ def _launch_args(x, layout, rule, max_iterations):
         raise TypeError("planes must be contiguous")
     if (VG, Z) != (layout.VG, layout.Z):
         raise ValueError(f"planes {(VG, Z)} do not match the layout")
-    if rule.storage_dtype not in _MSG_DTYPES:
+    if not takes_storage(rule):
         raise TypeError(f"unsupported message storage {rule.storage_dtype}")
     check_degree_cap(layout, rule)
     if max_iterations < 0:

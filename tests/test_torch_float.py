@@ -119,6 +119,86 @@ def test_float_rules_match_jax(name, monkeypatch):
     )
 
 
+def _ulp_gap(fn, arg):
+    """The most ulps between XLA's and torch's ``fn`` on ``arg`` (either
+    result subnormal or zero counts as equal: XLA flushes subnormals)."""
+    j = np.asarray(getattr(jnp, fn)(jnp.asarray(arg)))
+    t = getattr(torch, fn)(torch.from_numpy(arg)).numpy()
+    keep = (np.abs(j) >= np.finfo(arg.dtype).tiny) & (np.abs(t) >= np.finfo(arg.dtype).tiny)
+    it = np.int32 if arg.dtype == np.float32 else np.int64
+    # ordered integer images of the floats, so that a difference counts ulps
+    a, b = (np.where(v.view(it) < 0, np.iinfo(it).min - v.view(it).astype(np.int64),
+                     v.view(it).astype(np.int64)) for v in (j[keep], t[keep]))
+    return int(np.abs(a - b).max())
+
+
+def _transcendental_gaps(dtype, clamp):
+    """XLA's CPU exp, log, log1p and tanh against torch's, in ulps, over
+    the arguments the rules give them: exp(-y) for y to 600, log1p on
+    (-1, 1], log on [1/2, 1), tanh within the clamp."""
+    y = np.concatenate([10.0 ** np.linspace(-8, np.log10(600), 20001), [0.0]])
+    t = np.exp(-y)
+    return {
+        "exp": _ulp_gap("exp", (-y).astype(dtype)),
+        "log1p": _ulp_gap("log1p", np.concatenate([t, -t[t < 1]]).astype(dtype)),
+        "log": _ulp_gap("log", (1 - t[t <= 0.5]).astype(dtype)),
+        "tanh": _ulp_gap("tanh", np.linspace(-clamp, clamp, 40001).astype(dtype)),
+    }
+
+
+#: the gaps measured on the CPU (jaxlib's XLA against torch): the test
+#: fails if either library drifts further
+MAX_GAPS = {np.float32: {"exp": 1, "log1p": 2, "log": 1, "tanh": 4},
+            np.float64: {"exp": 2, "log1p": 128, "log": 1, "tanh": 7}}
+
+
+@pytest.mark.parametrize("name", FLOAT_NAMES)
+def test_float_rules_match_jax_own_transcendentals(name):
+    """``check`` of each rule against the JAX rule with XLA's own exp, log,
+    log1p and tanh (its CPU results, which differ from torch's by the ulp
+    gaps of ``_transcendental_gaps``, measured here), at degrees 1 to 32,
+    in each precision. The tolerance is set from those gaps: Phi and
+    MinstarApprox within rtol and atol as above (their outputs move by a
+    few gaps' worth relative); Aminstar within rtol and an absolute term of
+    the log1p and exp gaps times the type's epsilon (its output subtracts
+    two O(1) logs, so near 0 the error is absolute); Tanh, whose 2 atanh(p)
+    has the condition 2 / (1 - p^2) as p nears +-1, within twice the first
+    order effect of the gaps: the tanh gap on each of the d - 1 factors of
+    p and a rounding a product, through that condition, plus the log1p gap
+    on each log, with p computed here from the inputs in f64 (at the clamp
+    the bound reaches the output's range, and is capped there)."""
+    jrule = jax_fused_bp2.rule_for(jax_factory.make_arithmetic(name)[1])
+    trule = fused_bp2.rule_for(make_arithmetic(name)[1])
+    dtype = np.float64 if name.endswith("f64") else np.float32
+    eps = float(np.finfo(dtype).eps)
+    clamp = trule.clamp if name.startswith("Tanh") else 9.0
+    gaps = _transcendental_gaps(dtype, clamp)
+    for fn, gap in gaps.items():
+        assert gap <= MAX_GAPS[dtype][fn], (fn, gap)
+    rtol, atol = TOLERANCE[dtype]
+    for d in DEGREES:
+        x = _check_inputs(d, dtype, seed=d)
+        jout = np.stack([np.asarray(o) for o in jrule.check([jnp.asarray(p) for p in x])])
+        tout = trule.check(torch.from_numpy(x)).numpy()
+        if name.startswith("Tanh"):
+            th = np.tanh(np.clip(x.astype(np.float64) / 2, -clamp, clamp))
+            p = np.stack([np.prod(np.delete(th, t, axis=0), axis=0) for t in range(d)])
+            p = np.clip(p, -trule.prod_max, trule.prod_max)
+            dp = np.abs(p) * ((d - 1) * gaps["tanh"] + d) * eps
+            bound = (2 * dp / (1 - p * p)
+                     + gaps["log1p"] * eps * (np.abs(np.log1p(p)) + np.abs(np.log1p(-p))))
+            top = 2 * np.arctanh(trule.prod_max)
+            tol = np.minimum(2 * bound, 2 * top) + rtol * np.abs(tout) + atol
+        else:
+            extra = max(gaps["exp"], gaps["log1p"]) * eps if name.startswith("Aminstar") else 0
+            tol = rtol * np.abs(tout) + atol + extra
+        err = np.abs(jout.astype(np.float64) - tout)
+        worst = np.unravel_index(np.argmax(err - tol), err.shape)
+        assert (err <= tol).all(), (
+            f"{name} d={d}: slot {worst[0]} column {worst[1]}: {jout[worst]} against "
+            f"{tout[worst]}, tolerance {tol[worst]}")
+
+
 def test_float_rule_missing_lane_poke():
     """An input at big, the missing-lane poke, acts as an infinitely
     reliable bit-0 message: the other slots' outputs are those of the check

@@ -1,30 +1,38 @@
-"""Time forms of a kernel source in turns on one GPU.
+"""Time forms of kernel sources in turns on one GPU.
 
-    python3 tools/compare_forms.py --source {compressed,flooding,resident_layered}
+    python3 tools/compare_forms.py --source SOURCE [--source SOURCE ...]
         [--form NAME=DIR[:THREADS] ...] [--base DIR] [--reps 5]
 
-A form is a directory holding a version of ``csrc/<source>.cu`` and the
-headers it includes, built here with the package's nvcc flags; "repo" is
-the package's own ``csrc/``. ``--form`` forms share the package's C
-interface and run at the package's block size, or at THREADS a block where
-given. ``--base`` names a directory holding the sources of commit c5040f6
-(``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for the three sources
-and ``layered.cuh``), whose message kernels give a thread one (lane,
-frame); they run as they ran there: the compressed kernels at 256
-threads, the message kernels at 512 threads a block, the resident flooding
-kernel through its own C interface (two message arrays, the eleven
-flooding tables). Each form is built into the package's git-ignored
-``build/forms/``, nvcc's report beside it as ``<source>-NAME.log``.
+SOURCE is one of compressed, flooding, resident_layered (min-sum),
+resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
+resident_layered_f64, flooding_f32, flooding_f64 (the float-rule
+instances). A form is a directory holding a version of the kernel sources
+(``csrc/<source>.cu`` and the headers it includes), built here with the
+package's nvcc flags; "repo" is the package's own ``csrc/``, built into the
+package's ``build/`` as its wrappers build it. ``--form`` forms share the
+package's C interface and run at the package's block size, or at THREADS a
+block where given. ``--base`` names a directory holding the sources of
+commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
+compressed, flooding and resident_layered and ``layered.cuh``), whose
+message kernels give a thread one (lane, frame); they run as they ran
+there: the compressed kernels at 256 threads, the message kernels at 512
+threads a block, the resident flooding kernel through its own C interface
+(two message arrays, the eleven flooding tables). Each form is built into
+the package's git-ignored ``build/forms/``, nvcc's report beside it as
+``<source>-NAME.log``; every build of the run starts at once.
 
 Each source's resident kernels run the flagship decode (DVB-S2 R1_2,
-B = 1024, 1.0 dB, at most 30 iterations) on the tiles of the bf16 and the
-f32 min-sum names of their schedule. On each tile set it holds every
-form's bits, iterations and flags equal to the package kernel's, then
-times all forms and the package's kernel of the other check state (the
-compressed kernel for a message source, the message kernel for the
-compressed one) on the same tiles in turns (the order reversed every round;
-CUDA events, median of ``--reps``). Prints the card's name and power limit,
-a line a tile set and one JSON line with every time in milliseconds.
+B = 1024, 1.0 dB, at most 30 iterations) on the tiles of their names: the
+bf16 and the f32 min-sum names of their schedule, ``HLMinstarapproxi8`` or
+``Minstarapproxi8`` for the i8 sources, ``HLPhif32``, ``HLPhif64``,
+``Phif32`` or ``Phif64`` for the float ones. On each tile set it holds
+every form's bits, iterations and flags equal to the package kernel's,
+then times all forms, and for a min-sum source the package's kernel of the
+other check state (the compressed kernel for a message source, the
+message kernel for the compressed one), on the same tiles in turns (the
+order reversed every round; CUDA events, median of ``--reps``). Prints the
+card's name and power limit, a line a tile set and one JSON line with
+every time in milliseconds.
 """
 
 import argparse
@@ -64,8 +72,8 @@ from ldpc_toolbox_torch.ops import (  # noqa: E402
 
 OUT = _build.BUILD_DIR / "forms"
 #: per source: (schedule, the wrapper's module, the name there of its
-#: library getter, the wrapper, the other check state's kernel, the
-#: library binder)
+#: library getter, the wrapper, the other check state's kernel or None,
+#: the library binder)
 PLAN = {
     "compressed": [
         ("layered", resident_compressed, "_lib", "compressed_layered_decode",
@@ -81,8 +89,28 @@ PLAN = {
         ("flooding", resident_flooding, "flooding_lib", "resident_flooding_decode",
          resident_compressed.compressed_flooding_decode, fused_bp2.bind_flooding),
     ],
+    "resident_layered_i8": [
+        ("layered", resident_layered, "_lib_i8", "resident_layered_decode_i8", None,
+         resident_layered.bind_i8),
+    ],
+    "flooding_i8": [
+        ("flooding", resident_flooding, "_lib_i8", "resident_flooding_decode_i8", None,
+         resident_flooding.bind_i8),
+    ],
+    **{f"resident_layered_{p}": [
+        ("layered", resident_layered, "_lib_float", "resident_layered_decode_float", None,
+         resident_layered.bind_float)] for p in ("f32", "f64")},
+    **{f"flooding_{p}": [
+        ("flooding", resident_flooding, "_lib_float", "resident_flooding_decode_float", None,
+         resident_flooding.bind_float)] for p in ("f32", "f64")},
 }
 NAMES = {"layered": ("HLMinsumbf16", "HLMinsumf32"), "flooding": ("Minsumbf16", "Minsumf32")}
+#: the names of the sources that do not run the min-sum names
+SOURCE_NAMES = {
+    "resident_layered_i8": ("HLMinstarapproxi8",), "flooding_i8": ("Minstarapproxi8",),
+    "resident_layered_f32": ("HLPhif32",), "resident_layered_f64": ("HLPhif64",),
+    "flooding_f32": ("Phif32",), "flooding_f64": ("Phif64",),
+}
 #: block sizes of the c5040f6 forms, by source
 BASE_THREADS = {"compressed": 256, "resident_layered": 512, "flooding": 512}
 
@@ -100,7 +128,7 @@ def with_lib(module, getter, lib, threads, fn, *args):
     """fn(*args) with ``module``'s wrappers launching ``lib`` at
     ``threads`` threads a block."""
     saved = getattr(module, getter), module.LANE_THREADS
-    setattr(module, getter, lambda: lib)
+    setattr(module, getter, lambda *_: lib)
     module.LANE_THREADS = threads
     try:
         return fn(*args)
@@ -148,7 +176,7 @@ def turns(fns, reps):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--source", required=True, choices=sorted(PLAN))
+    p.add_argument("--source", action="append", required=True, choices=sorted(PLAN))
     p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
@@ -160,52 +188,69 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    source = args.source
-    sources = {"repo": _build.CSRC}
-    block = {}
+    forms, block = {}, {}
     for form in args.form:
         name, spec = form.split("=", 1)
-        sources[name], _, n = spec.partition(":")
+        forms[name], _, n = spec.partition(":")
         if n:
             block[name] = int(n)
     if args.base:
-        sources["base"] = args.base
-        block["base"] = BASE_THREADS[source]
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = dict(zip(sources, pool.map(build, [source] * len(sources),
-                                            sources, sources.values())))
-    print(f"{source}: nvcc's reports in {OUT}/{source}-<form>.log")
+        forms["base"] = args.base
+    # the package's sources these runs load (the other check state's kernel
+    # of a min-sum source too) and every form, all built at once
+    package = set(args.source)
+    if package & {"compressed", "resident_layered", "flooding"}:
+        package |= {"compressed", "resident_layered", "flooding"}
+    jobs = [(source, form, d) for source in args.source for form, d in forms.items()]
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        pkg = pool.submit(_build.build_all, sorted(package))
+        built = list(pool.map(lambda j: build(*j), jobs))
+        pkg.result()
+    libs = {source: {"repo": ctypes.CDLL(str(_build.library_path(source)))}
+            for source in args.source}
+    for (source, form, _), lib in zip(jobs, built):
+        libs[source][form] = lib
+    print(f"nvcc's reports in {OUT}/<source>-<form>.log")
 
     lg = lifted_graph_for(Code.R1_2)
     llrs = channel_llrs(lg.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
-    result = {"card": card, "source": source}
+    result = {"card": card}
+    for source in args.source:
+        run_source(source, libs[source], block, lg, llrs, args.reps, card, result)
+    print(json.dumps(result))
+
+
+def run_source(source, built, block, lg, llrs, reps, card, result):
+    """Holds every form of ``source`` to the package's and times them, on
+    each of its tile sets; the times go into ``result``."""
     for schedule, module, getter, kernel, other, bind in PLAN[source]:
         tiles = tile_inputs if schedule == "layered" else flooding_tiles
         wrapper = getattr(module, kernel)
         fns_of = {}
-        for name in NAMES[schedule]:
+        for name in SOURCE_NAMES.get(source, NAMES[schedule]):
             t = tiles(lg, make_arithmetic(name)[1], llrs)
             fns = {}
             for form, lib in built.items():
                 if form == "base" and source == "flooding":
                     fns[form] = lambda lib=lib, t=t: base_flooding(lib, *t, FLAGSHIP_ITERS)
                 else:
-                    n = block.get(form, module.LANE_THREADS)
+                    n = block.get(form, BASE_THREADS[source] if form == "base"
+                                  else module.LANE_THREADS)
                     fns[form] = lambda lib=bind(lib), n=n, t=t: with_lib(
                         module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
-            fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
+            if other is not None:
+                fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
             fns_of[name] = fns
         for name, fns in fns_of.items():
             ref = fns["repo"]()
             for form, fn in fns.items():
                 for a, b in zip(fn(), ref):
                     assert torch.equal(a, b), f"{name}: {form} differs from repo"
-            ms = turns(fns, args.reps)
-            result[f"{kernel} {name}"] = ms
-            print(f"[{card}] {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all forms "
-                  "equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-                  + f" (in turns, median of {args.reps})")
-    print(json.dumps(result))
+            ms = turns(fns, reps)
+            result[f"{source} {kernel} {name}"] = ms
+            print(f"[{card}] {source} {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all "
+                  "forms equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                  + f" (in turns, median of {reps})")
 
 
 if __name__ == "__main__":
