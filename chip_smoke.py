@@ -28,6 +28,13 @@ partial tile), and drives the port's main paths on the flagship code
    the float-rule instances of the two message kernels (all 16 float names
    held against the plain versions on the test codes first, R1_2 at 8
    iterations);
+6. the streaming decodes (``resident=False``) of ``Phif64`` and
+   ``Minstarapproxi8`` (flooding: the i8 and float instances of the check
+   and variable phases) and of ``HLPhif32`` and ``HLMinstarapproxi8``
+   (layered: those of the sweep), each equal to the resident decode of its
+   name (the i8 and float streaming instances held against their plain
+   versions on the test codes first, all 16 float names and two i8 names a
+   schedule);
 
 each with its launch counts set to 0 just before and read just after;
 both schedules' resident, streaming (staged) and unstaged streaming loops
@@ -76,6 +83,8 @@ from ldpc_toolbox_torch.decoder.lifted_layered import (
 from ldpc_toolbox_torch.ops import _build
 from ldpc_toolbox_torch.ops.fused_layered import (
     fused_layered_iteration,
+    fused_layered_iteration_float,
+    fused_layered_iteration_i8,
     fused_layered_iteration_reference,
 )
 from ldpc_toolbox_torch.ops.resident_compressed import (
@@ -86,11 +95,16 @@ from ldpc_toolbox_torch.ops.resident_compressed import (
 )
 from ldpc_toolbox_torch.ops.fused_bp2 import (
     fused_check,
+    fused_check_float,
+    fused_check_i8,
     fused_check_reference,
     fused_syndrome_bits,
     fused_syndrome_bits_reference,
     fused_var,
+    fused_var_float,
+    fused_var_i8,
     fused_var_reference,
+    is_i8,
 )
 from ldpc_toolbox_torch.ops.resident_flooding import (
     decode_loop,
@@ -184,13 +198,22 @@ STEP_OPS = {
 #: and the output's (int)
 SLOT_FP, SLOT_INT = 1, 4
 PHI_SLOT_FP, TANH_SLOT_FP, AMIN_SLOT_FP, AMIN_SLOT_INT = 2, 3, 1, 3
-#: per edge lane and frame of a float iteration: layered, the extrinsic,
-#: the delta and the Qv add (fp), the two missing-lane selects and the
-#: syndrome's xor (int); flooding, the variable rule's add and subtract
-#: (fp), the two missing-lane selects and the xor (int), and per variable
-#: lane the hard decision (fp)
-FLOAT_LAYERED_EDGE = {"fp": 3, "int": 3}
-FLOAT_FLOODING_EDGE, FLOAT_FLOODING_LANE = {"fp": 2, "int": 3}, {"fp": 1}
+#: per edge lane and frame of each part of a float iteration, by schedule
+#: (layered True): the check's missing-lane select of its input (int);
+#: the update, layered the extrinsic, the delta and the Qv add (fp) and
+#: the missing-lane select of Rnew (int), flooding the variable rule's add
+#: and subtract (fp) and the missing-lane select of the output (int); the
+#: syndrome's xor (int); and per variable lane the flooding update's hard
+#: decision (fp)
+FLOAT_EDGE_PARTS = {
+    True: {"check": {"int": 1}, "update": {"fp": 3, "int": 1}, "syndrome": {"int": 1}},
+    False: {"check": {"int": 1}, "update": {"fp": 2, "int": 1}, "syndrome": {"int": 1}},
+}
+FLOAT_LANE_PARTS = {True: {}, False: {"update": {"fp": 1}}}
+#: the parts of an iteration: the check rule, the update (layered: of Qv
+#: and Rcv; flooding: the variable phase), the syndrome; a streaming phase
+#: or sweep does some of them
+PARTS = ("check", "update", "syndrome")
 PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_layered_decode": (
@@ -200,7 +223,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
         "ldpc_toolbox_torch/csrc/compressed.cu",
         "ldpc_toolbox_tpu/ops/resident_compressed.py:524"),
     "fused_layered_iteration": (
-        "ldpc_toolbox_torch/csrc/resident_layered.cu",
+        "ldpc_toolbox_torch/csrc/fused_layered.cu",
         "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
     "resident_flooding_decode": (
         "ldpc_toolbox_torch/csrc/flooding.cu",
@@ -238,14 +261,42 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
         "ldpc_toolbox_torch/csrc/float_rules.cuh",
         "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
         "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
+    # the i8 and float-rule instances of the streaming kernels #3, #7 and
+    # #8 (the templates of csrc/streaming.cuh on I8Rule and FloatRule)
+    "fused_layered_iteration_i8": (
+        "ldpc_toolbox_torch/csrc/fused_layered_i8.cu",
+        "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
+    "fused_layered_iteration_float": (
+        "ldpc_toolbox_torch/csrc/float_rules.cuh",
+        "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
+    "fused_check_i8": (
+        "ldpc_toolbox_torch/csrc/flooding_i8.cu",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:774"),
+    "fused_check_float": (
+        "ldpc_toolbox_torch/csrc/float_rules.cuh",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:774"),
+    "fused_var_i8": (
+        "ldpc_toolbox_torch/csrc/flooding_i8.cu",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:910"),
+    "fused_var_float": (
+        "ldpc_toolbox_torch/csrc/float_rules.cuh",
+        "ldpc_toolbox_tpu/ops/fused_bp2.py:910"),
 }
 WRAPPERS = (
     resident_layered_decode, compressed_layered_decode, fused_layered_iteration,
     resident_flooding_decode, compressed_flooding_decode, fused_check,
     fused_var, fused_syndrome_bits, resident_layered_decode_i8,
     resident_flooding_decode_i8, resident_layered_decode_float,
-    resident_flooding_decode_float,
+    resident_flooding_decode_float, fused_layered_iteration_i8,
+    fused_layered_iteration_float, fused_check_i8, fused_check_float, fused_var_i8,
+    fused_var_float,
 )
+#: the i8 and float instances' wrappers of the streaming kernels: (sweep,
+#: check, variable)
+STREAMING = {
+    "i8": (fused_layered_iteration_i8, fused_check_i8, fused_var_i8),
+    "float": (fused_layered_iteration_float, fused_check_float, fused_var_float),
+}
 #: the i8 names the kernel checks run, two a schedule
 I8_LAYERED = ["HLMinstarapproxi8", "HLAminstari8PartialHardLimit"]
 I8_FLOODING = ["Minstarapproxi8JonesDeg1Clip", "Aminstari8PartialHardLimitDeg1Clip"]
@@ -339,17 +390,21 @@ def i8_check_ops(kind, d):
     return rule_ops + d * I8_EDGE_OPS
 
 
-def i8_iteration_ops(layout, rule, layered):
-    """Integer operations of one iteration of one frame of a tile lane
-    under an i8 rule: every check group's rule work, and the layered
-    update's or the variable phase's, and the syndrome's, per edge lane
-    and variable lane; times Z."""
-    checks = sum((m.g1 - m.g0) * i8_check_ops(rule.kind, m.d) for m in layout.chk_meta)
-    if layered:
-        rest = layout.E * (I8_LAYERED_EXTRA_OPS + SYN_OPS)
-    else:
-        rest = layout.E * (I8_VAR_EDGE_OPS + SYN_OPS) + layout.VG * I8_VAR_LANE_OPS
-    return (checks + rest) * layout.Z
+def i8_iteration_ops(layout, rule, layered, parts=PARTS):
+    """Integer operations of the ``parts`` of one iteration of one frame
+    under an i8 rule (``PARTS``; all of them by default): every check
+    group's rule work ("check"), the layered update's or the variable
+    phase's ("update") and the syndrome's, per edge lane and variable lane;
+    times Z."""
+    ops = 0
+    if "check" in parts:
+        ops += sum((m.g1 - m.g0) * i8_check_ops(rule.kind, m.d) for m in layout.chk_meta)
+    if "update" in parts:
+        ops += (layout.E * I8_LAYERED_EXTRA_OPS if layered
+                else layout.E * I8_VAR_EDGE_OPS + layout.VG * I8_VAR_LANE_OPS)
+    if "syndrome" in parts:
+        ops += layout.E * SYN_OPS
+    return ops * layout.Z
 
 
 def float_check_ops(rule, d, fp):
@@ -386,21 +441,23 @@ def float_check_ops(rule, d, fp):
     return ops
 
 
-def float_iteration_ops(layout, rule, layered):
-    """Operations of one iteration of one frame of a tile lane under a
-    float rule, by class: every check group's rule work, and the layered
-    update's or the variable phase's, and the syndrome's, per edge lane
-    and variable lane; times Z."""
+def float_iteration_ops(layout, rule, layered, parts=PARTS):
+    """Operations of the ``parts`` of one iteration of one frame under a
+    float rule (``PARTS``; all of them by default), by class: every check
+    group's rule work ("check"), the layered update's or the variable
+    phase's ("update") and the syndrome's, per edge lane and variable lane;
+    times Z."""
     fp = "f64" if rule.storage_dtype == torch.float64 else "f32"
     ops = Counter()
-    for m in layout.chk_meta:
-        for cls, n in float_check_ops(rule, m.d, fp).items():
-            ops[cls] += (m.g1 - m.g0) * n
-    edge = FLOAT_LAYERED_EDGE if layered else FLOAT_FLOODING_EDGE
-    lane = {} if layered else FLOAT_FLOODING_LANE
-    for per, count in ((edge, layout.E), (lane, layout.VG)):
-        for cls, n in per.items():
-            ops[fp if cls == "fp" else cls] += count * n
+    if "check" in parts:
+        for m in layout.chk_meta:
+            for cls, n in float_check_ops(rule, m.d, fp).items():
+                ops[cls] += (m.g1 - m.g0) * n
+    for table, count in ((FLOAT_EDGE_PARTS, layout.E), (FLOAT_LANE_PARTS, layout.VG)):
+        for part, per in table[layered].items():
+            if part in parts:
+                for cls, n in per.items():
+                    ops[fp if cls == "fp" else cls] += count * n
     return Counter({cls: n * layout.Z for cls, n in ops.items()})
 
 
@@ -1083,6 +1140,64 @@ def float_checks(graphs, worst):
               "version on the CPU equal")
 
 
+def streaming_checks(graphs, worst):
+    """The i8 and float instances of the streaming kernels against their
+    plain versions on the four test codes: for a flooding name the
+    initialisation, two check phases and two updates, for a layered name
+    one and two sweeps in place; and each name's whole streaming decode
+    (staged compaction) against its resident decode. The i8 names of both
+    families with the flags that reach the clips and the partial hard
+    limit, with 64 large-magnitude frames besides on 5G BG2 z=16; all 16
+    float names (CCSDS C2 holds MinstarApprox at degree 32, its cap; R1_2
+    at 8 iterations); worst differences into ``worst``."""
+    cases = [
+        ("5G BG2 z=16", 256, 1.3, 10),
+        ("DVB-S2 R1_4short", 128, 0.9, 8),
+        ("DVB-S2 R1_2", 128, sigma_at(R1_2_RATE, 1.5), 8),
+        ("CCSDS C2", 128, sigma_at(C2_RATE, 4.0), 10),
+    ]
+    for label, batch, sigma, iters in cases:
+        lg = graphs[label]
+        llrs = channel_llrs(lg.n, batch, sigma, seed=5)
+        if label == "5G BG2 z=16":
+            llrs = torch.cat([llrs, strong_llrs(lg.n, 64, seed=6)])
+        for name in I8_LAYERED + I8_FLOODING + FLOAT_NAMES:
+            tag = f"{label} B={llrs.shape[0]} {name}"
+            arith = make_arithmetic(name)[1]
+            layered = name.startswith("HL")
+            tiles = (tile_inputs if layered else flooding_tiles)(lg, arith, llrs)
+            x0, _, layout, rule = tiles
+            sweep, check, var = STREAMING["i8" if is_i8(rule) else "float"]
+            if layered:
+                rcv0 = zero_rcv(x0, layout, rule)
+                kernel, plain = (x0.clone(), rcv0.clone()), (x0.clone(), rcv0.clone())
+                for n in (1, 2):
+                    k = fused_layered_iteration(*kernel, layout, rule)
+                    p = fused_layered_iteration_reference(*plain, layout, rule)
+                    hold(worst, sweep.__name__, f"{tag}, sweep {n}", k, p)
+                    kernel, plain = k[:2], p[:2]
+            else:
+                v2c, bits = fused_var(None, x0, layout, rule)
+                hold(worst, var.__name__, f"{tag}, init", [v2c, bits],
+                     fused_var_reference(None, x0, layout, rule))
+                for n in (1, 2):
+                    c2v = fused_check(v2c, layout, rule)
+                    hold(worst, check.__name__, f"{tag}, check {n}", [c2v],
+                         [fused_check_reference(v2c, layout, rule)])
+                    v2c, bits = fused_var(c2v, x0, layout, rule)
+                    hold(worst, var.__name__, f"{tag}, update {n}", [v2c, bits],
+                         fused_var_reference(c2v, x0, layout, rule))
+            stream = (streaming_layered_decode if layered else streaming_flooding_decode)(
+                *tiles, iters)
+            resident = (resident_layered_decode if layered else resident_flooding_decode)(
+                *tiles, iters)
+            assert max_abs_diff(stream, resident) == 0, f"streaming differs: {tag}"
+        torch.cuda.synchronize()
+        print(f"streaming instances vs plain: {label} B={llrs.shape[0]}: the i8 names "
+              f"{I8_LAYERED + I8_FLOODING} and all 16 float names: each phase and sweep "
+              "equal (tolerance 0), each streaming decode equals the resident one")
+
+
 def family_checks(graphs, worst):
     """The resident kernels (message, compressed, int8 and float-rule
     instances, both schedules) against their plain versions on CCSDS AR4JA K=1024 rates
@@ -1250,6 +1365,113 @@ def flagship_float(card, llrs, worst, name):
     return {kernel.__name__: measured[name]}
 
 
+def flagship_streaming(card, llrs, worst, name):
+    """Main path 6: the streaming decode (``resident=False``) of an i8 or
+    float name on the flagship (``name`` None: ``Decoder(Code.R1_2)``'s
+    default, ``Phif64``), through the streaming instances of its family
+    (the phases for a flooding name, the sweep for a layered one, and the
+    syndrome); equal to the resident decode of the same name bit for bit,
+    both timed in turns; each kernel of the path held against its plain
+    version on the flagship's tiles and timed a launch, with its bound a
+    launch (the phase's part of an iteration's operations)."""
+    code = Code.R1_2
+    dec = Decoder(code, device="cuda") if name is None else Decoder(code, name, device="cuda")
+    name = dec.implementation
+    layered = dec.schedule == "layered"
+    decode = lifted_layered_decode if layered else lifted_flooding_decode
+
+    def streaming():
+        return decode(dec.lifted, dec.arithmetic, llrs, FLAGSHIP_ITERS, resident=False)
+
+    def resident():
+        return dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+
+    reset_counts()
+    out = streaming()
+    torch.cuda.synchronize()
+    launches = counts()
+    tiles = (tile_inputs if layered else flooding_tiles)(dec.lifted, dec.arithmetic, llrs)
+    x0, _, layout, rule = tiles
+    i8 = is_i8(rule)
+    sweep, check, var = STREAMING["i8" if i8 else "float"]
+    executed = int(out["iterations"].max())
+    expect = ({sweep.__name__: executed} if layered
+              else {check.__name__: executed, var.__name__: executed + 1})
+    expect["fused_syndrome_bits"] = executed + 1
+    assert launches == {**dict.fromkeys(launches, 0), **expect}, \
+        f"{name} streaming path: {launches}"
+    same_decode(out, resident(), f"{name} streaming against resident")
+    assert out["codeword"].shape == (FLAGSHIP_BATCH, code.n)
+    stream_ms, resident_ms = pair_ms(streaming, resident, 3)
+    mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (stream_ms * 1e-3)
+    print(f"[{card}] flagship {name} streaming (lifted_{dec.schedule}_decode, "
+          f"resident=False): launches {expect}; output equal to the resident decode; "
+          f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, {executed} iterations "
+          f"executed; {stream_ms:.3f} ms, {mbps:.1f} Mbit/s decoded info; resident "
+          f"{resident_ms:.3f} ms (in turns, median of 3 each)")
+
+    nbt, VG, Z, Bt = x0.shape
+    frames, lanes, edges = nbt * Bt, VG * Z * Bt * nbt, layout.E * Z * Bt * nbt
+    s = torch.empty((), dtype=rule.storage_dtype).element_size()
+
+    def phase_bound(nbytes, parts):
+        """A launch's bound: its bytes, and its parts of an iteration's
+        operations on every frame (INT32, or by class of instruction)."""
+        if i8:
+            ops = frames * i8_iteration_ops(layout, rule, layered, parts)
+            return bound(nbytes, ops, INT32_OPS_PER_S) + ("int",)
+        per = float_iteration_ops(layout, rule, layered, parts)
+        return bound_pipes(nbytes, Counter({c: frames * n for c, n in per.items()}))
+
+    tag = f"flagship B={FLAGSHIP_BATCH} {name}"
+    timed = {}
+    if layered:
+        rcv0 = zero_rcv(x0, layout, rule)
+        hold(worst, sweep.__name__, f"{tag}, one sweep",
+             fused_layered_iteration(x0.clone(), rcv0.clone(), layout, rule),
+             fused_layered_iteration_reference(x0.clone(), rcv0.clone(), layout, rule))
+        # in place: the timed sweeps go on decoding the same planes
+        qv, rcv = x0.clone(), rcv0.clone()
+        qp, rp = x0.clone(), rcv0.clone()
+        # per lane Qv read and written and the bits written, per edge lane
+        # Rcv read and written
+        timed[sweep] = (cuda_ms(lambda: fused_layered_iteration(qv, rcv, layout, rule), 10),
+                        cuda_ms(lambda: fused_layered_iteration_reference(qp, rp, layout, rule),
+                                1),
+                        phase_bound(lanes * (2 * x0.element_size() + 1) + edges * 2 * s,
+                                    ("check", "update")))
+        # per edge lane Rcv read and written, Qv read for x and read and
+        # written for the update; per lane the bits written
+        floor_ms = 1e3 * (edges * (2 * s + 3 * x0.element_size()) + lanes) / HBM_BYTES_PER_S
+        print(f"[{card}] {sweep.__name__} ({name}): state-traffic floor {floor_ms:.3f} ms "
+              "a sweep")
+    else:
+        v2c0, bits = fused_var(None, x0, layout, rule)
+        hold(worst, var.__name__, f"{tag}, init", [v2c0, bits],
+             fused_var_reference(None, x0, layout, rule))
+        c2v = fused_check(v2c0, layout, rule)
+        hold(worst, check.__name__, tag, [c2v], [fused_check_reference(v2c0, layout, rule)])
+        hold(worst, var.__name__, tag, fused_var(c2v, x0, layout, rule),
+             fused_var_reference(c2v, x0, layout, rule))
+        timed[check] = (cuda_ms(lambda: fused_check(v2c0, layout, rule), 10),
+                        cuda_ms(lambda: fused_check_reference(v2c0, layout, rule), 1),
+                        phase_bound(2 * edges * s, ("check",)))
+        # per edge lane c2v read and v2c written, per lane q read and the
+        # bits written
+        timed[var] = (cuda_ms(lambda: fused_var(c2v, x0, layout, rule), 10),
+                      cuda_ms(lambda: fused_var_reference(c2v, x0, layout, rule), 1),
+                      phase_bound(2 * edges * s + lanes * (s + 1), ("update",)))
+    measured = {}
+    for fn, (ms, plain_ms, (bms, by, pipe)) in timed.items():
+        print(f"[{card}] {fn.__name__} ({name}): {ms:.3f} ms a launch (median of 10), "
+              f"{expect[fn.__name__]} launches a decode; plain version {plain_ms:.3f} ms "
+              f"(one run); bound {bms:.4f} ms by {by} (its operations by the {pipe} "
+              f"pipe; {100 * bms / ms:.1f}% of bound); output equal to the plain version "
+              "(tolerance 0)")
+        measured[fn.__name__] = entry(expect[fn.__name__], ms, plain_ms, (bms, by))
+    return measured
+
+
 def flooding_at_working_point(card, dec):
     """Resident against streaming (staged compaction) and the unstaged
     streaming loop on the flagship at 2.5 dB, where frames converge at
@@ -1366,6 +1588,7 @@ def main():
     compressed_checks(graphs, worst)
     i8_checks(graphs, worst)
     float_checks(graphs, worst)
+    streaming_checks(graphs, worst)
     family_checks(graphs, worst)
 
     code = Code.R1_2
@@ -1379,6 +1602,8 @@ def main():
         measured.update(flagship_i8(card, llrs, worst, name))
     for name in (None, "HLPhif32"):
         measured.update(flagship_float(card, llrs, worst, name))
+    for name in (None, "Minstarapproxi8", "HLPhif32", "HLMinstarapproxi8"):
+        measured.update(flagship_streaming(card, llrs, worst, name))
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)

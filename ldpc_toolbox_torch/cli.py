@@ -2,7 +2,8 @@
 
 ``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
 reference CLI (cli/ber.rs) on the port, for the code specs
-``dvbs2:RATE[:short]`` and ``5g:BG:Z``, BPSK and all 44 decoder names
+``dvbs2:RATE[:short]``, ``5g:BG:Z`` and ``ccsds:RATE:K`` (the AR4JA
+codes), BPSK and all 44 decoder names
 of both schedules (``--decoder`` defaults to the reference's ``Phif64``,
 which floods; ``HLMinsumbf16`` and ``HLMinstarapproxi8`` are layered; the
 i8 names quantize the channel LLRs inside the decode). It prints the
@@ -12,9 +13,11 @@ and formatting of the JAX package's ``ber``, from this module's own copies
 of its helpers (``parse_duration``, ``_BER_HEADER``, ``_format_duration``,
 ``_format_progress``).
 
-Not ported yet (ROADMAP A5, A9, A10): the live progress rows and
-checkpoints, puncturing, interleaving, 8PSK, alist files and the other
-code families, and the other subcommands.
+Not ported yet (ROADMAP A5, A8, A9, A10): the live progress rows and
+checkpoints, puncturing, interleaving, 8PSK, alist files (A8: the generic
+parity-check path), ``ccsds-c2`` (A9: its rank-deficient H needs the
+encode-side permutation), and the other subcommands. Those two specs exit
+with a message that names their item.
 """
 
 from __future__ import annotations
@@ -97,10 +100,28 @@ def _die(msg: str):
     sys.exit(1)
 
 
+#: the code specs of the ``ber`` positional
+CODE_SPECS = ("dvbs2:RATE[:short], 5g:BG:Z or ccsds:RATE:K (RATE 1/2, 2/3 or 4/5; "
+              "K 1024, 4096 or 16384)")
+
+
 def resolve_ber_code(spec: str):
-    """``dvbs2:RATE[:short]`` or ``5g:BG:Z`` -> (h, LiftedGraph)."""
+    """``dvbs2:RATE[:short]``, ``5g:BG:Z`` or ``ccsds:RATE:K`` -> (h,
+    LiftedGraph). An alist path and ``ccsds-c2``, which the JAX package's
+    ``ber`` also takes, raise NotImplementedError naming ROADMAP A8 and
+    A9."""
+    import os
+
     from .decoder.lifted import LiftedGraph, lifted_graph_for, nr5g_maps
 
+    if spec == "ccsds-c2":
+        raise NotImplementedError(
+            "ccsds-c2 is not ported yet: its rank-deficient H needs the "
+            "encode-side systematic permutation (ROADMAP A9)")
+    if os.path.exists(spec) or ":" not in spec:
+        raise NotImplementedError(
+            "alist files are not ported yet: they need the generic "
+            "parity-check decode path (ROADMAP A8)")
     parts = spec.split(":")
     if parts[0] == "dvbs2" and len(parts) in (2, 3):
         from .codes.dvbs2 import Code
@@ -118,7 +139,16 @@ def resolve_ber_code(spec: str):
         bg = {"1": BaseGraph.BG1, "2": BaseGraph.BG2}[parts[1]]
         h = bg.h(int(parts[2]))
         return h, LiftedGraph.from_sparse(h, *nr5g_maps(bg, int(parts[2])))
-    raise ValueError("expected dvbs2:RATE[:short] or 5g:BG:Z")
+    if parts[0] == "ccsds" and len(parts) == 3:
+        from .codes.ccsds import AR4JACode, AR4JAInfoSize, AR4JARate
+
+        rate = {"1/2": AR4JARate.R1_2, "2/3": AR4JARate.R2_3,
+                "4/5": AR4JARate.R4_5}[parts[1]]
+        size = {1024: AR4JAInfoSize.K1024, 4096: AR4JAInfoSize.K4096,
+                16384: AR4JAInfoSize.K16384}[int(parts[2])]
+        code = AR4JACode(rate, size)
+        return code.h(), lifted_graph_for(code)
+    raise ValueError(f"expected {CODE_SPECS}")
 
 
 def run_ber(args) -> None:
@@ -126,7 +156,7 @@ def run_ber(args) -> None:
 
     try:
         h, lifted = resolve_ber_code(args.code)
-    except (KeyError, ValueError) as e:
+    except (KeyError, ValueError, NotImplementedError) as e:
         _die(f"invalid code spec {args.code!r}: {e}")
     num_ebn0s = int((args.max_ebn0 - args.min_ebn0) / args.step_ebn0) + 1
     ebn0s = [args.min_ebn0 + i * args.step_ebn0 for i in range(num_ebn0s)]
@@ -169,7 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     s = sub.add_parser("ber", help="Performs a BER simulation")
-    s.add_argument("code", help="code spec: dvbs2:RATE[:short] or 5g:BG:Z")
+    s.add_argument("code", help=f"code spec: {CODE_SPECS}")
     s.add_argument("--output-file")
     s.add_argument("--decoder", default="Phif64")
     s.add_argument("--min-ebn0", type=float, required=True)

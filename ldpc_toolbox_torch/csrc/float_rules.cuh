@@ -1,9 +1,11 @@
 // The reference's four float check rules (arithmetic.rs:158-580, 899-1072)
-// for the resident message kernels of csrc/message_kernels.cuh: FloatRule,
-// their float-rule instances, in f32 (T = float) and f64 (T = double),
-// built by csrc/resident_layered_f32.cu, _f64.cu, csrc/flooding_f32.cu and
-// _f64.cu (one precision a source, so that the parallel build keeps its
-// length). They replace the rule code that the Pallas kernels inline
+// for the message kernels of csrc/message_kernels.cuh and the streaming
+// kernels of csrc/streaming.cuh: FloatRule, their float-rule instances, in
+// f32 (T = float) and f64 (T = double), built by
+// csrc/resident_layered_f32.cu, _f64.cu, csrc/flooding_f32.cu and _f64.cu
+// (the resident kernels and the flooding phases) and
+// csrc/fused_layered_f32.cu and _f64.cu (the streaming sweep), one
+// precision a source, so that the parallel build keeps its length. They replace the rule code that the Pallas kernels inline
 // through ldpc_toolbox_tpu/ops/fused_bp2.py rule_for: _FloatRuleBase,
 // PhiRule, TanhRule, MinstarApproxRule and AminstarRule, whose check
 // functions the port's ops/fused_bp2.py repeats as the plain versions.
@@ -35,7 +37,7 @@
 
 #pragma once
 
-#include "message_kernels.cuh"
+#include "streaming.cuh"
 
 namespace ldpc {
 
@@ -330,10 +332,11 @@ struct FloatRule : FloatParams<T> {
     }
   };
 
-  __device__ __forceinline__ void var_update(T* msg, int8_t* post,
-                                             const LaneTables& t, int vg, int w,
+  template <class Cells>
+  __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
+                                             int p0, int p1, int w,
                                              const VarLoads<T>& v) const {
-    ldpc::var_update(msg, post, t, vg, w, v);
+    ldpc::var_update(cells, post, p0, p1, w, v);
   }
 };
 
@@ -430,6 +433,90 @@ int resident_flooding_float_decode(void* msg, const void* q, void* post,
   return static_cast<int>(float_by_bucket<T, FloatFloodingLaunch>(
       max_degree, kind, msg, q, post, bits, iters, conv, t, nbt, max_iterations,
       threads, p, static_cast<cudaStream_t>(stream)));
+}
+
+template <int DMAX, int RULE, typename T>
+struct FloatCheckLaunch {
+  static cudaError_t run(const void* v2c, void* c2v, const FloodingTables& t,
+                         int nbt, int threads, const FloatParams<T>& p,
+                         cudaStream_t stream) {
+    return fused_check_launch<DMAX>(FloatRule<T, RULE>{p}, v2c, c2v, t, nbt,
+                                    threads, stream);
+  }
+};
+
+template <int DMAX, int RULE, typename T>
+struct FloatSweepLaunch {
+  static cudaError_t run(void* qv, void* rcv, void* bits, void* park,
+                         const Tables& t, int nbt, size_t park_elems,
+                         int threads, const FloatParams<T>& p,
+                         cudaStream_t stream) {
+    return fused_layered_launch<DMAX>(FloatRule<T, RULE>{p}, qv, rcv, bits,
+                                      park, t, nbt, park_elems, threads, stream);
+  }
+};
+
+// The streaming entry points' bodies for one precision (see
+// csrc/flooding_f32.cu and csrc/fused_layered_f32.cu for the arguments).
+template <typename T>
+int fused_check_float(const void* v2c, void* c2v, const void* const* tables,
+                      int nbt, int CG, int VG, int E, int Z, int Bt,
+                      int max_degree, int threads, int kind, double big,
+                      double clamp, double prod_max, void* stream) {
+  const FloodingTables t = make_flooding_tables(tables, CG, VG, E, Z, Bt);
+  const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
+                         static_cast<T>(prod_max)};
+  return static_cast<int>(float_by_bucket<T, FloatCheckLaunch>(
+      max_degree, kind, v2c, c2v, t, nbt, threads, p,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The variable phase takes no degree bucket: one instance a rule.
+template <typename T>
+int fused_var_float(const void* c2v, const void* q, void* v2c, void* bits,
+                    const void* const* tables, int nbt, int CG, int VG, int E,
+                    int Z, int Bt, int threads, int kind, double big,
+                    double clamp, double prod_max, void* stream) {
+  const FloodingTables t = make_flooding_tables(tables, CG, VG, E, Z, Bt);
+  const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
+                         static_cast<T>(prod_max)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (kind) {
+    case kPhiRule:
+      err = fused_var_launch(FloatRule<T, kPhiRule>{p}, c2v, q, v2c, bits, t, nbt, threads, s);
+      break;
+    case kTanhRule:
+      err = fused_var_launch(FloatRule<T, kTanhRule>{p}, c2v, q, v2c, bits, t, nbt, threads, s);
+      break;
+    case kMinstarApproxRule:
+      err = fused_var_launch(FloatRule<T, kMinstarApproxRule>{p}, c2v, q, v2c, bits, t, nbt,
+                             threads, s);
+      break;
+    case kAminstarRule:
+      err = fused_var_launch(FloatRule<T, kAminstarRule>{p}, c2v, q, v2c, bits, t, nbt,
+                             threads, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int fused_layered_float_iteration(void* qv, void* rcv, void* bits, void* park,
+                                  const void* const* tables, int nbt, int CG,
+                                  int E, int VG, int Z, int Bt, int max_degree,
+                                  int threads, int kind, double big,
+                                  double clamp, double prod_max, void* stream) {
+  if (Bt != kBt) return cudaErrorInvalidValue;
+  const Tables t = make_tables(tables, CG, E, VG, Z);
+  const size_t park_elems = (size_t)max_degree * Z * kBt;
+  const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
+                         static_cast<T>(prod_max)};
+  return static_cast<int>(float_by_bucket<T, FloatSweepLaunch>(
+      max_degree, kind, qv, rcv, bits, park, t, nbt, park_elems, threads, p,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace ldpc

@@ -2,8 +2,9 @@
 // (check, variable, syndrome) and the whole decode in one launch.
 //
 // Replaces these Pallas TPU kernels of ldpc_toolbox_tpu/ops/:
-// - fused_bp2.py fused_check       -> fused_check_kernel
-// - fused_bp2.py fused_var         -> fused_var_kernel (init variant: kInit)
+// - fused_bp2.py fused_check       -> fused_check_kernel (csrc/streaming.cuh)
+// - fused_bp2.py fused_var         -> fused_var_kernel (csrc/streaming.cuh;
+//   the initialisation when c2v is null)
 // - fused_bp2.py fused_syndrome_bits -> fused_syndrome_kernel
 // - resident_flooding_dual.py resident_flooding_dual_decode and
 //   resident_flooding.py resident_flooding_decode -> resident_flooding_kernel.
@@ -11,6 +12,10 @@
 //   the state fits the TPU's vector memory (two message arrays, or one
 //   aliased array). Here the state lives in device memory either way; the
 //   kernel keeps one array, which serves both.
+// The check, variable and resident kernels are the templates of
+// csrc/streaming.cuh and csrc/message_kernels.cuh on MinSumRule (f32 and
+// bf16 messages); csrc/flooding_i8.cu, _f32.cu and _f64.cu hold their
+// instances on the other rules.
 //
 // Layout of the phase kernels (as the JAX package's): a tile is Bt frames,
 // frames innermost. v2c planes (nbt, E, Z, Bt) are check-major in check
@@ -56,6 +61,9 @@
 //   here (the check lane's gathers of the bit words cost more than the
 //   pass they save);
 // - the layout tables are copied into shared memory once a launch.
+// The phase kernels share the lane code (the check lane and the variable
+// lane are the resident kernel's, reading and writing the phase's planes);
+// the syndrome kernel keeps a thread per (lane, frame).
 //
 // Bit-exactness with the JAX package (min-sum, f32 or bf16 storage):
 // - the check fold is the one of csrc/lanes.cuh: sign x < 0, first minimum
@@ -70,115 +78,20 @@
 //   c2v at chk_omask in variable coordinates), and the syndrome skips
 //   syn_mask.
 
-#include "message_kernels.cuh"
+#include "streaming.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_msg(const float* p) { return *p; }
-__device__ __forceinline__ float load_msg(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_msg(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_msg(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using ldpc::FloodingTables;
 
-struct Tables {
-  const int* chk_cs;     // (CG,) first v2c plane of each check group
-  const int* chk_dest;   // (E,) check-major edge -> its c2v plane
-  const int* chk_rot;    // (E,) check lane c goes to variable lane c + rot
-  const int* chk_omask;  // (E,) missing lane in variable coordinates, -1 none
-  const int* var_cs;     // (VG,) first c2v plane of each variable group
-  const int* var_dest;   // (E,) variable-major edge -> its v2c plane
-  const int* var_rot;    // (E,) variable lane w goes to check lane w + rot
-  const int* var_omask;  // (E,) missing lane in check coordinates, -1 none
-  const int* syn_vg;     // (E,) check-major edge -> its variable group
-  const int* syn_rot;    // (E,) check lane c reads variable lane c - rot
-  const int* syn_mask;   // (E,) missing lane in check coordinates, -1 none
-  int CG, VG, E, Z, Bt;
-};
-
-__device__ __forceinline__ int chk_end(const Tables& t, int g) {
+__device__ __forceinline__ int chk_end(const FloodingTables& t, int g) {
   return g + 1 < t.CG ? t.chk_cs[g + 1] : t.E;
-}
-__device__ __forceinline__ int var_end(const Tables& t, int g) {
-  return g + 1 < t.VG ? t.var_cs[g + 1] : t.E;
-}
-
-// Check update of check lane c, frame f of check group g in one tile: folds
-// the group's d v2c planes, writes output k to c2v plane chk_dest[e] at
-// variable lane (c + chk_rot[e]) mod Z, 0 at the missing lane.
-template <typename Msg>
-__device__ __forceinline__ void check_item(const Msg* v2c, Msg* c2v,
-                                           const Tables& t, int g, int c, int f,
-                                           float big, float scale) {
-  const size_t ZB = (size_t)t.Z * t.Bt;
-  const int e0 = t.chk_cs[g], d = chk_end(t, g) - e0;
-  const int at = c * t.Bt + f;
-  float m1 = 0.f, m2 = big;
-  int arg = 0, par = 0;
-  uint64_t negs = 0;  // d <= 64, checked by the wrapper
-  for (int k = 0; k < d; ++k) {
-    const float x = load_msg(v2c + (e0 + k) * ZB + at);
-    const float mk = fabsf(x);
-    const int neg = x < 0.f;
-    negs |= (uint64_t)neg << k;
-    if (k == 0) {
-      m1 = mk;
-      par = neg;
-    } else {
-      m2 = fminf(m2, fmaxf(m1, mk));
-      if (mk < m1) {
-        m1 = mk;
-        arg = k;
-      }
-      par ^= neg;
-    }
-  }
-  for (int k = 0; k < d; ++k) {
-    const int e = e0 + k;
-    float loo = arg == k ? m2 : m1;
-    if (scale != 1.f) loo = __fmul_rn(loo, scale);
-    float o = (par ^ (int)((negs >> k) & 1u)) ? -loo : loo;
-    int w = c + t.chk_rot[e];
-    if (w >= t.Z) w -= t.Z;
-    if (w == t.chk_omask[e]) o = 0.f;
-    store_msg(c2v + t.chk_dest[e] * ZB + w * t.Bt + f, o);
-  }
-}
-
-// Variable update of variable lane w, frame f of variable group g in one
-// tile: tot = q plus the group's c2v in slot order; output k = tot - y_k
-// goes to v2c plane var_dest[e] at check lane (w + var_rot[e]) mod Z, big at
-// the missing lane; the hard bit is tot <= 0. kInit: no c2v yet, every
-// output is q (the flooding initialisation).
-template <typename Msg, bool kInit>
-__device__ __forceinline__ void var_item(const Msg* c2v, const Msg* q, Msg* v2c,
-                                         int8_t* bits, const Tables& t, int g,
-                                         int w, int f, float big) {
-  const size_t ZB = (size_t)t.Z * t.Bt;
-  const int e0 = t.var_cs[g], d = var_end(t, g) - e0;
-  const int at = w * t.Bt + f;
-  const float qv = load_msg(q + g * ZB + at);
-  float tot = qv;
-  if (!kInit)
-    for (int k = 0; k < d; ++k)
-      tot = __fadd_rn(tot, load_msg(c2v + (e0 + k) * ZB + at));
-  for (int k = 0; k < d; ++k) {
-    const int e = e0 + k;
-    float o = kInit ? qv : __fsub_rn(tot, load_msg(c2v + (e0 + k) * ZB + at));
-    int c = w + t.var_rot[e];
-    if (c >= t.Z) c -= t.Z;
-    if (c == t.var_omask[e]) o = big;
-    store_msg(v2c + t.var_dest[e] * ZB + c * t.Bt + f, o);
-  }
-  bits[g * ZB + at] = tot <= 0.f;
 }
 
 // Parity of check lane c, frame f of check group g over the hard bits of
 // one tile: 1 if the check is unsatisfied.
 __device__ __forceinline__ int syndrome_item(const int8_t* bits,
-                                             const Tables& t, int g, int c,
+                                             const FloodingTables& t, int g, int c,
                                              int f) {
   const size_t ZB = (size_t)t.Z * t.Bt;
   const int e1 = chk_end(t, g);
@@ -196,7 +109,7 @@ __device__ __forceinline__ int syndrome_item(const int8_t* bits,
 struct Item {
   int g, lane, f;
 };
-__device__ __forceinline__ Item split(int r, const Tables& t) {
+__device__ __forceinline__ Item split(int r, const FloodingTables& t) {
   const int ZB = t.Z * t.Bt;
   Item it;
   it.g = r / ZB;
@@ -206,42 +119,11 @@ __device__ __forceinline__ Item split(int r, const Tables& t) {
   return it;
 }
 
-template <typename Msg>
-__global__ void fused_check_kernel(const Msg* v2c, Msg* c2v, Tables t,
-                                   int nbt, float big, float scale) {
-  const size_t per_tile = (size_t)t.CG * t.Z * t.Bt;
-  const size_t plane_tile = (size_t)t.E * t.Z * t.Bt;
-  const size_t n = per_tile * nbt;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t tile = i / per_tile;
-    const Item it = split((int)(i - tile * per_tile), t);
-    check_item(v2c + tile * plane_tile, c2v + tile * plane_tile, t, it.g,
-               it.lane, it.f, big, scale);
-  }
-}
-
-template <typename Msg, bool kInit>
-__global__ void fused_var_kernel(const Msg* c2v, const Msg* q, Msg* v2c,
-                                 int8_t* bits, Tables t, int nbt, float big) {
-  const size_t per_tile = (size_t)t.VG * t.Z * t.Bt;
-  const size_t plane_tile = (size_t)t.E * t.Z * t.Bt;
-  const size_t n = per_tile * nbt;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t tile = i / per_tile;
-    const Item it = split((int)(i - tile * per_tile), t);
-    var_item<Msg, kInit>(kInit ? nullptr : c2v + tile * plane_tile,
-                         q + tile * per_tile, v2c + tile * plane_tile,
-                         bits + tile * per_tile, t, it.g, it.lane, it.f, big);
-  }
-}
-
 // Ors the unsatisfied checks of the tile's frames into bad[0..Bt), a zeroed
 // shared array. blockDim.x is a multiple of Bt, so a thread only ever sees
 // one frame and ors once.
 __device__ __forceinline__ void syndrome_tile(const int8_t* bits,
-                                              const Tables& t, int* bad) {
+                                              const FloodingTables& t, int* bad) {
   const int n = t.CG * t.Z * t.Bt;
   int odd = 0;
   for (int r = threadIdx.x; r < n; r += blockDim.x) {
@@ -254,7 +136,7 @@ __device__ __forceinline__ void syndrome_tile(const int8_t* bits,
 // One block per tile: flags[tile * Bt + f] = 1 if frame f has an
 // unsatisfied check.
 __global__ void fused_syndrome_kernel(const int8_t* bits_all, int* flags,
-                                      Tables t) {
+                                      FloodingTables t) {
   extern __shared__ int bad[];
   for (int f = threadIdx.x; f < t.Bt; f += blockDim.x) bad[f] = 0;
   __syncthreads();
@@ -265,50 +147,10 @@ __global__ void fused_syndrome_kernel(const int8_t* bits_all, int* flags,
     flags[tile * t.Bt + f] = bad[f];
 }
 
-int grid_for(size_t items, int threads) {
-  const size_t blocks = (items + threads - 1) / threads;
-  const size_t cap = 132 * 32;  // grid-stride beyond a few waves
-  return (int)(blocks < cap ? (blocks ? blocks : 1) : cap);
-}
-
-Tables make_tables(const void* const* tab, int CG, int VG, int E, int Z,
-                   int Bt) {
-  const int* const* p = reinterpret_cast<const int* const*>(tab);
-  return Tables{p[0], p[1], p[2], p[3], p[4],  p[5], p[6], p[7],
-                p[8], p[9], p[10], CG, VG, E, Z, Bt};
-}
-
-template <typename Msg>
-cudaError_t check_launch(const void* v2c, void* c2v, const Tables& t, int nbt,
-                         float big, float scale, int threads, cudaStream_t s) {
-  const size_t items = (size_t)nbt * t.CG * t.Z * t.Bt;
-  fused_check_kernel<Msg><<<grid_for(items, threads), threads, 0, s>>>(
-      static_cast<const Msg*>(v2c), static_cast<Msg*>(c2v), t, nbt, big,
-      scale);
-  return cudaGetLastError();
-}
-
-template <typename Msg>
-cudaError_t var_launch(const void* c2v, const void* q, void* v2c, void* bits,
-                       const Tables& t, int nbt, float big, int threads,
-                       cudaStream_t s) {
-  const size_t items = (size_t)nbt * t.VG * t.Z * t.Bt;
-  const int grid = grid_for(items, threads);
-  if (c2v)
-    fused_var_kernel<Msg, false><<<grid, threads, 0, s>>>(
-        static_cast<const Msg*>(c2v), static_cast<const Msg*>(q),
-        static_cast<Msg*>(v2c), static_cast<int8_t*>(bits), t, nbt, big);
-  else
-    fused_var_kernel<Msg, true><<<grid, threads, 0, s>>>(
-        nullptr, static_cast<const Msg*>(q), static_cast<Msg*>(v2c),
-        static_cast<int8_t*>(bits), t, nbt, big);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// The resident decode: resident_flooding_kernel of csrc/message_kernels.cuh
-// on the min-sum rule.
+// The resident decode and the check phase by degree bucket: the templates
+// of csrc/message_kernels.cuh and csrc/streaming.cuh on the min-sum rule.
 namespace ldpc {
 namespace {
 
@@ -324,6 +166,16 @@ struct ResidentLaunch {
   }
 };
 
+template <int DMAX, typename Msg>
+struct CheckLaunch {
+  static cudaError_t run(const void* v2c, void* c2v, const FloodingTables& t,
+                         int nbt, int threads, float big, float scale,
+                         cudaStream_t stream) {
+    return fused_check_launch<DMAX>(MinSumRule<Msg>{big, scale}, v2c, c2v, t,
+                                    nbt, threads, stream);
+  }
+};
+
 }  // namespace
 }  // namespace ldpc
 
@@ -331,20 +183,20 @@ struct ResidentLaunch {
 // of device pointers (chk_cs, chk_dest, chk_rot, chk_omask, var_cs,
 // var_dest, var_rot, var_omask, syn_vg, syn_rot, syn_mask) and the tile
 // shape, and return the launch's cudaError_t. Messages are bf16 when
-// msg_bf16, else f32; q has the messages' type.
+// msg_bf16, else f32; q has the messages' type. The check and variable
+// phases take tiles of 4 frames (Bt) and at most 256 threads a block.
 
-// c2v (nbt, E, Z, Bt) from v2c (nbt, E, Z, Bt).
+// c2v (nbt, E, Z, Bt) from v2c (nbt, E, Z, Bt); max_degree the largest
+// check degree (at most 64).
 extern "C" int ldpc_fused_check(const void* v2c, void* c2v,
                                 const void* const* tables, int nbt, int CG,
-                                int VG, int E, int Z, int Bt, float big,
-                                float scale, int msg_bf16, int threads,
-                                void* stream) {
-  const Tables t = make_tables(tables, CG, VG, E, Z, Bt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? check_launch<__nv_bfloat16>(v2c, c2v, t, nbt, big, scale,
-                                             threads, s)
-               : check_launch<float>(v2c, c2v, t, nbt, big, scale, threads, s));
+                                int VG, int E, int Z, int Bt, int max_degree,
+                                float big, float scale, int msg_bf16,
+                                int threads, void* stream) {
+  const FloodingTables t = ldpc::make_flooding_tables(tables, CG, VG, E, Z, Bt);
+  return static_cast<int>(ldpc::by_bucket<ldpc::CheckLaunch>(
+      max_degree, msg_bf16, v2c, c2v, t, nbt, threads, big, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // v2c (nbt, E, Z, Bt) and bits (nbt, VG, Z, Bt) int8 from c2v and q
@@ -353,12 +205,13 @@ extern "C" int ldpc_fused_var(const void* c2v, const void* q, void* v2c,
                               void* bits, const void* const* tables, int nbt,
                               int CG, int VG, int E, int Z, int Bt, float big,
                               int msg_bf16, int threads, void* stream) {
-  const Tables t = make_tables(tables, CG, VG, E, Z, Bt);
+  const FloodingTables t = ldpc::make_flooding_tables(tables, CG, VG, E, Z, Bt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      msg_bf16 ? var_launch<__nv_bfloat16>(c2v, q, v2c, bits, t, nbt, big,
-                                           threads, s)
-               : var_launch<float>(c2v, q, v2c, bits, t, nbt, big, threads, s));
+      msg_bf16 ? ldpc::fused_var_launch(ldpc::MinSumRule<__nv_bfloat16>{big, 1.f}, c2v,
+                                        q, v2c, bits, t, nbt, threads, s)
+               : ldpc::fused_var_launch(ldpc::MinSumRule<float>{big, 1.f}, c2v, q,
+                                        v2c, bits, t, nbt, threads, s));
 }
 
 // flags (nbt, Bt) int32 from bits (nbt, VG, Z, Bt) int8; threads must be a
@@ -367,7 +220,7 @@ extern "C" int ldpc_fused_syndrome(const void* bits, void* flags,
                                    const void* const* tables, int nbt, int CG,
                                    int VG, int E, int Z, int Bt, int threads,
                                    void* stream) {
-  const Tables t = make_tables(tables, CG, VG, E, Z, Bt);
+  const FloodingTables t = ldpc::make_flooding_tables(tables, CG, VG, E, Z, Bt);
   fused_syndrome_kernel<<<nbt, threads, sizeof(int) * Bt,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(bits), static_cast<int*>(flags), t);

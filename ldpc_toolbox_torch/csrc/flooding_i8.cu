@@ -1,8 +1,9 @@
 // Flooding decode of frame tiles under the i8 rules: the int8 instances of
 // the resident flooding kernel of csrc/message_kernels.cuh (all iterations
 // in one launch, one thread block per tile, a thread per lane of a tile's
-// four frames, one message array in check-major cells, on csrc/lanes.cuh),
-// on I8Rule of csrc/i8.cuh. A source of its own, so that the parallel build
+// four frames, one message array in check-major cells, on csrc/lanes.cuh)
+// and of the check and variable phase kernels of csrc/streaming.cuh, on
+// I8Rule of csrc/i8.cuh. A source of its own, so that the parallel build
 // keeps its length.
 //
 // Replaces the i8 path of ldpc_toolbox_tpu/ops/resident_flooding_dual.py
@@ -10,7 +11,8 @@
 // resident_flooding_decode, the Pallas kernels that keep a tile's int8
 // channel planes and messages in the TPU's vector memory and inline
 // MinstarApproxI8Rule or AminstarI8Rule (ops/fused_bp2.py). As for the
-// float instances, one array serves both.
+// float instances, one array serves both. The phase kernels replace the
+// i8 paths of ops/fused_bp2.py fused_check and fused_var.
 //
 // What bounds it on an H100: the state lives in device memory; each
 // iteration each edge lane of each frame reads and writes its message in
@@ -34,6 +36,7 @@
 // decision tot <= 0 and each v2c = clip(tot - c2v, +-127).
 
 #include "i8.cuh"
+#include "streaming.cuh"
 
 namespace {
 
@@ -48,6 +51,15 @@ struct I8Launch {
     return flooding_launch<DMAX>(I8Rule<FAMILY>{flags}, msg, q, post, bits,
                                  iters, conv, t, nbt, max_iterations, threads,
                                  stream);
+  }
+};
+
+template <int DMAX, int FAMILY>
+struct CheckLaunch {
+  static cudaError_t run(const void* v2c, void* c2v, const FloodingTables& t,
+                         int nbt, int threads, int flags, cudaStream_t stream) {
+    return fused_check_launch<DMAX>(I8Rule<FAMILY>{flags}, v2c, c2v, t, nbt,
+                                    threads, stream);
   }
 };
 
@@ -71,6 +83,45 @@ extern "C" int ldpc_resident_flooding_i8_decode(
   return static_cast<int>(i8_by_bucket<I8Launch>(
       max_degree, kind, msg, q, post, bits, iters, conv, t, nbt,
       max_iterations, threads, flags, static_cast<cudaStream_t>(stream)));
+}
+
+// The phases under an i8 rule. They take the layout's eleven int32 tables
+// of csrc/flooding.cu (an array of device pointers), the tile shape (Bt
+// must be 4), kind (0 MinstarApprox, 1 Aminstar) and flags (bit 0
+// PartialHardLimit, bit 1 Jones, bit 2 Deg1Clip); threads is at most 256.
+// Each returns the launch's cudaError_t.
+
+// c2v (nbt, E, Z, 4) int8 from v2c (nbt, E, Z, 4) int8; max_degree the
+// largest check degree (at most 32).
+extern "C" int ldpc_fused_check_i8(const void* v2c, void* c2v,
+                                   const void* const* tables, int nbt, int CG,
+                                   int VG, int E, int Z, int Bt, int max_degree,
+                                   int threads, int kind, int flags,
+                                   void* stream) {
+  const FloodingTables t = make_flooding_tables(tables, CG, VG, E, Z, Bt);
+  return static_cast<int>(i8_by_bucket<CheckLaunch>(
+      max_degree, kind, v2c, c2v, t, nbt, threads, flags,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// v2c (nbt, E, Z, 4) int8 and bits (nbt, VG, Z, 4) int8 from c2v and q
+// (nbt, VG, Z, 4) int8; c2v null runs the initialisation (every v2c is q,
+// 127 at the missing lanes, no clips). The variable update takes no degree
+// bucket: one instance a family.
+extern "C" int ldpc_fused_var_i8(const void* c2v, const void* q, void* v2c,
+                                 void* bits, const void* const* tables, int nbt,
+                                 int CG, int VG, int E, int Z, int Bt,
+                                 int threads, int kind, int flags,
+                                 void* stream) {
+  const FloodingTables t = make_flooding_tables(tables, CG, VG, E, Z, Bt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == kAminstar)
+    return static_cast<int>(fused_var_launch(I8Rule<kAminstar>{flags}, c2v, q, v2c,
+                                             bits, t, nbt, threads, s));
+  if (kind == kMinstarApprox)
+    return static_cast<int>(fused_var_launch(I8Rule<kMinstarApprox>{flags}, c2v, q,
+                                             v2c, bits, t, nbt, threads, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* ldpc_flooding_i8_error_string(int err) {

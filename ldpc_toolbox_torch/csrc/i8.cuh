@@ -179,16 +179,14 @@ __device__ __forceinline__ void i8_outputs(const I8Check<DMAX>& in, int d, bool 
   }
 }
 
-// Calls Launch<DMAX, FAMILY>::run(args...) with the least degree bucket
-// (8, 16 or 32) that holds max_degree and the family kind.
-// The i8 variable update of variable lane w of group vg in one flooding
-// tile, from its first loads v, under flags (Jones, Deg1Clip): see
-// csrc/flooding_i8.cu.
-__device__ __forceinline__ void i8_var_update(int8_t* msg, int8_t* post,
-                                              const LaneTables& t, int vg, int w,
+// The i8 variable update of variable lane w (edges p0..p1) in one flooding
+// tile, from its first loads v, under flags (Jones, Deg1Clip), with the
+// cells of lanes.cuh var_update: see csrc/flooding_i8.cu.
+template <class Cells>
+__device__ __forceinline__ void i8_var_update(const Cells& cells, int8_t* post,
+                                              int p0, int p1, int w,
                                               const VarLoads<int8_t>& v,
                                               int flags) {
-  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
   const bool clip_q = (flags & kDeg1Clip) && p1 - p0 == 1;
   I4 tot;
 #pragma unroll
@@ -207,7 +205,7 @@ __device__ __forceinline__ void i8_var_update(int8_t* msg, int8_t* post,
     uint32_t y[kVarChunk];
 #pragma unroll
     for (int j = 0; j < kVarChunk; ++j)
-      if (c0 + j < p1) y[j] = load_word(var_cell(msg, t, c0 + j, w));
+      if (c0 + j < p1) y[j] = load_word(cells.in(c0 + j, w));
 #pragma unroll
     for (int j = 0; j < kVarChunk; ++j)
       if (c0 + j < p1) add(y[j]);
@@ -216,17 +214,17 @@ __device__ __forceinline__ void i8_var_update(int8_t* msg, int8_t* post,
 #pragma unroll
     for (int f = 0; f < kBt; ++f) tot.v[f] = clip127(tot.v[f]);
   }
-  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
+  store_word(post, hard_bits(tot));
   auto output = [&](int p, uint32_t y) {
-    uint32_t o = 0;
+    I4 o;
 #pragma unroll
-    for (int f = 0; f < kBt; ++f) o |= byte_at(clip127(tot.v[f] - byte_of(y, f)), f);
-    store_word(var_cell(msg, t, p, w), o);
+    for (int f = 0; f < kBt; ++f) o.v[f] = clip127(tot.v[f] - byte_of(y, f));
+    cells.out(p, w, o);
   };
 #pragma unroll
   for (int j = 0; j < kVarChunk; ++j)
     if (p0 + j < p1) output(p0 + j, v.y0[j]);
-  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_word(var_cell(msg, t, p, w)));
+  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_word(cells.in(p, w)));
 }
 
 // The i8 rule of FAMILY under flags, for csrc/message_kernels.cuh: int16
@@ -264,13 +262,16 @@ struct I8Rule {
     }
   };
 
-  __device__ __forceinline__ void var_update(int8_t* msg, int8_t* post,
-                                             const LaneTables& t, int vg, int w,
+  template <class Cells>
+  __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
+                                             int p0, int p1, int w,
                                              const VarLoads<int8_t>& v) const {
-    i8_var_update(msg, post, t, vg, w, v, flags);
+    i8_var_update(cells, post, p0, p1, w, v, flags);
   }
 };
 
+// Calls Launch<DMAX, FAMILY>::run(args...) with the least degree bucket
+// (8, 16 or 32) that holds max_degree and the family kind.
 template <template <int, int> class Launch, typename... Args>
 cudaError_t i8_by_bucket(int max_degree, int kind, Args&&... args) {
   if (max_degree < 1 || max_degree > kI8MaxDegree) return cudaErrorInvalidValue;

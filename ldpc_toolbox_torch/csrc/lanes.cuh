@@ -1,9 +1,10 @@
-// Device code shared by the resident decode kernels that give a thread one
-// lane of a tile's four frames (csrc/compressed.cu, csrc/resident_layered.cu
-// and csrc/flooding.cu's resident_flooding_kernel): the four-frame vectors
-// and words, the layout tables in shared memory, the min-sum fold, the
-// layered sweep with its park, the syndrome, the whole-decode loop and the
-// launch by check-degree bucket.
+// Device code shared by the kernels that give a thread one lane of a
+// tile's four frames (csrc/compressed.cu's, the resident message kernels of
+// csrc/message_kernels.cuh and the streaming kernels of csrc/streaming.cuh):
+// the four-frame vectors and words, the layout tables in shared memory, the
+// min-sum fold, the layered sweep with its park, the flooding variable
+// phase, the syndrome, the whole-decode loop and the launch by check-degree
+// bucket.
 //
 // A tile is kBt = 4 frames, frames innermost: planes are (P, Z, 4), and a
 // thread handles all four frames of a lane, so a lane's f32 values move as
@@ -271,6 +272,25 @@ __device__ __forceinline__ Msg* var_cell(Msg* msg, const LaneTables& t, int p,
   return msg + ((size_t)t.rec_pz[p] + minus_mod(w, t.rec_rot[p], t.Z)) * kBt;
 }
 
+// Where a flooding variable lane reads the c2v of var-major edge p
+// (in(p, w)) and writes its v2c (out(p, w, o), o a lane's four values).
+// The resident kernels' cells: one message array, each edge's message in
+// its check-major cell var_cell, read and written in place. (The streaming
+// variable phase's cells are in csrc/streaming.cuh.)
+template <typename Msg>
+struct ArrayCells {
+  Msg* msg;
+  const LaneTables& t;
+
+  __device__ __forceinline__ const Msg* in(int p, int w) const {
+    return var_cell(msg, t, p, w);
+  }
+  template <class V>
+  __device__ __forceinline__ void out(int p, int w, const V& o) const {
+    store4(var_cell(msg, t, p, w), o);
+  }
+};
+
 // What a flooding variable lane loads first: q and the c2v of its first
 // kVarChunk edges.
 template <typename Msg>
@@ -279,49 +299,53 @@ struct VarLoads {
   Raw<Msg> y0[kVarChunk];
 };
 
-template <typename Msg>
-__device__ __forceinline__ void var_load(const Msg* msg, const Msg* q,
-                                         const LaneTables& t, int vg, int w,
+// The first loads of variable lane w of group vg, whose edges are p0..p1.
+template <typename Msg, class Cells>
+__device__ __forceinline__ void var_load(const Cells& cells, const Msg* q, int Z,
+                                         int vg, int w, int p0, int p1,
                                          VarLoads<Msg>& v) {
-  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
-  v.q = load_raw(q + ((size_t)vg * t.Z + w) * kBt);
+  v.q = load_raw(q + ((size_t)vg * Z + w) * kBt);
 #pragma unroll
   for (int j = 0; j < kVarChunk; ++j)
-    if (p0 + j < p1) v.y0[j] = load_raw(var_cell(msg, t, p0 + j, w));
+    if (p0 + j < p1) v.y0[j] = load_raw(cells.in(p0 + j, w));
 }
 
-// The variable phase of a resident flooding tile, each thread issuing its
-// next variable lane's loads before this lane's stores (in a phase each
-// cell belongs to one lane, so no load can miss a store):
-// update(vg, w, loads) updates lane w of group vg.
-template <typename Msg, class Update>
-__device__ __forceinline__ void var_phase(const Msg* msg, const Msg* q,
-                                          const LaneTables& t, Update&& update) {
-  const int Z = t.Z, vn = t.VG * Z;
+// A flooding variable phase over the lanes r0, r0 + stride, ... of a tile's
+// vn variable lanes (var_cs ends with E), each thread issuing its next
+// lane's loads before this lane's stores (in a phase each cell belongs to
+// one lane, so no load can miss a store): update(vg, w, loads) updates lane
+// w of group vg.
+template <typename Msg, class Cells, class Update>
+__device__ __forceinline__ void var_phase(const Cells& cells, const Msg* q,
+                                          const int* var_cs, int vn, int Z,
+                                          int r0, int stride, Update&& update) {
+  auto load = [&](int r, VarLoads<Msg>& v) {
+    const int vg = r / Z;
+    var_load(cells, q, Z, vg, r % Z, var_cs[vg], var_cs[vg + 1], v);
+  };
   VarLoads<Msg> v;
-  int r = threadIdx.x;
-  if (r < vn) var_load(msg, q, t, r / Z, r % Z, v);
-  for (; r < vn; r += blockDim.x) {
+  int r = r0;
+  if (r < vn) load(r, v);
+  for (; r < vn; r += stride) {
     VarLoads<Msg> next;
-    const int rn = r + blockDim.x;
-    if (rn < vn) var_load(msg, q, t, rn / Z, rn % Z, next);
+    const int rn = r + stride;
+    if (rn < vn) load(rn, next);
     update(r / Z, r % Z, v);
     v = next;
   }
 }
 
-// Variable update of variable lane w of group vg in one flooding tile, from
-// its first loads v: tot = q plus the group's c2v in var-major slot order
-// (add_rn); output k = store(tot - y_k) (sub_rn) goes back to y_k's cell as
-// v2c, and the hard decisions tot <= 0 to post. The first chunk's c2v stay
-// in registers through the outputs; a group of more than kVarChunk edges
-// reads its later chunks again. Computed in f32 for f32 and bf16 messages,
-// in f64 for f64 ones.
-template <typename Msg>
-__device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
-                                           const LaneTables& t, int vg, int w,
+// Variable update of variable lane w (edges p0..p1) in one flooding tile,
+// from its first loads v: tot = q plus the lane's c2v in var-major slot
+// order (add_rn); output k = store(tot - y_k) (sub_rn) goes to the cells as
+// v2c, and the hard decisions tot <= 0 to the lane's word at post. The
+// first chunk's c2v stay in registers through the outputs; a lane of more
+// than kVarChunk edges reads its later chunks again. Computed in f32 for f32
+// and bf16 messages, in f64 for f64 ones.
+template <typename Msg, class Cells>
+__device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
+                                           int p0, int p1, int w,
                                            const VarLoads<Msg>& v) {
-  const int p0 = t.var_cs[vg], p1 = t.var_cs[vg + 1];
   auto tot = unpack(v.q);
 #pragma unroll
   for (int j = 0; j < kVarChunk; ++j) {
@@ -335,7 +359,7 @@ __device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
     Raw<Msg> y[kVarChunk];
 #pragma unroll
     for (int j = 0; j < kVarChunk; ++j)
-      if (c0 + j < p1) y[j] = load_raw(var_cell(msg, t, c0 + j, w));
+      if (c0 + j < p1) y[j] = load_raw(cells.in(c0 + j, w));
 #pragma unroll
     for (int j = 0; j < kVarChunk; ++j) {
       if (c0 + j < p1) {
@@ -345,18 +369,18 @@ __device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
       }
     }
   }
-  store_word(post + ((size_t)vg * t.Z + w) * kBt, hard_bits(tot));
+  store_word(post, hard_bits(tot));
   auto output = [&](int p, const Raw<Msg>& yr) {
     const auto y = unpack(yr);
     decltype(tot) o;
 #pragma unroll
     for (int f = 0; f < kBt; ++f) o.v[f] = sub_rn(tot.v[f], y.v[f]);
-    store4(var_cell(msg, t, p, w), o);
+    cells.out(p, w, o);
   };
 #pragma unroll
   for (int j = 0; j < kVarChunk; ++j)
     if (p0 + j < p1) output(p0 + j, v.y0[j]);
-  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(var_cell(msg, t, p, w)));
+  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(cells.in(p, w)));
 }
 
 // The min-sum fold of a check's d inputs, in edge order, for each frame f:
@@ -602,13 +626,15 @@ __device__ __forceinline__ P* lane_park(P* park_all, size_t park_elems,
                                          table_ints(t.CG, t.E, t.VG));
 }
 
+// Launches kernel on a grid (nbt blocks: a block a tile) with smem bytes of
+// dynamic shared memory; returns the launch's error.
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int nbt, int threads, size_t smem,
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
                    cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<nbt, threads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

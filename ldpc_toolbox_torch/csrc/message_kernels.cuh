@@ -27,8 +27,11 @@
 //   ready (k = 0, 1, ... in order; min-sum and i8 fold it at once), then
 //   outputs(x, d, emit) calls emit(k, o) with slot k's four outputs for
 //   k = 0 .. d - 1 in order (the float rules fold x there, in place);
-// - var_update(msg, post, t, vg, w, loads), the flooding variable update
-//   of one lane (lanes.cuh var_update for the float messages).
+// - var_update(cells, post, p0, p1, w, loads), the flooding variable update
+//   of variable lane w, whose edges are p0..p1 (lanes.cuh var_update for
+//   the float messages), reading its c2v and writing its v2c through cells
+//   (lanes.cuh ArrayCells for the resident kernel, csrc/streaming.cuh
+//   PhaseCells for the streaming variable phase).
 //
 // Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
 // layered: every x of a check group from the layer-entry Qv, big at the
@@ -93,10 +96,11 @@ struct MinSumRule {
     }
   };
 
-  __device__ __forceinline__ void var_update(Msg* msg, int8_t* post,
-                                             const LaneTables& t, int vg, int w,
+  template <class Cells>
+  __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
+                                             int p0, int p1, int w,
                                              const VarLoads<Msg>& v) const {
-    ldpc::var_update(msg, post, t, vg, w, v);
+    ldpc::var_update(cells, post, p0, p1, w, v);
   }
 };
 
@@ -231,29 +235,30 @@ cudaError_t layered_launch(const Rule& rule, void* qv, void* rcv, void* bits,
                 static_cast<P*>(park), t, park_elems, max_iterations, rule);
 }
 
-// Check update of check lane c of group g in one flooding tile: folds the
-// group's d v2c, read from its own cells (e, c) (big at the missing lane,
-// whatever the cell holds), and writes its d c2v to the same cells, 0 at
-// the missing lane.
-template <int DMAX, class Rule>
-__device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
-                                                    const LaneTables& t, int g,
-                                                    int c, const Rule& rule) {
+// Check update of check lane c of a flooding check group whose d edges are
+// e0..e0+d: folds its d v2c, read from its cells (e, c) of v2c (check-major,
+// check lane coordinates; big at the missing lane syn_mask[e], whatever the
+// cell holds), and calls out(e, o) with each edge's four c2v, 0 at the
+// missing lane. The resident kernel writes them back to the same cells, the
+// streaming check phase (csrc/streaming.cuh) to the var-major c2v planes.
+template <int DMAX, class Rule, class Out>
+__device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
+                                               const int* syn_mask, int Z,
+                                               int e0, int d, int c,
+                                               const Rule& rule, Out&& out) {
   using Msg = typename Rule::Msg;
   using V = Vec4<Msg>;
-  const int Z = t.Z;
-  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
   Raw<Msg> raw[DMAX];
 #pragma unroll
   for (int k = 0; k < DMAX; ++k)
-    if (k < d) raw[k] = load_raw(msg + ((size_t)(e0 + k) * Z + c) * kBt);
+    if (k < d) raw[k] = load_raw(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
   typename Rule::template Check<DMAX> check(rule);
   V own[DMAX];
   auto& x = input_array(raw, own);
 #pragma unroll
   for (int k = 0; k < DMAX; ++k) {
     if (k < d) {
-      const bool missing = c == t.syn_mask[e0 + k];
+      const bool missing = c == syn_mask[e0 + k];
       const V v = unpack(raw[k]);
 #pragma unroll
       for (int f = 0; f < kBt; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
@@ -262,11 +267,24 @@ __device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
   }
   check.outputs(x, d, [&](int k, const V& o) {
     const int e = e0 + k;
-    const bool missing = c == t.syn_mask[e];
-    V out;
+    const bool missing = c == syn_mask[e];
+    V ok;
 #pragma unroll
-    for (int f = 0; f < kBt; ++f) out.v[f] = missing ? Elem<Msg>(0) : o.v[f];
-    store4(msg + ((size_t)e * Z + c) * kBt, out);
+    for (int f = 0; f < kBt; ++f) ok.v[f] = missing ? Elem<Msg>(0) : o.v[f];
+    out(e, ok);
+  });
+}
+
+// Check update of check lane c of group g in one resident flooding tile:
+// its d c2v go back to the cells (e, c) its v2c came from.
+template <int DMAX, class Rule>
+__device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
+                                                    const LaneTables& t, int g,
+                                                    int c, const Rule& rule) {
+  const int Z = t.Z;
+  const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  flooding_check<DMAX>(msg, t.syn_mask, Z, e0, d, c, rule, [&](int e, const auto& o) {
+    store4(msg + ((size_t)e * Z + c) * kBt, o);
   });
 }
 
@@ -305,9 +323,12 @@ __global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
         for (int r = threadIdx.x; r < cn; r += blockDim.x)
           flooding_check_lane<DMAX>(msg, lt, r / Z, r % Z, rule);
         __syncthreads();
-        var_phase(msg, q, lt, [&](int vg, int w, const VarLoads<Msg>& v) {
-          rule.var_update(msg, post, lt, vg, w, v);
-        });
+        const ArrayCells<Msg> cells{msg, lt};
+        var_phase(cells, q, lt.var_cs, vn, Z, threadIdx.x, blockDim.x,
+                  [&](int vg, int w, const VarLoads<Msg>& v) {
+                    rule.var_update(cells, post + ((size_t)vg * Z + w) * kBt,
+                                    lt.var_cs[vg], lt.var_cs[vg + 1], w, v);
+                  });
         __syncthreads();
         syndrome4<DMAX>(post, lt, bad);
       });

@@ -1,18 +1,14 @@
 // Horizontal-layered min-sum decode of frame tiles with the check state
 // held as messages (Rcv), one thread block per tile:
-// - resident_layered_kernel (csrc/message_kernels.cuh, on MinSumRule here):
-//   all iterations in one launch, a thread per lane of a tile's four
-//   frames (csrc/lanes.cuh, the form of the compressed kernels of
-//   csrc/compressed.cu);
-// - fused_layered_kernel: one sweep (the streaming form's iteration), a
-//   thread per (lane, frame), the sweep of csrc/layered.cuh.
+// resident_layered_kernel (csrc/message_kernels.cuh, on MinSumRule here),
+// all iterations in one launch, a thread per lane of a tile's four frames
+// (csrc/lanes.cuh, the form of the compressed kernels of
+// csrc/compressed.cu). The streaming form's sweep, the same lane code one
+// iteration a launch, is csrc/fused_layered.cu.
 //
-// Replaces these Pallas TPU kernels of ldpc_toolbox_tpu/ops/:
-// - resident_layered.py resident_layered_decode, which keeps one tile's
-//   Qv, Rcv and frozen bits in the TPU's vector memory for the whole
-//   decode -> resident_layered_kernel;
-// - fused_layered.py fused_layered_iteration, one sweep with the Qv tile
-//   resident and Rcv slabs streamed in and out -> fused_layered_kernel.
+// Replaces the Pallas TPU kernel ldpc_toolbox_tpu/ops/resident_layered.py
+// resident_layered_decode, which keeps one tile's Qv, Rcv and frozen bits
+// in the TPU's vector memory for the whole decode.
 //
 // What bounds them on an H100: that state does not fit on an SM (one DVB-S2
 // n=64800 frame holds Qv f32 259 KB and Rcv bf16 454 KB; an SM has 227 KB of
@@ -41,29 +37,12 @@
 //   32 x 511 x 4 x 4 bytes) and its variable lanes add them in edge order;
 // - the layout tables live in shared memory, 256 threads a block, two
 //   blocks an SM.
-// The streaming kernel keeps a thread per (lane, frame) and parks every
-// group's deltas, in shared memory when they fit.
 
 #include "message_kernels.cuh"
 
 namespace {
 
 using namespace ldpc;
-
-template <typename Msg>
-__global__ void fused_layered_kernel(float* qv_all, Msg* rcv_all,
-                                     int8_t* bits_all, float* park_all,
-                                     Tables t, int Bt, size_t park_elems,
-                                     float big, float scale) {
-  extern __shared__ int ctl[];
-  const size_t tile = blockIdx.x;
-  const int ZB = t.Z * Bt;
-  float* qv = qv_all + tile * t.VG * ZB;
-  int8_t* bits = bits_all + tile * t.VG * ZB;
-  MessageState<Msg> st{rcv_all + tile * t.E * ZB, ZB};
-  layered_sweep(qv, st, t, Bt, big, scale, tile_park(park_all, park_elems, ctl, Bt));
-  for (int i = threadIdx.x; i < t.VG * ZB; i += blockDim.x) bits[i] = qv[i] <= 0.f;
-}
 
 template <int DMAX, typename Msg>
 struct ResidentLaunch {
@@ -77,27 +56,10 @@ struct ResidentLaunch {
   }
 };
 
-template <typename Msg>
-cudaError_t fused_launch(void* qv, void* rcv, void* bits, void* park,
-                         const Tables& t, int nbt, int Bt, size_t park_elems,
-                         int threads, float big, float scale,
-                         cudaStream_t stream) {
-  const size_t smem = layered_smem(Bt, park ? 0 : park_elems);
-  auto kernel = fused_layered_kernel<Msg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<nbt, threads, smem, stream>>>(
-      static_cast<float*>(qv), static_cast<Msg*>(rcv),
-      static_cast<int8_t*>(bits), static_cast<float*>(park), t, Bt,
-      park_elems, big, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Both entry points take the ten layout tables as an array of device
-// pointers (see Tables in layered.cuh) and the tile shape, and return the
+// The entry point takes the ten layout tables as an array of device
+// pointers (see Tables in layered.cuh) and the tile shape, and returns the
 // launch's cudaError_t. Messages are bf16 when msg_bf16, else f32. park is
 // (nbt, max_degree, Z, Bt) f32 scratch in device memory, or null to park
 // in shared memory.
@@ -118,22 +80,6 @@ extern "C" int ldpc_resident_layered_decode(
       max_degree, msg_bf16, qv, rcv, bits, iters, conv, park, t, nbt,
       park_elems, max_iterations, threads, big, scale,
       static_cast<cudaStream_t>(stream)));
-}
-
-// One layered sweep of nbt tiles, in place on qv (nbt, VG, Z, Bt) f32 and
-// rcv (nbt, E, Z, Bt); bits (nbt, VG, Z, Bt) int8 out: qv <= 0 after it.
-extern "C" int ldpc_fused_layered_iteration(
-    void* qv, void* rcv, void* bits, void* park, const void* const* tables,
-    int nbt, int CG, int E, int VG, int Z, int Bt, int max_degree,
-    int threads, float big, float scale, int msg_bf16, void* stream) {
-  const Tables t = make_tables(tables, CG, E, VG, Z);
-  const size_t park_elems = (size_t)max_degree * Z * Bt;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      msg_bf16 ? fused_launch<__nv_bfloat16>(qv, rcv, bits, park, t, nbt, Bt,
-                                             park_elems, threads, big, scale, s)
-               : fused_launch<float>(qv, rcv, bits, park, t, nbt, Bt,
-                                     park_elems, threads, big, scale, s));
 }
 
 extern "C" const char* ldpc_cuda_error_string(int err) {

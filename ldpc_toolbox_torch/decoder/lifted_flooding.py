@@ -18,12 +18,11 @@ flagship shape:
   (Phi, Tanh, Minstarapprox, Aminstar in f32 and f64):
   ``ops/resident_flooding.py``, the whole decode in one launch with v2c
   and c2v messages;
-* ``resident=False``: the streaming phases of ``ops/fused_bp2.py``
-  (``fused_var`` initialisation, then ``fused_check``, ``fused_var`` and
-  ``fused_syndrome_bits`` an iteration) under
-  ``decoder/compaction.staged_while_decode``; it raises for every name but
-  the min-sum ones, whose i8 and float streaming instances are still to be
-  ported (ROADMAP B1).
+* ``resident=False``, every name: the streaming phases of
+  ``ops/fused_bp2.py`` (``fused_var`` initialisation, then ``fused_check``,
+  ``fused_var`` and ``fused_syndrome_bits`` an iteration, each on the
+  rule's instances) under ``decoder/compaction.staged_while_decode``, as
+  the JAX package's ``resident=False`` path does.
 
 A check wider than the rule's kernels take raises a ValueError on every
 device (``check_degree_cap``).
@@ -48,7 +47,6 @@ from ..ops.fused_bp2 import (
     fused_syndrome_bits,
     fused_var,
     is_i8,
-    refuse_streaming,
     rule_for,
 )
 from ..ops.resident_compressed import (
@@ -78,7 +76,6 @@ def lifted_flooding_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
     if not resident:
-        refuse_streaming(rule)
         decode = streaming_flooding_decode
     elif takes_compressed_state(rule):
         decode = compressed_flooding_decode

@@ -18,11 +18,11 @@ package's ``_fused_layered_decode`` does at the flagship shape:
   (Phi, Tanh, Minstarapprox, Aminstar in f32 and f64):
   ``ops/resident_layered.py``, the whole decode in one launch with Rcv
   messages (int8 Rcv and int16 Qv for i8, f64 both for the f64 names);
-* ``resident=False``: the streaming form, ``ops/fused_layered.py``'s
-  sweep and ``fused_syndrome_bits`` one launch each an iteration, under
-  ``decoder/compaction.staged_while_decode``; it raises for every name but
-  the min-sum ones, whose i8 and float streaming instances are still to be
-  ported (ROADMAP B1).
+* ``resident=False``, every name: the streaming form,
+  ``ops/fused_layered.py``'s sweep (on the rule's instances, with int16 Qv
+  for the i8 names and f64 Qv for the f64 names) and
+  ``fused_syndrome_bits`` one launch each an iteration, under
+  ``decoder/compaction.staged_while_decode``.
 
 A check wider than the rule's kernels take raises a ValueError on every
 device (``check_degree_cap``).
@@ -47,7 +47,6 @@ from ..ops.fused_bp2 import (
     build_fused_layout,
     check_degree_cap,
     fused_syndrome_bits,
-    refuse_streaming,
     rule_for,
 )
 from ..ops.fused_layered import fused_layered_iteration
@@ -83,7 +82,6 @@ def lifted_layered_decode(
     (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
     qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
     if not resident:
-        refuse_streaming(rule)
         decode = streaming_layered_decode
     elif takes_compressed_state(rule):
         decode = compressed_layered_decode

@@ -32,12 +32,14 @@ NVCC_FLAGS = (
 )
 _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 #: every kernel source of the package, by name (the int8 and float-rule
-#: instances of the two message kernels in sources of their own, the
-#: float-rule ones one a precision, so that the parallel build keeps its
-#: length)
+#: instances of the message kernels and of the flooding phases in sources
+#: of their own, the float-rule ones one a precision, and the streaming
+#: layered sweep's apart from the resident layered kernel's, so that the
+#: parallel build keeps its length)
 SOURCES = ("resident_layered", "flooding", "compressed", "resident_layered_i8",
            "flooding_i8", "resident_layered_f32", "resident_layered_f64",
-           "flooding_f32", "flooding_f64")
+           "flooding_f32", "flooding_f64", "fused_layered", "fused_layered_i8",
+           "fused_layered_f32", "fused_layered_f64")
 
 
 def _nvcc() -> str:

@@ -24,10 +24,14 @@ planes with frames innermost:
 * ``fused_syndrome_bits``: hard bits -> one "unsatisfied check" flag a
   frame.
 
-On a CUDA tensor each launches its hand-written kernel of
-``csrc/flooding.cu`` or raises (also for a rule other than min-sum: these
-kernels have no i8 or float-rule instances yet, ROADMAP B1); on a CPU
-tensor it runs its plain version (the ``*_reference`` functions, in the
+On a CUDA tensor each launches its hand-written kernel or raises: the
+check and variable phases are the templates of ``csrc/streaming.cuh``
+(a thread per lane of a tile's 4 frames), instantiated on the rule's
+family, min-sum in ``csrc/flooding.cu``, the i8 rules in
+``csrc/flooding_i8.cu`` (``fused_check_i8``, ``fused_var_i8``), the float
+rules in ``csrc/flooding_f32.cu`` and ``_f64.cu`` (``fused_check_float``,
+``fused_var_float``); each family counts its launches apart. On a CPU
+tensor each runs its plain version (the ``*_reference`` functions, in the
 rule's compute type). A roll by s means ``out[i] = x[(i - s) mod Z]``, on
 unpadded planes.
 
@@ -64,13 +68,16 @@ __all__ = [
     "check_degree_cap",
     "is_float_rule",
     "is_i8",
-    "refuse_streaming",
     "takes_storage",
     "rule_for",
     "var_recon_tables",
     "fused_check",
+    "fused_check_float",
+    "fused_check_i8",
     "fused_check_reference",
     "fused_var",
+    "fused_var_float",
+    "fused_var_i8",
     "fused_var_reference",
     "fused_syndrome_bits",
     "fused_syndrome_bits_reference",
@@ -690,17 +697,6 @@ def takes_storage(rule) -> bool:
     return rule.storage_dtype in _MSG_DTYPES
 
 
-def refuse_streaming(rule) -> None:
-    """The streaming kernels (the flooding phases and the layered sweep)
-    carry min-sum only: raise for any other rule (the i8 and float rules,
-    whose streaming instances ROADMAP B1 ports)."""
-    if not isinstance(rule, MinSumRule):
-        raise NotImplementedError(
-            f"{type(rule).__name__}: the streaming kernels have no i8 or "
-            "float-rule instances yet (ROADMAP B1); decode it with resident=True"
-        )
-
-
 def check_degree_cap(layout, rule) -> None:
     """Raise a ValueError when the layout's widest check is wider than the
     rule's kernels take (``rule.max_check_degree``); the decoders ask it on
@@ -746,7 +742,8 @@ def rule_for(arithmetic):
 #: the min-sum kernels' message storage types, by the code they take
 #: (msg_bf16)
 _MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: threads per block of the check and variable phase kernels
+#: threads per block of the check and variable phase kernels (a thread per
+#: lane of a tile's 4 frames)
 PHASE_THREADS = 256
 #: threads per block of the syndrome kernel, which gives one block to a
 #: tile; a multiple of the tile width
@@ -770,7 +767,7 @@ def bind_flooding(lib):
     ``csrc/flooding.cu``; returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * 6  # nbt, CG, VG, E, Z, Bt
-    lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [f, f, i, i, p]
+    lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [i, f, f, i, i, p]
     lib.ldpc_fused_var.argtypes = [p, p, p, p, p] + dims + [f, i, i, p]
     lib.ldpc_fused_syndrome.argtypes = [p, p, p] + dims + [i, p]
     # the resident decode takes the layered tables and a degree bucket
@@ -787,24 +784,84 @@ def bind_flooding(lib):
     return lib
 
 
+@functools.cache
+def flooding_i8_lib():
+    """The loaded library of ``csrc/flooding_i8.cu``: the int8 instances of
+    the resident flooding kernel and of the phases."""
+    return bind_flooding_i8(_build.load("flooding_i8"))
+
+
+def bind_flooding_i8(lib):
+    """Declares the C interface of a library built from
+    ``csrc/flooding_i8.cu``; returns it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, flags, stream
+    lib.ldpc_resident_flooding_i8_decode.argtypes = [p] * 7 + [i] * 11 + [p]
+    lib.ldpc_resident_flooding_i8_decode.restype = i
+    lib.ldpc_flooding_i8_error_string.argtypes = [i]
+    lib.ldpc_flooding_i8_error_string.restype = ctypes.c_char_p
+    # pointers, nbt, CG, VG, E, Z, Bt, (max degree,) threads, kind, flags,
+    # stream
+    lib.ldpc_fused_check_i8.argtypes = [p] * 3 + [i] * 10 + [p]
+    lib.ldpc_fused_var_i8.argtypes = [p] * 5 + [i] * 9 + [p]
+    lib.ldpc_fused_check_i8.restype = lib.ldpc_fused_var_i8.restype = i
+    return lib
+
+
+#: the flooding sources of the float-rule instances, by storage type
+FLOAT_FLOODING_SOURCES = {torch.float32: "flooding_f32", torch.float64: "flooding_f64"}
+
+
+@functools.cache
+def flooding_float_lib(name):
+    """The loaded library of ``csrc/flooding_f32.cu`` or ``_f64.cu`` (by
+    ``FLOAT_FLOODING_SOURCES``): the float-rule instances of the resident
+    flooding kernel and of the phases."""
+    return bind_flooding_float(_build.load(name))
+
+
+def bind_flooding_float(lib):
+    """Declares the C interface of a library built from
+    ``csrc/flooding_f32.cu`` or ``_f64.cu``; returns it."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
+    # rule kind, big, clamp, prod_max, stream
+    lib.ldpc_resident_flooding_float_decode.argtypes = [p] * 7 + [i] * 10 + [d] * 3 + [p]
+    lib.ldpc_resident_flooding_float_decode.restype = i
+    lib.ldpc_flooding_float_error_string.argtypes = [i]
+    lib.ldpc_flooding_float_error_string.restype = ctypes.c_char_p
+    # pointers, nbt, CG, VG, E, Z, Bt, (max degree,) threads, kind, big,
+    # clamp, prod_max, stream
+    lib.ldpc_fused_check_float.argtypes = [p] * 3 + [i] * 9 + [d] * 3 + [p]
+    lib.ldpc_fused_var_float.argtypes = [p] * 5 + [i] * 8 + [d] * 3 + [p]
+    lib.ldpc_fused_check_float.restype = lib.ldpc_fused_var_float.restype = i
+    return lib
+
+
 def launch_args(x, layout, rule=None):
     """(table pointer array, tile dims, stream) of a flooding launch on the
-    tiles ``x`` (nbt, P, Z, Bt); raises on what the kernels do not take."""
+    tiles ``x`` (nbt, P, Z, Bt); raises on what the kernels do not take:
+    with a rule (the check and variable phases) a tile width other than 4,
+    a storage type the rule's kernels do not take and a check wider than
+    the rule's cap (``check_degree_cap``); without (the syndrome) a tile
+    width that does not divide ``TILE_THREADS``."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     nbt, _, Z, Bt = x.shape
     if Z != layout.Z:
         raise ValueError(f"plane height {Z} does not match the layout's {layout.Z}")
-    if TILE_THREADS % Bt:
-        raise ValueError(f"tile width {Bt} must divide {TILE_THREADS}")
     if not x.is_contiguous():
         raise ValueError("planes must be contiguous")
-    if rule is not None:
-        refuse_streaming(rule)
-    if layout.max_chk_degree > MAX_CHECK_DEGREE:
-        raise ValueError(
-            f"check degree {layout.max_chk_degree} above {MAX_CHECK_DEGREE}"
-        )
+    if rule is None:
+        if TILE_THREADS % Bt:
+            raise ValueError(f"tile width {Bt} must divide {TILE_THREADS}")
+    else:
+        if Bt != BT:
+            raise ValueError(f"tile width {Bt}: the phase kernels take {BT}")
+        if not takes_storage(rule):
+            raise TypeError(f"unsupported message storage {rule.storage_dtype}")
+        check_degree_cap(layout, rule)
     tables = [getattr(layout, name) for name in _TABLES]
     if any(
         t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous()
@@ -816,10 +873,13 @@ def launch_args(x, layout, rule=None):
     return ptrs, dims, torch.cuda.current_stream(x.device).cuda_stream
 
 
-def raise_on(err: int, name: str) -> None:
+def raise_on(err: int, name: str, error_string=None) -> None:
+    """Raise if a launch's cudaError_t is not 0, with its text from
+    ``error_string`` (a library's ``ldpc_*_error_string``; by default
+    ``csrc/flooding.cu``'s)."""
     if err:
-        msg = flooding_lib().ldpc_flooding_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
+        text = (error_string or flooding_lib().ldpc_flooding_error_string)(err)
+        raise RuntimeError(f"{name} launch failed: {text.decode()}")
 
 
 def _check_planes(x, planes, layout, dtype, what):
@@ -833,16 +893,20 @@ def _check_planes(x, planes, layout, dtype, what):
 def fused_check(v2c, layout, rule):
     """Check phase: v2c (nbt, E, Z, Bt) -> c2v (nbt, E, Z, Bt), both in the
     rule's storage type. ``layout``: a ``convert.DeviceLayout`` on the
-    planes' device; ``rule``: a ``MinSumRule`` (any rule on the CPU)."""
+    planes' device; ``rule``: any kernel rule (on a CUDA tensor an i8 rule
+    goes to ``fused_check_i8``, a float rule to ``fused_check_float``)."""
     if v2c.device.type == "cpu":
         return fused_check_reference(v2c, layout, rule)
-    _check_planes(v2c, layout.E, layout, rule.storage_dtype, "v2c")
-    tables, dims, stream = launch_args(v2c, layout, rule)
-    c2v = torch.empty_like(v2c)
+    if is_i8(rule):
+        return fused_check_i8(v2c, layout, rule)
+    if is_float_rule(rule):
+        return fused_check_float(v2c, layout, rule)
+    c2v, tables, dims, stream = _check_launch(v2c, layout, rule)
     raise_on(
         flooding_lib().ldpc_fused_check(
-            v2c.data_ptr(), c2v.data_ptr(), tables, *dims, rule.big,
-            rule.scale, _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
+            v2c.data_ptr(), c2v.data_ptr(), tables, *dims,
+            layout.max_chk_degree, rule.big, rule.scale,
+            _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
         ),
         "fused_check",
     )
@@ -850,13 +914,85 @@ def fused_check(v2c, layout, rule):
     return c2v
 
 
+def _check_launch(v2c, layout, rule):
+    """The checks of a check-phase launch; returns (c2v, tables, dims,
+    stream)."""
+    _check_planes(v2c, layout.E, layout, rule.storage_dtype, "v2c")
+    tables, dims, stream = launch_args(v2c, layout, rule)
+    return torch.empty_like(v2c), tables, dims, stream
+
+
+def fused_check_i8(v2c, layout, rule):
+    """``fused_check`` for an i8 rule, through the int8 instances of
+    ``csrc/flooding_i8.cu``: int8 planes, int32 arithmetic, the rule's
+    partial hard limit; check degree at most ``I8_MAX_CHECK_DEGREE``."""
+    if v2c.device.type == "cpu":
+        return fused_check_reference(v2c, layout, rule)
+    if not is_i8(rule):
+        raise TypeError(f"{type(rule).__name__} is not an i8 rule")
+    c2v, tables, dims, stream = _check_launch(v2c, layout, rule)
+    lib = flooding_i8_lib()
+    raise_on(
+        lib.ldpc_fused_check_i8(
+            v2c.data_ptr(), c2v.data_ptr(), tables, *dims, layout.max_chk_degree,
+            PHASE_THREADS, rule.kind, rule.flags, stream,
+        ),
+        "fused_check_i8", lib.ldpc_flooding_i8_error_string,
+    )
+    fused_check_i8.launches += 1
+    return c2v
+
+
+def fused_check_float(v2c, layout, rule):
+    """``fused_check`` for a float rule, through the float-rule instances of
+    ``csrc/flooding_f32.cu`` or ``_f64.cu``: planes and arithmetic in the
+    rule's storage type; check degree at most ``rule.max_check_degree``."""
+    if v2c.device.type == "cpu":
+        return fused_check_reference(v2c, layout, rule)
+    if not is_float_rule(rule):
+        raise TypeError(f"{type(rule).__name__} is not a float rule")
+    c2v, tables, dims, stream = _check_launch(v2c, layout, rule)
+    lib = flooding_float_lib(FLOAT_FLOODING_SOURCES[rule.storage_dtype])
+    raise_on(
+        lib.ldpc_fused_check_float(
+            v2c.data_ptr(), c2v.data_ptr(), tables, *dims, layout.max_chk_degree,
+            PHASE_THREADS, rule.kind, rule.big, rule.clamp, rule.prod_max, stream,
+        ),
+        "fused_check_float", lib.ldpc_flooding_float_error_string,
+    )
+    fused_check_float.launches += 1
+    return c2v
+
+
 def fused_var(c2v, q, layout, rule):
     """Variable phase: c2v (nbt, E, Z, Bt) and the channel planes q (nbt,
     VG, Z, Bt), both in the rule's storage type -> (v2c (nbt, E, Z, Bt),
     bits (nbt, VG, Z, Bt) int8). ``c2v=None`` is the initialisation: every
-    v2c output is q, rolled, with big at the missing lanes."""
+    v2c output is q, rolled, with big at the missing lanes (no rule clips).
+    On a CUDA tensor an i8 rule goes to ``fused_var_i8``, a float rule to
+    ``fused_var_float``."""
     if q.device.type == "cpu":
         return fused_var_reference(c2v, q, layout, rule)
+    if is_i8(rule):
+        return fused_var_i8(c2v, q, layout, rule)
+    if is_float_rule(rule):
+        return fused_var_float(c2v, q, layout, rule)
+    v2c, bits, tables, dims, stream = _var_launch(c2v, q, layout, rule)
+    raise_on(
+        flooding_lib().ldpc_fused_var(
+            None if c2v is None else c2v.data_ptr(), q.data_ptr(),
+            v2c.data_ptr(), bits.data_ptr(), tables, *dims, rule.big,
+            _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
+        ),
+        "fused_var",
+    )
+    fused_var.launches += 1
+    return v2c, bits
+
+
+def _var_launch(c2v, q, layout, rule):
+    """The checks of a variable-phase launch; returns (v2c, bits, tables,
+    dims, stream)."""
     _check_planes(q, layout.VG, layout, rule.storage_dtype, "q")
     if c2v is not None:
         _check_planes(c2v, layout.E, layout, rule.storage_dtype, "c2v")
@@ -868,15 +1004,50 @@ def fused_var(c2v, q, layout, rule):
     nbt, VG, Z, Bt = q.shape
     v2c = torch.empty((nbt, layout.E, Z, Bt), dtype=q.dtype, device=q.device)
     bits = torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=q.device)
+    return v2c, bits, tables, dims, stream
+
+
+def fused_var_i8(c2v, q, layout, rule):
+    """``fused_var`` for an i8 rule, through the int8 instances of
+    ``csrc/flooding_i8.cu``: int8 planes, int32 arithmetic, the rule's
+    Jones clip and Deg1Clip (none in the initialisation)."""
+    if q.device.type == "cpu":
+        return fused_var_reference(c2v, q, layout, rule)
+    if not is_i8(rule):
+        raise TypeError(f"{type(rule).__name__} is not an i8 rule")
+    v2c, bits, tables, dims, stream = _var_launch(c2v, q, layout, rule)
+    lib = flooding_i8_lib()
     raise_on(
-        flooding_lib().ldpc_fused_var(
-            None if c2v is None else c2v.data_ptr(), q.data_ptr(),
-            v2c.data_ptr(), bits.data_ptr(), tables, *dims, rule.big,
-            _MSG_DTYPES[rule.storage_dtype], PHASE_THREADS, stream,
+        lib.ldpc_fused_var_i8(
+            None if c2v is None else c2v.data_ptr(), q.data_ptr(), v2c.data_ptr(),
+            bits.data_ptr(), tables, *dims, PHASE_THREADS, rule.kind, rule.flags,
+            stream,
         ),
-        "fused_var",
+        "fused_var_i8", lib.ldpc_flooding_i8_error_string,
     )
-    fused_var.launches += 1
+    fused_var_i8.launches += 1
+    return v2c, bits
+
+
+def fused_var_float(c2v, q, layout, rule):
+    """``fused_var`` for a float rule, through the float-rule instances of
+    ``csrc/flooding_f32.cu`` or ``_f64.cu``: planes and arithmetic in the
+    rule's storage type."""
+    if q.device.type == "cpu":
+        return fused_var_reference(c2v, q, layout, rule)
+    if not is_float_rule(rule):
+        raise TypeError(f"{type(rule).__name__} is not a float rule")
+    v2c, bits, tables, dims, stream = _var_launch(c2v, q, layout, rule)
+    lib = flooding_float_lib(FLOAT_FLOODING_SOURCES[rule.storage_dtype])
+    raise_on(
+        lib.ldpc_fused_var_float(
+            None if c2v is None else c2v.data_ptr(), q.data_ptr(), v2c.data_ptr(),
+            bits.data_ptr(), tables, *dims, PHASE_THREADS, rule.kind, rule.big,
+            rule.clamp, rule.prod_max, stream,
+        ),
+        "fused_var_float", lib.ldpc_flooding_float_error_string,
+    )
+    fused_var_float.launches += 1
     return v2c, bits
 
 
@@ -900,9 +1071,14 @@ def fused_syndrome_bits(bits, layout):
     return flags
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (the min-sum
+#: instances; the int8 and float-rule instances count on their wrappers)
 fused_check.launches = 0
+fused_check_i8.launches = 0
+fused_check_float.launches = 0
 fused_var.launches = 0
+fused_var_i8.launches = 0
+fused_var_float.launches = 0
 fused_syndrome_bits.launches = 0
 
 

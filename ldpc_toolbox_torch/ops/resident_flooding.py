@@ -49,15 +49,14 @@ counts their launches apart.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from . import _build
 from .fused_bp2 import (
     _MSG_DTYPES,
+    FLOAT_FLOODING_SOURCES,
     _check_planes,
+    flooding_float_lib,
+    flooding_i8_lib,
     flooding_lib,
     fused_check_reference,
     fused_syndrome_bits_reference,
@@ -76,46 +75,6 @@ __all__ = [
     "flooding_loop",
     "decode_loop",
 ]
-
-
-@functools.cache
-def _lib_i8():
-    return bind_i8(_build.load("flooding_i8"))
-
-
-def bind_i8(lib):
-    """Declares the C interface of a library built from
-    ``csrc/flooding_i8.cu``; returns it."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
-    # rule kind, flags, stream
-    lib.ldpc_resident_flooding_i8_decode.argtypes = [p] * 7 + [i] * 11 + [p]
-    lib.ldpc_resident_flooding_i8_decode.restype = i
-    lib.ldpc_flooding_i8_error_string.argtypes = [i]
-    lib.ldpc_flooding_i8_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-#: the sources of the float-rule instances, by storage type
-FLOAT_SOURCES = {torch.float32: "flooding_f32", torch.float64: "flooding_f64"}
-
-
-@functools.cache
-def _lib_float(name):
-    return bind_float(_build.load(name))
-
-
-def bind_float(lib):
-    """Declares the C interface of a library built from
-    ``csrc/flooding_f32.cu`` or ``_f64.cu``; returns it."""
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    # pointers, nbt, CG, E, VG, Z, Bt, max degree, iterations, threads,
-    # rule kind, big, clamp, prod_max, stream
-    lib.ldpc_resident_flooding_float_decode.argtypes = [p] * 7 + [i] * 10 + [d] * 3 + [p]
-    lib.ldpc_resident_flooding_float_decode.restype = i
-    lib.ldpc_flooding_float_error_string.argtypes = [i]
-    lib.ldpc_flooding_float_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _launch_planes(q_t, bits0_t, layout, rule, max_iterations):
@@ -193,7 +152,7 @@ def resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations: int)
         q_t, bits0_t, layout, rule, max_iterations
     )
     msg, post, bits, iters, conv = state
-    lib = _lib_i8()
+    lib = flooding_i8_lib()
     err = lib.ldpc_resident_flooding_i8_decode(
         msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
         iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),
@@ -221,7 +180,7 @@ def resident_flooding_decode_float(q_t, bits0_t, layout, rule, max_iterations: i
         q_t, bits0_t, layout, rule, max_iterations
     )
     msg, post, bits, iters, conv = state
-    lib = _lib_float(FLOAT_SOURCES[rule.storage_dtype])
+    lib = flooding_float_lib(FLOAT_FLOODING_SOURCES[rule.storage_dtype])
     err = lib.ldpc_resident_flooding_float_decode(
         msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
         iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),

@@ -41,16 +41,16 @@ counts their launches apart.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
 ``ops/fused_layered.py``'s) share the launch checks of this module. The
-four resident kernels that give a thread one lane of a tile's four frames
-(this one, the two compressed ones and ``ops/resident_flooding.py``'s)
-also share ``lane_launch``: they copy the same layout tables into shared
-memory (``shared_ints``). A layered check group that reaches a variable
+kernels that give a thread one lane of a tile's four frames and copy the
+layout tables into shared memory (``shared_ints``) share ``lane_launch``:
+this one, the two compressed ones, ``ops/resident_flooding.py``'s and the
+streaming sweep. A layered check group that reaches a variable
 group twice parks its deltas between the check update and the posterior
 update: after the tables when ``max_chk_degree * Z * 4`` floats fit there
 too, in a device-memory scratch otherwise (CCSDS C2: 261,632 bytes; the
 f64 instances park 8-byte deltas). The
-streaming sweep (``ops/fused_layered.py``) parks every group's deltas, in
-shared memory when they fit a block.
+streaming sweep (``ops/fused_layered.py``) is the same lane code one
+iteration a launch (``layered_launch``).
 """
 
 from __future__ import annotations
@@ -68,13 +68,11 @@ from .fused_bp2 import (
     check_degree_cap,
     is_float_rule,
     is_i8,
-    refuse_streaming,
     takes_storage,
 )
 
 __all__ = [
     "BT",
-    "BLOCK_THREADS",
     "I8_MAX_CHECK_DEGREE",
     "LANE_THREADS",
     "LAYERED_TABLES",
@@ -88,13 +86,11 @@ __all__ = [
     "message_sweep",
     "park_dtype",
     "parks_in_device_memory",
+    "posterior_dtype",
     "plane_tables",
     "shared_ints",
 ]
 
-#: threads per block of the streaming sweep; a multiple of BT, so each
-#: thread keeps one frame
-BLOCK_THREADS = 512
 #: threads per block of the kernels with a thread per lane of a tile's 4
 #: frames (the most ``csrc/lanes.cuh`` builds them for)
 LANE_THREADS = 256
@@ -124,9 +120,7 @@ def bind(lib):
     lib.ldpc_resident_layered_decode.argtypes = (
         [p] * 7 + dims + [i, i, f, f, i, p]
     )
-    lib.ldpc_fused_layered_iteration.argtypes = [p] * 5 + dims + [i, f, f, i, p]
-    for fn in (lib.ldpc_resident_layered_decode, lib.ldpc_fused_layered_iteration):
-        fn.restype = i
+    lib.ldpc_resident_layered_decode.restype = i
     lib.ldpc_cuda_error_string.argtypes = [i]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -180,22 +174,13 @@ def raise_on(lib, err: int, name: str) -> None:
 
 
 def layered_launch(qv, layout, rule):
-    """Check the (nbt, VG, Z, Bt) f32 Qv tiles of a streaming sweep's launch
-    against the layout and rule; returns (table pointer array, dims, park,
-    stream). ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
-    device-memory park, or None when the park fits shared memory."""
-    refuse_streaming(rule)
-    tables, dims, stream = _launch_args(qv, layout, rule, 0)
-    if qv.dtype != torch.float32:
-        raise TypeError("qv must be float32")
-    nbt, VG, Z, Bt = qv.shape
-    if BLOCK_THREADS % Bt:
-        raise ValueError(f"tile width {Bt} must divide {BLOCK_THREADS}")
-    degree = layout.max_chk_degree
-    park = None
-    if 4 * (degree * Z * Bt + 4 * Bt + 2) > MAX_SHARED_BYTES:
-        park = torch.empty((nbt, degree, Z, Bt), dtype=torch.float32, device=qv.device)
-    return tables, dims, park, stream
+    """Check the (nbt, VG, Z, 4) Qv tiles of a streaming sweep's launch
+    against the layout and rule (Qv of ``posterior_dtype``); returns
+    ``lane_launch``'s (table pointer array, dims, park, stream): the sweep
+    is the resident layered kernel's, and parks where it parks."""
+    if qv.dtype != posterior_dtype(rule):
+        raise TypeError(f"qv must be {posterior_dtype(rule)} for {type(rule).__name__}")
+    return lane_launch(qv, layout, rule, 0, True)
 
 
 def _launch_args(x, layout, rule, max_iterations):
@@ -239,6 +224,14 @@ def shared_ints(layout, with_park: bool, park_bytes: int = 4) -> int:
     return _CONTROL_INTS + -(-tables // 4) * 4 + park
 
 
+def posterior_dtype(rule):
+    """The type of a layered kernel's Qv: int16 for an i8 rule, the storage
+    type (f32 or f64) for a float rule, f32 for min-sum."""
+    if is_i8(rule):
+        return torch.int16
+    return rule.storage_dtype if is_float_rule(rule) else torch.float32
+
+
 def park_dtype(rule):
     """The type of a layered kernel's parked deltas: int32 for an i8 rule,
     f64 for an f64 rule, f32 otherwise."""
@@ -258,10 +251,11 @@ def lane_launch(x, layout, rule, max_iterations, with_park):
     """The checks and arguments of a launch of a kernel with a thread per
     lane, on its (nbt, VG, Z, Bt) tiles x: those of every layered launch,
     tiles of exactly 4 frames (a thread holds all four) and the tables in
-    shared memory; returns (table pointer array, dims, park, stream) as
-    ``layered_launch`` does. The park (``with_park``: the layered kernels;
-    deltas of ``park_dtype``) goes after the tables when it fits there,
-    else in device memory."""
+    shared memory; returns (table pointer array, dims, park, stream):
+    ``dims`` is (nbt, CG, E, VG, Z, Bt, max degree); ``park`` the
+    device-memory park, or None. The park (``with_park``: the layered
+    kernels; deltas of ``park_dtype``) goes after the tables when it fits
+    there, else in device memory."""
     if x.shape[-1] != BT:
         raise ValueError(f"tile width {x.shape[-1]}: the kernel takes {BT}")
     tables, dims, stream = _launch_args(x, layout, rule, max_iterations)

@@ -34,6 +34,7 @@ from ldpc_toolbox_torch.decoder.lifted_layered import (
     tile_inputs,
 )
 from ldpc_toolbox_torch.ops import fused_bp2
+from ldpc_toolbox_torch.ops import fused_layered as fused_layered_ops
 from ldpc_toolbox_torch.ops.fused_layered import (
     fused_layered_iteration,
     fused_layered_iteration_reference,
@@ -529,3 +530,107 @@ def test_minstarapprox_kernels_refuse_checks_above_32(cuda, decoder):
     with pytest.raises(ValueError, match="above 32"):
         kernel(q, bits0, wide, rule, 4)
     assert kernel.launches == before
+
+
+#: the i8 and float names of the streaming instances' checks: both i8
+#: families a schedule (the flooding ones with every clip), one float name
+#: a rule and precision
+STREAMING_DECODERS = [
+    "Minstarapproxi8JonesPartialHardLimitDeg1Clip", "Aminstari8JonesDeg1Clip",
+    "HLMinstarapproxi8PartialHardLimit", "HLAminstari8",
+] + FLOAT_DECODERS
+
+
+def _streaming_case(code, decoder, device):
+    """(tiles, layout, rule) of a streaming check: 5G BG2 z=16 with 64
+    large-magnitude frames besides, or CCSDS C2 (degree 32; the layered
+    park in device memory)."""
+    lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, device)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, device)])
+    tiles = tile_inputs if decoder.startswith("HL") else flooding_tiles
+    return tiles(lg, make_arithmetic(decoder)[1], x)
+
+
+def _family(rule):
+    return "i8" if fused_bp2.is_i8(rule) else "float"
+
+
+@pytest.mark.parametrize("decoder", [n for n in STREAMING_DECODERS if not n.startswith("HL")])
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_streaming_phase_instances_match_plain_versions(cuda, code, decoder):
+    """The i8 and float instances of the check and variable phase kernels
+    (the initialisation, a check phase, an update, a second check phase)
+    against the plain versions, bit for bit, each launch counted on its
+    family's wrapper and none on the min-sum ones."""
+    q, _, layout, rule = _streaming_case(code, decoder, cuda)
+    family = _family(rule)
+    check = getattr(fused_bp2, f"fused_check_{family}")
+    var = getattr(fused_bp2, f"fused_var_{family}")
+    before = (check.launches, var.launches, fused_bp2.fused_check.launches,
+              fused_bp2.fused_var.launches)
+    v2c, bits = fused_bp2.fused_var(None, q, layout, rule)
+    ref = fused_bp2.fused_var_reference(None, q, layout, rule)
+    assert torch.equal(v2c, ref[0]) and torch.equal(bits, ref[1])
+    for _ in range(2):
+        c2v = fused_bp2.fused_check(v2c, layout, rule)
+        assert torch.equal(c2v, fused_bp2.fused_check_reference(v2c, layout, rule))
+        v2c, bits = fused_bp2.fused_var(c2v, q, layout, rule)
+        ref = fused_bp2.fused_var_reference(c2v, q, layout, rule)
+        assert torch.equal(v2c, ref[0]) and torch.equal(bits, ref[1])
+    assert (check.launches, var.launches, fused_bp2.fused_check.launches,
+            fused_bp2.fused_var.launches) == (before[0] + 2, before[1] + 3, *before[2:])
+    assert 0 < int(bits.sum()) < bits.numel()
+
+
+@pytest.mark.parametrize("decoder", [n for n in STREAMING_DECODERS if n.startswith("HL")])
+@pytest.mark.parametrize("code", ["5G BG2 z=16", "CCSDS C2"])
+def test_streaming_sweep_instances_match_plain_versions(cuda, code, decoder):
+    """The i8 and float instances of the streaming sweep, one and two
+    sweeps in place on the same planes (int16 Qv for the i8 names, f64 for
+    the f64 names), against the plain version, bit for bit."""
+    qv0, _, layout, rule = _streaming_case(code, decoder, cuda)
+    sweep = getattr(fused_layered_ops, f"fused_layered_iteration_{_family(rule)}")
+    rcv0 = torch.zeros((qv0.shape[0], layout.E, layout.Z, 4), dtype=rule.storage_dtype,
+                       device=cuda)
+    kernel, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+    for _ in range(2):
+        before = (sweep.launches, fused_layered_iteration.launches)
+        out = fused_layered_iteration(*kernel, layout, rule)
+        assert (sweep.launches, fused_layered_iteration.launches) == (
+            before[0] + 1, before[1])
+        ref = fused_layered_iteration_reference(*plain, layout, rule)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        kernel, plain = out[:2], ref[:2]
+
+
+@pytest.mark.parametrize("decoder", STREAMING_DECODERS)
+def test_streaming_decode_equals_resident(cuda, decoder):
+    """``resident=False`` of an i8 or float name on a batch of 130 (staged
+    compaction; int8, int16 and f64 state) equals the resident decode on
+    the card and the plain versions on the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    decode = lifted_layered_decode if decoder.startswith("HL") else lifted_flooding_decode
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    stream = decode(lg, arith, x, 10, resident=False)
+    out = decode(lg, arith, x, 10)
+    ref = decode(lg, arith, x.cpu(), 10, resident=False)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(out[key], stream[key]), key
+        assert torch.equal(stream[key].cpu(), ref[key]), key
+    assert len(set(out["iterations"].tolist())) >= 3
+
+
+@pytest.mark.parametrize("decoder", ["Minsumbf16", "Aminstari8", "Phif64"])
+def test_phase_kernels_raise_on_other_tile_widths(cuda, decoder):
+    """The phase kernels take a lane's four frames: tiles of 8 raise
+    before any launch, on every family."""
+    lg = _bg2z16()
+    q, _, layout, rule = flooding_tiles(lg, make_arithmetic(decoder)[1],
+                                        _llrs(lg.n, 16, 1.3, 5, cuda))
+    wide = q.reshape(q.shape[0] // 2, *q.shape[1:3], 8).contiguous()
+    with pytest.raises(ValueError, match="tile width 8"):
+        fused_bp2.fused_var(None, wide, layout, rule)

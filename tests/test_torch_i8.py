@@ -5,7 +5,8 @@ The JAX side runs eagerly (arithmetic, rules) or through its jnp layered
 path (``fused=False``), never in Pallas interpret mode; JAX's own tests
 hold its i8 Pallas kernels equal to that path (tests/test_lifted_layered.py
 test_fused_layered_matches_jnp). The flooding decodes are in
-test_torch_i8_flooding.py."""
+test_torch_i8_flooding.py, the streaming path (``resident=False``) in
+test_torch_streaming_i8.py."""
 
 import functools
 
@@ -224,13 +225,19 @@ def test_no_iteration_keeps_the_raw_bits(decoder):
 
 @pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "Aminstari8"])
 def test_streaming_refuses_i8(decoder):
-    """The streaming kernels have no i8 instances yet: ``resident=False``
-    raises, on the CPU as on the card."""
+    """``resident=False`` of an i8 name (the streaming sweep or phases, on
+    the CPU their plain versions, under staged compaction with int16 and
+    int8 state) equals the resident decode of the same name, on a mix of
+    noisy and large-magnitude frames. (The name dates from when the
+    streaming kernels had no i8 instances and this raised.)"""
     _, tlg = lifted_graphs("bg2z16")
     _, ta = make_arithmetic(decoder)
     decode = (lifted_layered.lifted_layered_decode if decoder.startswith("HL")
               else lifted_flooding.lifted_flooding_decode)
-    x = torch.from_numpy(llrs(tlg.n, 4, 1.3, seed=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        decode(tlg, ta, x, 4, resident=False)
-    assert decode(tlg, ta, x, 4)["codeword"].shape == (4, tlg.n)
+    x = torch.from_numpy(np.concatenate([llrs(tlg.n, 40, 1.3, seed=1),
+                                         strong_llrs(tlg.n, 8, seed=2)]))
+    stream = decode(tlg, ta, x, 8, resident=False)
+    resident = decode(tlg, ta, x, 8)
+    for key in ("codeword", "iterations", "success"):
+        assert torch.equal(stream[key], resident[key]), key
+    assert 0 < int(stream["success"].sum()) < 48

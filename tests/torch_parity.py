@@ -128,3 +128,32 @@ def jax_flooding_case(code, decoder, resident):
         compact=False,
     )
     return tlg, x, out
+
+
+def torch_transcendentals(monkeypatch, module):
+    """Patch ``module.jnp`` so that its exp, log, log1p and tanh are
+    torch's, through ``jax.pure_callback``: eager and traced code alike
+    (a Pallas kernel in interpret mode too) then evaluates them as the
+    port's plain versions do. XLA's own CPU transcendentals are other
+    approximations, which the float rules' cancellations amplify
+    (tests/test_torch_float.py); with torch's on both sides a comparison
+    holds the rules' operations, their order and their types."""
+    import jax
+    import jax.numpy as jnp
+
+    def via(fn):
+        def f(x):
+            x = jnp.asarray(x)
+            return jax.pure_callback(
+                lambda a: fn(torch.from_numpy(np.array(a))).numpy(),
+                jax.ShapeDtypeStruct(x.shape, x.dtype), x, vmap_method="broadcast_all",
+            )
+        return f
+
+    class TorchMath:
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    for name in ("exp", "log", "log1p", "tanh"):
+        setattr(TorchMath, name, staticmethod(via(getattr(torch, name))))
+    monkeypatch.setattr(module, "jnp", TorchMath())

@@ -6,10 +6,12 @@
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
 resident_layered_f64, flooding_f32, flooding_f64 (the float-rule
-instances). A form is a directory holding a version of the kernel sources
-(``csrc/<source>.cu`` and the headers it includes), built here with the
-package's nvcc flags; "repo" is the package's own ``csrc/``, built into the
-package's ``build/`` as its wrappers build it. ``--form`` forms share the
+instances), or streaming (the min-sum streaming kernels: the layered sweep
+of ``csrc/fused_layered.cu`` and the check and variable phases of
+``csrc/flooding.cu``). A form is a directory holding a version of the
+kernel sources (``csrc/<source>.cu`` and the headers it includes), built
+here with the package's nvcc flags; "repo" is the package's own ``csrc/``,
+built into the package's ``build/`` as its wrappers build it. ``--form`` forms share the
 package's C interface and run at the package's block size, or at THREADS a
 block where given. ``--base`` names a directory holding the sources of
 commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
@@ -30,9 +32,21 @@ every form's bits, iterations and flags equal to the package kernel's,
 then times all forms, and for a min-sum source the package's kernel of the
 other check state (the compressed kernel for a message source, the
 message kernel for the compressed one), on the same tiles in turns (the
-order reversed every round; CUDA events, median of ``--reps``). Prints the
-card's name and power limit, a line a tile set and one JSON line with
-every time in milliseconds.
+order reversed every round; CUDA events, median of ``--reps``). A form
+whose flooding source predates the i8 and float phase instances times its
+resident kernel all the same.
+
+``streaming`` times one sweep (``fused_layered_iteration``) on the
+flagship's ``HLMinsumbf16`` tiles, in place (each form decodes on from the
+same planes), and ``fused_check`` and ``fused_var`` on its ``Minsumbf16``
+and ``Minsumf32`` tiles; a form without ``fused_layered.cu`` holds the
+sources of before the lane form (a thread per (lane, frame)): its sweep
+is built from its ``resident_layered.cu`` and runs at 512 threads a block,
+and its check phase takes no degree bucket. Every form's outputs equal
+the package's, bit for bit, before the timing.
+
+Prints the card's name and power limit, a line a tile set and one JSON
+line with every time in milliseconds.
 """
 
 import argparse
@@ -65,6 +79,7 @@ from ldpc_toolbox_torch.decoder.lifted_layered import tile_inputs  # noqa: E402
 from ldpc_toolbox_torch.ops import (  # noqa: E402
     _build,
     fused_bp2,
+    fused_layered,
     resident_compressed,
     resident_flooding,
     resident_layered,
@@ -94,15 +109,15 @@ PLAN = {
          resident_layered.bind_i8),
     ],
     "flooding_i8": [
-        ("flooding", resident_flooding, "_lib_i8", "resident_flooding_decode_i8", None,
-         resident_flooding.bind_i8),
+        ("flooding", resident_flooding, "flooding_i8_lib", "resident_flooding_decode_i8", None,
+         fused_bp2.bind_flooding_i8),
     ],
     **{f"resident_layered_{p}": [
         ("layered", resident_layered, "_lib_float", "resident_layered_decode_float", None,
          resident_layered.bind_float)] for p in ("f32", "f64")},
     **{f"flooding_{p}": [
-        ("flooding", resident_flooding, "_lib_float", "resident_flooding_decode_float", None,
-         resident_flooding.bind_float)] for p in ("f32", "f64")},
+        ("flooding", resident_flooding, "flooding_float_lib", "resident_flooding_decode_float",
+         None, fused_bp2.bind_flooding_float)] for p in ("f32", "f64")},
 }
 NAMES = {"layered": ("HLMinsumbf16", "HLMinsumf32"), "flooding": ("Minsumbf16", "Minsumf32")}
 #: the names of the sources that do not run the min-sum names
@@ -113,6 +128,8 @@ SOURCE_NAMES = {
 }
 #: block sizes of the c5040f6 forms, by source
 BASE_THREADS = {"compressed": 256, "resident_layered": 512, "flooding": 512}
+#: the block size of the streaming sweep of before the lane form
+PER_FRAME_SWEEP_THREADS = 512
 
 
 def build(source, name, src_dir):
@@ -176,7 +193,8 @@ def turns(fns, reps):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--source", action="append", required=True, choices=sorted(PLAN))
+    p.add_argument("--source", action="append", required=True,
+                   choices=sorted(PLAN) + ["streaming"])
     p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
@@ -196,28 +214,134 @@ def main():
             block[name] = int(n)
     if args.base:
         forms["base"] = args.base
+    sources = [s for s in args.source if s != "streaming"]
     # the package's sources these runs load (the other check state's kernel
     # of a min-sum source too) and every form, all built at once
-    package = set(args.source)
+    package = set(sources)
     if package & {"compressed", "resident_layered", "flooding"}:
         package |= {"compressed", "resident_layered", "flooding"}
-    jobs = [(source, form, d) for source in args.source for form, d in forms.items()]
+    jobs = [(source, form, d) for source in sources for form, d in forms.items()]
+    if "streaming" in args.source:
+        package |= {"fused_layered", "flooding"}
+        for form, d in forms.items():
+            lane = (pathlib.Path(d) / "fused_layered.cu").exists()
+            jobs.append(("fused_layered" if lane else "resident_layered",
+                         f"{form}-sweep", d))
+            jobs.append(("flooding", f"{form}-phases", d))
     with ThreadPoolExecutor(len(jobs) + 1) as pool:
         pkg = pool.submit(_build.build_all, sorted(package))
         built = list(pool.map(lambda j: build(*j), jobs))
         pkg.result()
     libs = {source: {"repo": ctypes.CDLL(str(_build.library_path(source)))}
-            for source in args.source}
+            for source in sources}
     for (source, form, _), lib in zip(jobs, built):
-        libs[source][form] = lib
+        if source in libs and form in forms:
+            libs[source][form] = lib
     print(f"nvcc's reports in {OUT}/<source>-<form>.log")
 
     lg = lifted_graph_for(Code.R1_2)
     llrs = channel_llrs(lg.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
     result = {"card": card}
-    for source in args.source:
+    for source in sources:
         run_source(source, libs[source], block, lg, llrs, args.reps, card, result)
+    if "streaming" in args.source:
+        streaming = {"repo": (True, fused_layered._lib(), fused_bp2.flooding_lib())}
+        for form, d in forms.items():
+            lane = (pathlib.Path(d) / "fused_layered.cu").exists()
+            sweep, phases = (lib for (_, name, _), lib in zip(jobs, built)
+                             if name in (f"{form}-sweep", f"{form}-phases"))
+            streaming[form] = (lane, fused_layered.bind(sweep), phases)
+        run_streaming(streaming, lg, llrs, args.reps, card, result)
     print(json.dumps(result))
+
+
+def bind_form(bind, lib):
+    """``bind(lib)`` for a form's library: one that predates the phase
+    instances of a flooding source lacks their functions, which the
+    package's binders declare after the resident kernel's."""
+    try:
+        return bind(lib)
+    except AttributeError:
+        return lib
+
+
+def per_frame_check(lib, v2c, layout, rule):
+    """The check phase of a form of before the lane form, through its own C
+    interface (no degree bucket)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldpc_fused_check.argtypes = [p, p, p] + [i] * 6 + [f, f, i, i, p]
+    tables, dims, stream = fused_bp2.launch_args(v2c, layout, rule)
+    c2v = torch.empty_like(v2c)
+    err = lib.ldpc_fused_check(v2c.data_ptr(), c2v.data_ptr(), tables, *dims, rule.big,
+                               rule.scale, fused_bp2._MSG_DTYPES[rule.storage_dtype],
+                               fused_bp2.PHASE_THREADS, stream)
+    if err:
+        raise RuntimeError(f"per-frame check launch failed: {err}")
+    return c2v
+
+
+def with_phases(lib, fn, *args):
+    """fn(*args) with ``fused_bp2``'s min-sum phase wrappers launching
+    ``lib``."""
+    saved = fused_bp2.flooding_lib
+    fused_bp2.flooding_lib = lambda: lib
+    try:
+        return fn(*args)
+    finally:
+        fused_bp2.flooding_lib = saved
+
+
+def run_streaming(forms, lg, llrs, reps, card, result):
+    """Holds every form's min-sum streaming kernels to the package's and
+    times them in turns: the sweep on the HLMinsumbf16 tiles, the check and
+    variable phases on the Minsumbf16 and Minsumf32 tiles. ``forms``: name
+    -> (lane form, sweep library, phase library)."""
+    qv0, _, layout, rule = tile_inputs(lg, make_arithmetic("HLMinsumbf16")[1], llrs)
+    rcv0 = torch.zeros((qv0.shape[0], layout.E, layout.Z, 4), dtype=rule.storage_dtype,
+                       device=qv0.device)
+
+    def sweep(form, state):
+        lane, lib, _ = forms[form]
+        n = resident_layered.LANE_THREADS if lane else PER_FRAME_SWEEP_THREADS
+        return with_lib(fused_layered, "_lib", lib, n, fused_layered.fused_layered_iteration,
+                        *state, layout, rule)
+
+    ref = sweep("repo", (qv0.clone(), rcv0.clone()))
+    for form in forms:
+        for a, b in zip(sweep(form, (qv0.clone(), rcv0.clone())), ref):
+            assert torch.equal(a, b), f"fused_layered_iteration: {form} differs from repo"
+    states = {form: (qv0.clone(), rcv0.clone()) for form in forms}
+    ms = turns({form: lambda form=form: sweep(form, states[form]) for form in forms}, reps)
+    result["streaming fused_layered_iteration HLMinsumbf16"] = ms
+    print(f"[{card}] fused_layered_iteration on HLMinsumbf16 tiles, B={FLAGSHIP_BATCH}: all "
+          "forms equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" (one sweep, in place, in turns, median of {reps})")
+    for name in ("Minsumbf16", "Minsumf32"):
+        q, _, layout, rule = flooding_tiles(lg, make_arithmetic(name)[1], llrs)
+        v2c0 = fused_bp2.fused_var(None, q, layout, rule)[0]
+        c2v = fused_bp2.fused_check(v2c0, layout, rule)
+        checks, variables = {}, {}
+        for form, (lane, _, lib) in forms.items():
+            if lane:
+                checks[form] = lambda lib=bind_form(fused_bp2.bind_flooding, lib): with_phases(
+                    lib, fused_bp2.fused_check, v2c0, layout, rule)
+            else:
+                checks[form] = lambda lib=lib: per_frame_check(lib, v2c0, layout, rule)
+            # the variable phase kept its C interface
+            variables[form] = lambda lib=bind_form(fused_bp2.bind_flooding, lib): with_phases(
+                lib, fused_bp2.fused_var, c2v, q, layout, rule)
+        for kernel, fns in (("fused_check", checks), ("fused_var", variables)):
+            ref = fns["repo"]()
+            for form, fn in fns.items():
+                out = fn()
+                for a, b in zip(out if kernel == "fused_var" else [out],
+                                ref if kernel == "fused_var" else [ref]):
+                    assert torch.equal(a, b), f"{kernel} {name}: {form} differs from repo"
+            ms = turns(fns, reps)
+            result[f"streaming {kernel} {name}"] = ms
+            print(f"[{card}] {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all forms equal; "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                  + f" (in turns, median of {reps})")
 
 
 def run_source(source, built, block, lg, llrs, reps, card, result):
@@ -236,7 +360,7 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
                 else:
                     n = block.get(form, BASE_THREADS[source] if form == "base"
                                   else module.LANE_THREADS)
-                    fns[form] = lambda lib=bind(lib), n=n, t=t: with_lib(
+                    fns[form] = lambda lib=bind_form(bind, lib), n=n, t=t: with_lib(
                         module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
             if other is not None:
                 fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)

@@ -10,8 +10,9 @@ decode of each kernel and memory operation (host-side operator rows left
 out, so nothing counts twice), their sum, the wall time a decode and the
 device's idle share (1 - busy / wall; it exits non-zero if busy exceeds
 wall, which means a row was counted twice). ``--streaming``
-profiles the streaming flooding path (``lifted_flooding_decode(...,
-resident=False)``) instead of the Decoder's resident one. The Chrome
+profiles the streaming path of the decoder's schedule
+(``lifted_flooding_decode`` or ``lifted_layered_decode`` with
+``resident=False``; every name) instead of the Decoder's resident one. The Chrome
 trace goes to ``chiprun_out/``.
 """
 
