@@ -21,9 +21,23 @@
 // keep O(d) values a frame (the phis, the tanh products, the min* prefixes,
 // the magnitudes), so float_check folds one frame at a time: a rolled loop
 // over the frames that takes frame 0 of every slot, writes the outputs in
-// its place and rotates each slot's four values by one, so that after four
-// turns every output sits where its input was. The body is compiled once,
+// its place and rotates each slot's values by one, so that after a turn a
+// frame every output sits where its input was. The body is compiled once,
 // not four times, and every array index stays a constant.
+//
+// The f64 instances of the flooding kernels (TPU #4/#5 resident, #7 and #8
+// the phases) give a thread one frame of a lane instead (FloodUnits, a
+// (lane, frame) unit, lanes.cuh Units): a lane's four f64 frames (64
+// registers at degree 8) with the rule's O(d) values and the math
+// library's f64 routines held a thread to 128 registers, 600-750 bytes of
+// stack and 16 warps an SM; a unit's d inputs and d phis take 32 registers
+// at degree 8, so a block of 512 threads runs at 64 registers, two blocks
+// (32 warps) an SM, the four threads of a lane reading its 32-byte cells
+// together. In turns on the card (tools/compare_forms.py), a frame pair a
+// unit and blocks of 384 to 768 threads ran slower. The layered f64
+// instances keep a lane's four frames. What bounds the f64 instances then
+// is the f64 phi itself: the flagship's check phase runs near the rate at
+// which the card evaluates phi alone (tools/count_math_ops.py --rate).
 //
 // Bit-exactness with the plain versions on the card: every operation is
 // the one of the plain version, in its order, in the type T; add_rn,
@@ -154,20 +168,26 @@ struct Signs {
   }
 };
 
-// The rule's loops are unrolled to the degree bucket up to 16, where its
-// arrays fit registers. The 32 and 64 buckets (CCSDS C2, 5G BG1, DVB-S2's
-// high rates) keep them rolled: their arrays spill to local memory either
-// way, and unrolled, the transcendentals of 32 or 64 slots (O(d^2) for
-// MinstarApprox) multiplied the build time of the sources.
-template <int DMAX>
-constexpr int kRuleUnroll = DMAX <= 16 ? DMAX : 1;
+// The rule's loops are unrolled to the degree bucket up to 16 in f32,
+// where its arrays fit registers. The 32 and 64 buckets (CCSDS C2, 5G BG1,
+// DVB-S2's high rates) keep them rolled: their arrays spill to local memory
+// either way, and unrolled, the transcendentals of 32 or 64 slots (O(d^2)
+// for MinstarApprox) multiplied the build time of the sources. f64 keeps
+// them rolled at every bucket: unrolled, the math library's f64 routines
+// inlined a slot at a time made the degree-8 check phase 8032 instructions
+// long, and the kernels ran slower than the card's instruction caches fed
+// them (rolled, 1576 instructions: the flagship's f64 check phase, the
+// resident flooding and layered decodes 12-16 % faster, in turns on the
+// card; tools/compare_forms.py).
+template <int DMAX, typename T>
+constexpr int kRuleUnroll = DMAX <= 16 && !std::is_same_v<T, double> ? DMAX : 1;
 
 // The check outputs of one frame under RULE, in place: x[k] (k < d) holds
 // slot k's input on entry and its output on exit.
 template <int DMAX, typename T, int RULE>
 __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
                                            const FloatParams<T>& p) {
-  constexpr int U = kRuleUnroll<DMAX>;
+  constexpr int U = kRuleUnroll<DMAX, T>;
   if constexpr (RULE == kPhiRule) {
     // the sum of the phis, each output phi(sum - own phi)
     const Signs<DMAX> s(x, d);
@@ -280,14 +300,15 @@ __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
   }
 }
 
-// The check outputs of a lane's four frames under RULE, in place: x[k]
-// (k < d) holds slot k's four inputs on entry and its outputs on exit. A
-// rolled loop over the frames (see the head of this file).
-template <int DMAX, typename T, int RULE>
-__device__ __forceinline__ void float_check(Four<T> (&x)[DMAX], int d,
-                                            const FloatParams<T>& p) {
+// The check outputs of a lane's frames under RULE, in place: x[k] (k < d)
+// holds slot k's F inputs (a lane's four, Four<T>, or a unit's, Frames<T,
+// F>) on entry and its outputs on exit. A rolled loop over the frames (see
+// the head of this file).
+template <int DMAX, typename T, int RULE, class V>
+__device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatParams<T>& p) {
+  constexpr int F = sizeof(x[0].v) / sizeof(T);
 #pragma unroll 1
-  for (int f = 0; f < kBt; ++f) {
+  for (int f = 0; f < F; ++f) {
     T v[DMAX];
 #pragma unroll
     for (int k = 0; k < DMAX; ++k)
@@ -297,8 +318,8 @@ __device__ __forceinline__ void float_check(Four<T> (&x)[DMAX], int d,
     for (int k = 0; k < DMAX; ++k) {
       if (k < d) {
 #pragma unroll
-        for (int j = 0; j + 1 < kBt; ++j) x[k].v[j] = x[k].v[j + 1];
-        x[k].v[kBt - 1] = v[k];
+        for (int j = 0; j + 1 < F; ++j) x[k].v[j] = x[k].v[j + 1];
+        x[k].v[F - 1] = v[k];
       }
     }
   }
@@ -306,12 +327,14 @@ __device__ __forceinline__ void float_check(Four<T> (&x)[DMAX], int d,
 
 // The float rule RULE in T, for csrc/message_kernels.cuh: posteriors,
 // messages and deltas in T; x = Qv - Rold, one rounding; the rule's
-// parameters from FloatParams.
+// parameters from FloatParams; the flooding kernels' unit a lane's four
+// frames in f32, one frame in f64 (see the head of this file).
 template <typename T, int RULE>
 struct FloatRule : FloatParams<T> {
   using Q = T;
   using Msg = T;
   using P = T;
+  using FloodUnits = std::conditional_t<std::is_same_v<T, double>, Units<1, 512>, Units<>>;
 
   __device__ __forceinline__ T extrinsic(T q, T rold) const { return sub_rn(q, rold); }
   __device__ __forceinline__ T diff(T rn, T rold) const { return sub_rn(rn, rold); }
@@ -321,10 +344,12 @@ struct FloatRule : FloatParams<T> {
     FloatParams<T> p;
 
     __device__ __forceinline__ explicit Check(const FloatRule& r) : p(r) {}
-    // the inputs stay in the lane's array, which the rule folds in place
-    __device__ __forceinline__ void set(int, const Four<T>&) {}
-    template <class Emit>
-    __device__ __forceinline__ void outputs(Four<T> (&x)[DMAX], int d, Emit&& emit) {
+    // the inputs stay in the lane's (or unit's) array, which the rule
+    // folds in place
+    template <class V>
+    __device__ __forceinline__ void set(int, const V&) {}
+    template <class V, class Emit>
+    __device__ __forceinline__ void outputs(V (&x)[DMAX], int d, Emit&& emit) {
       float_check<DMAX, T, RULE>(x, d, p);
 #pragma unroll
       for (int k = 0; k < DMAX; ++k)
@@ -332,10 +357,10 @@ struct FloatRule : FloatParams<T> {
     }
   };
 
-  template <class Cells>
+  template <class Cells, int F>
   __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
                                              int p0, int p1, int w,
-                                             const VarLoads<T>& v) const {
+                                             const VarLoads<T, F>& v) const {
     ldpc::var_update(cells, post, p0, p1, w, v);
   }
 };
@@ -426,7 +451,7 @@ int resident_flooding_float_decode(void* msg, const void* q, void* post,
                                    int max_iterations, int threads, int kind,
                                    double big, double clamp, double prod_max,
                                    void* stream) {
-  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  if (Bt != kBt) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
   const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),
                          static_cast<T>(prod_max)};

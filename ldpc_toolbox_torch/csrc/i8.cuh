@@ -235,6 +235,7 @@ struct I8Rule {
   using Q = int16_t;
   using Msg = int8_t;
   using P = int;
+  using FloodUnits = Units<>;
   static constexpr int big = 127;
   int flags;
 

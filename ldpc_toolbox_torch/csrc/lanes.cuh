@@ -47,6 +47,26 @@ struct Four {
 using F4 = Four<float>;
 using D4 = Four<double>;
 
+// How a flooding kernel (csrc/message_kernels.cuh resident_flooding_kernel,
+// csrc/streaming.cuh fused_check_kernel and fused_var_kernel) gives its
+// threads work under a rule (the rule's FloodUnits): a thread per unit of
+// F of a lane's four frames, kPerLane units a lane, the units of a lane on
+// neighbouring threads (frames innermost, so they read its cells
+// together), Threads threads a block and two blocks an SM (the launch
+// bounds: 65536 / (2 * Threads) registers a thread). Every rule but the
+// f64 float rules takes a lane's four frames at kThreads (128 registers).
+template <int F = kBt, int Threads = kThreads>
+struct Units {
+  static_assert(kBt % F == 0, "a unit is a whole share of a lane's frames");
+  static constexpr int kFrames = F, kPerLane = kBt / F, kBlock = Threads;
+};
+
+// F < kBt frames of one lane: a flooding unit's values.
+template <typename T, int F>
+struct Frames {
+  T v[F];
+};
+
 // One IEEE operation, rounded to nearest, never contracted into an FMA.
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -105,6 +125,10 @@ template <typename T>
 __device__ __forceinline__ Four<T> unpack(const Four<T>& a) {
   return a;
 }
+template <typename T, int F>
+__device__ __forceinline__ Frames<T, F> unpack(const Frames<T, F>& a) {
+  return a;
+}
 __device__ __forceinline__ I4 unpack(uint32_t w) {
   return I4{{byte_of(w, 0), byte_of(w, 1), byte_of(w, 2), byte_of(w, 3)}};
 }
@@ -153,6 +177,30 @@ __device__ __forceinline__ I4 load4(const int* p) {
 __device__ __forceinline__ void store4(int* p, const I4& a) {
   *reinterpret_cast<int4*>(p) = make_int4(a.v[0], a.v[1], a.v[2], a.v[3]);
 }
+
+// A flooding unit's F frames of a lane at p (see Units): the lane's four
+// as loaded (load_raw) and stored (store4), or one f64 frame.
+template <int F, typename Msg>
+__device__ __forceinline__ auto load_unit(const Msg* p) {
+  if constexpr (F == kBt) {
+    return load_raw(p);
+  } else {
+    static_assert(std::is_same_v<Msg, double> && F == 1,
+                  "a unit of fewer frames than a lane's is one f64 frame");
+    return Frames<double, 1>{{*p}};
+  }
+}
+template <typename Msg, int F>
+using UnitRaw = decltype(load_unit<F>(static_cast<const Msg*>(nullptr)));
+
+template <typename T, class V>
+__device__ __forceinline__ void store_unit(T* p, const V& a) {
+  store4(p, a);
+}
+__device__ __forceinline__ void store_unit(double* p, const Frames<double, 1>& a) {
+  *p = a.v[0];
+}
+
 // v plus a parked delta d, per frame: one f32 or f64 rounding, or an int
 // add
 template <typename T>
@@ -175,6 +223,17 @@ __device__ __forceinline__ uint32_t hard_bits(const Four<T>& a) {
 __device__ __forceinline__ uint32_t hard_bits(const I4& a) {
   return (a.v[0] <= 0) | (a.v[1] <= 0) << 8 | (a.v[2] <= 0) << 16 |
          (a.v[3] <= 0) << 24;
+}
+// A flooding unit's hard decisions (tot <= 0) to its bytes of the lane's
+// word at p: the whole word for a lane's four frames.
+template <class V>
+__device__ __forceinline__ void store_hard(int8_t* p, const V& tot) {
+  store_word(p, hard_bits(tot));
+}
+template <typename T, int F>
+__device__ __forceinline__ void store_hard(int8_t* p, const Frames<T, F>& tot) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) p[f] = tot.v[f] <= T(0);
 }
 __device__ __forceinline__ uint32_t hard_word(const float* p) {
   return hard_bits(load4(p));
@@ -260,8 +319,13 @@ __device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
   return w < 0 ? w + Z : w;
 }
 
-// Edges of a flooding variable lane whose loads go out together.
+// Edges of a flooding variable unit of F frames whose loads go out
+// together: 8 for a lane's four frames; 4 for an f64 unit of fewer, whose
+// next unit's prefetch then fits 64 registers (in turns on the card, the
+// flagship's f64 variable phase 25 % faster than with 8, which spilled).
 constexpr int kVarChunk = 8;
+template <int F>
+constexpr int kVarChunkOf = F == kBt ? kVarChunk : 4;
 
 // The resident flooding kernels keep one message array in check-major
 // cells. The cell of var-major edge p at variable lane w: its message lives
@@ -273,114 +337,123 @@ __device__ __forceinline__ Msg* var_cell(Msg* msg, const LaneTables& t, int p,
 }
 
 // Where a flooding variable lane reads the c2v of var-major edge p
-// (in(p, w)) and writes its v2c (out(p, w, o), o a lane's four values).
-// The resident kernels' cells: one message array, each edge's message in
-// its check-major cell var_cell, read and written in place. (The streaming
-// variable phase's cells are in csrc/streaming.cuh.)
+// (in(p, w)) and writes its v2c (out(p, w, o), o a unit's values), and the
+// cells of a unit whose first frame is f0 (at(f0)). The resident kernels'
+// cells: one message array, each edge's message in its check-major cell
+// var_cell, read and written in place. (The streaming variable phase's
+// cells are in csrc/streaming.cuh.)
 template <typename Msg>
 struct ArrayCells {
   Msg* msg;
   const LaneTables& t;
 
+  __device__ __forceinline__ ArrayCells at(int f0) const { return {msg + f0, t}; }
   __device__ __forceinline__ const Msg* in(int p, int w) const {
     return var_cell(msg, t, p, w);
   }
   template <class V>
   __device__ __forceinline__ void out(int p, int w, const V& o) const {
-    store4(var_cell(msg, t, p, w), o);
+    store_unit(var_cell(msg, t, p, w), o);
   }
 };
 
-// What a flooding variable lane loads first: q and the c2v of its first
-// kVarChunk edges.
-template <typename Msg>
+// What a flooding variable unit of F frames loads first: q and the c2v of
+// its first kVarChunkOf<F> edges.
+template <typename Msg, int F = kBt>
 struct VarLoads {
-  Raw<Msg> q;
-  Raw<Msg> y0[kVarChunk];
+  UnitRaw<Msg, F> q;
+  UnitRaw<Msg, F> y0[kVarChunkOf<F>];
 };
 
-// The first loads of variable lane w of group vg, whose edges are p0..p1.
-template <typename Msg, class Cells>
+// The first loads of variable lane w of group vg, whose edges are p0..p1
+// (cells and q those of the unit's first frame).
+template <int F, typename Msg, class Cells>
 __device__ __forceinline__ void var_load(const Cells& cells, const Msg* q, int Z,
                                          int vg, int w, int p0, int p1,
-                                         VarLoads<Msg>& v) {
-  v.q = load_raw(q + ((size_t)vg * Z + w) * kBt);
+                                         VarLoads<Msg, F>& v) {
+  v.q = load_unit<F>(q + ((size_t)vg * Z + w) * kBt);
 #pragma unroll
-  for (int j = 0; j < kVarChunk; ++j)
-    if (p0 + j < p1) v.y0[j] = load_raw(cells.in(p0 + j, w));
+  for (int j = 0; j < kVarChunkOf<F>; ++j)
+    if (p0 + j < p1) v.y0[j] = load_unit<F>(cells.in(p0 + j, w));
 }
 
-// A flooding variable phase over the lanes r0, r0 + stride, ... of a tile's
-// vn variable lanes (var_cs ends with E), each thread issuing its next
-// lane's loads before this lane's stores (in a phase each cell belongs to
-// one lane, so no load can miss a store): update(vg, w, loads) updates lane
-// w of group vg.
-template <typename Msg, class Cells, class Update>
+// A flooding variable phase over the units r0, r0 + stride, ... of a tile's
+// vn variable lanes, F frames a unit (Units; var_cs ends with E), each
+// thread issuing its next unit's loads before this unit's stores (in a
+// phase each cell belongs to one lane, so no load can miss a store):
+// update(vg, w, f0, loads) updates the unit of lane w of group vg whose
+// first frame is f0.
+template <int F, typename Msg, class Cells, class Update>
 __device__ __forceinline__ void var_phase(const Cells& cells, const Msg* q,
                                           const int* var_cs, int vn, int Z,
                                           int r0, int stride, Update&& update) {
-  auto load = [&](int r, VarLoads<Msg>& v) {
-    const int vg = r / Z;
-    var_load(cells, q, Z, vg, r % Z, var_cs[vg], var_cs[vg + 1], v);
+  constexpr int U = kBt / F;
+  const int n = vn * U;
+  auto load = [&](int r, VarLoads<Msg, F>& v) {
+    const int lane = r / U, f0 = r % U * F, vg = lane / Z;
+    var_load<F>(cells.at(f0), q + f0, Z, vg, lane % Z, var_cs[vg], var_cs[vg + 1], v);
   };
-  VarLoads<Msg> v;
+  VarLoads<Msg, F> v;
   int r = r0;
-  if (r < vn) load(r, v);
-  for (; r < vn; r += stride) {
-    VarLoads<Msg> next;
+  if (r < n) load(r, v);
+  for (; r < n; r += stride) {
+    VarLoads<Msg, F> next;
     const int rn = r + stride;
-    if (rn < vn) load(rn, next);
-    update(r / Z, r % Z, v);
+    if (rn < n) load(rn, next);
+    const int lane = r / U;
+    update(lane / Z, lane % Z, r % U * F, v);
     v = next;
   }
 }
 
-// Variable update of variable lane w (edges p0..p1) in one flooding tile,
-// from its first loads v: tot = q plus the lane's c2v in var-major slot
-// order (add_rn); output k = store(tot - y_k) (sub_rn) goes to the cells as
-// v2c, and the hard decisions tot <= 0 to the lane's word at post. The
-// first chunk's c2v stay in registers through the outputs; a lane of more
-// than kVarChunk edges reads its later chunks again. Computed in f32 for f32
-// and bf16 messages, in f64 for f64 ones.
-template <typename Msg, class Cells>
+// Variable update of a unit of variable lane w (edges p0..p1) in one
+// flooding tile, from its first loads v (cells and post those of the
+// unit's first frame): tot = q plus the lane's c2v in var-major slot order
+// (add_rn); output k = store(tot - y_k) (sub_rn) goes to the cells as v2c,
+// and the hard decisions tot <= 0 to the unit's bytes of the lane's word
+// at post. The first chunk's c2v stay in registers through the outputs; a
+// lane of more than kVarChunkOf<F> edges reads its later chunks again. Computed
+// in f32 for f32 and bf16 messages, in f64 for f64 ones.
+template <typename Msg, int F, class Cells>
 __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
                                            int p0, int p1, int w,
-                                           const VarLoads<Msg>& v) {
+                                           const VarLoads<Msg, F>& v) {
+  constexpr int kChunk = kVarChunkOf<F>;
   auto tot = unpack(v.q);
 #pragma unroll
-  for (int j = 0; j < kVarChunk; ++j) {
+  for (int j = 0; j < kChunk; ++j) {
     if (p0 + j < p1) {
       const auto y = unpack(v.y0[j]);
 #pragma unroll
-      for (int f = 0; f < kBt; ++f) tot.v[f] = add_rn(tot.v[f], y.v[f]);
+      for (int f = 0; f < F; ++f) tot.v[f] = add_rn(tot.v[f], y.v[f]);
     }
   }
-  for (int c0 = p0 + kVarChunk; c0 < p1; c0 += kVarChunk) {
-    Raw<Msg> y[kVarChunk];
+  for (int c0 = p0 + kChunk; c0 < p1; c0 += kChunk) {
+    UnitRaw<Msg, F> y[kChunk];
 #pragma unroll
-    for (int j = 0; j < kVarChunk; ++j)
-      if (c0 + j < p1) y[j] = load_raw(cells.in(c0 + j, w));
+    for (int j = 0; j < kChunk; ++j)
+      if (c0 + j < p1) y[j] = load_unit<F>(cells.in(c0 + j, w));
 #pragma unroll
-    for (int j = 0; j < kVarChunk; ++j) {
+    for (int j = 0; j < kChunk; ++j) {
       if (c0 + j < p1) {
         const auto yj = unpack(y[j]);
 #pragma unroll
-        for (int f = 0; f < kBt; ++f) tot.v[f] = add_rn(tot.v[f], yj.v[f]);
+        for (int f = 0; f < F; ++f) tot.v[f] = add_rn(tot.v[f], yj.v[f]);
       }
     }
   }
-  store_word(post, hard_bits(tot));
-  auto output = [&](int p, const Raw<Msg>& yr) {
+  store_hard(post, tot);
+  auto output = [&](int p, const UnitRaw<Msg, F>& yr) {
     const auto y = unpack(yr);
     decltype(tot) o;
 #pragma unroll
-    for (int f = 0; f < kBt; ++f) o.v[f] = sub_rn(tot.v[f], y.v[f]);
+    for (int f = 0; f < F; ++f) o.v[f] = sub_rn(tot.v[f], y.v[f]);
     cells.out(p, w, o);
   };
 #pragma unroll
-  for (int j = 0; j < kVarChunk; ++j)
+  for (int j = 0; j < kChunk; ++j)
     if (p0 + j < p1) output(p0 + j, v.y0[j]);
-  for (int p = p0 + kVarChunk; p < p1; ++p) output(p, load_raw(cells.in(p, w)));
+  for (int p = p0 + kChunk; p < p1; ++p) output(p, load_unit<F>(cells.in(p, w)));
 }
 
 // The min-sum fold of a check's d inputs, in edge order, for each frame f:

@@ -28,10 +28,14 @@
 //   outputs(x, d, emit) calls emit(k, o) with slot k's four outputs for
 //   k = 0 .. d - 1 in order (the float rules fold x there, in place);
 // - var_update(cells, post, p0, p1, w, loads), the flooding variable update
-//   of variable lane w, whose edges are p0..p1 (lanes.cuh var_update for
-//   the float messages), reading its c2v and writing its v2c through cells
-//   (lanes.cuh ArrayCells for the resident kernel, csrc/streaming.cuh
-//   PhaseCells for the streaming variable phase).
+//   of a unit of variable lane w, whose edges are p0..p1 (lanes.cuh
+//   var_update for the float messages), reading its c2v and writing its v2c
+//   through cells (lanes.cuh ArrayCells for the resident kernel,
+//   csrc/streaming.cuh PhaseCells for the streaming variable phase);
+// - FloodUnits, the flooding kernels' work unit and block (lanes.cuh
+//   Units): a lane's four frames at kThreads but for the f64 float rules,
+//   whose Check then folds a unit's frames (outputs(x, d, emit) over the
+//   unit's values).
 //
 // Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
 // layered: every x of a check group from the layer-entry Qv, big at the
@@ -59,6 +63,7 @@ struct MinSumRule {
   using Q = float;
   using Msg = MsgT;
   using P = float;
+  using FloodUnits = Units<>;
   float big, scale;
 
   __device__ __forceinline__ float extrinsic(float q, float rold) const {
@@ -235,23 +240,26 @@ cudaError_t layered_launch(const Rule& rule, void* qv, void* rcv, void* bits,
                 static_cast<P*>(park), t, park_elems, max_iterations, rule);
 }
 
-// Check update of check lane c of a flooding check group whose d edges are
-// e0..e0+d: folds its d v2c, read from its cells (e, c) of v2c (check-major,
-// check lane coordinates; big at the missing lane syn_mask[e], whatever the
-// cell holds), and calls out(e, o) with each edge's four c2v, 0 at the
-// missing lane. The resident kernel writes them back to the same cells, the
-// streaming check phase (csrc/streaming.cuh) to the var-major c2v planes.
+// Check update of a unit of check lane c of a flooding check group whose d
+// edges are e0..e0+d (Rule::FloodUnits: F frames from v2c's first, a
+// lane's four or one f64 frame): folds its d v2c, read from its cells (e,
+// c) of v2c (check-major, check lane coordinates; big at the missing lane
+// syn_mask[e], whatever the cell holds), and calls out(e, o) with each
+// edge's F c2v, 0 at the missing lane. The resident kernel writes them back
+// to the same cells, the streaming check phase (csrc/streaming.cuh) to the
+// var-major c2v planes.
 template <int DMAX, class Rule, class Out>
 __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
                                                const int* syn_mask, int Z,
                                                int e0, int d, int c,
                                                const Rule& rule, Out&& out) {
   using Msg = typename Rule::Msg;
-  using V = Vec4<Msg>;
-  Raw<Msg> raw[DMAX];
+  constexpr int F = Rule::FloodUnits::kFrames;
+  using V = decltype(unpack(load_unit<F>(v2c)));
+  UnitRaw<Msg, F> raw[DMAX];
 #pragma unroll
   for (int k = 0; k < DMAX; ++k)
-    if (k < d) raw[k] = load_raw(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
+    if (k < d) raw[k] = load_unit<F>(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
   typename Rule::template Check<DMAX> check(rule);
   V own[DMAX];
   auto& x = input_array(raw, own);
@@ -261,7 +269,7 @@ __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
       const bool missing = c == syn_mask[e0 + k];
       const V v = unpack(raw[k]);
 #pragma unroll
-      for (int f = 0; f < kBt; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
+      for (int f = 0; f < F; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
       check.set(k, x[k]);
     }
   }
@@ -270,13 +278,14 @@ __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
     const bool missing = c == syn_mask[e];
     V ok;
 #pragma unroll
-    for (int f = 0; f < kBt; ++f) ok.v[f] = missing ? Elem<Msg>(0) : o.v[f];
+    for (int f = 0; f < F; ++f) ok.v[f] = missing ? Elem<Msg>(0) : o.v[f];
     out(e, ok);
   });
 }
 
-// Check update of check lane c of group g in one resident flooding tile:
-// its d c2v go back to the cells (e, c) its v2c came from.
+// Check update of a unit of check lane c of group g in one resident
+// flooding tile (msg that of the unit's first frame): its d c2v go back to
+// the cells (e, c) its v2c came from.
 template <int DMAX, class Rule>
 __device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
                                                     const LaneTables& t, int g,
@@ -284,7 +293,7 @@ __device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
   const int Z = t.Z;
   const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
   flooding_check<DMAX>(msg, t.syn_mask, Z, e0, d, c, rule, [&](int e, const auto& o) {
-    store4(msg + ((size_t)e * Z + c) * kBt, o);
+    store_unit(msg + ((size_t)e * Z + c) * kBt, o);
   });
 }
 
@@ -293,13 +302,15 @@ __device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
 // coordinates: v2c after a variable phase, c2v after a check phase (the
 // aliased single array of resident_flooding.py's TPU kernel); q (VG, Z, 4)
 // the channel values; post (VG, Z, 4) int8 the posterior hard decisions;
-// bits the raw-channel bits on entry and the decoded bits on exit.
+// bits the raw-channel bits on entry and the decoded bits on exit. The
+// phases give a thread a unit of Rule::FloodUnits (lanes.cuh Units).
 template <int DMAX, class Rule>
-__global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
+__global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) resident_flooding_kernel(
     typename Rule::Msg* msg_all, const typename Rule::Msg* q_all,
     int8_t* post_all, int8_t* bits_all, int* iters_out, int* conv_out,
     Tables t, int max_iterations, Rule rule) {
   using Msg = typename Rule::Msg;
+  using U = typename Rule::FloodUnits;
   extern __shared__ __align__(16) int smem[];
   const size_t tile = blockIdx.x;
   const int Z = t.Z, cn = t.CG * Z, vn = t.VG * Z;
@@ -320,15 +331,19 @@ __global__ void __launch_bounds__(kThreads, 2) resident_flooding_kernel(
   decode_tile4<DMAX>(
       post, bits, iters_out, conv_out, lt, max_iterations, smem,
       [&](int, int* bad) {
-        for (int r = threadIdx.x; r < cn; r += blockDim.x)
-          flooding_check_lane<DMAX>(msg, lt, r / Z, r % Z, rule);
+        for (int r = threadIdx.x; r < cn * U::kPerLane; r += blockDim.x) {
+          const int lane = r / U::kPerLane;
+          flooding_check_lane<DMAX>(msg + r % U::kPerLane * U::kFrames, lt, lane / Z,
+                                    lane % Z, rule);
+        }
         __syncthreads();
         const ArrayCells<Msg> cells{msg, lt};
-        var_phase(cells, q, lt.var_cs, vn, Z, threadIdx.x, blockDim.x,
-                  [&](int vg, int w, const VarLoads<Msg>& v) {
-                    rule.var_update(cells, post + ((size_t)vg * Z + w) * kBt,
-                                    lt.var_cs[vg], lt.var_cs[vg + 1], w, v);
-                  });
+        var_phase<U::kFrames>(cells, q, lt.var_cs, vn, Z, threadIdx.x, blockDim.x,
+                              [&](int vg, int w, int f0, const auto& v) {
+                                rule.var_update(cells.at(f0),
+                                                post + ((size_t)vg * Z + w) * kBt + f0,
+                                                lt.var_cs[vg], lt.var_cs[vg + 1], w, v);
+                              });
         __syncthreads();
         syndrome4<DMAX>(post, lt, bad);
       });
@@ -342,6 +357,7 @@ cudaError_t flooding_launch(const Rule& rule, void* msg, const void* q,
                             const Tables& t, int nbt, int max_iterations,
                             int threads, cudaStream_t stream) {
   using Msg = typename Rule::Msg;
+  if (threads > Rule::FloodUnits::kBlock) return cudaErrorInvalidValue;
   return launch(resident_flooding_kernel<DMAX, Rule>, nbt, threads,
                 smem_bytes(t, 0), stream, static_cast<Msg*>(msg),
                 static_cast<const Msg*>(q), static_cast<int8_t*>(post),

@@ -33,7 +33,8 @@
 // What the design does about it (the form of the resident kernels, on
 // csrc/lanes.cuh): a thread per lane of a tile's four frames, so a lane's
 // values move as one 4- to 32-byte vector and each table load and mod-Z
-// index is done once a lane; the check lane's loads unrolled to the degree
+// index is done once a lane (the f64 float rules' phases a thread per
+// (lane, frame), whose rule is their cost: csrc/float_rules.cuh); the check lane's loads unrolled to the degree
 // bucket, all issued before its rule; the variable lane issuing its next
 // lane's loads before this lane's stores; the tables in shared memory. The
 // phases have no sequential dependence inside a tile, so a tile is spread
@@ -124,6 +125,9 @@ struct PhaseCells {
   int Z;
   Elem<Msg> big;
 
+  __device__ __forceinline__ PhaseCells at(int f0) const {
+    return {c2v + f0, v2c + f0, s, Z, big};
+  }
   __device__ __forceinline__ const Msg* in(int p, int w) const {
     return c2v + ((size_t)p * Z + w) * kBt;
   }
@@ -132,21 +136,22 @@ struct PhaseCells {
     const int c = plus_mod(w, s.rot[p], Z);
     if (c == s.mask[p]) {
 #pragma unroll
-      for (int f = 0; f < kBt; ++f) o.v[f] = big;
+      for (auto& x : o.v) x = big;
     }
-    store4(v2c + ((size_t)s.dz[p] + c) * kBt, o);
+    store_unit(v2c + ((size_t)s.dz[p] + c) * kBt, o);
   }
 };
 
-// Check phase of a tile's check lanes r0, r0 + stride, ... (blockIdx.y the
-// tile): check lane c of group g folds its d v2c (big at the missing lane)
-// under the rule (message_kernels.cuh flooding_check) and writes output k
-// to c2v plane chk_dest[e] at variable lane c + chk_rot[e], 0 at the
-// missing lane.
+// Check phase of a tile's check units r0, r0 + stride, ... (blockIdx.y the
+// tile; Rule::FloodUnits): a unit of check lane c of group g folds its d
+// v2c (big at the missing lane) under the rule (message_kernels.cuh
+// flooding_check) and writes output k to c2v plane chk_dest[e] at variable
+// lane c + chk_rot[e], 0 at the missing lane.
 template <int DMAX, class Rule>
-__global__ void __launch_bounds__(kThreads, 2) fused_check_kernel(
+__global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_check_kernel(
     const typename Rule::Msg* v2c_all, typename Rule::Msg* c2v_all,
     FloodingTables t, Rule rule) {
+  using U = typename Rule::FloodUnits;
   extern __shared__ __align__(16) int smem[];
   const int Z = t.Z;
   const PhaseLanes s =
@@ -154,24 +159,26 @@ __global__ void __launch_bounds__(kThreads, 2) fused_check_kernel(
   const size_t plane_tile = (size_t)t.E * Z * kBt;
   const auto* v2c = v2c_all + blockIdx.y * plane_tile;
   auto* c2v = c2v_all + blockIdx.y * plane_tile;
-  const int cn = t.CG * Z;
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < cn; r += gridDim.x * blockDim.x) {
-    const int g = r / Z, c = r - g * Z;
+  const int n = t.CG * Z * U::kPerLane;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += gridDim.x * blockDim.x) {
+    const int lane = r / U::kPerLane, f0 = r % U::kPerLane * U::kFrames;
+    const int g = lane / Z, c = lane - g * Z;
     const int e0 = s.cs[g];
-    flooding_check<DMAX>(v2c, s.mask, Z, e0, s.cs[g + 1] - e0, c, rule,
+    flooding_check<DMAX>(v2c + f0, s.mask, Z, e0, s.cs[g + 1] - e0, c, rule,
                          [&](int e, const auto& o) {
-                           store4(c2v + ((size_t)s.dz[e] + plus_mod(c, s.rot[e], Z)) * kBt, o);
+                           store_unit(c2v + f0 + ((size_t)s.dz[e] + plus_mod(c, s.rot[e], Z)) * kBt,
+                                      o);
                          });
   }
 }
 
-// Variable phase of a tile's variable lanes (blockIdx.y the tile): the
-// rule's variable update (lanes.cuh var_update, i8.cuh i8_var_update)
-// through PhaseCells, the hard bits tot <= 0 to bits. c2v_all null runs
-// the initialisation: every output is q (no rule clips), the hard bits q
-// <= 0.
+// Variable phase of a tile's variable lanes (blockIdx.y the tile), a unit
+// of Rule::FloodUnits a thread: the rule's variable update (lanes.cuh
+// var_update, i8.cuh i8_var_update) through PhaseCells, the hard bits tot
+// <= 0 to bits. c2v_all null runs the initialisation, a lane a thread:
+// every output is q (no rule clips), the hard bits q <= 0.
 template <class Rule>
-__global__ void __launch_bounds__(kThreads, 2) fused_var_kernel(
+__global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_var_kernel(
     const typename Rule::Msg* c2v_all, const typename Rule::Msg* q_all,
     typename Rule::Msg* v2c_all, int8_t* bits_all, FloodingTables t, Rule rule) {
   using Msg = typename Rule::Msg;
@@ -195,9 +202,11 @@ __global__ void __launch_bounds__(kThreads, 2) fused_var_kernel(
     }
     return;
   }
-  var_phase(cells, q, s.cs, vn, Z, r0, stride, [&](int vg, int w, const VarLoads<Msg>& v) {
-    rule.var_update(cells, bits + ((size_t)vg * Z + w) * kBt, s.cs[vg], s.cs[vg + 1], w, v);
-  });
+  var_phase<Rule::FloodUnits::kFrames>(
+      cells, q, s.cs, vn, Z, r0, stride, [&](int vg, int w, int f0, const auto& v) {
+        rule.var_update(cells.at(f0), bits + ((size_t)vg * Z + w) * kBt + f0, s.cs[vg],
+                        s.cs[vg + 1], w, v);
+      });
 }
 
 // One horizontal-layered sweep of one tile per block under a rule, in place
@@ -225,12 +234,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layered_kernel(
 }
 
 // Blocks a tile of a phase kernel: enough for every SM to hold as many
-// blocks as it can, and at most one for each kMinLanes lanes of the tile a
-// thread, so that small batches do not spread a tile thinner.
+// blocks as it can, and at most one for each kMinLanes units (lanes) of the
+// tile a thread, so that small batches do not spread a tile thinner.
 constexpr int kMinLanes = 8;
 
 template <typename Kernel>
-cudaError_t phase_grid(Kernel kernel, int lanes, int nbt, int threads,
+cudaError_t phase_grid(Kernel kernel, int units, int nbt, int threads,
                        size_t smem, dim3* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -240,24 +249,26 @@ cudaError_t phase_grid(Kernel kernel, int lanes, int nbt, int threads,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   const int fill = (sms * per_sm + nbt - 1) / nbt;
-  const int most = (lanes + threads * kMinLanes - 1) / (threads * kMinLanes);
+  const int most = (units + threads * kMinLanes - 1) / (threads * kMinLanes);
   *grid = dim3(std::max(1, std::min(fill, most)), nbt);
   return cudaSuccess;
 }
 
 // The launches of the three kernels on nbt tiles (see the C entry points
 // of csrc/flooding.cu and csrc/fused_layered.cu for the arguments). A tile
-// is 4 frames and a block at most kThreads threads.
+// is 4 frames and a block at most kThreads threads (a phase's at most the
+// rule's FloodUnits::kBlock; its grid counts units).
 template <int DMAX, class Rule>
 cudaError_t fused_check_launch(const Rule& rule, const void* v2c, void* c2v,
                                const FloodingTables& t, int nbt, int threads,
                                cudaStream_t stream) {
   using Msg = typename Rule::Msg;
-  if (t.Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  using U = typename Rule::FloodUnits;
+  if (t.Bt != kBt || threads > U::kBlock) return cudaErrorInvalidValue;
   auto kernel = fused_check_kernel<DMAX, Rule>;
   const size_t smem = phase_smem(t.CG, t.E);
   dim3 grid;
-  cudaError_t err = phase_grid(kernel, t.CG * t.Z, nbt, threads, smem, &grid);
+  cudaError_t err = phase_grid(kernel, t.CG * t.Z * U::kPerLane, nbt, threads, smem, &grid);
   if (err != cudaSuccess) return err;
   return launch(kernel, grid, threads, smem, stream, static_cast<const Msg*>(v2c),
                 static_cast<Msg*>(c2v), t, rule);
@@ -268,11 +279,12 @@ cudaError_t fused_var_launch(const Rule& rule, const void* c2v, const void* q,
                              void* v2c, void* bits, const FloodingTables& t,
                              int nbt, int threads, cudaStream_t stream) {
   using Msg = typename Rule::Msg;
-  if (t.Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  using U = typename Rule::FloodUnits;
+  if (t.Bt != kBt || threads > U::kBlock) return cudaErrorInvalidValue;
   auto kernel = fused_var_kernel<Rule>;
   const size_t smem = phase_smem(t.VG, t.E);
   dim3 grid;
-  cudaError_t err = phase_grid(kernel, t.VG * t.Z, nbt, threads, smem, &grid);
+  cudaError_t err = phase_grid(kernel, t.VG * t.Z * U::kPerLane, nbt, threads, smem, &grid);
   if (err != cudaSuccess) return err;
   return launch(kernel, grid, threads, smem, stream, static_cast<const Msg*>(c2v),
                 static_cast<const Msg*>(q), static_cast<Msg*>(v2c),

@@ -745,6 +745,10 @@ _MSG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads per block of the check and variable phase kernels (a thread per
 #: lane of a tile's 4 frames)
 PHASE_THREADS = 256
+#: threads per block of the f64 float rules' flooding kernels, resident and
+#: phases, which give a thread one frame of a lane (``csrc/float_rules.cuh``
+#: FloatRule's FloodUnits)
+F64_UNIT_THREADS = 512
 #: threads per block of the syndrome kernel, which gives one block to a
 #: tile; a multiple of the tile width
 TILE_THREADS = 512
@@ -837,6 +841,13 @@ def bind_flooding_float(lib):
     lib.ldpc_fused_var_float.argtypes = [p] * 5 + [i] * 8 + [d] * 3 + [p]
     lib.ldpc_fused_check_float.restype = lib.ldpc_fused_var_float.restype = i
     return lib
+
+
+def unit_threads(rule, lane_threads: int) -> int:
+    """Threads per block of a float rule's flooding kernel whose block is
+    ``lane_threads`` where a thread takes a lane's four frames:
+    ``F64_UNIT_THREADS`` for an f64 rule."""
+    return F64_UNIT_THREADS if rule.storage_dtype == torch.float64 else lane_threads
 
 
 def launch_args(x, layout, rule=None):
@@ -946,7 +957,8 @@ def fused_check_i8(v2c, layout, rule):
 def fused_check_float(v2c, layout, rule):
     """``fused_check`` for a float rule, through the float-rule instances of
     ``csrc/flooding_f32.cu`` or ``_f64.cu``: planes and arithmetic in the
-    rule's storage type; check degree at most ``rule.max_check_degree``."""
+    rule's storage type; check degree at most ``rule.max_check_degree``.
+    The f64 instances give a thread one (lane, frame) (``unit_threads``)."""
     if v2c.device.type == "cpu":
         return fused_check_reference(v2c, layout, rule)
     if not is_float_rule(rule):
@@ -956,7 +968,8 @@ def fused_check_float(v2c, layout, rule):
     raise_on(
         lib.ldpc_fused_check_float(
             v2c.data_ptr(), c2v.data_ptr(), tables, *dims, layout.max_chk_degree,
-            PHASE_THREADS, rule.kind, rule.big, rule.clamp, rule.prod_max, stream,
+            unit_threads(rule, PHASE_THREADS), rule.kind, rule.big, rule.clamp,
+            rule.prod_max, stream,
         ),
         "fused_check_float", lib.ldpc_flooding_float_error_string,
     )
@@ -1042,8 +1055,8 @@ def fused_var_float(c2v, q, layout, rule):
     raise_on(
         lib.ldpc_fused_var_float(
             None if c2v is None else c2v.data_ptr(), q.data_ptr(), v2c.data_ptr(),
-            bits.data_ptr(), tables, *dims, PHASE_THREADS, rule.kind, rule.big,
-            rule.clamp, rule.prod_max, stream,
+            bits.data_ptr(), tables, *dims, unit_threads(rule, PHASE_THREADS), rule.kind,
+            rule.big, rule.clamp, rule.prod_max, stream,
         ),
         "fused_var_float", lib.ldpc_flooding_float_error_string,
     )

@@ -44,7 +44,8 @@ slot order, each output tot - own) and big, the type's largest value, at
 the missing lanes. On a CUDA tensor ``resident_flooding_decode`` passes
 them to ``resident_flooding_decode_float``, the wrapper of the kernel's
 float-rule instances (``csrc/flooding_f32.cu`` and ``_f64.cu``), which
-counts their launches apart.
+counts their launches apart. The f64 instances give a thread one frame of
+a lane, ``fused_bp2.F64_UNIT_THREADS`` threads a block.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from .fused_bp2 import (
     is_float_rule,
     is_i8,
     raise_on,
+    unit_threads,
 )
 from .resident_layered import LANE_THREADS, lane_launch
 
@@ -184,7 +186,8 @@ def resident_flooding_decode_float(q_t, bits0_t, layout, rule, max_iterations: i
     err = lib.ldpc_resident_flooding_float_decode(
         msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
         iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),
-        LANE_THREADS, rule.kind, rule.big, rule.clamp, rule.prod_max, stream,
+        unit_threads(rule, LANE_THREADS), rule.kind, rule.big, rule.clamp, rule.prod_max,
+        stream,
     )
     if err:
         text = lib.ldpc_flooding_float_error_string(err).decode()

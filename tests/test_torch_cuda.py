@@ -634,3 +634,66 @@ def test_phase_kernels_raise_on_other_tile_widths(cuda, decoder):
     wide = q.reshape(q.shape[0] // 2, *q.shape[1:3], 8).contiguous()
     with pytest.raises(ValueError, match="tile width 8"):
         fused_bp2.fused_var(None, wide, layout, rule)
+
+
+#: the f64 float names, whose flooding kernels give a thread one (lane,
+#: frame) unit at their own block size (TPU #4/#5 resident, #7 and #8 the
+#: phases), and a code of each check-degree bucket the test codes reach
+F64_FLOODING = ["Phif64", "Tanhf64", "Minstarapproxf64", "Aminstarf64"]
+F64_BUCKETS = {"DVB-S2 R1_4short": 8, "5G BG2 z=16": 16, "CCSDS C2": 32}
+
+
+def _f64_case(code, decoder, device):
+    """Flooding tiles of an f64 name: R1_4short at B = 128 (degree 4 and 5,
+    bucket 8, the flagship's), 5G BG2 z=16 with 64 large-magnitude frames
+    (bucket 16) or CCSDS C2 (bucket 32)."""
+    if code == "DVB-S2 R1_4short":
+        lg, batch, sigma = lifted_graph_for(DvbCode.R1_4short), 128, 0.9
+    else:
+        lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, device)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, device)])
+    return flooding_tiles(lg, make_arithmetic(decoder)[1], x)
+
+
+@pytest.mark.parametrize("decoder", F64_FLOODING)
+@pytest.mark.parametrize("code", list(F64_BUCKETS))
+def test_f64_flooding_units_match_plain_versions(cuda, code, decoder):
+    """The f64 instances of the resident flooding kernel and of the check
+    and variable phases, one (lane, frame) a thread, against the plain
+    versions on the card, bit for bit, at each degree bucket; launches
+    counted on the float wrappers."""
+    q, bits0, layout, rule = _f64_case(code, decoder, cuda)
+    assert q.dtype == torch.float64
+    assert min(b for b in (8, 16, 32, 64) if b >= layout.max_chk_degree) == F64_BUCKETS[code]
+    before = resident_flooding_decode_float.launches
+    out = resident_flooding_decode(q, bits0, layout, rule, 10)
+    assert resident_flooding_decode_float.launches == before + 1
+    for a, b in zip(out, resident_flooding_decode_reference(q, bits0, layout, rule, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0
+    before = (fused_bp2.fused_check_float.launches, fused_bp2.fused_var_float.launches)
+    v2c = fused_bp2.fused_var(None, q, layout, rule)[0]
+    for _ in range(2):
+        c2v = fused_bp2.fused_check(v2c, layout, rule)
+        assert torch.equal(c2v, fused_bp2.fused_check_reference(v2c, layout, rule))
+        v2c, bits = fused_bp2.fused_var(c2v, q, layout, rule)
+        ref = fused_bp2.fused_var_reference(c2v, q, layout, rule)
+        assert torch.equal(v2c, ref[0]) and torch.equal(bits, ref[1])
+    assert (fused_bp2.fused_check_float.launches, fused_bp2.fused_var_float.launches) == (
+        before[0] + 2, before[1] + 3)
+
+
+@pytest.mark.parametrize("decoder", F64_FLOODING)
+def test_f64_flooding_partial_tile(cuda, decoder):
+    """A batch of 130 (a partial tile) through the flooding decoder's glue
+    onto the f64 units, resident and streaming, against the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    ref = lifted_flooding_decode(lg, arith, x.cpu(), 10)
+    for resident in (True, False):
+        out = lifted_flooding_decode(lg, arith, x, 10, resident=resident)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key].cpu(), ref[key]), (resident, key)

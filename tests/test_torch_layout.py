@@ -28,6 +28,7 @@ from ldpc_toolbox_torch.ops import fused_bp2
 from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
 from ldpc_toolbox_torch.ops.resident_layered import (
     I8_MAX_CHECK_DEGREE,
+    LANE_THREADS,
     LAYERED_TABLES,
     MAX_SHARED_BYTES,
     park_dtype,
@@ -186,6 +187,29 @@ def test_float_kernel_constants_match_the_rules():
     assert constant("kMinstarApproxMaxDegree") == rule.max_check_degree == I8_MAX_CHECK_DEGREE
     assert "x = max_of(x, T(1e-30));" in src and fused_bp2.PhiRule.MIN_X == 1e-30
     assert "if (x < T(0.03125))" in src
+
+
+def test_f64_flooding_units_match_the_wrappers():
+    """The flooding kernels' work units (``csrc/lanes.cuh`` Units and
+    ``csrc/float_rules.cuh`` FloatRule's FloodUnits, read from the source):
+    the f64 float rules give a thread one frame of a lane at the block the
+    wrappers pass them (``F64_UNIT_THREADS``), two blocks an SM at 64
+    registers; every other rule a lane's four frames at the lane kernels'
+    256."""
+    csrc = REPO / "ldpc_toolbox_torch" / "csrc"
+    units = re.search(r"using FloodUnits = std::conditional_t<std::is_same_v<T, double>, "
+                      r"Units<(\d+), (\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
+    assert units, "FloatRule's FloodUnits is not in csrc/float_rules.cuh"
+    assert (int(units[1]), int(units[2])) == (1, fused_bp2.F64_UNIT_THREADS)
+    lanes = (csrc / "lanes.cuh").read_text()
+    assert "template <int F = kBt, int Threads = kThreads>\nstruct Units {" in lanes
+    assert int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1]) == LANE_THREADS
+    assert LANE_THREADS == fused_bp2.PHASE_THREADS
+    assert 65536 // (2 * fused_bp2.F64_UNIT_THREADS) == 64
+    for name, threads in (("Phif64", fused_bp2.F64_UNIT_THREADS), ("Aminstarf64", 512),
+                          ("Phif32", LANE_THREADS), ("Minstarapproxf32", 256)):
+        rule = fused_bp2.rule_for(make_arithmetic(name)[1])
+        assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
 
 
 @pytest.mark.parametrize("code", CODES)

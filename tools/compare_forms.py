@@ -5,54 +5,68 @@
 
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
-resident_layered_f64, flooding_f32, flooding_f64 (the float-rule
-instances), or streaming (the min-sum streaming kernels: the layered sweep
-of ``csrc/fused_layered.cu`` and the check and variable phases of
-``csrc/flooding.cu``). A form is a directory holding a version of the
-kernel sources (``csrc/<source>.cu`` and the headers it includes), built
-here with the package's nvcc flags; "repo" is the package's own ``csrc/``,
-built into the package's ``build/`` as its wrappers build it. ``--form`` forms share the
-package's C interface and run at the package's block size, or at THREADS a
-block where given. ``--base`` names a directory holding the sources of
-commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
+resident_layered_f64, flooding_f32, flooding_f64 (the float-rule instances),
+fused_layered_i8, fused_layered_f32, fused_layered_f64 (the streaming
+sweep's i8 and float instances), or streaming (the min-sum streaming
+kernels: the layered sweep of ``csrc/fused_layered.cu`` and the check and
+variable phases of ``csrc/flooding.cu``). A form is a directory holding a
+version of the kernel sources (``csrc/<source>.cu`` and the headers it
+includes), built here with the package's nvcc flags; "repo" is the package's
+own ``csrc/``, built into the package's ``build/`` as its wrappers build it.
+``--form`` forms share the package's C interface and run at the package's
+block sizes, or at THREADS a block where given (every lane kernel of the
+form: a form of before the f64 float rules' (lane, frame) units runs its f64
+flooding kernels at 256). ``--base`` names a directory holding the sources
+of commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
 compressed, flooding and resident_layered and ``layered.cuh``), whose
-message kernels give a thread one (lane, frame); they run as they ran
-there: the compressed kernels at 256 threads, the message kernels at 512
-threads a block, the resident flooding kernel through its own C interface
-(two message arrays, the eleven flooding tables). Each form is built into
-the package's git-ignored ``build/forms/``, nvcc's report beside it as
+message kernels give a thread one (lane, frame); they run as they ran there:
+the compressed kernels at 256 threads, the message kernels at 512 threads a
+block, the resident flooding kernel through its own C interface (two message
+arrays, the eleven flooding tables). Each form is built into the package's
+git-ignored ``build/forms/``, nvcc's report beside it as
 ``<source>-NAME.log``; every build of the run starts at once.
 
-Each source's resident kernels run the flagship decode (DVB-S2 R1_2,
-B = 1024, 1.0 dB, at most 30 iterations) on the tiles of their names: the
-bf16 and the f32 min-sum names of their schedule, ``HLMinstarapproxi8`` or
+Each source's resident kernels run the flagship decode (DVB-S2 R1_2, B =
+1024, 1.0 dB, at most 30 iterations) on the tiles of their names: the bf16
+and the f32 min-sum names of their schedule, ``HLMinstarapproxi8`` or
 ``Minstarapproxi8`` for the i8 sources, ``HLPhif32``, ``HLPhif64``,
-``Phif32`` or ``Phif64`` for the float ones. On each tile set it holds
-every form's bits, iterations and flags equal to the package kernel's,
-then times all forms, and for a min-sum source the package's kernel of the
-other check state (the compressed kernel for a message source, the
-message kernel for the compressed one), on the same tiles in turns (the
-order reversed every round; CUDA events, median of ``--reps``). A form
-whose flooding source predates the i8 and float phase instances times its
-resident kernel all the same.
+``Phif32`` or ``Phif64`` for the float ones. On each tile set it holds every
+form's bits, iterations and flags equal to the package kernel's, then times
+all forms, and for a min-sum source the package's kernel of the other check
+state (the compressed kernel for a message source, the message kernel for
+the compressed one), on the same tiles in turns (the order reversed every
+round; CUDA events, median of ``--reps``). A form whose flooding source
+predates the i8 and float phase instances times its resident kernel all the
+same. The i8 and float flooding sources then time their check and variable
+phases (TPU #7 and #8) too, on the flagship's planes of their name after one
+iteration (the check phase's v2c and the variable phase's c2v), each form's
+outputs equal to the package's, bit for bit, before the timing.
 
 ``streaming`` times one sweep (``fused_layered_iteration``) on the
 flagship's ``HLMinsumbf16`` tiles, in place (each form decodes on from the
 same planes), and ``fused_check`` and ``fused_var`` on its ``Minsumbf16``
 and ``Minsumf32`` tiles; a form without ``fused_layered.cu`` holds the
-sources of before the lane form (a thread per (lane, frame)): its sweep
-is built from its ``resident_layered.cu`` and runs at 512 threads a block,
-and its check phase takes no degree bucket. Every form's outputs equal
-the package's, bit for bit, before the timing.
+sources of before the lane form (a thread per (lane, frame)): its sweep is
+built from its ``resident_layered.cu`` and runs at 512 threads a block, and
+its check phase takes no degree bucket. Every form's outputs equal the
+package's, bit for bit, before the timing.
 
-Prints the card's name and power limit, a line a tile set and one JSON
-line with every time in milliseconds.
+The i8 and float sweep sources time one sweep on their name's tiles
+(``HLMinstarapproxi8``, ``HLPhif32``, ``HLPhif64``) as ``streaming`` does.
+For every source and form it also compares each kernel's SASS (``cuobjdump
+-sass``, addresses and encodings dropped) with the package's build and names
+the kernels whose code differs: a kernel of the same code runs the same.
+
+Prints the card's name and power limit, a line a tile set and one JSON line
+with every time in milliseconds.
 """
 
 import argparse
 import ctypes
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,6 +139,15 @@ SOURCE_NAMES = {
     "resident_layered_i8": ("HLMinstarapproxi8",), "flooding_i8": ("Minstarapproxi8",),
     "resident_layered_f32": ("HLPhif32",), "resident_layered_f64": ("HLPhif64",),
     "flooding_f32": ("Phif32",), "flooding_f64": ("Phif64",),
+    "fused_layered_i8": ("HLMinstarapproxi8",), "fused_layered_f32": ("HLPhif32",),
+    "fused_layered_f64": ("HLPhif64",),
+}
+#: the streaming sweep's i8 and float sources: (its wrapper, the name of its
+#: library getter in ``fused_layered``, its binder)
+SWEEPS = {
+    "fused_layered_i8": ("fused_layered_iteration_i8", "_lib_i8", fused_layered.bind_i8),
+    **{f"fused_layered_{p}": ("fused_layered_iteration_float", "_lib_float",
+                              fused_layered.bind_float) for p in ("f32", "f64")},
 }
 #: block sizes of the c5040f6 forms, by source
 BASE_THREADS = {"compressed": 256, "resident_layered": 512, "flooding": 512}
@@ -142,16 +165,22 @@ def build(source, name, src_dir):
 
 
 def with_lib(module, getter, lib, threads, fn, *args):
-    """fn(*args) with ``module``'s wrappers launching ``lib`` at
-    ``threads`` threads a block."""
-    saved = getattr(module, getter), module.LANE_THREADS
-    setattr(module, getter, lambda *_: lib)
-    module.LANE_THREADS = threads
+    """fn(*args) with ``module``'s wrappers launching ``lib``, at
+    ``threads`` threads a block unless it is None (the lane kernels, the
+    phases and the f64 flooding kernels)."""
+    patches = [(module, getter, lambda *_: lib)]
+    if threads is not None:
+        patches += [(m, name, threads) for m, name in (
+            (module, "LANE_THREADS"), (fused_bp2, "PHASE_THREADS"),
+            (fused_bp2, "F64_UNIT_THREADS")) if hasattr(m, name)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, value in patches:
+        setattr(m, name, value)
     try:
         return fn(*args)
     finally:
-        setattr(module, getter, saved[0])
-        module.LANE_THREADS = saved[1]
+        for m, name, value in reversed(saved):
+            setattr(m, name, value)
 
 
 def base_flooding(lib, q_t, bits0_t, layout, rule, max_iterations):
@@ -194,7 +223,7 @@ def turns(fns, reps):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--source", action="append", required=True,
-                   choices=sorted(PLAN) + ["streaming"])
+                   choices=sorted(PLAN) + sorted(SWEEPS) + ["streaming"])
     p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
@@ -238,6 +267,11 @@ def main():
         if source in libs and form in forms:
             libs[source][form] = lib
     print(f"nvcc's reports in {OUT}/<source>-<form>.log")
+    for source, form, _ in jobs:
+        if source in libs and form in forms:
+            n, differ = sass_differs(_build.library_path(source), OUT / f"{source}-{form}.so")
+            print(f"{source} {form}: {n} kernels, SASS differing from repo: "
+                  + (", ".join(differ) or "none"))
 
     lg = lifted_graph_for(Code.R1_2)
     llrs = channel_llrs(lg.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
@@ -253,6 +287,32 @@ def main():
             streaming[form] = (lane, fused_layered.bind(sweep), phases)
         run_streaming(streaming, lg, llrs, args.reps, card, result)
     print(json.dumps(result))
+
+
+def sass(so):
+    """{kernel: its SASS instructions} of the library ``so`` (addresses
+    and encodings dropped), demangled names."""
+    dump = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+        elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            kernels[name].append(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(kernels), capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    short = (re.sub(r"\(anonymous namespace\)::|ldpc::", "", n).split("(")[0] for n in names)
+    return {n: kernels[k] for n, k in zip(short, kernels)}
+
+
+def sass_differs(repo_so, form_so):
+    """(kernels of the package's build, the kernels whose SASS differs in
+    the form's or that only one of them has)."""
+    a, b = sass(repo_so), sass(form_so)
+    return len(a), sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
 
 
 def bind_form(bind, lib):
@@ -302,20 +362,12 @@ def run_streaming(forms, lg, llrs, reps, card, result):
 
     def sweep(form, state):
         lane, lib, _ = forms[form]
-        n = resident_layered.LANE_THREADS if lane else PER_FRAME_SWEEP_THREADS
+        n = None if lane else PER_FRAME_SWEEP_THREADS
         return with_lib(fused_layered, "_lib", lib, n, fused_layered.fused_layered_iteration,
                         *state, layout, rule)
 
-    ref = sweep("repo", (qv0.clone(), rcv0.clone()))
-    for form in forms:
-        for a, b in zip(sweep(form, (qv0.clone(), rcv0.clone())), ref):
-            assert torch.equal(a, b), f"fused_layered_iteration: {form} differs from repo"
-    states = {form: (qv0.clone(), rcv0.clone()) for form in forms}
-    ms = turns({form: lambda form=form: sweep(form, states[form]) for form in forms}, reps)
-    result["streaming fused_layered_iteration HLMinsumbf16"] = ms
-    print(f"[{card}] fused_layered_iteration on HLMinsumbf16 tiles, B={FLAGSHIP_BATCH}: all "
-          "forms equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-          + f" (one sweep, in place, in turns, median of {reps})")
+    hold_and_time_sweep(sweep, forms, qv0, rcv0,
+                        "streaming fused_layered_iteration HLMinsumbf16", reps, card, result)
     for name in ("Minsumbf16", "Minsumf32"):
         q, _, layout, rule = flooding_tiles(lg, make_arithmetic(name)[1], llrs)
         v2c0 = fused_bp2.fused_var(None, q, layout, rule)[0]
@@ -331,22 +383,95 @@ def run_streaming(forms, lg, llrs, reps, card, result):
             variables[form] = lambda lib=bind_form(fused_bp2.bind_flooding, lib): with_phases(
                 lib, fused_bp2.fused_var, c2v, q, layout, rule)
         for kernel, fns in (("fused_check", checks), ("fused_var", variables)):
-            ref = fns["repo"]()
-            for form, fn in fns.items():
-                out = fn()
-                for a, b in zip(out if kernel == "fused_var" else [out],
-                                ref if kernel == "fused_var" else [ref]):
-                    assert torch.equal(a, b), f"{kernel} {name}: {form} differs from repo"
-            ms = turns(fns, reps)
-            result[f"streaming {kernel} {name}"] = ms
-            print(f"[{card}] {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all forms equal; "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-                  + f" (in turns, median of {reps})")
+            hold_and_time(fns, f"streaming {kernel} {name}", reps, card, result)
+
+
+def hold_and_time_sweep(sweep, forms, qv0, rcv0, what, reps, card, result):
+    """Holds one sweep of every form (``sweep(form, (qv, rcv))``, in place)
+    from the same planes to the package's, bit for bit, then times each
+    form's sweeps in turns, each decoding on from its own planes."""
+    ref = sweep("repo", (qv0.clone(), rcv0.clone()))
+    for form in forms:
+        for a, b in zip(sweep(form, (qv0.clone(), rcv0.clone())), ref, strict=True):
+            assert torch.equal(a, b), f"{what}: {form} differs from repo"
+    states = {form: (qv0.clone(), rcv0.clone()) for form in forms}
+    ms = turns({form: lambda form=form: sweep(form, states[form]) for form in forms}, reps)
+    result[what] = ms
+    print(f"[{card}] {what}, B={FLAGSHIP_BATCH}: all forms equal; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" (one sweep, in place, in turns, median of {reps})")
+
+
+def run_sweep(source, built, block, lg, llrs, reps, card, result):
+    """Times one sweep of an i8 or float sweep source in every form, in
+    turns, on the flagship's tiles of its name."""
+    wrapper, getter, bind = SWEEPS[source]
+    for name in SOURCE_NAMES[source]:
+        qv0, _, layout, rule = tile_inputs(lg, make_arithmetic(name)[1], llrs)
+        rcv0 = torch.zeros((qv0.shape[0], layout.E, layout.Z, 4), dtype=rule.storage_dtype,
+                           device=qv0.device)
+        libs = {form: bind_form(bind, lib) for form, lib in built.items() if form != "base"}
+
+        def sweep(form, state):
+            return with_lib(fused_layered, getter, libs[form], block.get(form),
+                            getattr(fused_layered, wrapper), *state, layout, rule)
+
+        hold_and_time_sweep(sweep, libs, qv0, rcv0, f"{source} {wrapper} {name}", reps, card,
+                            result)
+
+
+def hold_and_time(fns, what, reps, card, result):
+    """Holds every form's outputs (``fns``: name -> fn, "repo" among them)
+    to the package's, bit for bit, then times them in turns into
+    ``result[what]``."""
+    def outputs(fn):
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    ref = outputs(fns["repo"])
+    for form, fn in fns.items():
+        for a, b in zip(outputs(fn), ref, strict=True):
+            assert torch.equal(a, b), f"{what}: {form} differs from repo"
+    ms = turns(fns, reps)
+    result[what] = ms
+    print(f"[{card}] {what}, B={FLAGSHIP_BATCH}: all forms equal; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" (in turns, median of {reps})")
+
+
+#: the check and variable phase wrappers of the flooding sources that hold
+#: i8 or float phase instances, and their library getter in ``fused_bp2``
+PHASES = {
+    "flooding_i8": ("fused_check_i8", "fused_var_i8", "flooding_i8_lib"),
+    "flooding_f32": ("fused_check_float", "fused_var_float", "flooding_float_lib"),
+    "flooding_f64": ("fused_check_float", "fused_var_float", "flooding_float_lib"),
+}
+
+
+def run_phases(source, built, block, lg, llrs, reps, card, result):
+    """Times the check and variable phases of ``source``'s name in every
+    form, in turns, on the flagship's planes after one iteration: the
+    check phase on its v2c, the variable phase on its c2v."""
+    check, var, getter = PHASES[source]
+    bind = PLAN[source][0][5]
+    for name in SOURCE_NAMES[source]:
+        q, _, layout, rule = flooding_tiles(lg, make_arithmetic(name)[1], llrs)
+        v2c = fused_bp2.fused_var(None, q, layout, rule)[0]
+        v2c = fused_bp2.fused_var(fused_bp2.fused_check(v2c, layout, rule), q, layout, rule)[0]
+        c2v = fused_bp2.fused_check(v2c, layout, rule)
+        for kernel, args in ((check, (v2c, layout, rule)), (var, (c2v, q, layout, rule))):
+            fns = {form: lambda lib=bind_form(bind, lib), form=form, args=args: with_lib(
+                       fused_bp2, getter, lib, block.get(form), getattr(fused_bp2, kernel), *args)
+                   for form, lib in built.items() if form != "base"}
+            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result)
 
 
 def run_source(source, built, block, lg, llrs, reps, card, result):
     """Holds every form of ``source`` to the package's and times them, on
     each of its tile sets; the times go into ``result``."""
+    if source in SWEEPS:
+        run_sweep(source, built, block, lg, llrs, reps, card, result)
+        return
     for schedule, module, getter, kernel, other, bind in PLAN[source]:
         tiles = tile_inputs if schedule == "layered" else flooding_tiles
         wrapper = getattr(module, kernel)
@@ -358,23 +483,16 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
                 if form == "base" and source == "flooding":
                     fns[form] = lambda lib=lib, t=t: base_flooding(lib, *t, FLAGSHIP_ITERS)
                 else:
-                    n = block.get(form, BASE_THREADS[source] if form == "base"
-                                  else module.LANE_THREADS)
+                    n = block.get(form, BASE_THREADS[source] if form == "base" else None)
                     fns[form] = lambda lib=bind_form(bind, lib), n=n, t=t: with_lib(
                         module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
             if other is not None:
                 fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
             fns_of[name] = fns
         for name, fns in fns_of.items():
-            ref = fns["repo"]()
-            for form, fn in fns.items():
-                for a, b in zip(fn(), ref):
-                    assert torch.equal(a, b), f"{name}: {form} differs from repo"
-            ms = turns(fns, reps)
-            result[f"{source} {kernel} {name}"] = ms
-            print(f"[{card}] {source} {kernel} on {name} tiles, B={FLAGSHIP_BATCH}: all "
-                  "forms equal; " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-                  + f" (in turns, median of {reps})")
+            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result)
+    if source in PHASES:
+        run_phases(source, built, block, lg, llrs, reps, card, result)
 
 
 if __name__ == "__main__":

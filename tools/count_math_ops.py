@@ -34,6 +34,10 @@ Prints, per type and step, each class's fewest, mean and most executed
 instructions a call over the arguments, then one JSON line with the
 fewest: ``chip_smoke.py`` charges each call of a step these (``STEP_OPS``),
 so the bound it computes stays a least time for any argument in the range.
+With ``--rate`` it also times each probe, uninstrumented, on the same
+arguments (CUDA events, median of 5 launches) and prints its calls a
+second: the rate the card reaches for a step alone, a thread a call,
+against which a rule kernel's share of its bound can be read.
 Needs a CUDA device, nvcc and ptxas.
 """
 
@@ -300,6 +304,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rate", action="store_true", help="also time each probe")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -310,7 +315,7 @@ def main():
         subprocess.run([_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
                         "-std=c++17", "-O3", "-ptx", "-I", str(CSRC), "-o", str(ptx),
                         str(cu)], check=True)
-        text = ptx.read_text()
+        text = plain = ptx.read_text()
         for t, (suffix, _) in TYPES.items():
             for step in STEPS:
                 text = instrument(text, f"k_{step}_{suffix}")
@@ -319,8 +324,12 @@ def main():
         subprocess.run([_tool("ptxas"), "-arch=sm_90a", "-O3", "-o", str(cubin), str(inst)],
                        check=True)
         image = cubin.read_bytes()
+        (Path(tmp) / "plain.ptx").write_text(plain)
+        subprocess.run([_tool("ptxas"), "-arch=sm_90a", "-O3", "-o", str(cubin),
+                        str(Path(tmp) / "plain.ptx")], check=True)
+        plain_image = cubin.read_bytes()
     drv = Driver()
-    mod = drv.load(image)
+    mod, plain_mod = drv.load(image), drv.load(plain_image)
     args_of = arguments(n, args.seed)
     fewest = {}
     for t, (suffix, _) in TYPES.items():
@@ -344,6 +353,21 @@ def main():
             print(f"{t} {step}: " + ", ".join(
                 f"{c} {int(lo[k])}/{mean[k]:.2f}/{int(hi[k])}" for k, c in enumerate(CLASSES))
                 + f" (fewest/mean/most over {n} arguments)")
+            if args.rate:
+                call_args = [ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+                             ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(0),
+                             ctypes.c_int(n), ctype(CLAMP[t]), ctype(prod_max)]
+                ms = []
+                for _ in range(6):
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    drv.launch(plain_mod, f"k_{step}_{suffix}", n, call_args)
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms.append(start.elapsed_time(end))
+                med = float(np.median(ms[1:]))
+                print(f"{t} {step}: {med:.3f} ms for {n} calls, {n / med / 1e6:.3f} G calls/s "
+                      "(uninstrumented, a thread a call, median of 5)")
     print(json.dumps(fewest))
 
 
