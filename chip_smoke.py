@@ -1100,9 +1100,10 @@ def float_checks(graphs, worst):
     """The float-rule instances of the message kernels against their plain
     versions on the four test codes, all 16 float names (on 5G BG2 z=16
     with 64 large-magnitude frames besides; R1_2 at 8 iterations, not 30,
-    to keep the plain layered sweeps' time), and a partial tile of each
-    schedule through the decoders' glue against the CPU; worst differences
-    into ``worst``."""
+    to keep the plain layered sweeps' time), and a partial tile through the
+    decoders' glue against the CPU (the four f32 layered names, whose check
+    lanes take units of their own, and an f64 flooding one); worst
+    differences into ``worst``."""
     cases = [
         ("5G BG2 z=16", 256, 1.3, 10),
         ("DVB-S2 R1_4short", 128, 0.9, 8),
@@ -1126,7 +1127,8 @@ def float_checks(graphs, worst):
               f"({name})")
     bg2 = graphs["5G BG2 z=16"]
     llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
-    for name in ("HLPhif32", "Aminstarf64"):
+    # every f32 layered rule (its check lanes' own units) and an f64 flooding one
+    for name in ("HLPhif32", "HLTanhf32", "HLMinstarapproxf32", "HLAminstarf32", "Aminstarf64"):
         kernel = float_kernel_and_plain(name)[0]
         decode = lifted_layered_decode if name.startswith("HL") else lifted_flooding_decode
         _, arith = make_arithmetic(name)
@@ -1580,7 +1582,11 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
+    def mark(what):  # the time each part of the run takes, for its budget
+        print(f"chip_smoke: {what} done {time.perf_counter() - t_start:.1f} s after the card check")
+
     build()
+    mark("build")
     graphs = test_graphs()
     worst = dict.fromkeys(KERNELS, 0.0)
     layered_checks(graphs, worst)
@@ -1590,6 +1596,7 @@ def main():
     float_checks(graphs, worst)
     streaming_checks(graphs, worst)
     family_checks(graphs, worst)
+    mark("kernel checks")
 
     code = Code.R1_2
     llrs = channel_llrs(code.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
@@ -1604,6 +1611,7 @@ def main():
         measured.update(flagship_float(card, llrs, worst, name))
     for name in (None, "Minstarapproxi8", "HLPhif32", "HLMinstarapproxi8"):
         measured.update(flagship_streaming(card, llrs, worst, name))
+    mark("flagship paths")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)

@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 2) compressed_layered_kernel(
   int8_t* bits = bits_all + tile * lanes * kBt;
   decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
                      [&](int, int* bad) {
-                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
+                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, int, bool parked) {
                          layered_check_lane<DMAX>(qv, ssign, min1, min2, park, lt,
                                                   g, c, parked, big, scale);
                        });

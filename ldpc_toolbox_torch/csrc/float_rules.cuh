@@ -17,13 +17,14 @@
 // an edge, MinstarApprox O(d) min* folds an edge, each an exp and a log1p,
 // and the math library's f64 routines are tens of FP64 instructions each.
 //
-// A check lane holds its d inputs for four frames, x[k].v[f]. The rules
-// keep O(d) values a frame (the phis, the tanh products, the min* prefixes,
-// the magnitudes), so float_check folds one frame at a time: a rolled loop
-// over the frames that takes frame 0 of every slot, writes the outputs in
-// its place and rotates each slot's values by one, so that after a turn a
-// frame every output sits where its input was. The body is compiled once,
-// not four times, and every array index stays a constant.
+// A check lane holds its d inputs for four frames, x[k].v[f] (or a unit's
+// frames, below). The rules keep O(d) values a frame (the phis, the tanh
+// products, the min* prefixes, the magnitudes), so float_check folds one
+// frame at a time: a rolled loop over the frames that takes frame 0 of
+// every slot, writes the outputs in its place and rotates each slot's
+// values by one, so that after a turn a frame every output sits where its
+// input was. The body is compiled once, not four times, and every array
+// index stays a constant.
 //
 // The f64 instances of the flooding kernels (TPU #4/#5 resident, #7 and #8
 // the phases) give a thread one frame of a lane instead (FloodUnits, a
@@ -38,6 +39,24 @@
 // instances keep a lane's four frames. What bounds the f64 instances then
 // is the f64 phi itself: the flagship's check phase runs near the rate at
 // which the card evaluates phi alone (tools/count_math_ops.py --rate).
+//
+// The f32 instances of the resident layered kernel (TPU #1) give a check
+// lane's thread a frame pair (LayeredUnits): a tile's check groups run one after another, so what bounds a tile is the
+// latency of a group's check lanes, each a chain of phis (56 for a lane's
+// four frames at degree 7, Phi), and a lane's four frames in two passes of
+// 256 threads over Z = 360 lanes left the second pass 104 threads wide. A
+// frame pair halves each chain, and a group's 720 units take three passes
+// of 256 threads, the last 208 wide; the two threads of a lane read its
+// 16-byte cells together, and the park update, the syndrome and the hard
+// decisions keep a thread per lane (csrc/lanes.cuh). The rule needs about
+// 128 registers a thread: in turns on the card (tools/compare_forms.py), a
+// unit of one frame at 512 threads (64 registers, 32 warps an SM) spilled
+// 336 bytes a thread and ran 43 % slower than a lane's four frames, and
+// every block above 256 lost too; against the pair at 256, one frame a
+// thread and prefetching the next unit's loads ran slower, and a lane's
+// four frames 8 % slower a decode. The streaming sweep (TPU #3) keeps a
+// lane's four frames a thread, as every other rule does: there the pair
+// ran 4 % slower.
 //
 // Bit-exactness with the plain versions on the card: every operation is
 // the one of the plain version, in its order, in the type T; add_rn,
@@ -111,7 +130,16 @@ __device__ __forceinline__ T phi(T x) {
   } else {
     one_minus_t = sub_rn(T(1), t);
   }
-  const T ln_1mt = t < T(0.5) ? ln1p(-t) : ln(one_minus_t);
+  T ln_1mt;
+  if constexpr (std::is_same_v<T, float>) {
+    // both logs, then a select: no branch that splits a warp, so the
+    // compiler can overlap a check's phis (the f32 instances 2-8 % faster
+    // in turns on the card, the f64 ones slower)
+    const T lo = ln1p(-t), hi = ln(one_minus_t);
+    ln_1mt = t < T(0.5) ? lo : hi;
+  } else {
+    ln_1mt = t < T(0.5) ? ln1p(-t) : ln(one_minus_t);
+  }
   return sub_rn(ln1p(t), ln_1mt);
 }
 
@@ -178,7 +206,9 @@ struct Signs {
 // long, and the kernels ran slower than the card's instruction caches fed
 // them (rolled, 1576 instructions: the flagship's f64 check phase, the
 // resident flooding and layered decodes 12-16 % faster, in turns on the
-// card; tools/compare_forms.py).
+// card; tools/compare_forms.py). Rolled in f32 too, the degree-8 layered
+// instances ran 8 % slower and the flooding check phase 2 % slower (in
+// turns on the card): unlike f64's, the f32 routines fit the caches.
 template <int DMAX, typename T>
 constexpr int kRuleUnroll = DMAX <= 16 && !std::is_same_v<T, double> ? DMAX : 1;
 
@@ -328,13 +358,16 @@ __device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatPara
 // The float rule RULE in T, for csrc/message_kernels.cuh: posteriors,
 // messages and deltas in T; x = Qv - Rold, one rounding; the rule's
 // parameters from FloatParams; the flooding kernels' unit a lane's four
-// frames in f32, one frame in f64 (see the head of this file).
+// frames in f32, one frame in f64, the resident layered kernel's check
+// lanes' a frame pair in f32 and a lane's four in f64 (see the head of this
+// file).
 template <typename T, int RULE>
 struct FloatRule : FloatParams<T> {
   using Q = T;
   using Msg = T;
   using P = T;
   using FloodUnits = std::conditional_t<std::is_same_v<T, double>, Units<1, 512>, Units<>>;
+  using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, Units<2>, Units<>>;
 
   __device__ __forceinline__ T extrinsic(T q, T rold) const { return sub_rn(q, rold); }
   __device__ __forceinline__ T diff(T rn, T rold) const { return sub_rn(rn, rold); }
@@ -433,7 +466,7 @@ int resident_layered_float_decode(void* qv, void* rcv, void* bits, void* iters,
                                   int max_iterations, int threads, int kind,
                                   double big, double clamp, double prod_max,
                                   void* stream) {
-  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  if (Bt != kBt) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
   const size_t park_elems = (size_t)max_degree * Z * kBt;
   const FloatParams<T> p{static_cast<T>(big), static_cast<T>(clamp),

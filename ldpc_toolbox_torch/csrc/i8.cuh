@@ -236,6 +236,7 @@ struct I8Rule {
   using Msg = int8_t;
   using P = int;
   using FloodUnits = Units<>;
+  using LayeredUnits = Units<>;
   static constexpr int big = 127;
   int flags;
 

@@ -24,6 +24,13 @@
 // The f64 instances of the float rules (csrc/float_rules.cuh) move a
 // lane's four doubles as two 16-byte vectors (32 bytes; a thread loads at
 // most 16 at once) and park f64 deltas.
+//
+// A rule may give a thread less than a lane's four frames (Units): the f64
+// float rules in the flooding kernels, the f32 float rules in the resident
+// layered kernel. The layered sweep then walks (lane, unit) pairs of a check group
+// with a lane's units on neighbouring threads, each unit loading and
+// storing its frames of the lane's cells; the park update, the syndrome and
+// the hard decisions keep a thread per lane.
 
 #pragma once
 
@@ -47,21 +54,25 @@ struct Four {
 using F4 = Four<float>;
 using D4 = Four<double>;
 
-// How a flooding kernel (csrc/message_kernels.cuh resident_flooding_kernel,
-// csrc/streaming.cuh fused_check_kernel and fused_var_kernel) gives its
-// threads work under a rule (the rule's FloodUnits): a thread per unit of
-// F of a lane's four frames, kPerLane units a lane, the units of a lane on
+// How a kernel gives its threads work under a rule: the flooding kernels
+// (csrc/message_kernels.cuh resident_flooding_kernel, csrc/streaming.cuh
+// fused_check_kernel and fused_var_kernel) by the rule's FloodUnits, the
+// resident layered kernel's check lanes (layered_sweep4 in
+// resident_layered_kernel) by its LayeredUnits: a thread per unit of F of a
+// lane's four frames, kPerLane units a lane, the units of a lane on
 // neighbouring threads (frames innermost, so they read its cells
 // together), Threads threads a block and two blocks an SM (the launch
-// bounds: 65536 / (2 * Threads) registers a thread). Every rule but the
-// f64 float rules takes a lane's four frames at kThreads (128 registers).
+// bounds: 65536 / (2 * Threads) registers a thread). Every rule takes a
+// lane's four frames at kThreads (128 registers) but the f64 float rules'
+// flooding units and the f32 float rules' layered units (csrc/float_rules.cuh);
+// the streaming sweep gives every rule a lane's four frames.
 template <int F = kBt, int Threads = kThreads>
 struct Units {
   static_assert(kBt % F == 0, "a unit is a whole share of a lane's frames");
   static constexpr int kFrames = F, kPerLane = kBt / F, kBlock = Threads;
 };
 
-// F < kBt frames of one lane: a flooding unit's values.
+// F < kBt frames of one lane: a unit's values.
 template <typename T, int F>
 struct Frames {
   T v[F];
@@ -178,15 +189,20 @@ __device__ __forceinline__ void store4(int* p, const I4& a) {
   *reinterpret_cast<int4*>(p) = make_int4(a.v[0], a.v[1], a.v[2], a.v[3]);
 }
 
-// A flooding unit's F frames of a lane at p (see Units): the lane's four
-// as loaded (load_raw) and stored (store4), or one f64 frame.
+// A unit's F frames of a lane at p (see Units): the lane's four as loaded
+// (load_raw) and stored (store4), an f32 frame pair (8 bytes) or one f64
+// frame.
 template <int F, typename Msg>
 __device__ __forceinline__ auto load_unit(const Msg* p) {
   if constexpr (F == kBt) {
     return load_raw(p);
+  } else if constexpr (std::is_same_v<Msg, float>) {
+    static_assert(F == 2, "an f32 unit of fewer frames than a lane's is a frame pair");
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    return Frames<float, 2>{{a.x, a.y}};
   } else {
     static_assert(std::is_same_v<Msg, double> && F == 1,
-                  "a unit of fewer frames than a lane's is one f64 frame");
+                  "an f64 unit of fewer frames than a lane's is one frame");
     return Frames<double, 1>{{*p}};
   }
 }
@@ -196,6 +212,9 @@ using UnitRaw = decltype(load_unit<F>(static_cast<const Msg*>(nullptr)));
 template <typename T, class V>
 __device__ __forceinline__ void store_unit(T* p, const V& a) {
   store4(p, a);
+}
+__device__ __forceinline__ void store_unit(float* p, const Frames<float, 2>& a) {
+  *reinterpret_cast<float2*>(p) = make_float2(a.v[0], a.v[1]);
 }
 __device__ __forceinline__ void store_unit(double* p, const Frames<double, 1>& a) {
   *p = a.v[0];
@@ -211,6 +230,11 @@ __device__ __forceinline__ void add4(Four<T>& v, const Four<T>& d) {
 __device__ __forceinline__ void add4(I4& v, const I4& d) {
 #pragma unroll
   for (int f = 0; f < kBt; ++f) v.v[f] += d.v[f];
+}
+template <typename T, int F>
+__device__ __forceinline__ void add4(Frames<T, F>& v, const Frames<T, F>& d) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) v.v[f] = add_rn(v.v[f], d.v[f]);
 }
 
 // A lane's four hard decisions as a word of 0/1 bytes: from posteriors
@@ -540,17 +564,20 @@ __device__ __forceinline__ void layered_update_lane(Q* qv, const P* park,
     if (k < d) store4(qv + ((size_t)t.qbase[e0 + k] + w) * kBt, v[k]);
 }
 
-// One layered sweep of one tile over all check groups. check_lane(g, c,
-// parked) updates check lane c of group g and either adds its deltas to
-// Qv itself (parked false: the group reaches no variable group twice, so
-// no other lane touches those cells) or parks them at park[(k * Z + c) *
-// 4]; a parked group's variable lanes then add them in edge order.
-template <int DMAX, typename Q, typename P, class CheckLane>
+// One layered sweep of one tile over all check groups, a unit of U (a
+// lane's four frames, or F of them) a thread. check_lane(g, c, f0, parked)
+// updates the unit of check lane c of group g whose first frame is f0 and
+// either adds its deltas to Qv itself (parked false: the group reaches no
+// variable group twice, so no other lane touches those cells) or parks them
+// at park[(k * Z + c) * 4 + f0]; a parked group's variable lanes then add
+// them in edge order, a lane a thread.
+template <int DMAX, class U = Units<>, typename Q, typename P, class CheckLane>
 __device__ void layered_sweep4(Q* qv, const P* park, const LaneTables& t,
                                CheckLane&& check_lane) {
   for (int g = 0; g < t.CG; ++g) {
     const bool parked = t.repeat[g];
-    for (int c = threadIdx.x; c < t.Z; c += blockDim.x) check_lane(g, c, parked);
+    for (int r = threadIdx.x; r < t.Z * U::kPerLane; r += blockDim.x)
+      check_lane(g, r / U::kPerLane, r % U::kPerLane * U::kFrames, parked);
     __syncthreads();
     if (parked) {
       for (int w = threadIdx.x; w < t.Z; w += blockDim.x)

@@ -32,10 +32,12 @@
 //   var_update for the float messages), reading its c2v and writing its v2c
 //   through cells (lanes.cuh ArrayCells for the resident kernel,
 //   csrc/streaming.cuh PhaseCells for the streaming variable phase);
-// - FloodUnits, the flooding kernels' work unit and block (lanes.cuh
-//   Units): a lane's four frames at kThreads but for the f64 float rules,
-//   whose Check then folds a unit's frames (outputs(x, d, emit) over the
-//   unit's values).
+// - FloodUnits and LayeredUnits, the work unit and block of the flooding
+//   kernels and of the resident layered kernel's check lanes (lanes.cuh
+//   Units; the streaming sweep takes a lane's four frames): a lane's four
+//   frames at kThreads but for the f64 float rules' flooding units and the
+//   f32 float rules' layered units, whose Check then folds a unit's frames
+//   (outputs(x, d, emit) over the unit's values).
 //
 // Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
 // layered: every x of a check group from the layer-entry Qv, big at the
@@ -64,6 +66,7 @@ struct MinSumRule {
   using Msg = MsgT;
   using P = float;
   using FloodUnits = Units<>;
+  using LayeredUnits = Units<>;
   float big, scale;
 
   __device__ __forceinline__ float extrinsic(float q, float rold) const {
@@ -136,29 +139,43 @@ using Vec4 = decltype(load4(static_cast<const T*>(nullptr)));
 template <typename T>
 using Elem = std::decay_t<decltype(Vec4<T>{}.v[0])>;
 
-// Check update of check lane c of group g in one layered tile: every x
-// from the layer-entry Qv (big at the missing lane), Rnew in place (0 at
-// the missing lane), and the deltas Rnew - Rold either added to Qv (parked
-// false; no other lane touches those cells in this group) or parked at
-// park[(k * Z + c) * 4]. The edge loops are unrolled to the degree bucket,
-// so a check's d Qv gathers and d Rcv loads go out before its rule; Rold
-// stays in registers as loaded (bf16 packed) through its outputs.
-template <int DMAX, class Rule>
+// What a layered check unit of F frames gathers of Qv: a lane's four as
+// gather gives them, or the unit's frames.
+template <int F, typename T>
+__device__ __forceinline__ auto gather_unit(const T* p) {
+  if constexpr (F == kBt) {
+    return gather(p);
+  } else {
+    return load_unit<F>(p);
+  }
+}
+
+// Check update of a unit of check lane c of group g in one layered tile
+// (U: F frames, a lane's four or an f32 frame pair; qv, rcv and park those
+// of the unit's first frame): every x from the layer-entry
+// Qv (big at the missing lane), Rnew in place (0 at the missing lane), and
+// the deltas Rnew - Rold either added to Qv (parked false; no other lane
+// touches those cells in this group) or parked at park[(k * Z + c) * 4].
+// The edge loops are unrolled to the degree bucket, so a check's d Qv
+// gathers and d Rcv loads go out before its rule; Rold stays in registers
+// as loaded (bf16 packed) through its outputs.
+template <int DMAX, class U, class Rule>
 __device__ __forceinline__ void layered_check_lane(
     typename Rule::Q* qv, typename Rule::Msg* rcv, typename Rule::P* park,
     const LaneTables& t, int g, int c, bool parked, const Rule& rule) {
   using Q = typename Rule::Q;
-  using V = Vec4<Q>;
+  constexpr int F = U::kFrames;
+  using V = std::conditional_t<F == kBt, Vec4<Q>, Frames<Q, F>>;
   const int Z = t.Z;
   const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  decltype(gather(qv)) q[DMAX];
-  Raw<typename Rule::Msg> r[DMAX];
+  decltype(gather_unit<F>(qv)) q[DMAX];
+  UnitRaw<typename Rule::Msg, F> r[DMAX];
 #pragma unroll
   for (int k = 0; k < DMAX; ++k) {
     if (k < d) {
       const int e = e0 + k;
-      q[k] = gather(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
-      r[k] = load_raw(rcv + ((size_t)e * Z + c) * kBt);
+      q[k] = gather_unit<F>(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      r[k] = load_unit<F>(rcv + ((size_t)e * Z + c) * kBt);
     }
   }
   typename Rule::template Check<DMAX> check(rule);
@@ -170,7 +187,7 @@ __device__ __forceinline__ void layered_check_lane(
       const bool missing = c == t.syn_mask[e0 + k];
       const V qk = unpack(q[k]), rold = unpack(r[k]);
 #pragma unroll
-      for (int f = 0; f < kBt; ++f)
+      for (int f = 0; f < F; ++f)
         x[k].v[f] = missing ? rule.big : rule.extrinsic(qk.v[f], rold.v[f]);
       check.set(k, x[k]);
     }
@@ -181,18 +198,18 @@ __device__ __forceinline__ void layered_check_lane(
     const V rold = unpack(r[k]);
     V rn, delta;
 #pragma unroll
-    for (int f = 0; f < kBt; ++f) {
+    for (int f = 0; f < F; ++f) {
       rn.v[f] = missing ? Elem<Q>(0) : o.v[f];
       delta.v[f] = rule.diff(rn.v[f], rold.v[f]);
     }
-    store4(rcv + ((size_t)e * Z + c) * kBt, rn);
+    store_unit(rcv + ((size_t)e * Z + c) * kBt, rn);
     if (parked) {
-      store4(park + ((size_t)k * Z + c) * kBt, delta);
+      store_unit(park + ((size_t)k * Z + c) * kBt, delta);
     } else {
       Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
-      V qc = load4(cell);
+      V qc = unpack(load_unit<F>(cell));
       add4(qc, delta);
-      store4(cell, qc);
+      store_unit(cell, qc);
     }
   });
 }
@@ -201,9 +218,10 @@ __device__ __forceinline__ void layered_check_lane(
 // 4) the working posteriors (the channel values on entry), rcv (E, Z, 4)
 // the messages (zero on entry), bits the raw-channel bits on entry and the
 // decoded bits on exit; park_all the device park, or null to park in
-// shared memory after the tables.
+// shared memory after the tables. The check lanes give a thread a unit of
+// Rule::LayeredUnits (lanes.cuh Units).
 template <int DMAX, class Rule>
-__global__ void __launch_bounds__(kThreads, 2) resident_layered_kernel(
+__global__ void __launch_bounds__(Rule::LayeredUnits::kBlock, 2) resident_layered_kernel(
     typename Rule::Q* qv_all, typename Rule::Msg* rcv_all, int8_t* bits_all,
     int* iters_out, int* conv_out, typename Rule::P* park_all, Tables t,
     size_t park_elems, int max_iterations, Rule rule) {
@@ -217,21 +235,26 @@ __global__ void __launch_bounds__(kThreads, 2) resident_layered_kernel(
   int8_t* bits = bits_all + tile * lanes * kBt;
   decode_tile4<DMAX>(qv, bits, iters_out, conv_out, lt, max_iterations, smem,
                      [&](int, int* bad) {
-                       layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
-                         layered_check_lane<DMAX>(qv, rcv, park, lt, g, c, parked, rule);
-                       });
+                       using U = typename Rule::LayeredUnits;
+                       layered_sweep4<DMAX, U>(
+                           qv, park, lt, [&](int g, int c, int f0, bool parked) {
+                             layered_check_lane<DMAX, U>(qv + f0, rcv + f0, park + f0, lt,
+                                                         g, c, parked, rule);
+                           });
                        syndrome4<DMAX>(qv, lt, bad);
                      });
 }
 
 // Launches resident_layered_kernel<DMAX, Rule> on nbt tiles (see the C
-// entry points of csrc/resident_layered.cu for the arguments).
+// entry points of csrc/resident_layered.cu for the arguments), at most
+// Rule::LayeredUnits::kBlock threads a block.
 template <int DMAX, class Rule>
 cudaError_t layered_launch(const Rule& rule, void* qv, void* rcv, void* bits,
                            void* iters, void* conv, void* park, const Tables& t,
                            int nbt, size_t park_elems, int max_iterations,
                            int threads, cudaStream_t stream) {
   using P = typename Rule::P;
+  if (threads > Rule::LayeredUnits::kBlock) return cudaErrorInvalidValue;
   return launch(resident_layered_kernel<DMAX, Rule>, nbt, threads,
                 smem_bytes(t, park ? 0 : park_elems, sizeof(P)), stream,
                 static_cast<typename Rule::Q*>(qv),

@@ -68,7 +68,7 @@ extern "C" int ldpc_resident_layered_i8_decode(
     const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,
     int max_degree, int max_iterations, int threads, int kind, int flags,
     void* stream) {
-  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  if (Bt != kBt) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
   const size_t park_elems = (size_t)max_degree * Z * kBt;
   return static_cast<int>(i8_by_bucket<I8Launch>(

@@ -34,8 +34,9 @@
 // csrc/lanes.cuh): a thread per lane of a tile's four frames, so a lane's
 // values move as one 4- to 32-byte vector and each table load and mod-Z
 // index is done once a lane (the f64 float rules' phases a thread per
-// (lane, frame), whose rule is their cost: csrc/float_rules.cuh); the check lane's loads unrolled to the degree
-// bucket, all issued before its rule; the variable lane issuing its next
+// (lane, frame), whose rule is their cost: csrc/float_rules.cuh); the
+// check lane's loads unrolled to the degree bucket, all issued before its
+// rule; the variable lane issuing its next
 // lane's loads before this lane's stores; the tables in shared memory. The
 // phases have no sequential dependence inside a tile, so a tile is spread
 // over several blocks (blockIdx.y the tile, blockIdx.x a slice of its
@@ -212,8 +213,10 @@ __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_var_kernel(
 // One horizontal-layered sweep of one tile per block under a rule, in place
 // on qv (VG, Z, 4) and rcv (E, Z, 4), then the hard bits qv <= 0: one
 // iteration of resident_layered_kernel without the syndrome and the freeze
-// (the same layered_sweep4 over layered_check_lane; park_all the device
-// park, or null to park in shared memory after the tables).
+// (the same layered_sweep4 over layered_check_lane, but a lane's four
+// frames a thread under every rule: the f32 float rules' frame pair of the
+// resident kernel ran 4 % slower here, csrc/float_rules.cuh; park_all the
+// device park, or null to park in shared memory after the tables).
 template <int DMAX, class Rule>
 __global__ void __launch_bounds__(kThreads, 2) fused_layered_kernel(
     typename Rule::Q* qv_all, typename Rule::Msg* rcv_all, int8_t* bits_all,
@@ -226,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layered_kernel(
   auto* qv = qv_all + tile * lanes * kBt;
   auto* rcv = rcv_all + tile * t.E * t.Z * kBt;
   int8_t* bits = bits_all + tile * lanes * kBt;
-  layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, bool parked) {
-    layered_check_lane<DMAX>(qv, rcv, park, lt, g, c, parked, rule);
+  layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, int, bool parked) {
+    layered_check_lane<DMAX, Units<>>(qv, rcv, park, lt, g, c, parked, rule);
   });
   for (size_t i = threadIdx.x; i < lanes; i += blockDim.x)
     store_word(bits + i * kBt, hard_word(qv + i * kBt));
@@ -256,8 +259,8 @@ cudaError_t phase_grid(Kernel kernel, int units, int nbt, int threads,
 
 // The launches of the three kernels on nbt tiles (see the C entry points
 // of csrc/flooding.cu and csrc/fused_layered.cu for the arguments). A tile
-// is 4 frames and a block at most kThreads threads (a phase's at most the
-// rule's FloodUnits::kBlock; its grid counts units).
+// is 4 frames and a block at most the rule's FloodUnits::kBlock threads (a
+// phase's; its grid counts units) or kThreads (the sweep's).
 template <int DMAX, class Rule>
 cudaError_t fused_check_launch(const Rule& rule, const void* v2c, void* c2v,
                                const FloodingTables& t, int nbt, int threads,

@@ -37,7 +37,9 @@ a CUDA tensor ``resident_layered_decode`` passes them to
 ``resident_layered_decode_float``, the wrapper of the kernel's float-rule
 instances (``csrc/resident_layered_f32.cu`` and ``_f64.cu``; check degree
 at most the rule's ``max_check_degree``: 64, 32 for MinstarApprox), which
-counts their launches apart.
+counts their launches apart. The f32 instances' check lanes give a thread
+a frame pair of a lane (``csrc/float_rules.cuh`` FloatRule's
+LayeredUnits), at ``LANE_THREADS`` a block as every other instance.
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
 ``ops/fused_layered.py``'s) share the launch checks of this module. The

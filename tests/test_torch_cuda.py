@@ -697,3 +697,70 @@ def test_f64_flooding_partial_tile(cuda, decoder):
         out = lifted_flooding_decode(lg, arith, x, 10, resident=resident)
         for key in ("codeword", "iterations", "success"):
             assert torch.equal(out[key].cpu(), ref[key]), (resident, key)
+
+
+#: the f32 layered float names, whose resident layered kernel (TPU #1) gives
+#: a check lane's thread a frame pair of a lane and whose streaming sweep
+#: (#3) a lane's four frames, on a code of each check-degree bucket
+F32_LAYERED = ["HLPhif32", "HLTanhf32", "HLMinstarapproxf32", "HLAminstarf32"]
+
+
+def _f32_layered_case(code, decoder, device):
+    """Layered tiles of an f32 name on the codes of ``_f64_case``: R1_4short
+    at B = 128 (bucket 8, the flagship's), 5G BG2 z=16 with 64
+    large-magnitude frames (bucket 16) or CCSDS C2 (bucket 32, every group
+    parked, the park in device memory)."""
+    if code == "DVB-S2 R1_4short":
+        lg, batch, sigma = lifted_graph_for(DvbCode.R1_4short), 128, 0.9
+    else:
+        lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, device)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, device)])
+    return tile_inputs(lg, make_arithmetic(decoder)[1], x)
+
+
+@pytest.mark.parametrize("decoder", F32_LAYERED)
+@pytest.mark.parametrize("code", list(F64_BUCKETS))
+def test_f32_layered_units_match_plain_versions(cuda, code, decoder):
+    """The f32 instances of the resident layered kernel (a frame pair of a
+    lane a thread in the check lanes) and of the streaming sweep against
+    the plain versions on the card, bit for bit, at each degree bucket: a
+    decode, and two sweeps in place; launches counted on the float
+    wrappers."""
+    qv0, bits0, layout, rule = _f32_layered_case(code, decoder, cuda)
+    assert qv0.dtype == torch.float32
+    assert min(b for b in (8, 16, 32, 64) if b >= layout.max_chk_degree) == F64_BUCKETS[code]
+    before = resident_layered_decode_float.launches
+    out = resident_layered_decode(qv0, bits0, layout, rule, 10)
+    assert resident_layered_decode_float.launches == before + 1
+    for a, b in zip(out, resident_layered_decode_reference(qv0, bits0, layout, rule, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0
+    sweep = fused_layered_ops.fused_layered_iteration_float
+    rcv0 = torch.zeros((qv0.shape[0], layout.E, layout.Z, 4), dtype=torch.float32,
+                       device=cuda)
+    kernel, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+    before = sweep.launches
+    for _ in range(2):
+        out = fused_layered_iteration(*kernel, layout, rule)
+        ref = fused_layered_iteration_reference(*plain, layout, rule)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        kernel, plain = out[:2], ref[:2]
+    assert sweep.launches == before + 2
+
+
+@pytest.mark.parametrize("decoder", F32_LAYERED)
+def test_f32_layered_partial_tile(cuda, decoder):
+    """A batch of 130 (a partial tile) through the layered decoder's glue
+    onto the f32 instances, resident (frame pairs) and streaming, against
+    the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    ref = lifted_layered_decode(lg, arith, x.cpu(), 10)
+    for resident in (True, False):
+        out = lifted_layered_decode(lg, arith, x, 10, resident=resident)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key].cpu(), ref[key]), (resident, key)

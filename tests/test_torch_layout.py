@@ -125,7 +125,9 @@ def test_message_kernels_shared_memory(code):
     flooding kernel's one message array is consistent: the cell var-major
     edge p reads at variable lane w through ``rec_plane`` and ``rec_rot``
     is the v2c cell the phase kernels write (``var_dest``, w + ``var_rot``),
-    and its missing lane is ``var_omask``."""
+    and its missing lane is ``var_omask``. Two blocks of a layered kernel
+    fit an SM's shared memory with their tables and park, as their launch
+    bounds count on."""
     _, tlg = lifted_graphs(code)
     layout = lifted_layered.device_layout(tlg, "cpu")
     for name in LAYERED_TABLES:
@@ -135,6 +137,8 @@ def test_message_kernels_shared_memory(code):
     device_park = parks_in_device_memory(layout)
     assert device_park == (code == "ccsds-c2")
     assert device_park == (4 * shared_ints(layout, True) > MAX_SHARED_BYTES)
+    # an H100 SM: 233,472 bytes of shared memory, 1 KiB of it reserved a block
+    assert 2 * (4 * shared_ints(layout, not device_park) + 1024) <= 233_472
     Z = layout.Z
     w = torch.arange(Z)
     plane = layout.rec_plane.long()
@@ -210,6 +214,35 @@ def test_f64_flooding_units_match_the_wrappers():
                           ("Phif32", LANE_THREADS), ("Minstarapproxf32", 256)):
         rule = fused_bp2.rule_for(make_arithmetic(name)[1])
         assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
+    # a layered name's rule floods as its flooding name's does: the f32
+    # float rules' frame pairs are the resident layered kernel's alone
+    for name, threads in (("HLPhif32", LANE_THREADS), ("HLPhif64", fused_bp2.F64_UNIT_THREADS)):
+        rule = fused_bp2.rule_for(make_arithmetic(name)[1])
+        assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
+
+
+def test_f32_layered_units_match_the_wrappers():
+    """The resident layered kernel's check units (``csrc/float_rules.cuh``
+    FloatRule's LayeredUnits over ``csrc/lanes.cuh`` Units, read from the
+    source): the f32 float rules give a check lane's thread a frame pair of
+    a lane, so the flagship's check group of Z = 360 lanes takes three
+    passes, at Units' block, the lane kernels' that the wrappers pass
+    (``LANE_THREADS``; the kernel refuses a larger one), two blocks an SM at
+    128 registers; the f64 float rules, min-sum and the i8 rules keep a
+    lane's four frames."""
+    csrc = REPO / "ldpc_toolbox_torch" / "csrc"
+    units = re.search(r"using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, "
+                      r"Units<(\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
+    assert units, "FloatRule's LayeredUnits is not in csrc/float_rules.cuh"
+    frames = int(units[1])
+    assert frames == 2
+    lanes = (csrc / "lanes.cuh").read_text()
+    assert "template <int F = kBt, int Threads = kThreads>\nstruct Units {" in lanes
+    assert int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1]) == LANE_THREADS
+    assert 65536 // (2 * LANE_THREADS) == 128
+    assert -(-360 * fused_bp2.BT // (frames * LANE_THREADS)) == 3
+    for source in ("message_kernels.cuh", "i8.cuh"):
+        assert "  using LayeredUnits = Units<>;\n" in (csrc / source).read_text(), source
 
 
 @pytest.mark.parametrize("code", CODES)

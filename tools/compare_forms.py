@@ -1,7 +1,7 @@
 """Time forms of kernel sources in turns on one GPU.
 
     python3 tools/compare_forms.py --source SOURCE [--source SOURCE ...]
-        [--form NAME=DIR[:THREADS] ...] [--base DIR] [--reps 5]
+        [--form NAME=DIR[:THREADS] ...] [--base DIR] [--reps 5] [--batch 1024 ...]
 
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
@@ -15,8 +15,9 @@ includes), built here with the package's nvcc flags; "repo" is the package's
 own ``csrc/``, built into the package's ``build/`` as its wrappers build it.
 ``--form`` forms share the package's C interface and run at the package's
 block sizes, or at THREADS a block where given (every lane kernel of the
-form: a form of before the f64 float rules' (lane, frame) units runs its f64
-flooding kernels at 256). ``--base`` names a directory holding the sources
+form, the f32 float rules' layered frame pairs among them: a form of before
+the f64 float rules' (lane, frame) units runs its f64 flooding kernels at
+256). ``--base`` names a directory holding the sources
 of commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
 compressed, flooding and resident_layered and ``layered.cuh``), whose
 message kernels give a thread one (lane, frame); they run as they ran there:
@@ -57,12 +58,19 @@ For every source and form it also compares each kernel's SASS (``cuobjdump
 -sass``, addresses and encodings dropped) with the package's build and names
 the kernels whose code differs: a kernel of the same code runs the same.
 
-Prints the card's name and power limit, a line a tile set and one JSON line
-with every time in milliseconds.
+``--batch`` times every source at other batch sizes too, one run after
+the other on the same builds (528 frames: one tile an SM of the card's 132,
+against the flagship's two).
+
+Prints the card's name and power limit, a line a tile set with each form's
+time and, from nvcc's report of its build, the registers and spill-store
+bytes of the flagship instance it ran (bucket 8, the name's rule), and one
+JSON line with every time in milliseconds.
 """
 
 import argparse
 import ctypes
+import functools
 import json
 import pathlib
 import re
@@ -100,6 +108,8 @@ from ldpc_toolbox_torch.ops import (  # noqa: E402
 )
 
 OUT = _build.BUILD_DIR / "forms"
+#: the frames of the decodes being timed
+BATCH = FLAGSHIP_BATCH
 #: per source: (schedule, the wrapper's module, the name there of its
 #: library getter, the wrapper, the other check state's kernel or None,
 #: the library binder)
@@ -208,6 +218,72 @@ def base_flooding(lib, q_t, bits0_t, layout, rule, max_iterations):
     return bits, iters, conv
 
 
+#: the kernel each wrapper launches
+KERNEL_OF = {
+    "resident_layered_decode": "resident_layered_kernel",
+    "resident_flooding_decode": "resident_flooding_kernel",
+    "compressed_layered_decode": "compressed_layered_kernel",
+    "compressed_flooding_decode": "compressed_flooding_kernel",
+    "fused_layered_iteration": "fused_layered_kernel",
+    "fused_check": "fused_check_kernel",
+    "fused_var": "fused_var_kernel",
+}
+#: nvcc's reports, by (source, form): the package's build of a source is
+#: form "repo"
+LOGS = {}
+_CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float64: "double"}
+
+
+def instance(wrapper, rule):
+    """The demangled name (``ldpc::`` and spaces dropped) of the flagship
+    instance (degree bucket 8) that ``wrapper`` launches under ``rule``."""
+    kernel = next(k for w, k in KERNEL_OF.items() if wrapper.startswith(w))
+    if fused_bp2.is_i8(rule):
+        tag = f"I8Rule<{rule.kind}>"
+    elif fused_bp2.is_float_rule(rule):
+        tag = f"FloatRule<{_CTYPE[rule.storage_dtype]},{rule.kind}>"
+    else:
+        ctype = _CTYPE[rule.storage_dtype]
+        tag = ctype if kernel.startswith("compressed") else f"MinSumRule<{ctype}>"
+    return f"{kernel}<{tag}>" if kernel == "fused_var_kernel" else f"{kernel}<8,{tag}>"
+
+
+@functools.cache
+def ptxas_report(log):
+    """{kernel (demangled, ``ldpc::`` and spaces dropped): (registers,
+    spill-store bytes)} of an nvcc ``-Xptxas -v`` report."""
+    regs, spills, fn = {}, {}, None
+    for line in pathlib.Path(log).read_text().splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line):
+            fn = m.group(1)
+        elif fn and (m := re.search(r"(\d+) bytes spill stores", line)):
+            spills[fn] = int(m.group(1))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            regs[fn] = int(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(regs), capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    short = (re.sub(r"\(anonymous namespace\)::|ldpc::", "", n).split("(")[0] for n in names)
+    return {re.sub(r"\s", "", n).removeprefix("void"): (r, spills.get(k, 0))
+            for n, (k, r) in zip(short, regs.items())}
+
+
+def make_rule(name):
+    """The rule policy of a decoder name."""
+    return fused_bp2.rule_for(make_arithmetic(name)[1])
+
+
+def registers(source, forms, wrapper, rule):
+    """{form: "R regs, S B spill"} of the instance each form of ``source``
+    ran, from nvcc's report of its build (empty where no report is kept)."""
+    out = {}
+    for form in forms:
+        log = LOGS.get((source, form))
+        found = ptxas_report(str(log)).get(instance(wrapper, rule)) if log else None
+        if found:
+            out[form] = f"{found[0]} regs, {found[1]} B spill"
+    return out
+
+
 def turns(fns, reps):
     """Medians of ``reps`` timings of each fn in turns, after a warm-up."""
     for fn in fns.values():
@@ -221,12 +297,15 @@ def turns(fns, reps):
 
 
 def main():
+    global BATCH
     p = argparse.ArgumentParser()
     p.add_argument("--source", action="append", required=True,
                    choices=sorted(PLAN) + sorted(SWEEPS) + ["streaming"])
     p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--batch", type=int, action="append",
+                   help=f"frames a decode (repeatable; default {FLAGSHIP_BATCH})")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -267,17 +346,26 @@ def main():
         if source in libs and form in forms:
             libs[source][form] = lib
     print(f"nvcc's reports in {OUT}/<source>-<form>.log")
+    for source in sources:
+        LOGS[(source, "repo")] = _build.library_path(source).with_suffix(".log")
     for source, form, _ in jobs:
-        if source in libs and form in forms:
+        LOGS[(source, form)] = OUT / f"{source}-{form}.log"
+    for source, form, _ in jobs:
+        # the streaming forms' sweep and phase builds too, where the form has
+        # the lane form's sources
+        if (source in libs and form in forms) or (
+                source in ("fused_layered", "flooding") and form not in forms):
             n, differ = sass_differs(_build.library_path(source), OUT / f"{source}-{form}.so")
             print(f"{source} {form}: {n} kernels, SASS differing from repo: "
                   + (", ".join(differ) or "none"))
 
     lg = lifted_graph_for(Code.R1_2)
-    llrs = channel_llrs(lg.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
     result = {"card": card}
-    for source in sources:
-        run_source(source, libs[source], block, lg, llrs, args.reps, card, result)
+    for batch in args.batch or [FLAGSHIP_BATCH]:
+        BATCH = batch
+        llrs = channel_llrs(lg.n, batch, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
+        for source in sources:
+            run_source(source, libs[source], block, lg, llrs, args.reps, card, result)
     if "streaming" in args.source:
         streaming = {"repo": (True, fused_layered._lib(), fused_bp2.flooding_lib())}
         for form, d in forms.items():
@@ -386,7 +474,7 @@ def run_streaming(forms, lg, llrs, reps, card, result):
             hold_and_time(fns, f"streaming {kernel} {name}", reps, card, result)
 
 
-def hold_and_time_sweep(sweep, forms, qv0, rcv0, what, reps, card, result):
+def hold_and_time_sweep(sweep, forms, qv0, rcv0, what, reps, card, result, regs={}):
     """Holds one sweep of every form (``sweep(form, (qv, rcv))``, in place)
     from the same planes to the package's, bit for bit, then times each
     form's sweeps in turns, each decoding on from its own planes."""
@@ -396,9 +484,10 @@ def hold_and_time_sweep(sweep, forms, qv0, rcv0, what, reps, card, result):
             assert torch.equal(a, b), f"{what}: {form} differs from repo"
     states = {form: (qv0.clone(), rcv0.clone()) for form in forms}
     ms = turns({form: lambda form=form: sweep(form, states[form]) for form in forms}, reps)
-    result[what] = ms
-    print(f"[{card}] {what}, B={FLAGSHIP_BATCH}: all forms equal; "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+    result[what if BATCH == FLAGSHIP_BATCH else f"{what} B={BATCH}"] = ms
+    print(f"[{card}] {what}, B={BATCH}: all forms equal; "
+          + ", ".join(f"{k} {v:.3f} ms" + (f" ({regs[k]})" if k in regs else "")
+                      for k, v in ms.items())
           + f" (one sweep, in place, in turns, median of {reps})")
 
 
@@ -417,10 +506,10 @@ def run_sweep(source, built, block, lg, llrs, reps, card, result):
                             getattr(fused_layered, wrapper), *state, layout, rule)
 
         hold_and_time_sweep(sweep, libs, qv0, rcv0, f"{source} {wrapper} {name}", reps, card,
-                            result)
+                            result, registers(source, libs, wrapper, rule))
 
 
-def hold_and_time(fns, what, reps, card, result):
+def hold_and_time(fns, what, reps, card, result, regs={}):
     """Holds every form's outputs (``fns``: name -> fn, "repo" among them)
     to the package's, bit for bit, then times them in turns into
     ``result[what]``."""
@@ -433,9 +522,10 @@ def hold_and_time(fns, what, reps, card, result):
         for a, b in zip(outputs(fn), ref, strict=True):
             assert torch.equal(a, b), f"{what}: {form} differs from repo"
     ms = turns(fns, reps)
-    result[what] = ms
-    print(f"[{card}] {what}, B={FLAGSHIP_BATCH}: all forms equal; "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+    result[what if BATCH == FLAGSHIP_BATCH else f"{what} B={BATCH}"] = ms
+    print(f"[{card}] {what}, B={BATCH}: all forms equal; "
+          + ", ".join(f"{k} {v:.3f} ms" + (f" ({regs[k]})" if k in regs else "")
+                      for k, v in ms.items())
           + f" (in turns, median of {reps})")
 
 
@@ -463,7 +553,8 @@ def run_phases(source, built, block, lg, llrs, reps, card, result):
             fns = {form: lambda lib=bind_form(bind, lib), form=form, args=args: with_lib(
                        fused_bp2, getter, lib, block.get(form), getattr(fused_bp2, kernel), *args)
                    for form, lib in built.items() if form != "base"}
-            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result)
+            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result,
+                          registers(source, fns, kernel, rule))
 
 
 def run_source(source, built, block, lg, llrs, reps, card, result):
@@ -490,7 +581,8 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
                 fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
             fns_of[name] = fns
         for name, fns in fns_of.items():
-            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result)
+            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result,
+                          registers(source, fns, kernel, make_rule(name)))
     if source in PHASES:
         run_phases(source, built, block, lg, llrs, reps, card, result)
 
