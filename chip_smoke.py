@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout's sources (one nvcc a source,
-all at once), holds every kernel bit for bit against its plain PyTorch
-version (5G BG2 z=16, DVB-S2 R1_4short and R1_2, CCSDS C2; three min-sum
+all at once), holds the i8 rules' word steps against the plain rules on
+every byte pair in [0, 127]^2, holds every kernel bit for bit against its
+plain PyTorch version (5G BG2 z=16, DVB-S2 R1_4short and R1_2, CCSDS C2; three min-sum
 names each, and the normalized f32 names for the compressed kernels; two
 i8 names a schedule for the int8 instances of the message kernels, with
 large-magnitude frames on 5G BG2 z=16; CCSDS AR4JA K=1024 rates 1/2 and
@@ -43,7 +44,9 @@ schedule, and of ``HLMinstarapproxi8`` and ``HLPhif32``, through
 ``BerTestBuilder``. Times
 are medians of CUDA-event timings. Before the last line it prints a JSON
 line with every kernel's launches, worst difference from its plain
-version, time, plain time and bound; the last line of standard output is
+version, time, plain time and bound (an i8 instance's from its word
+steps' executed SASS instructions, tools/count_math_ops.py); the last
+line of standard output is
 a JSON object with "ok": true. Any failure raises and exits non-zero, as
 does a machine without a CUDA device.
 """
@@ -104,6 +107,9 @@ from ldpc_toolbox_torch.ops.fused_bp2 import (
     fused_var_float,
     fused_var_i8,
     fused_var_reference,
+    I8_STEPS,
+    i8_steps,
+    i8_steps_reference,
     is_i8,
 )
 from ldpc_toolbox_torch.ops.resident_flooding import (
@@ -146,20 +152,21 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 2
 #: with: its rebuild of messages from the compressed state is a cost of its
 #: design, not work the decode needs.
 CHECK_OPS, VAR_EDGE_OPS, VAR_LANE_OPS, SYN_OPS, LAYERED_EXTRA_OPS = 11, 2, 1, 1, 3
-#: integer operations of the i8 rules on one frame, counted from
-#: csrc/i8.cuh and the int8 instances. The folds work on a word of four
-#: frames, so a fold costs its word operations over four: MinstarApprox's
-#: fold 14 (min, |a - b|, the correction table's 6 compares and 5 adds,
-#: the saturating subtract), Aminstar's full min* 28 (that, plus the
-#: saturating a + b, its min with 127, the second table and its add) and
-#: 4 more a slot for its argmin and selects. Per frame: per edge lane of a
-#: check the magnitude and sign, the parity, the output's sign and the
-#: partial hard limit; per edge lane of the layered update the extrinsic
-#: and its clip, the delta and the Qv add; per edge lane of the variable
-#: phase the add, the subtract and its clip, and per variable lane the
-#: Deg1Clip, the Jones clip and the hard decision
-I8_FOLD_OPS, I8_FULL_OPS, I8_SLOT_OPS = 14 / 4, 28 / 4, 4 / 4
-I8_EDGE_OPS, I8_LAYERED_EXTRA_OPS, I8_VAR_EDGE_OPS, I8_VAR_LANE_OPS = 7, 5, 4, 5
+#: operations of the i8 rules besides their word steps (whose executed SASS
+#: instructions are STEP_OPS["i8"]), integer, counted from csrc/i8.cuh and
+#: the int8 instances. The check works on words of four frames, so its
+#: operations count a word's instructions over four: per edge lane of a
+#: check 12 (the input's sign bits, sign mask, magnitude, packed sign and
+#: parity; the output's sign, its mask and the negation and select), per
+#: slot of Aminstar 15 more (the argmin's compare, min and slot select, the
+#: slot's eligibility, the fold's selects, the output's select). The
+#: variable update works on a word's frames in 16-bit halves: per edge
+#: lane 16 a word (the spread into halves and their adds; the output's
+#: subtracts, clamps, packing and sign flip), per variable lane 10 (the
+#: Jones clamps, the hard decisions). Per frame: per edge lane of the
+#: layered update the extrinsic and its clip, the delta and the Qv add
+I8_EDGE_OPS, I8_SLOT_OPS = 12 / 4, 15 / 4
+I8_VAR_EDGE_OPS, I8_VAR_LANE_OPS, I8_LAYERED_EXTRA_OPS = 16 / 4, 10 / 4, 5
 #: FP64 operations/s outside the tensor cores (NVIDIA's data sheet, H100
 #: SXM): the rate of the float rules' f64 instances
 F64_OPS_PER_S = 34e12
@@ -171,8 +178,16 @@ PIPE_OPS_PER_S = {"f32": F32_OPS_PER_S, "f64": F64_OPS_PER_S, "sfu": SFU_OPS_PER
                   "int": INT32_OPS_PER_S}
 #: instructions a call of each step of the float rules executes, by class:
 #: the fewest any argument in the messages' range takes (the probe kernels'
-#: PTX, tools/count_math_ops.py on the card, PERF.md section 6)
+#: PTX, tools/count_math_ops.py on the card, PERF.md section 6); and of the
+#: i8 rules' word steps, a word of four frames, from the SASS (the same
+#: tool: "f32" counts IMAD, which issues to the FMA pipe)
 STEP_OPS = {
+    "i8": {
+        "tab4": {"int": 14, "f32": 0},
+        "minstar_approx4": {"int": 22, "f32": 1},
+        "minstar_full4": {"int": 38, "f32": 2},
+        "phl4": {"int": 3, "f32": 0},
+    },
     "float": {
         "phi": {"f32": 43, "sfu": 1, "int": 15},
         "minstar_approx": {"f32": 26, "sfu": 1, "int": 11},
@@ -377,34 +392,49 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def i8_check_ops(kind, d):
-    """Integer operations of one check of degree d under an i8 rule, on one
-    frame: MinstarApprox's folds (the prefixes and each slot's rest, with
-    prefix reuse), or Aminstar's argmin, its full min* fold over every
-    slot and its shared output; plus the per-edge work."""
+def i8_folds(kind, d):
+    """(the word step, its calls) of one check of degree d under an i8 rule:
+    MinstarApprox's folds (the prefixes and each slot's rest, with prefix
+    reuse), or Aminstar's full min* fold over every slot but the minimum's
+    and its shared output (d + 1 calls, the first minimum's own too)."""
     if kind == 0:
-        folds = 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0
-        rule_ops = folds * I8_FOLD_OPS
-    else:
-        rule_ops = d * I8_SLOT_OPS + (d + 1) * I8_FULL_OPS
-    return rule_ops + d * I8_EDGE_OPS
+        return "minstar_approx4", 2 * (d - 2) + (d - 2) * (d - 1) // 2 if d >= 2 else 0
+    return "minstar_full4", d + 1
+
+
+def i8_check_ops(kind, d):
+    """Operations of one check of degree d under an i8 rule on one frame,
+    by class: its folds at their executed instructions (``STEP_OPS``, a
+    word's over four), Aminstar's slot work, and the per-edge work."""
+    step, calls = i8_folds(kind, d)
+    ops = Counter({cls: calls * n / 4 for cls, n in STEP_OPS["i8"][step].items()})
+    ops["int"] += d * (I8_EDGE_OPS + (I8_SLOT_OPS if kind == 1 else 0))
+    return ops
 
 
 def i8_iteration_ops(layout, rule, layered, parts=PARTS):
-    """Integer operations of the ``parts`` of one iteration of one frame
-    under an i8 rule (``PARTS``; all of them by default): every check
+    """Operations of the ``parts`` of one iteration of one frame under an
+    i8 rule (``PARTS``; all of them by default), by class: every check
     group's rule work ("check"), the layered update's or the variable
     phase's ("update") and the syndrome's, per edge lane and variable lane;
     times Z."""
-    ops = 0
+    ops = Counter()
     if "check" in parts:
-        ops += sum((m.g1 - m.g0) * i8_check_ops(rule.kind, m.d) for m in layout.chk_meta)
+        for m in layout.chk_meta:
+            for cls, n in i8_check_ops(rule.kind, m.d).items():
+                ops[cls] += (m.g1 - m.g0) * n
     if "update" in parts:
-        ops += (layout.E * I8_LAYERED_EXTRA_OPS if layered
-                else layout.E * I8_VAR_EDGE_OPS + layout.VG * I8_VAR_LANE_OPS)
+        ops["int"] += (layout.E * I8_LAYERED_EXTRA_OPS if layered
+                       else layout.E * I8_VAR_EDGE_OPS + layout.VG * I8_VAR_LANE_OPS)
     if "syndrome" in parts:
-        ops += layout.E * SYN_OPS
-    return ops * layout.Z
+        ops["int"] += layout.E * SYN_OPS
+    return Counter({cls: n * layout.Z for cls, n in ops.items()})
+
+
+def i8_word_folds(layout, rule):
+    """Word steps (folds) of one iteration of one tile under an i8 rule:
+    each check lane's folds, a word serving the tile's four frames."""
+    return layout.Z * sum((m.g1 - m.g0) * i8_folds(rule.kind, m.d)[1] for m in layout.chk_meta)
 
 
 def float_check_ops(rule, d, fp):
@@ -1089,6 +1119,30 @@ def i8_checks(graphs, worst):
               "version on the CPU equal")
 
 
+def i8_step_checks():
+    """The i8 rules' word steps on the card (``fused_bp2.i8_steps``: the
+    correction table, both families' folds, the partial hard limit of
+    csrc/i8.cuh) on every byte pair in [0, 127]^2, four frames a word, each
+    frame's byte through its own permutation of the pairs, against the
+    plain rules' value of each byte (tolerance 0)."""
+    a = torch.arange(128, dtype=torch.int32).repeat_interleave(128)
+    b = torch.arange(128, dtype=torch.int32).repeat(128)
+    g = torch.Generator().manual_seed(0)
+    perms = [torch.randperm(a.numel(), generator=g) for _ in range(4)]
+    wa = sum(a[p] << 8 * f for f, p in enumerate(perms))
+    wb = sum(b[p] << 8 * f for f, p in enumerate(perms))
+    out = i8_steps(wa.cuda(), wb.cuda())
+    torch.cuda.synchronize()
+    ref = i8_steps_reference(wa, wb)
+    for s, step in enumerate(I8_STEPS):
+        # each byte of the words: differences per frame, not per word
+        diff = max(int(((out[s].cpu() >> 8 * f & 0xFF) - (ref[s] >> 8 * f & 0xFF)).abs().max())
+                   for f in range(4))
+        assert diff == 0, f"i8 step {step} differs from the plain rules"
+    print(f"i8 word steps vs plain rules: {', '.join(I8_STEPS)} on all {a.numel()} byte "
+          "pairs in [0, 127]^2, four frames a word: equal (tolerance 0)")
+
+
 def float_kernel_and_plain(name):
     """(kernel wrapper, plain version, tiling) of a float name's schedule."""
     if name.startswith("HL"):
@@ -1269,8 +1323,10 @@ def flagship_i8(card, llrs, worst, name):
     nbt, VG, Z, Bt = q0.shape
     lanes, edge_tile, lane_tile = VG * Z * Bt * nbt, layout.E * Z * Bt, VG * Z * Bt
     tile_its = int(tile_iterations(iters, Bt).sum())
-    ops = tile_its * Bt * i8_iteration_ops(layout, rule, layered)
-    b = bound(lanes * (q0.element_size() + 1 + 1) + nbt * Bt * 8, ops, INT32_OPS_PER_S)
+    ops = Counter({cls: tile_its * Bt * n
+                   for cls, n in i8_iteration_ops(layout, rule, layered).items()})
+    b = bound_pipes(lanes * (q0.element_size() + 1 + 1) + nbt * Bt * 8, ops)
+    folds = tile_its * i8_word_folds(layout, rule)
     if layered:
         # per edge lane: Rcv int8 read and written, Qv int16 read for x,
         # read and written for the update and read for the syndrome
@@ -1287,11 +1343,13 @@ def flagship_i8(card, llrs, worst, name):
           "median of 5")
     print(f"[{card}] {kernel.__name__} kernel ({name}): {kernel_ms:.3f} ms "
           f"({kernel_ms / executed:.3f} ms/iter, median of 5); plain version "
-          f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} (INT32 "
-          f"operations at {INT32_OPS_PER_S:.3g}/s; {100 * b[0] / kernel_ms:.1f}% of "
-          f"bound); state-traffic floor {state_ms:.3f} ms "
-          f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations)")
-    return {kernel.__name__: entry(launches[kernel.__name__], kernel_ms, plain_ms, b)}
+          f"{plain_ms:.3f} ms (one run); bound {b[0]:.4f} ms by {b[1]} (the {b[2]} "
+          f"pipe's; operations by class { {c: f'{n:.4g}' for c, n in sorted(ops.items())} }, "
+          f"the word steps at their executed SASS instructions; "
+          f"{100 * b[0] / kernel_ms:.1f}% of bound); state-traffic floor {state_ms:.3f} ms "
+          f"({100 * state_ms / kernel_ms:.1f}%, {tile_its} tile-iterations, {folds} word "
+          f"folds ({i8_folds(rule.kind, 7)[0]}))")
+    return {kernel.__name__: entry(launches[kernel.__name__], kernel_ms, plain_ms, b[:2])}
 
 
 def flagship_float(card, llrs, worst, name):
@@ -1418,11 +1476,8 @@ def flagship_streaming(card, llrs, worst, name):
 
     def phase_bound(nbytes, parts):
         """A launch's bound: its bytes, and its parts of an iteration's
-        operations on every frame (INT32, or by class of instruction)."""
-        if i8:
-            ops = frames * i8_iteration_ops(layout, rule, layered, parts)
-            return bound(nbytes, ops, INT32_OPS_PER_S) + ("int",)
-        per = float_iteration_ops(layout, rule, layered, parts)
+        operations on every frame, by class of instruction."""
+        per = (i8_iteration_ops if i8 else float_iteration_ops)(layout, rule, layered, parts)
         return bound_pipes(nbytes, Counter({c: frames * n for c, n in per.items()}))
 
     tag = f"flagship B={FLAGSHIP_BATCH} {name}"
@@ -1592,6 +1647,7 @@ def main():
     layered_checks(graphs, worst)
     flooding_checks(graphs, worst)
     compressed_checks(graphs, worst)
+    i8_step_checks()
     i8_checks(graphs, worst)
     float_checks(graphs, worst)
     streaming_checks(graphs, worst)

@@ -18,14 +18,19 @@
 // iteration each edge lane of each frame reads and writes its message in
 // each phase (4 x 1 byte), and the syndrome reads the hard-bit words
 // (1 byte an edge lane): about 5 bytes, half the bf16 instance's 10. The
-// min* folds add integer work, far below the INT32 roof at the flagship's
-// degree 7.
+// integer work binds instead: MinstarApprox folds a degree-7 check 25
+// times, and the byte-SIMD intrinsics of the first form took 39 SASS
+// instructions a fold (tools/count_math_ops.py); those folds alone, at the
+// rate the card runs them, took 27 % of the flagship decode and the
+// per-frame code around them most of the rest (PERF.md section 6).
 //
-// What the design does about it: the float instance's form (a lane's four
-// int8 messages as one word, the check loop unrolled to the degree bucket,
-// the variable phase loading its next lane before it stores, tables in
-// shared memory, 256 threads), with the check's four frames folded as
-// bytes of one word.
+// What the design does about it: the check and its rule work on words of
+// a lane's four frames (csrc/i8.cuh: word arithmetic with no carry between
+// bytes, 23 instructions a fold; the signs as bit masks), the variable
+// update on 16-bit halves of them (Hopper's 16x2 integer min and max for
+// the clips); the float instance's form otherwise (the check loop
+// unrolled to the degree bucket, the variable phase loading its next
+// lane before it stores, tables in shared memory, FloodUnits' block).
 //
 // Semantics (the JAX package's kernels and plane-gather path): v2c starts
 // as the int8 channel value q at every edge; the check lane folds its d
@@ -68,17 +73,17 @@ struct CheckLaunch {
 // The whole decode under an i8 rule. It takes the ten layered tables (see
 // Tables in layered.cuh), the tile shape (Bt must be 4), the largest check
 // degree (at most 32), kind (0 MinstarApprox, 1 Aminstar) and flags (bit 0
-// PartialHardLimit, bit 1 Jones, bit 2 Deg1Clip); threads is at most 256.
-// msg (nbt, E, Z, 4) and post (nbt, VG, Z, 4) int8 scratch; q (nbt, VG, Z,
-// 4) int8 quantized channel values; bits (nbt, VG, Z, 4) int8 raw-channel
-// bits in, decoded bits out; iters and conv (nbt, 4) int32 out. Returns
-// the launch's cudaError_t.
+// PartialHardLimit, bit 1 Jones, bit 2 Deg1Clip); threads is at most
+// I8Rule's FloodUnits block. msg (nbt, E, Z, 4) and post (nbt, VG, Z, 4)
+// int8 scratch; q (nbt, VG, Z, 4) int8 quantized channel values; bits
+// (nbt, VG, Z, 4) int8 raw-channel bits in, decoded bits out; iters and
+// conv (nbt, 4) int32 out. Returns the launch's cudaError_t.
 extern "C" int ldpc_resident_flooding_i8_decode(
     void* msg, const void* q, void* post, void* bits, void* iters, void* conv,
     const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,
     int max_degree, int max_iterations, int threads, int kind, int flags,
     void* stream) {
-  if (Bt != kBt || threads > kThreads) return cudaErrorInvalidValue;
+  if (Bt != kBt) return cudaErrorInvalidValue;
   const Tables t = make_tables(tables, CG, E, VG, Z);
   return static_cast<int>(i8_by_bucket<I8Launch>(
       max_degree, kind, msg, q, post, bits, iters, conv, t, nbt,
@@ -122,6 +127,30 @@ extern "C" int ldpc_fused_var_i8(const void* c2v, const void* q, void* v2c,
     return static_cast<int>(fused_var_launch(I8Rule<kMinstarApprox>{flags}, c2v, q,
                                              v2c, bits, t, nbt, threads, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The i8 rules' word steps of csrc/i8.cuh on n words a and b (a byte in
+// [0, 127] a frame), for the tests: out (4, n) holds tab4(a),
+// minstar_approx4(a, b), minstar_full4(a, b) and phl4(a).
+__global__ void i8_steps_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t x = a[i], y = b[i];
+  out[i] = tab4(x);
+  out[(size_t)n + i] = minstar_approx4(x, y);
+  out[2 * (size_t)n + i] = minstar_full4(x, y);
+  out[3 * (size_t)n + i] = phl4(x);
+}
+
+extern "C" int ldpc_i8_steps(const void* a, const void* b, void* out, int n,
+                             void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(launch(i8_steps_kernel, dim3((n + kThreads - 1) / kThreads),
+                                 kThreads, 0, static_cast<cudaStream_t>(stream),
+                                 static_cast<const uint32_t*>(a),
+                                 static_cast<const uint32_t*>(b),
+                                 static_cast<uint32_t*>(out), n));
 }
 
 extern "C" const char* ldpc_flooding_i8_error_string(int err) {

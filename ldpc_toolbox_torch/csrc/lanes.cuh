@@ -174,6 +174,13 @@ __device__ __forceinline__ void store4(int8_t* p, const I4& a) {
   store_word(p, byte_at(a.v[0], 0) | byte_at(a.v[1], 1) | byte_at(a.v[2], 2) |
                     byte_at(a.v[3], 3));
 }
+// a word of four int8 as it is
+__device__ __forceinline__ void store4(int8_t* p, uint32_t w) { store_word(p, w); }
+// four ints in [-128, 127] as the bytes of one word (three PRMTs)
+__device__ __forceinline__ uint32_t pack_bytes(const I4& a) {
+  return __byte_perm(__byte_perm(a.v[0], a.v[1], 0x40), __byte_perm(a.v[2], a.v[3], 0x40),
+                     0x5410);
+}
 
 // stored as int16: each value wraps, as an int16 sum does
 __device__ __forceinline__ void store4(int16_t* p, const I4& a) {
@@ -346,10 +353,12 @@ __device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
 // Edges of a flooding variable unit of F frames whose loads go out
 // together: 8 for a lane's four frames; 4 for an f64 unit of fewer, whose
 // next unit's prefetch then fits 64 registers (in turns on the card, the
-// flagship's f64 variable phase 25 % faster than with 8, which spilled).
+// flagship's f64 variable phase 25 % faster than with 8, which spilled),
+// and 4 for int8 messages, whose kernels run 512 threads at 64 registers
+// too (the flagship's i8 decode 11 % faster than with 8, which spilled).
 constexpr int kVarChunk = 8;
-template <int F>
-constexpr int kVarChunkOf = F == kBt ? kVarChunk : 4;
+template <int F, typename Msg = float>
+constexpr int kVarChunkOf = F == kBt && !std::is_same_v<Msg, int8_t> ? kVarChunk : 4;
 
 // The resident flooding kernels keep one message array in check-major
 // cells. The cell of var-major edge p at variable lane w: its message lives
@@ -386,7 +395,7 @@ struct ArrayCells {
 template <typename Msg, int F = kBt>
 struct VarLoads {
   UnitRaw<Msg, F> q;
-  UnitRaw<Msg, F> y0[kVarChunkOf<F>];
+  UnitRaw<Msg, F> y0[kVarChunkOf<F, Msg>];
 };
 
 // The first loads of variable lane w of group vg, whose edges are p0..p1
@@ -397,7 +406,7 @@ __device__ __forceinline__ void var_load(const Cells& cells, const Msg* q, int Z
                                          VarLoads<Msg, F>& v) {
   v.q = load_unit<F>(q + ((size_t)vg * Z + w) * kBt);
 #pragma unroll
-  for (int j = 0; j < kVarChunkOf<F>; ++j)
+  for (int j = 0; j < kVarChunkOf<F, Msg>; ++j)
     if (p0 + j < p1) v.y0[j] = load_unit<F>(cells.in(p0 + j, w));
 }
 

@@ -32,6 +32,10 @@
 //   var_update for the float messages), reading its c2v and writing its v2c
 //   through cells (lanes.cuh ArrayCells for the resident kernel,
 //   csrc/streaming.cuh PhaseCells for the streaming variable phase);
+// - or, for a word rule (kWords true: I8Rule), Check<DMAX> over words: a
+//   lane's four int8 inputs as one word, set(k, word) for k = 0, 1, ...
+//   in order, then outputs(d, emit) calls emit(k, word) with slot k's four
+//   outputs as one word; bigs is the missing lane's input word;
 // - FloodUnits and LayeredUnits, the work unit and block of the flooding
 //   kernels and of the resident layered kernel's check lanes (lanes.cuh
 //   Units; the streaming sweep takes a lane's four frames): a lane's four
@@ -112,6 +116,13 @@ struct MinSumRule {
   }
 };
 
+// Whether a rule is a word rule (see above: Rule::kWords).
+template <class Rule, class = void>
+struct WordRule : std::false_type {};
+template <class Rule>
+struct WordRule<Rule, std::void_t<decltype(Rule::kWords)>>
+    : std::bool_constant<Rule::kWords> {};
+
 // What a layered check lane gathers of Qv: f32 and f64 as their four
 // values, int16 as loaded, widened when used (in turns on the flagship,
 // tools/compare_forms.py, the faster forms of each type).
@@ -150,6 +161,56 @@ __device__ __forceinline__ auto gather_unit(const T* p) {
   }
 }
 
+// layered_check_lane under a word rule, for a lane's four frames of check
+// lane c, whose d edges are e0..e0+d: each x computed per frame as the
+// rule's extrinsic, the four as one word for the rule's Check; each output
+// word (0 at the missing lane) stored as it is, its deltas per frame.
+template <int DMAX, class Rule>
+__device__ __forceinline__ void layered_check_words(
+    typename Rule::Q* qv, typename Rule::Msg* rcv, typename Rule::P* park,
+    const LaneTables& t, int c, int e0, int d, bool parked, const Rule& rule) {
+  using Q = typename Rule::Q;
+  const int Z = t.Z;
+  decltype(gather(qv)) q[DMAX];
+  uint32_t r[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const int e = e0 + k;
+      q[k] = gather(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+      r[k] = load_word(rcv + ((size_t)e * Z + c) * kBt);
+    }
+  }
+  typename Rule::template Check<DMAX> check(rule);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const I4 qk = unpack(q[k]), rold = unpack(r[k]);
+      I4 x;
+#pragma unroll
+      for (int f = 0; f < kBt; ++f) x.v[f] = rule.extrinsic(qk.v[f], rold.v[f]);
+      check.set(k, c == t.syn_mask[e0 + k] ? Rule::bigs : pack_bytes(x));
+    }
+  }
+  check.outputs(d, [&](int k, uint32_t o) {
+    const int e = e0 + k;
+    const uint32_t rn = c == t.syn_mask[e] ? 0u : o;
+    const I4 rnv = unpack(rn), rold = unpack(r[k]);
+    I4 delta;
+#pragma unroll
+    for (int f = 0; f < kBt; ++f) delta.v[f] = rule.diff(rnv.v[f], rold.v[f]);
+    store_word(rcv + ((size_t)e * Z + c) * kBt, rn);
+    if (parked) {
+      store4(park + ((size_t)k * Z + c) * kBt, delta);
+    } else {
+      Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+      I4 qc = load4(cell);
+      add4(qc, delta);
+      store4(cell, qc);
+    }
+  });
+}
+
 // Check update of a unit of check lane c of group g in one layered tile
 // (U: F frames, a lane's four or an f32 frame pair; qv, rcv and park those
 // of the unit's first frame): every x from the layer-entry
@@ -168,50 +229,54 @@ __device__ __forceinline__ void layered_check_lane(
   using V = std::conditional_t<F == kBt, Vec4<Q>, Frames<Q, F>>;
   const int Z = t.Z;
   const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
-  decltype(gather_unit<F>(qv)) q[DMAX];
-  UnitRaw<typename Rule::Msg, F> r[DMAX];
+  if constexpr (WordRule<Rule>::value) {
+    layered_check_words<DMAX>(qv, rcv, park, t, c, e0, d, parked, rule);
+  } else {
+    decltype(gather_unit<F>(qv)) q[DMAX];
+    UnitRaw<typename Rule::Msg, F> r[DMAX];
 #pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < d) {
+        const int e = e0 + k;
+        q[k] = gather_unit<F>(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+        r[k] = load_unit<F>(rcv + ((size_t)e * Z + c) * kBt);
+      }
+    }
+    typename Rule::template Check<DMAX> check(rule);
+    V own[DMAX];
+    auto& x = input_array(q, own);
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < d) {
+        const bool missing = c == t.syn_mask[e0 + k];
+        const V qk = unpack(q[k]), rold = unpack(r[k]);
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          x[k].v[f] = missing ? rule.big : rule.extrinsic(qk.v[f], rold.v[f]);
+        check.set(k, x[k]);
+      }
+    }
+    check.outputs(x, d, [&](int k, const V& o) {
       const int e = e0 + k;
-      q[k] = gather_unit<F>(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
-      r[k] = load_unit<F>(rcv + ((size_t)e * Z + c) * kBt);
-    }
+      const bool missing = c == t.syn_mask[e];
+      const V rold = unpack(r[k]);
+      V rn, delta;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        rn.v[f] = missing ? Elem<Q>(0) : o.v[f];
+        delta.v[f] = rule.diff(rn.v[f], rold.v[f]);
+      }
+      store_unit(rcv + ((size_t)e * Z + c) * kBt, rn);
+      if (parked) {
+        store_unit(park + ((size_t)k * Z + c) * kBt, delta);
+      } else {
+        Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
+        V qc = unpack(load_unit<F>(cell));
+        add4(qc, delta);
+        store_unit(cell, qc);
+      }
+    });
   }
-  typename Rule::template Check<DMAX> check(rule);
-  V own[DMAX];
-  auto& x = input_array(q, own);
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const bool missing = c == t.syn_mask[e0 + k];
-      const V qk = unpack(q[k]), rold = unpack(r[k]);
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        x[k].v[f] = missing ? rule.big : rule.extrinsic(qk.v[f], rold.v[f]);
-      check.set(k, x[k]);
-    }
-  }
-  check.outputs(x, d, [&](int k, const V& o) {
-    const int e = e0 + k;
-    const bool missing = c == t.syn_mask[e];
-    const V rold = unpack(r[k]);
-    V rn, delta;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      rn.v[f] = missing ? Elem<Q>(0) : o.v[f];
-      delta.v[f] = rule.diff(rn.v[f], rold.v[f]);
-    }
-    store_unit(rcv + ((size_t)e * Z + c) * kBt, rn);
-    if (parked) {
-      store_unit(park + ((size_t)k * Z + c) * kBt, delta);
-    } else {
-      Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
-      V qc = unpack(load_unit<F>(cell));
-      add4(qc, delta);
-      store_unit(cell, qc);
-    }
-  });
 }
 
 // The whole layered decode of one tile per block under a rule: qv (VG, Z,
@@ -279,31 +344,48 @@ __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
   using Msg = typename Rule::Msg;
   constexpr int F = Rule::FloodUnits::kFrames;
   using V = decltype(unpack(load_unit<F>(v2c)));
-  UnitRaw<Msg, F> raw[DMAX];
+  if constexpr (WordRule<Rule>::value) {
+    // a lane's four inputs and outputs as words (bigs and 0 at the missing
+    // lane)
+    uint32_t x[DMAX];
 #pragma unroll
-  for (int k = 0; k < DMAX; ++k)
-    if (k < d) raw[k] = load_unit<F>(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
-  typename Rule::template Check<DMAX> check(rule);
-  V own[DMAX];
-  auto& x = input_array(raw, own);
+    for (int k = 0; k < DMAX; ++k)
+      if (k < d) x[k] = load_word(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
+    typename Rule::template Check<DMAX> check(rule);
 #pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    if (k < d) {
-      const bool missing = c == syn_mask[e0 + k];
-      const V v = unpack(raw[k]);
+    for (int k = 0; k < DMAX; ++k)
+      if (k < d) check.set(k, c == syn_mask[e0 + k] ? Rule::bigs : x[k]);
+    check.outputs(d, [&](int k, uint32_t o) {
+      const int e = e0 + k;
+      out(e, c == syn_mask[e] ? 0u : o);
+    });
+  } else {
+    UnitRaw<Msg, F> raw[DMAX];
 #pragma unroll
-      for (int f = 0; f < F; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
-      check.set(k, x[k]);
+    for (int k = 0; k < DMAX; ++k)
+      if (k < d) raw[k] = load_unit<F>(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
+    typename Rule::template Check<DMAX> check(rule);
+    V own[DMAX];
+    auto& x = input_array(raw, own);
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < d) {
+        const bool missing = c == syn_mask[e0 + k];
+        const V v = unpack(raw[k]);
+#pragma unroll
+        for (int f = 0; f < F; ++f) x[k].v[f] = missing ? rule.big : v.v[f];
+        check.set(k, x[k]);
+      }
     }
-  }
-  check.outputs(x, d, [&](int k, const V& o) {
-    const int e = e0 + k;
-    const bool missing = c == syn_mask[e];
-    V ok;
+    check.outputs(x, d, [&](int k, const V& o) {
+      const int e = e0 + k;
+      const bool missing = c == syn_mask[e];
+      V ok;
 #pragma unroll
-    for (int f = 0; f < F; ++f) ok.v[f] = missing ? Elem<Msg>(0) : o.v[f];
-    out(e, ok);
-  });
+      for (int f = 0; f < F; ++f) ok.v[f] = missing ? Elem<Msg>(0) : o.v[f];
+      out(e, ok);
+    });
+  }
 }
 
 // Check update of a unit of check lane c of group g in one resident

@@ -17,15 +17,19 @@
 // writes its Rcv (1 + 1 bytes), reads Qv for its check update (2) and
 // reads and writes it for the posterior update (2 + 2), and the syndrome
 // reads Qv again (2): about 10 bytes, half the bf16 instance's 20. The
-// exact-order min* folds add integer work (MinstarApprox O(d^2) folds a
-// check, each about twenty byte-SIMD operations on four frames), still far
-// below the INT32 roof at the flagship's degree 7.
+// integer work binds instead: the exact-order MinstarApprox folds a
+// degree-7 check 25 times, 39 SASS instructions a fold with byte-SIMD intrinsics
+// (tools/count_math_ops.py), and the per-frame code around them as much
+// again; and a tile walks its check groups in order (PERF.md section 6).
 //
-// What the design does about it: the float instance's form (Qv and Rcv of
-// a lane as one 8-byte and one 4-byte vector, the edge loops unrolled to
-// the check-degree bucket, the direct Qv update where a group reaches no
-// variable group twice and the park otherwise, tables in shared memory,
-// 256 threads), with the check's four frames folded as bytes of one word.
+// What the design does about it: the check and its rule work on words of
+// a lane's four frames (csrc/i8.cuh: word arithmetic with no carry between
+// bytes, 23 instructions a fold; the signs as bit masks); x is computed
+// per frame from the int16 Qv and packed into a word, the output word
+// stored as it is; the float instance's form otherwise (Qv of a lane as
+// one 8-byte vector, the edge loops unrolled to the check-degree bucket,
+// the direct Qv update where a group reaches no variable group twice and
+// the park otherwise, tables in shared memory, LayeredUnits' block).
 //
 // Semantics (the JAX package's jnp path and Pallas kernel): x = clip(Qv -
 // Rold, +-127) in int32 from the layer-entry Qv, 127 at the missing lane;

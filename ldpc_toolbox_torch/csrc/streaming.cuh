@@ -141,6 +141,12 @@ struct PhaseCells {
     }
     store_unit(v2c + ((size_t)s.dz[p] + c) * kBt, o);
   }
+  // a lane's four int8 values as one word (the i8 rules' variable update)
+  __device__ __forceinline__ void out(int p, int w, uint32_t o) const {
+    const int c = plus_mod(w, s.rot[p], Z);
+    store_word(v2c + ((size_t)s.dz[p] + c) * kBt,
+               c == s.mask[p] ? static_cast<uint8_t>(big) * 0x01010101u : o);
+  }
 };
 
 // Check phase of a tile's check units r0, r0 + stride, ... (blockIdx.y the

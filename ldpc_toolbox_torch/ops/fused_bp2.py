@@ -81,6 +81,8 @@ __all__ = [
     "fused_var_reference",
     "fused_syndrome_bits",
     "fused_syndrome_bits_reference",
+    "i8_steps",
+    "i8_steps_reference",
 ]
 
 #: frames per tile of the port's kernels: B = 1024 gives 256 tiles, about
@@ -749,6 +751,10 @@ PHASE_THREADS = 256
 #: phases, which give a thread one frame of a lane (``csrc/float_rules.cuh``
 #: FloatRule's FloodUnits)
 F64_UNIT_THREADS = 512
+#: threads per block of the i8 rules' flooding kernels, resident and
+#: phases (``csrc/i8.cuh`` I8Rule's FloodUnits: a lane's four frames a
+#: thread, 32 warps an SM)
+I8_FLOODING_THREADS = 512
 #: threads per block of the syndrome kernel, which gives one block to a
 #: tile; a multiple of the tile width
 TILE_THREADS = 512
@@ -810,6 +816,8 @@ def bind_flooding_i8(lib):
     lib.ldpc_fused_check_i8.argtypes = [p] * 3 + [i] * 10 + [p]
     lib.ldpc_fused_var_i8.argtypes = [p] * 5 + [i] * 9 + [p]
     lib.ldpc_fused_check_i8.restype = lib.ldpc_fused_var_i8.restype = i
+    lib.ldpc_i8_steps.argtypes = [p] * 3 + [i, p]
+    lib.ldpc_i8_steps.restype = i
     return lib
 
 
@@ -844,9 +852,12 @@ def bind_flooding_float(lib):
 
 
 def unit_threads(rule, lane_threads: int) -> int:
-    """Threads per block of a float rule's flooding kernel whose block is
-    ``lane_threads`` where a thread takes a lane's four frames:
-    ``F64_UNIT_THREADS`` for an f64 rule."""
+    """Threads per block of a float or i8 rule's flooding kernel whose
+    block is ``lane_threads`` where a thread takes a lane's four frames:
+    ``F64_UNIT_THREADS`` for an f64 rule, ``I8_FLOODING_THREADS`` for an i8
+    one."""
+    if is_i8(rule):
+        return I8_FLOODING_THREADS
     return F64_UNIT_THREADS if rule.storage_dtype == torch.float64 else lane_threads
 
 
@@ -936,7 +947,8 @@ def _check_launch(v2c, layout, rule):
 def fused_check_i8(v2c, layout, rule):
     """``fused_check`` for an i8 rule, through the int8 instances of
     ``csrc/flooding_i8.cu``: int8 planes, int32 arithmetic, the rule's
-    partial hard limit; check degree at most ``I8_MAX_CHECK_DEGREE``."""
+    partial hard limit; check degree at most ``I8_MAX_CHECK_DEGREE``;
+    ``I8_FLOODING_THREADS`` a block."""
     if v2c.device.type == "cpu":
         return fused_check_reference(v2c, layout, rule)
     if not is_i8(rule):
@@ -946,7 +958,7 @@ def fused_check_i8(v2c, layout, rule):
     raise_on(
         lib.ldpc_fused_check_i8(
             v2c.data_ptr(), c2v.data_ptr(), tables, *dims, layout.max_chk_degree,
-            PHASE_THREADS, rule.kind, rule.flags, stream,
+            unit_threads(rule, PHASE_THREADS), rule.kind, rule.flags, stream,
         ),
         "fused_check_i8", lib.ldpc_flooding_i8_error_string,
     )
@@ -1023,7 +1035,8 @@ def _var_launch(c2v, q, layout, rule):
 def fused_var_i8(c2v, q, layout, rule):
     """``fused_var`` for an i8 rule, through the int8 instances of
     ``csrc/flooding_i8.cu``: int8 planes, int32 arithmetic, the rule's
-    Jones clip and Deg1Clip (none in the initialisation)."""
+    Jones clip and Deg1Clip (none in the initialisation);
+    ``I8_FLOODING_THREADS`` a block."""
     if q.device.type == "cpu":
         return fused_var_reference(c2v, q, layout, rule)
     if not is_i8(rule):
@@ -1033,8 +1046,8 @@ def fused_var_i8(c2v, q, layout, rule):
     raise_on(
         lib.ldpc_fused_var_i8(
             None if c2v is None else c2v.data_ptr(), q.data_ptr(), v2c.data_ptr(),
-            bits.data_ptr(), tables, *dims, PHASE_THREADS, rule.kind, rule.flags,
-            stream,
+            bits.data_ptr(), tables, *dims, unit_threads(rule, PHASE_THREADS), rule.kind,
+            rule.flags, stream,
         ),
         "fused_var_i8", lib.ldpc_flooding_i8_error_string,
     )
@@ -1084,6 +1097,48 @@ def fused_syndrome_bits(bits, layout):
     return flags
 
 
+#: the i8 rules' word steps of ``csrc/i8.cuh``, in the order ``i8_steps``
+#: gives them
+I8_STEPS = ("tab4", "minstar_approx4", "minstar_full4", "phl4")
+
+
+def i8_steps(a, b):
+    """The i8 rules' word steps (``csrc/i8.cuh``) on words of four frames:
+    a and b (n,) int32, a byte in [0, 127] a frame -> (4, n) int32, the
+    words of tab4(a), minstar_approx4(a, b), minstar_full4(a, b) and
+    phl4(a) (``I8_STEPS``). On a CUDA tensor it launches
+    ``i8_steps_kernel`` of ``csrc/flooding_i8.cu``; on a CPU tensor its
+    plain version, the rules' functions of one frame on each byte."""
+    if a.shape != b.shape or a.ndim != 1 or a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise ValueError("a and b must be (n,) int32")
+    if a.device.type == "cpu":
+        return i8_steps_reference(a, b)
+    if b.device != a.device or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous on one device")
+    out = torch.empty((len(I8_STEPS), a.numel()), dtype=torch.int32, device=a.device)
+    lib = flooding_i8_lib()
+    raise_on(lib.ldpc_i8_steps(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                               torch.cuda.current_stream(a.device).cuda_stream),
+             "i8_steps", lib.ldpc_flooding_i8_error_string)
+    i8_steps.launches += 1
+    return out
+
+
+def i8_steps_reference(a, b):
+    """``i8_steps``' plain version: each byte through the rules' functions
+    of one frame (``MinstarApproxI8Rule._tab`` and ``_fold``,
+    ``AminstarI8Rule._minstar_full``, ``_phl``)."""
+    approx, full = MinstarApproxI8Rule(), AminstarI8Rule()
+    steps = (lambda x, y: approx._tab(x), approx._fold, full._minstar_full,
+             lambda x, y: _phl(x))
+    out = torch.zeros((len(I8_STEPS), a.numel()), dtype=torch.int32, device=a.device)
+    for f in range(BT):
+        x, y = (a >> 8 * f) & 0xFF, (b >> 8 * f) & 0xFF
+        for s, step in enumerate(steps):
+            out[s] |= (step(x, y) & 0xFF) << 8 * f
+    return out
+
+
 #: kernel launches since the count was last set to 0 (the min-sum
 #: instances; the int8 and float-rule instances count on their wrappers)
 fused_check.launches = 0
@@ -1093,6 +1148,7 @@ fused_var.launches = 0
 fused_var_i8.launches = 0
 fused_var_float.launches = 0
 fused_syndrome_bits.launches = 0
+i8_steps.launches = 0
 
 
 def _roll_planes(x, rot):

@@ -35,7 +35,8 @@ int32: v2c = clip(tot - c2v, +-127), tot = q (clipped to +-116 for a
 degree-1 group under Deg1Clip) plus the c2v, clipped to +-127 under Jones;
 the hard decision is tot <= 0. On a CUDA tensor ``resident_flooding_decode``
 passes them to ``resident_flooding_decode_i8``, the wrapper of the kernel's
-int8 instances (``csrc/flooding_i8.cu``), which counts their launches apart.
+int8 instances (``csrc/flooding_i8.cu``, ``fused_bp2.I8_FLOODING_THREADS``
+a block), which counts their launches apart.
 
 The float rules (``PhiRule``, ``TanhRule``, ``MinstarApproxRule``,
 ``AminstarRule``) take channel planes and messages in their storage type,
@@ -158,7 +159,7 @@ def resident_flooding_decode_i8(q_t, bits0_t, layout, rule, max_iterations: int)
     err = lib.ldpc_resident_flooding_i8_decode(
         msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
         iters.data_ptr(), conv.data_ptr(), tables, *dims, int(max_iterations),
-        LANE_THREADS, rule.kind, rule.flags, stream,
+        unit_threads(rule, LANE_THREADS), rule.kind, rule.flags, stream,
     )
     if err:
         text = lib.ldpc_flooding_i8_error_string(err).decode()

@@ -26,8 +26,8 @@ int16 and Rcv in int8 and compute in int32: ``x = clip(Qv - Rold, +-127)``
 int16 without saturation, as the JAX package does. On a CUDA tensor
 ``resident_layered_decode`` passes them to ``resident_layered_decode_i8``,
 the wrapper of the kernel's int8 instances (``csrc/resident_layered_i8.cu``,
-check degree at most ``I8_MAX_CHECK_DEGREE``), which counts their launches
-apart from the min-sum instances'.
+check degree at most ``I8_MAX_CHECK_DEGREE``, ``I8_LAYERED_THREADS`` a
+block), which counts their launches apart from the min-sum instances'.
 
 The float rules (``PhiRule``, ``TanhRule``, ``MinstarApproxRule``,
 ``AminstarRule``) keep Qv and Rcv in their storage type, f32 or f64, and
@@ -76,6 +76,7 @@ from .fused_bp2 import (
 __all__ = [
     "BT",
     "I8_MAX_CHECK_DEGREE",
+    "I8_LAYERED_THREADS",
     "LANE_THREADS",
     "LAYERED_TABLES",
     "lane_launch",
@@ -96,6 +97,10 @@ __all__ = [
 #: threads per block of the kernels with a thread per lane of a tile's 4
 #: frames (the most ``csrc/lanes.cuh`` builds them for)
 LANE_THREADS = 256
+#: threads per block of the i8 rules' resident layered kernel
+#: (``csrc/i8.cuh`` I8Rule's LayeredUnits: a lane's four frames a thread, a
+#: flagship check group of 360 lanes in one pass)
+I8_LAYERED_THREADS = 384
 #: shared-memory ints of their decode-loop control words
 _CONTROL_INTS = 8
 #: dynamic shared memory a block may use on Hopper
@@ -347,7 +352,7 @@ def resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations: int
     err = lib.ldpc_resident_layered_i8_decode(
         qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
         conv.data_ptr(), None if park is None else park.data_ptr(), tables,
-        *dims, int(max_iterations), LANE_THREADS, rule.kind, rule.flags, stream,
+        *dims, int(max_iterations), I8_LAYERED_THREADS, rule.kind, rule.flags, stream,
     )
     raise_on(lib, err, "resident_layered_decode_i8")
     resident_layered_decode_i8.launches += 1

@@ -764,3 +764,56 @@ def test_f32_layered_partial_tile(cuda, decoder):
         out = lifted_layered_decode(lg, arith, x, 10, resident=resident)
         for key in ("codeword", "iterations", "success"):
             assert torch.equal(out[key].cpu(), ref[key]), (resident, key)
+
+
+def test_i8_steps_exhaustive(cuda):
+    """The i8 rules' word steps on the card (``csrc/i8.cuh`` through
+    ``i8_steps``: the correction table, both families' folds, the partial
+    hard limit) on every byte pair in [0, 127]^2, four frames a word, each
+    frame's byte through its own permutation of the pairs, against the
+    plain rules' value of each byte."""
+    a = torch.arange(128, dtype=torch.int32).repeat_interleave(128)
+    b = torch.arange(128, dtype=torch.int32).repeat(128)
+    g = torch.Generator().manual_seed(0)
+    perms = [torch.randperm(a.numel(), generator=g) for _ in range(fused_bp2.BT)]
+    wa = sum(a[p] << 8 * f for f, p in enumerate(perms))
+    wb = sum(b[p] << 8 * f for f, p in enumerate(perms))
+    before = fused_bp2.i8_steps.launches
+    out = fused_bp2.i8_steps(wa.to(cuda), wb.to(cuda))
+    assert fused_bp2.i8_steps.launches == before + 1
+    assert torch.equal(out.cpu(), fused_bp2.i8_steps_reference(wa, wb))
+
+
+#: every i8 name: both families, the eight variants of flooding, the
+#: partial hard limit of layered (the clips of the variable side are
+#: flooding's alone)
+I8_VARIANTS = [
+    prefix + "Jones" * j + "PartialHardLimit" * h + "Deg1Clip" * c
+    for prefix in ("Minstarapproxi8", "Aminstari8")
+    for j in (0, 1) for h in (0, 1) for c in (0, 1)
+] + [f"HL{f}i8{h}" for f in ("Minstarapprox", "Aminstar") for h in ("", "PartialHardLimit")]
+
+
+@pytest.mark.parametrize("decoder", I8_VARIANTS)
+@pytest.mark.parametrize("code", list(F64_BUCKETS))
+def test_i8_variants_match_plain_versions(cuda, code, decoder):
+    """Every i8 name on the int8 instances of the resident message kernels
+    at each check-degree bucket (R1_4short at B = 128, bucket 8, the
+    flagship's; 5G BG2 z=16 with 64 large-magnitude frames, bucket 16;
+    CCSDS C2, bucket 32) against the plain versions, bit for bit."""
+    if code == "DVB-S2 R1_4short":
+        lg, batch, sigma = lifted_graph_for(DvbCode.R1_4short), 128, 0.9
+    else:
+        lg, batch, sigma = _small_or_wide(code)
+    x = _llrs(lg.n, batch, sigma, 5, cuda)
+    if code == "5G BG2 z=16":
+        x = torch.cat([x, _strong_llrs(lg.n, 64, 6, cuda)])
+    kernel, plain, tiles = _i8_kernel(decoder)
+    args = tiles(lg, make_arithmetic(decoder)[1], x)
+    assert min(b for b in (8, 16, 32) if b >= args[2].max_chk_degree) == F64_BUCKETS[code]
+    before = kernel.launches
+    out = kernel(*args, 10)
+    assert kernel.launches == before + 1
+    for a, b in zip(out, plain(*args, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0

@@ -55,6 +55,126 @@ def test_correction_table_and_thresholds_match_jax():
     np.testing.assert_array_equal(arith._lookup(t).numpy(), expect)
 
 
+#: the word arithmetic of csrc/i8.cuh, mirrored on int64 tensors that hold
+#: its 32-bit words (a byte a frame): the same bit operations, in the same
+#: order, so that a wrong carry, shift or mask shows here on the CPU
+_M32, _ONES, _K127, _HIGHS = 0xFFFFFFFF, 0x01010101, 0x7F7F7F7F, 0x80808080
+
+
+def _high_mask(w):
+    """high_mask (PRMT's sign replication): 0xff in each byte whose bit 7
+    is set."""
+    return sum((((w >> (8 * i + 7)) & 1) * 0xFF) << (8 * i) for i in range(4))
+
+
+def _steps_of(t, steps):
+    """Steps<T...>::of: the table as the count of a thermometer code whose
+    indicators are bit 7 of 0x80 + T - t, bit b of the count the parity of
+    the indicators m * 2^b - 1 (m odd, each bit's word from the one
+    above)."""
+    y = [((0x80 + s) * _ONES - t) & _M32 for s in steps]
+    total, x = torch.zeros_like(t), torch.zeros_like(t)
+    for b in range(len(y).bit_length() - 1, -1, -1):
+        for m in range(1, (len(y) >> b) + 1, 2):
+            x = x ^ y[(m << b) - 1]
+        total = total + ((x & _HIGHS) >> (7 - b))
+    return total
+
+
+def _tab4(t):
+    return _steps_of(t, fused_bp2._i8_thresholds())
+
+
+def _sat_sub4(a, b):
+    r = (a + _HIGHS - b) & _M32
+    return r & _high_mask(r) & _K127
+
+
+def _min_diff4(a, b):
+    ge = _high_mask((a + _HIGHS - b) & _M32)
+    mn = (b & ge) | (a & ~ge & _M32)
+    return mn, ((a ^ b ^ mn) - mn) & _M32
+
+
+def _minstar_approx4(a, b):
+    mn, diff = _min_diff4(a, b)
+    return _sat_sub4(mn, _tab4(diff))
+
+
+def _minstar_full4(a, b):
+    mn, diff = _min_diff4(a, b)
+    s = (a + b) & _M32
+    return _sat_sub4((mn + _tab4((s | _high_mask(s)) & _K127)) & _M32, _tab4(diff))
+
+
+def _phl4(m):
+    return (m | _high_mask((m + 28 * _ONES) & _M32)) & _K127
+
+
+_WORD_STEPS = {
+    "tab4": lambda a, b: _tab4(a),
+    "minstar_approx4": _minstar_approx4,
+    "minstar_full4": _minstar_full4,
+    "phl4": lambda a, b: _phl4(a),
+}
+
+
+def _all_pairs_as_words():
+    """Every (a, b) in [0, 127]^2, four frames a word, each frame's byte
+    through its own permutation of the pairs: (a words, b words, the
+    pairs' a and b, the permutations)."""
+    a = torch.arange(128, dtype=torch.int64).repeat_interleave(128)
+    b = torch.arange(128, dtype=torch.int64).repeat(128)
+    g = torch.Generator().manual_seed(0)
+    perms = [torch.randperm(a.numel(), generator=g) for _ in range(fused_bp2.BT)]
+    wa = sum(a[p] << 8 * f for f, p in enumerate(perms))
+    wb = sum(b[p] << 8 * f for f, p in enumerate(perms))
+    return wa, wb, a, b, perms
+
+
+@pytest.mark.parametrize("step", fused_bp2.I8_STEPS)
+def test_word_steps_match_the_rules(step):
+    """The i8 rules' word steps of ``csrc/i8.cuh`` (the correction table as
+    a thermometer count read from the kernels' steps, both families' folds,
+    the partial hard limit), mirrored bit for bit, against the plain rules
+    on every byte pair in [0, 127]^2 (the table against
+    ``_i8_thresholds()`` and the arithmetic's table too), and against
+    ``i8_steps``' plain version."""
+    wa, wb, a, b, perms = _all_pairs_as_words()
+    out = _WORD_STEPS[step](wa, wb)
+    assert int(out.max()) <= _M32 and int(out.min()) >= 0
+    plain = fused_bp2.i8_steps(wa.to(torch.int32), wb.to(torch.int32))
+    assert torch.equal(plain[fused_bp2.I8_STEPS.index(step)].to(torch.int64), out)
+    approx, full = fused_bp2.MinstarApproxI8Rule(), fused_bp2.AminstarI8Rule()
+    rules = {"tab4": lambda x, y: approx._tab(x), "minstar_approx4": approx._fold,
+             "minstar_full4": full._minstar_full, "phl4": lambda x, y: fused_bp2._phl(x)}
+    table = torch.from_numpy(arithmetic.i8_correction_table()).to(torch.int64)
+    for f, p in enumerate(perms):
+        got = (out >> 8 * f) & 0xFF
+        x, y = a[p].to(torch.int32), b[p].to(torch.int32)
+        assert torch.equal(got, rules[step](x, y).to(torch.int64)), f
+        if step == "tab4":
+            assert torch.equal(got, table[a[p]])
+
+
+def test_word_signs_and_magnitudes():
+    """I8Check's set and out (``csrc/i8.cuh``) on every input in [-127,
+    127]: |x| as x ^ 0xff + 1 in the negative bytes, bit 7 as the sign;
+    -m as (0x80 - m) ^ 0x80 for m in [0, 127], 0 for 0."""
+    x = torch.arange(-127, 128, dtype=torch.int64)
+    w = sum(x.roll(f) % 256 << 8 * f for f in range(fused_bp2.BT))
+    s = w & _HIGHS
+    mag = ((w ^ _high_mask(w)) + (s >> 7)) & _M32
+    for f in range(fused_bp2.BT):
+        assert torch.equal((mag >> 8 * f) & 0xFF, x.roll(f).abs())
+        assert torch.equal((s >> 8 * f + 7) & 1, (x.roll(f) < 0).to(torch.int64))
+    m = torch.arange(128, dtype=torch.int64)
+    om = sum(m.roll(f) << 8 * f for f in range(fused_bp2.BT))
+    neg = ((_HIGHS - om) ^ _HIGHS) & _M32
+    for f in range(fused_bp2.BT):
+        assert torch.equal((neg >> 8 * f) & 0xFF, -m.roll(f) % 256)
+
+
 def test_quantize_matches_jax():
     """The C=8 quantizer on its edges: every half-way point k/16, values
     just above and under them (0.49999997 rounds up in f32 through

@@ -27,6 +27,7 @@ from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.ops import fused_bp2
 from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
 from ldpc_toolbox_torch.ops.resident_layered import (
+    I8_LAYERED_THREADS,
     I8_MAX_CHECK_DEGREE,
     LANE_THREADS,
     LAYERED_TABLES,
@@ -198,8 +199,8 @@ def test_f64_flooding_units_match_the_wrappers():
     ``csrc/float_rules.cuh`` FloatRule's FloodUnits, read from the source):
     the f64 float rules give a thread one frame of a lane at the block the
     wrappers pass them (``F64_UNIT_THREADS``), two blocks an SM at 64
-    registers; every other rule a lane's four frames at the lane kernels'
-    256."""
+    registers; the other float rules and min-sum a lane's four frames at
+    the lane kernels' 256 (the i8 rules': test_i8_units_match_the_wrappers)."""
     csrc = REPO / "ldpc_toolbox_torch" / "csrc"
     units = re.search(r"using FloodUnits = std::conditional_t<std::is_same_v<T, double>, "
                       r"Units<(\d+), (\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
@@ -228,8 +229,8 @@ def test_f32_layered_units_match_the_wrappers():
     a lane, so the flagship's check group of Z = 360 lanes takes three
     passes, at Units' block, the lane kernels' that the wrappers pass
     (``LANE_THREADS``; the kernel refuses a larger one), two blocks an SM at
-    128 registers; the f64 float rules, min-sum and the i8 rules keep a
-    lane's four frames."""
+    128 registers; the f64 float rules and min-sum keep a lane's four
+    frames (the i8 rules': test_i8_units_match_the_wrappers)."""
     csrc = REPO / "ldpc_toolbox_torch" / "csrc"
     units = re.search(r"using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, "
                       r"Units<(\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
@@ -241,8 +242,28 @@ def test_f32_layered_units_match_the_wrappers():
     assert int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1]) == LANE_THREADS
     assert 65536 // (2 * LANE_THREADS) == 128
     assert -(-360 * fused_bp2.BT // (frames * LANE_THREADS)) == 3
-    for source in ("message_kernels.cuh", "i8.cuh"):
-        assert "  using LayeredUnits = Units<>;\n" in (csrc / source).read_text(), source
+    assert "  using LayeredUnits = Units<>;\n" in (csrc / "message_kernels.cuh").read_text()
+
+
+def test_i8_units_match_the_wrappers():
+    """The i8 rules' work units (``csrc/i8.cuh`` I8Rule's FloodUnits and
+    LayeredUnits, read from the source): a lane's four frames a thread, at
+    the blocks the wrappers pass (``I8_FLOODING_THREADS`` for the flooding
+    kernels, resident and phases, of every i8 name; ``I8_LAYERED_THREADS``
+    for the resident layered kernel), two blocks an SM at 64 and 85
+    registers; a flagship check group of Z = 360 lanes in one pass of the
+    layered block."""
+    src = (REPO / "ldpc_toolbox_torch" / "csrc" / "i8.cuh").read_text()
+    flood = re.search(r"  using FloodUnits = Units<kBt, (\d+)>;\n", src)
+    layered = re.search(r"  using LayeredUnits = Units<kBt, (\d+)>;\n", src)
+    assert flood and layered, "I8Rule's units are not in csrc/i8.cuh"
+    assert int(flood[1]) == fused_bp2.I8_FLOODING_THREADS == 512
+    assert int(layered[1]) == I8_LAYERED_THREADS == 384
+    assert (65536 // (2 * 512), 65536 // (2 * 384)) == (64, 85)
+    assert -(-360 // I8_LAYERED_THREADS) == 1
+    for name in ("Minstarapproxi8", "Aminstari8JonesDeg1Clip", "HLAminstari8PartialHardLimit"):
+        rule = fused_bp2.rule_for(make_arithmetic(name)[1])
+        assert fused_bp2.unit_threads(rule, LANE_THREADS) == fused_bp2.I8_FLOODING_THREADS
 
 
 @pytest.mark.parametrize("code", CODES)

@@ -38,11 +38,33 @@ With ``--rate`` it also times each probe, uninstrumented, on the same
 arguments (CUDA events, median of 5 launches) and prints its calls a
 second: the rate the card reaches for a step alone, a thread a call,
 against which a rule kernel's share of its bound can be read.
-Needs a CUDA device, nvcc and ptxas.
+The i8 rules' steps (``csrc/i8.cuh``: the correction table ``tab4``,
+the folds ``minstar_approx4`` and ``minstar_full4`` and the partial hard
+limit ``phl4``, each on a word of four frames, a byte a frame) are counted
+from SASS instead, since ptxas expands the PTX of byte-SIMD operations
+into sequences of its own: each step has a probe kernel that loads two
+words, stores the step's word and the second word, and an identity probe
+that stores both words as loaded. The steps are branch-free, so the
+static count of each probe's SASS (``cuobjdump -sass`` of its cubin, no
+NOP, BRA or EXIT counted) less the identity probe's is exactly what a call
+executes (a marker in the code does not serve: ptxas schedules register
+arithmetic across an inline-asm marker, which carries no data in the
+SASS). The instructions are classed by the pipe they issue to: ``f32``
+for IMAD and its kin (the FMA pipe), ``int`` for the rest (IADD3, LOP3,
+SHF, PRMT, LEA, IMNMX, ISETP, SEL, VABSDIFF4, VIMNMX, ...). ``--i8-form
+NAME=DIR`` counts the steps of another ``i8.cuh`` (a directory with it and
+the headers it includes) beside the package's. With ``--rate`` each i8
+step is timed alone on random words of bytes in [0, 127]: a thread a chain
+of 64 dependent calls (tab4 and phl4 xor the second word into their
+argument, one LOP3 a call more), every thread of the card busy, words a
+second over the chain's calls.
+
+Needs a CUDA device, nvcc and ptxas (and cuobjdump for the i8 steps).
 """
 
 import argparse
 import ctypes
+from collections import Counter
 import json
 import re
 import shutil
@@ -76,6 +98,21 @@ FLOAT_ARITH = {"add", "sub", "mul", "fma", "mad", "div", "min", "max", "setp",
                "set", "selp", "rcp", "sqrt", "rsqrt"}
 BEGIN, END = "probe begin", "probe end"
 THREADS = 256
+#: the i8 steps: (their arity, their expression on the words a and b)
+I8_STEPS = {
+    "tab4": (1, "tab4(a)"),
+    "minstar_approx4": (2, "minstar_approx4(a, b)"),
+    "minstar_full4": (2, "minstar_full4(a, b)"),
+    "phl4": (1, "phl4(a)"),
+}
+#: the chain each --rate thread runs: (argument, result) of one call
+I8_CHAIN = {"tab4": "tab4(a) ^ b", "minstar_approx4": "minstar_approx4(a, b)",
+            "minstar_full4": "minstar_full4(a, b)", "phl4": "phl4(a) ^ b"}
+I8_CHAIN_CALLS = 64
+#: SASS opcodes that issue to the FMA pipe (classed "f32"), and those that
+#: are not counted
+SASS_FMA = ("IMAD", "FFMA", "FMUL", "FADD")
+SASS_SKIPPED = {"NOP", "BRA", "EXIT", "RET"}
 
 
 def _tool(name):
@@ -300,11 +337,127 @@ def arguments(n, seed):
     }
 
 
+def i8_source():
+    """The i8 probe kernels: k_i8_<step>(x, z, y, n) stores step(x[i],
+    z[i]) at y[i] and z[i] at y[n + i]; k_i8_identity stores x[i] there;
+    r_i8_<step>(x, z, y, n) runs a chain of I8_CHAIN_CALLS calls from x[i]
+    with z[i] and stores its end at y[i]."""
+    lines = ['#include "i8.cuh"', "using namespace ldpc;"]
+    probes = {"identity": "a", **{k: expr for k, (_, expr) in I8_STEPS.items()}}
+    for step, expr in probes.items():
+        lines.append(
+            f'extern "C" __global__ void k_i8_{step}(const uint32_t* x, const uint32_t* z, '
+            "uint32_t* y, int n) {\n"
+            "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            "  if (i >= n) return;\n"
+            "  const uint32_t a = x[i], b = z[i];\n"
+            f"  y[i] = {expr};\n"
+            "  y[n + i] = b;\n}")
+    for step, chain in I8_CHAIN.items():
+        lines.append(
+            f'extern "C" __global__ void r_i8_{step}(const uint32_t* x, const uint32_t* z, '
+            "uint32_t* y, int n) {\n"
+            "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            "  if (i >= n) return;\n"
+            "  uint32_t a = x[i];\n"
+            "  const uint32_t b = z[i];\n"
+            "#pragma unroll\n"
+            f"  for (int r = 0; r < {I8_CHAIN_CALLS}; ++r) a = {chain};\n"
+            "  y[i] = a;\n}")
+    return "\n".join(lines) + "\n"
+
+
+def sass_opcodes(cubin):
+    """{kernel: [opcode of each SASS instruction, predicate dropped]} of a
+    cubin, the uncounted ones (SASS_SKIPPED) left out."""
+    dump = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+        elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            op = re.sub(r"^@!?U?P\w+\s+", "", m.group(1)).split()[0]
+            if op.split(".")[0] not in SASS_SKIPPED:
+                kernels[name].append(op)
+    return kernels
+
+
+def sass_class(op):
+    """The class of a SASS opcode: "f32" for the FMA pipe's, else "int"."""
+    return "f32" if op.split(".")[0] in SASS_FMA else "int"
+
+
+def count_i8(forms, tmp):
+    """{form: {step: {"int": n, "f32": m, "ops": {opcode: count}}}}: the
+    SASS instructions each i8 step executes a call (its probe less the
+    identity probe), for each form's i8.cuh; also returns each form's
+    cubin."""
+    out, cubins = {}, {}
+    for form, d in forms.items():
+        cu, cubin = Path(tmp) / f"i8_{form}.cu", Path(tmp) / f"i8_{form}.cubin"
+        cu.write_text(i8_source())
+        subprocess.run([_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-cubin", "-I", str(d), "-o", str(cubin),
+                        str(cu)], check=True)
+        kernels = sass_opcodes(cubin)
+        base = Counter(kernels["k_i8_identity"])
+        out[form] = {}
+        for step in I8_STEPS:
+            diff = Counter(kernels[f"k_i8_{step}"])
+            diff.subtract(base)
+            if any(n < 0 for n in diff.values()):
+                raise SystemExit(f"{form} {step}: the probe lacks identity instructions "
+                                 f"{dict(+(-diff))}")
+            ops = {op: n for op, n in sorted(diff.items()) if n}
+            counts = Counter()
+            for op, n in ops.items():
+                counts[sass_class(op)] += n
+            out[form][step] = {"int": counts["int"], "f32": counts["f32"], "ops": ops}
+        cubins[form] = cubin.read_bytes()
+    return out, cubins
+
+
+def i8_words(n, seed):
+    """Two random words a thread, a byte in [0, 127] a frame."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.integers(0, 128, (n, 4), dtype=np.uint8).view(np.int32)[:, 0],
+                         device="cuda") for _ in range(2)]
+
+
+def rate_i8(drv, cubin, n, seed, label):
+    """Times each step's chain kernel (r_i8_<step>) on n threads; prints
+    words a second."""
+    mod = drv.load(cubin)
+    a, b = i8_words(n, seed)
+    y = torch.empty_like(a)
+    args = [ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()), ctypes.c_int(n)]
+    for step in I8_STEPS:
+        ms = []
+        for _ in range(6):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            drv.launch(mod, f"r_i8_{step}", n, args)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        med = float(np.median(ms[1:]))
+        calls = n * I8_CHAIN_CALLS
+        print(f"i8 {label} {step}: {med:.3f} ms for {calls} calls, "
+              f"{calls / med / 1e6:.3f} G words/s (a thread a chain of {I8_CHAIN_CALLS}, "
+              "median of 5)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rate", action="store_true", help="also time each probe")
+    ap.add_argument("--i8-form", action="append", default=[], metavar="NAME=DIR",
+                    help="also count the i8 steps of DIR/i8.cuh")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -328,6 +481,8 @@ def main():
         subprocess.run([_tool("ptxas"), "-arch=sm_90a", "-O3", "-o", str(cubin),
                         str(Path(tmp) / "plain.ptx")], check=True)
         plain_image = cubin.read_bytes()
+        i8_forms = {"repo": CSRC, **dict(f.split("=", 1) for f in args.i8_form)}
+        i8_counts, i8_cubins = count_i8(i8_forms, tmp)
     drv = Driver()
     mod, plain_mod = drv.load(image), drv.load(plain_image)
     args_of = arguments(n, args.seed)
@@ -368,6 +523,15 @@ def main():
                 med = float(np.median(ms[1:]))
                 print(f"{t} {step}: {med:.3f} ms for {n} calls, {n / med / 1e6:.3f} G calls/s "
                       "(uninstrumented, a thread a call, median of 5)")
+    for form, steps in i8_counts.items():
+        for step, c in steps.items():
+            ops = ", ".join(f"{op} {n}" for op, n in c["ops"].items())
+            print(f"i8 {form} {step}: {c['int']} int + {c['f32']} f32 SASS instructions a "
+                  f"word of four frames ({ops})")
+        if args.rate:
+            rate_i8(drv, i8_cubins[form], n, args.seed, form)
+    fewest["i8"] = {step: {"int": c["int"], "f32": c["f32"]}
+                    for step, c in i8_counts["repo"].items()}
     print(json.dumps(fewest))
 
 
