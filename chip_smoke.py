@@ -37,7 +37,11 @@ partial tile), and drives the port's main paths on the flagship code
    versions on the test codes first, all 16 float names and two i8 names a
    schedule);
 
-each with its launch counts set to 0 just before and read just after;
+each with its launch counts set to 0 just before and read just after (a
+streaming path's syndrome and freeze: ``fused_syndrome_freeze``, one
+launch an iteration, held against its plain version on the flagship's
+tiles over five iterations of one state, and timed); the f64 sweep and
+the f32 phases, which no main path runs, held and timed a launch;
 both schedules' resident, streaming (staged) and unstaged streaming loops
 at 2.5 dB, where frames converge; and a two-point BER sweep of each
 schedule, and of ``HLMinstarapproxi8`` and ``HLPhif32``, through
@@ -51,6 +55,7 @@ a JSON object with "ok": true. Any failure raises and exits non-zero, as
 does a machine without a CUDA device.
 """
 
+import functools
 import json
 import statistics
 from collections import Counter
@@ -103,6 +108,8 @@ from ldpc_toolbox_torch.ops.fused_bp2 import (
     fused_check_reference,
     fused_syndrome_bits,
     fused_syndrome_bits_reference,
+    fused_syndrome_freeze,
+    fused_syndrome_freeze_reference,
     fused_var,
     fused_var_float,
     fused_var_i8,
@@ -229,7 +236,7 @@ FLOAT_LANE_PARTS = {True: {}, False: {"update": {"fp": 1}}}
 #: and Rcv; flooding: the variable phase), the syndrome; a streaming phase
 #: or sweep does some of them
 PARTS = ("check", "update", "syndrome")
-PHASES = ("fused_check", "fused_var", "fused_syndrome_bits")
+PHASES = ("fused_check", "fused_var", "fused_syndrome_freeze")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_layered_decode": (
         "ldpc_toolbox_torch/csrc/resident_layered.cu",
@@ -253,7 +260,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_var": (
         "ldpc_toolbox_torch/csrc/flooding.cu",
         "ldpc_toolbox_tpu/ops/fused_bp2.py:910"),
-    "fused_syndrome_bits": (
+    # the syndrome kernel as the streaming loops launch it, with their
+    # freeze (fused_syndrome_bits launches it for the flags alone)
+    "fused_syndrome_freeze": (
         "ldpc_toolbox_torch/csrc/flooding.cu",
         "ldpc_toolbox_tpu/ops/fused_bp2.py:1098"),
     # the int8 instances of #1 and #4/#5, for the i8 rules those TPU
@@ -300,7 +309,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 WRAPPERS = (
     resident_layered_decode, compressed_layered_decode, fused_layered_iteration,
     resident_flooding_decode, compressed_flooding_decode, fused_check,
-    fused_var, fused_syndrome_bits, resident_layered_decode_i8,
+    fused_var, fused_syndrome_bits, fused_syndrome_freeze, resident_layered_decode_i8,
     resident_flooding_decode_i8, resident_layered_decode_float,
     resident_flooding_decode_float, fused_layered_iteration_i8,
     fused_layered_iteration_float, fused_check_i8, fused_check_float, fused_var_i8,
@@ -527,6 +536,52 @@ def same_decode(a, b, what):
         assert torch.equal(a[key], b[key]), f"{what}: {key} differs"
 
 
+def freeze_state(bits):
+    """A streaming loop's state for the tiles of ``bits`` before its first
+    test: (frozen, conv, iters, counter), no frame converged."""
+    frames, dev = bits.shape[0] * bits.shape[-1], bits.device
+    return (torch.empty_like(bits), torch.zeros(frames, dtype=torch.bool, device=dev),
+            torch.zeros(frames, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def freeze_checks(worst, tag, layout, steps):
+    """``fused_syndrome_freeze`` against its plain version on one state, in
+    place, over the bits of iterations 0, 1, ... (``steps``), each step
+    bit for bit; returns the frames that passed."""
+    mine = freeze_state(steps[0])
+    mine[0].zero_()
+    plain = tuple(x.clone() for x in mine)
+    for it, b in enumerate(steps):
+        fused_syndrome_freeze(b, *mine[:3], it, mine[3], layout)
+        fused_syndrome_freeze_reference(b, *plain[:3], it, plain[3], layout)
+        hold(worst, "fused_syndrome_freeze", f"{tag}, freeze {it}", mine, plain)
+    return int(mine[1].sum())
+
+
+def syndrome_bound(bits, layout, flags):
+    """``bound`` of a ``fused_syndrome_freeze`` launch on ``bits`` whose
+    plain flags are ``flags``, no frame passing for the first time: what
+    this data needs read. A tile with a passing frame has every check read
+    (its bits once, an xor an edge lane), a tile whose frames all fail one
+    check a frame (its words); conv is read and written, iters read."""
+    nbt, VG, Z, Bt = bits.shape
+    passing = int((flags == 0).any(dim=1).sum())
+    nbytes = (passing * VG * Z * Bt + (nbt - passing) * Bt * layout.max_chk_degree * 4
+              + nbt * Bt * (1 + 1 + 4) + 4)
+    return bound(nbytes, passing * layout.E * Z * Bt * SYN_OPS)
+
+
+def freeze_ms(bits, layout, reps):
+    """(kernel, plain version) ms of one ``fused_syndrome_freeze`` of
+    ``bits`` on a state where no frame has converged (in place: once a
+    frame has passed, it does not pass for the first time again)."""
+    mine, plain = freeze_state(bits), freeze_state(bits)
+    return (cuda_ms(lambda: fused_syndrome_freeze(bits, *mine[:3], 1, mine[3], layout), reps),
+            cuda_ms(lambda: fused_syndrome_freeze_reference(bits, *plain[:3], 1, plain[3],
+                                                            layout), 3))
+
+
 def reset_counts():
     for fn in WRAPPERS:
         fn.launches = 0
@@ -648,8 +703,8 @@ def flooding_checks(graphs, worst):
             v2c = fused_var(c2v, q, layout, rule)
             hold(worst, "fused_var", tag, v2c, fused_var_reference(c2v, q, layout, rule))
             for b in (bits0, v2c[1]):
-                hold(worst, "fused_syndrome_bits", tag, [fused_syndrome_bits(b, layout)],
-                     [fused_syndrome_bits_reference(b, layout)])
+                hold(worst, "fused_syndrome_freeze", f"{tag}, flags",
+                     [fused_syndrome_bits(b, layout)], [fused_syndrome_bits_reference(b, layout)])
             args = (q, bits0, layout, rule, iters)
             out = resident_flooding_decode(*args)
             hold(worst, "resident_flooding_decode", tag, out,
@@ -813,15 +868,19 @@ def flagship_flooding(card, llrs, worst):
     mixed[::2, :, :, 0] = 0
     for b in (bits0, bits, mixed):
         flags = fused_syndrome_bits(b, layout)
-        hold(worst, "fused_syndrome_bits", tag, [flags],
+        hold(worst, "fused_syndrome_freeze", f"{tag}, flags", [flags],
              [fused_syndrome_bits_reference(b, layout)])
     passed = flags == 0
     assert passed[::2, 0].all() and int(passed.sum()) == nbt - nbt // 2, \
         "syndrome of the mixed bits"
+    frames = nbt * Bt
+    newly = freeze_checks(worst, tag, layout, (bits0, bits, mixed, mixed, torch.zeros_like(bits)))
     torch.cuda.synchronize()
     print(f"flooding kernels vs plain: {tag}: fused_var (init and update), "
-          f"fused_check and fused_syndrome_bits (raw, posterior and mixed "
-          f"bits: {int(passed.sum())} of {passed.numel()} frames pass) equal "
+          f"fused_check and the syndrome's flags (raw, posterior and mixed "
+          f"bits: {int(passed.sum())} of {passed.numel()} frames pass) equal; "
+          f"fused_syndrome_freeze on one state, raw, posterior, mixed twice and "
+          f"all-zero bits ({newly} frames passing for the first time), equal "
           "(tolerance 0)")
     decode_ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 5)
     resident_ms = cuda_ms(lambda: resident_flooding_decode(*tiles, FLAGSHIP_ITERS), 5)
@@ -839,12 +898,27 @@ def flagship_flooding(card, llrs, worst):
             bound(2 * edges * s + lanes * (s + 1),
                   edges * VAR_EDGE_OPS + lanes * VAR_LANE_OPS),
         ),
-        "fused_syndrome_bits": (
-            cuda_ms(lambda: fused_syndrome_bits(bits, layout), 10),
-            cuda_ms(lambda: fused_syndrome_bits_reference(bits, layout), 3),
-            bound(lanes + nbt * Bt * 4, edges * SYN_OPS),
+        # a streaming iteration's step at 1.0 dB, where no frame passes
+        "fused_syndrome_freeze": (
+            *freeze_ms(bits, layout, 10),
+            syndrome_bound(bits, layout, fused_syndrome_bits_reference(bits, layout)),
         ),
     }
+    # every frame passing: every check read (the state converged already),
+    # and every frame passing for the first time: its bits copied to frozen
+    # and its iters written besides (conv set to 0 before each launch, a
+    # memset, counts in the time)
+    zeros = torch.zeros_like(bits)
+    passing_ms = freeze_ms(zeros, layout, 10)[0]
+    passing_bound = syndrome_bound(zeros, layout, fused_syndrome_bits_reference(zeros, layout))
+    state = freeze_state(bits)
+
+    def every_frame_passes():
+        state[1].zero_()
+        fused_syndrome_freeze(zeros, *state[:3], 1, state[3], layout)
+
+    all_ms = cuda_ms(every_frame_passes, 10)
+    all_bound = bound(2 * lanes + frames * (1 + 1 + 4 + 4) + 4, edges * SYN_OPS)
     init_ms = cuda_ms(lambda: fused_var(None, q, layout, rule), 10)
     tile_its = int(tile_iterations(iters, Bt).sum())
     edge_tile, lane_tile = E * Z * Bt, VG * Z * Bt
@@ -871,6 +945,11 @@ def flagship_flooding(card, llrs, worst):
     for name, (ms, pms, (bms, by)) in timed.items():
         print(f"[{card}] {name}: {ms:.3f} ms per iteration, plain {pms:.3f} ms, "
               f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f}% of bound)")
+    print(f"[{card}] fused_syndrome_freeze, every frame passing (every check read): "
+          f"{passing_ms:.3f} ms, bound {passing_bound[0]:.4f} ms by {passing_bound[1]} "
+          f"({100 * passing_bound[0] / passing_ms:.1f}% of bound); every frame passing for "
+          f"the first time (its bits frozen): {all_ms:.3f} ms, bound {all_bound[0]:.4f} ms "
+          f"by {all_bound[1]} ({100 * all_bound[0] / all_ms:.1f}% of bound)")
     flooding_at_working_point(card, dec)
     measured = {"resident_flooding_decode": entry(resident_launches, resident_ms, plain_ms,
                                                   (res_bound, res_by))}
@@ -1027,7 +1106,7 @@ def flagship_streaming_layered(card, llrs, worst, dec):
     launches = counts()
     executed = int(stream["iterations"].max())
     assert launches["fused_layered_iteration"] == executed \
-        and launches["fused_syndrome_bits"] == executed + 1 \
+        and launches["fused_syndrome_freeze"] == executed + 1 \
         and launches["resident_layered_decode"] == 0, f"path (c): {launches}"
     same_decode(stream, dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS),
                 "path (c) against the resident path")
@@ -1457,7 +1536,7 @@ def flagship_streaming(card, llrs, worst, name):
     executed = int(out["iterations"].max())
     expect = ({sweep.__name__: executed} if layered
               else {check.__name__: executed, var.__name__: executed + 1})
-    expect["fused_syndrome_bits"] = executed + 1
+    expect["fused_syndrome_freeze"] = executed + 1
     assert launches == {**dict.fromkeys(launches, 0), **expect}, \
         f"{name} streaming path: {launches}"
     same_decode(out, resident(), f"{name} streaming against resident")
@@ -1469,7 +1548,19 @@ def flagship_streaming(card, llrs, worst, name):
           f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, {executed} iterations "
           f"executed; {stream_ms:.3f} ms, {mbps:.1f} Mbit/s decoded info; resident "
           f"{resident_ms:.3f} ms (in turns, median of 3 each)")
+    return streaming_kernels(card, worst, name, tiles, layered, expect)
 
+
+def streaming_kernels(card, worst, name, tiles, layered, expect):
+    """Each streaming kernel of a name's path on the flagship's tiles: the
+    sweep (layered) or the check and variable phases (flooding) of its
+    family's instance, held against its plain version and timed a launch,
+    with its bound a launch (the kernel's part of an iteration's
+    operations); ``expect`` its launches a decode, or None where no decode
+    ran."""
+    x0, _, layout, rule = tiles
+    i8 = is_i8(rule)
+    sweep, check, var = STREAMING["i8" if i8 else "float"]
     nbt, VG, Z, Bt = x0.shape
     frames, lanes, edges = nbt * Bt, VG * Z * Bt * nbt, layout.E * Z * Bt * nbt
     s = torch.empty((), dtype=rule.storage_dtype).element_size()
@@ -1520,20 +1611,36 @@ def flagship_streaming(card, llrs, worst, name):
                       phase_bound(2 * edges * s + lanes * (s + 1), ("update",)))
     measured = {}
     for fn, (ms, plain_ms, (bms, by, pipe)) in timed.items():
+        runs = (f"{expect[fn.__name__]} launches a decode" if expect
+                else "not on a main path")
         print(f"[{card}] {fn.__name__} ({name}): {ms:.3f} ms a launch (median of 10), "
-              f"{expect[fn.__name__]} launches a decode; plain version {plain_ms:.3f} ms "
+              f"{runs}; plain version {plain_ms:.3f} ms "
               f"(one run); bound {bms:.4f} ms by {by} (its operations by the {pipe} "
               f"pipe; {100 * bms / ms:.1f}% of bound); output equal to the plain version "
               "(tolerance 0)")
-        measured[fn.__name__] = entry(expect[fn.__name__], ms, plain_ms, (bms, by))
+        if expect:
+            measured[fn.__name__] = entry(expect[fn.__name__], ms, plain_ms, (bms, by))
     return measured
+
+
+def other_instances(card, llrs, worst):
+    """The float instances of the streaming kernels that no main path
+    runs, timed as ``streaming_kernels`` times a path's: the f64 sweep
+    (``HLPhif64``) and the f32 phases (``Phif32``), on the flagship's
+    tiles."""
+    lifted = lifted_graph_for(Code.R1_2)
+    for name, layered in (("HLPhif64", True), ("Phif32", False)):
+        tiles = (tile_inputs if layered else flooding_tiles)(
+            lifted, make_arithmetic(name)[1], llrs)
+        streaming_kernels(card, worst, name, tiles, layered, None)
 
 
 def flooding_at_working_point(card, dec):
     """Resident against streaming (staged compaction) and the unstaged
     streaming loop on the flagship at 2.5 dB, where frames converge at
     different iterations and freeze: equal outputs, equal to the plain
-    version, and each path's time."""
+    version, and each path's time. Both streaming loops test and freeze
+    through ``fused_syndrome_freeze``."""
     llrs = channel_llrs(dec.lifted.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, 2.5), seed=0)
     out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
     tiles = flooding_tiles(dec.lifted, dec.arithmetic, llrs)
@@ -1545,7 +1652,7 @@ def flooding_at_working_point(card, dec):
 
     def unstaged():
         return flooding_loop(*tiles, FLAGSHIP_ITERS, fused_check, fused_var,
-                             fused_syndrome_bits)
+                             fused_syndrome_freeze)
 
     same_decode(out, streaming(), "2.5 dB streaming")
     same_decode(out, tiles_to_output(dec.lifted, *unstaged(), FLAGSHIP_BATCH),
@@ -1585,7 +1692,7 @@ def layered_at_working_point(card, dec):
         qv, rcv = qv0.clone(), zero_rcv(qv0, layout, rule)
         return decode_loop(
             bits0, bits0, lambda: fused_layered_iteration(qv, rcv, layout, rule)[2],
-            lambda bits: fused_syndrome_bits(bits, layout), FLAGSHIP_ITERS,
+            functools.partial(fused_syndrome_freeze, layout=layout), FLAGSHIP_ITERS,
         )
 
     same_decode(out, streaming(), "layered 2.5 dB streaming")
@@ -1667,6 +1774,7 @@ def main():
         measured.update(flagship_float(card, llrs, worst, name))
     for name in (None, "Minstarapproxi8", "HLPhif32", "HLMinstarapproxi8"):
         measured.update(flagship_streaming(card, llrs, worst, name))
+    other_instances(card, llrs, worst)
     mark("flagship paths")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)

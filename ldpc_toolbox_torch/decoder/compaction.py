@@ -22,13 +22,20 @@ One iteration counter spans the stages, and each stage scatters its
 frames' results back to the original frame order, so the output is
 bit-identical to the unstaged loop: a frame's trajectory does not depend
 on its batchmates, and a frame leaves the active tiles only once it has
-converged (or the budget is spent). The loop reads the device once an
-iteration: the count of unconverged frames.
+converged (or the budget is spent). Each iteration's convergence test and
+freeze is one step (``freeze``: on the card ``ops.fused_bp2
+.fused_syndrome_freeze``, one launch of the syndrome kernel), and the loop
+reads the device once an iteration: the count of unconverged frames that
+step leaves.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from ..ops.fused_bp2 import fused_syndrome_freeze_reference
 
 __all__ = ["stage_sizes", "staged_while_decode"]
 
@@ -53,20 +60,27 @@ def _tiles(x, bt):
 
 
 def staged_while_decode(*, max_iterations, state, const, bits0, iteration,
-                        syndrome):
+                        syndrome=None, freeze=None):
     """Run the staged-compaction decode loop.
 
     state: tiled iteration-state tensors, each (nbt, ..., bt); const:
     tiled read-only per-frame tensors the iteration needs (gathered at each
     compaction too); bits0: (nbt, VG, Z, bt) int8 raw-channel hard
     decisions (iteration 0 tests them); iteration(state, const) -> (state',
-    bits) runs one iteration on any tile count; syndrome(bits) -> (tiles,
-    bt) int32 flags, nonzero where a frame has an unsatisfied check.
+    bits) runs one iteration on any tile count; freeze(bits, frozen, conv,
+    iters, it, counter) tests iteration it's bits and freezes in place (the
+    contract of ``fused_syndrome_freeze`` without its layout); or, instead,
+    syndrome(bits) -> (tiles, bt) int32 flags, nonzero where a frame has an
+    unsatisfied check, under the plain freeze
+    (``fused_syndrome_freeze_reference``).
 
     Returns (bits (nbt, VG, Z, bt) int8, iters (nbt, bt) int32, conv (nbt,
     bt) int32) in the original frame order: the contract of the resident
     decodes.
     """
+    if freeze is None:
+        freeze = functools.partial(fused_syndrome_freeze_reference, layout=None,
+                                   syndrome=syndrome)
     nbt, _, _, bt = bits0.shape
     dev = bits0.device
     out = _frames(bits0).clone()
@@ -74,10 +88,14 @@ def staged_while_decode(*, max_iterations, state, const, bits0, iteration,
     conv_out = torch.zeros(nbt * bt, dtype=torch.bool, device=dev)
     perm = torch.arange(nbt * bt, device=dev)
     state, const = tuple(state), tuple(const)
-    bits = frozen = bits0
-    conv = syndrome(bits0).reshape(-1) == 0
-    active = int((~conv).sum())
+    # a frame's frozen bits are written when it first passes and read only
+    # if it did
+    bits, frozen = bits0, torch.empty_like(bits0)
+    conv = torch.zeros(nbt * bt, dtype=torch.bool, device=dev)
     iters = torch.zeros(nbt * bt, dtype=torch.int32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    freeze(bits0, frozen, conv, iters, 0, counter)
+    active = int(counter)
     it = 0
     sizes = stage_sizes(nbt)
     for si, tiles in enumerate(sizes):
@@ -98,13 +116,9 @@ def staged_while_decode(*, max_iterations, state, const, bits0, iteration,
             perm, conv, iters = perm[sel], conv[sel], iters[sel]
         while it < max_iterations and active > cap:
             state, bits = iteration(state, const)
-            ok = syndrome(bits).reshape(-1) == 0
             it += 1
-            newly = ok & ~conv
-            iters = torch.where(newly, it, iters)
-            frozen = torch.where(newly.reshape(tiles, 1, 1, bt), bits, frozen)
-            conv = conv | ok
-            active = int((~conv).sum())
+            freeze(bits, frozen, conv, iters, it, counter)
+            active = int(counter)
         out[perm] = _frames(torch.where(conv.reshape(tiles, 1, 1, bt), frozen, bits))
         iters_out[perm] = torch.where(conv, iters, max_iterations).to(torch.int32)
         conv_out[perm] = conv

@@ -20,9 +20,11 @@ flagship shape:
   and c2v messages;
 * ``resident=False``, every name: the streaming phases of
   ``ops/fused_bp2.py`` (``fused_var`` initialisation, then ``fused_check``,
-  ``fused_var`` and ``fused_syndrome_bits`` an iteration, each on the
-  rule's instances) under ``decoder/compaction.staged_while_decode``, as
-  the JAX package's ``resident=False`` path does.
+  ``fused_var`` and ``fused_syndrome_freeze`` an iteration, the phases on
+  the rule's instances; the last the syndrome kernel, which also freezes
+  the frames that pass and counts those left) under
+  ``decoder/compaction.staged_while_decode``, as the JAX package's
+  ``resident=False`` path does.
 
 A check wider than the rule's kernels take raises a ValueError on every
 device (``check_degree_cap``).
@@ -39,12 +41,14 @@ have no counterpart.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops.fused_bp2 import (
     check_degree_cap,
     fused_check,
-    fused_syndrome_bits,
+    fused_syndrome_freeze,
     fused_var,
     is_i8,
     rule_for,
@@ -123,5 +127,5 @@ def streaming_flooding_decode(q_t, bits0_t, layout, rule, max_iterations):
         const=(q_t,),
         bits0=bits0_t,
         iteration=iteration,
-        syndrome=lambda bits: fused_syndrome_bits(bits, layout),
+        freeze=functools.partial(fused_syndrome_freeze, layout=layout),
     )

@@ -21,8 +21,9 @@ package's ``_fused_layered_decode`` does at the flagship shape:
 * ``resident=False``, every name: the streaming form,
   ``ops/fused_layered.py``'s sweep (on the rule's instances, with int16 Qv
   for the i8 names and f64 Qv for the f64 names) and
-  ``fused_syndrome_bits`` one launch each an iteration, under
-  ``decoder/compaction.staged_while_decode``.
+  ``fused_syndrome_freeze`` (the syndrome kernel, which also freezes the
+  frames that pass and counts those left) one launch each an iteration,
+  under ``decoder/compaction.staged_while_decode``.
 
 A check wider than the rule's kernels take raises a ValueError on every
 device (``check_degree_cap``).
@@ -36,6 +37,7 @@ package's jnp path, for any arithmetic with a layered rule.
 
 from __future__ import annotations
 
+import functools
 import weakref
 
 import numpy as np
@@ -46,7 +48,7 @@ from ..ops.fused_bp2 import (
     BT,
     build_fused_layout,
     check_degree_cap,
-    fused_syndrome_bits,
+    fused_syndrome_freeze,
     rule_for,
 )
 from ..ops.fused_layered import fused_layered_iteration
@@ -210,7 +212,7 @@ def tile_inputs(lg, arithmetic, llrs):
 
 def streaming_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations):
     """The layered decode one sweep a launch (``fused_layered_iteration``,
-    then ``fused_syndrome_bits``) under staged compaction; the arguments
+    then ``fused_syndrome_freeze``) under staged compaction; the arguments
     and results of ``resident_layered_decode``."""
     nbt, _, Z, Bt = qv0_t.shape
     rcv = torch.zeros(
@@ -227,5 +229,5 @@ def streaming_layered_decode(qv0_t, bits0_t, layout, rule, max_iterations):
         const=(),
         bits0=bits0_t,
         iteration=iteration,
-        syndrome=lambda bits: fused_syndrome_bits(bits, layout),
+        freeze=functools.partial(fused_syndrome_freeze, layout=layout),
     )

@@ -22,7 +22,10 @@ planes with frames innermost:
   lanes, and the posterior hard bits; ``c2v=None`` is the flooding
   initialisation (every output is q);
 * ``fused_syndrome_bits``: hard bits -> one "unsatisfied check" flag a
-  frame.
+  frame;
+* ``fused_syndrome_freeze``: the same syndrome, and the streaming loop's
+  freeze in place (the frames that pass for the first time get their
+  iteration and their bits frozen) and its count of unconverged frames.
 
 On a CUDA tensor each launches its hand-written kernel or raises: the
 check and variable phases are the templates of ``csrc/streaming.cuh``
@@ -30,7 +33,10 @@ check and variable phases are the templates of ``csrc/streaming.cuh``
 family, min-sum in ``csrc/flooding.cu``, the i8 rules in
 ``csrc/flooding_i8.cu`` (``fused_check_i8``, ``fused_var_i8``), the float
 rules in ``csrc/flooding_f32.cu`` and ``_f64.cu`` (``fused_check_float``,
-``fused_var_float``); each family counts its launches apart. On a CPU
+``fused_var_float``); each family counts its launches apart. The two
+syndrome wrappers launch ``fused_syndrome_kernel`` of ``csrc/flooding.cu``
+(rule-free; a thread per check lane of a tile's 4 frames) and count
+their launches apart. On a CPU
 tensor each runs its plain version (the ``*_reference`` functions, in the
 rule's compute type). A roll by s means ``out[i] = x[(i - s) mod Z]``, on
 unpadded planes.
@@ -81,6 +87,8 @@ __all__ = [
     "fused_var_reference",
     "fused_syndrome_bits",
     "fused_syndrome_bits_reference",
+    "fused_syndrome_freeze",
+    "fused_syndrome_freeze_reference",
     "i8_steps",
     "i8_steps_reference",
 ]
@@ -755,9 +763,6 @@ F64_UNIT_THREADS = 512
 #: phases (``csrc/i8.cuh`` I8Rule's FloodUnits: a lane's four frames a
 #: thread, 32 warps an SM)
 I8_FLOODING_THREADS = 512
-#: threads per block of the syndrome kernel, which gives one block to a
-#: tile; a multiple of the tile width
-TILE_THREADS = 512
 #: the layout tables the flooding kernels read, in their argument order
 _TABLES = (
     "chk_cs", "chk_dest", "chk_rot", "chk_omask",
@@ -779,7 +784,9 @@ def bind_flooding(lib):
     dims = [i] * 6  # nbt, CG, VG, E, Z, Bt
     lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [i, f, f, i, i, p]
     lib.ldpc_fused_var.argtypes = [p, p, p, p, p] + dims + [f, i, i, p]
-    lib.ldpc_fused_syndrome.argtypes = [p, p, p] + dims + [i, p]
+    # bits, flags, frozen, conv, iters, count, it, scratch, tables, dims,
+    # max degree, stream
+    lib.ldpc_fused_syndrome.argtypes = [p] * 6 + [i, p, p] + dims + [i, p]
     # the resident decode takes the layered tables and a degree bucket
     lib.ldpc_resident_flooding_decode.argtypes = (
         [p] * 7 + [i] * 7 + [i, i, f, f, i, p]
@@ -863,11 +870,10 @@ def unit_threads(rule, lane_threads: int) -> int:
 
 def launch_args(x, layout, rule=None):
     """(table pointer array, tile dims, stream) of a flooding launch on the
-    tiles ``x`` (nbt, P, Z, Bt); raises on what the kernels do not take:
-    with a rule (the check and variable phases) a tile width other than 4,
-    a storage type the rule's kernels do not take and a check wider than
-    the rule's cap (``check_degree_cap``); without (the syndrome) a tile
-    width that does not divide ``TILE_THREADS``."""
+    tiles ``x`` (nbt, P, Z, Bt); raises on what the kernels do not take: a
+    tile width other than 4, and with a rule (the check and variable
+    phases) a storage type the rule's kernels do not take and a check wider
+    than the rule's cap (``check_degree_cap``)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     nbt, _, Z, Bt = x.shape
@@ -875,12 +881,9 @@ def launch_args(x, layout, rule=None):
         raise ValueError(f"plane height {Z} does not match the layout's {layout.Z}")
     if not x.is_contiguous():
         raise ValueError("planes must be contiguous")
-    if rule is None:
-        if TILE_THREADS % Bt:
-            raise ValueError(f"tile width {Bt} must divide {TILE_THREADS}")
-    else:
-        if Bt != BT:
-            raise ValueError(f"tile width {Bt}: the phase kernels take {BT}")
+    if Bt != BT:
+        raise ValueError(f"tile width {Bt}: the flooding kernels take {BT}")
+    if rule is not None:
         if not takes_storage(rule):
             raise TypeError(f"unsupported message storage {rule.storage_dtype}")
         check_degree_cap(layout, rule)
@@ -1088,13 +1091,65 @@ def fused_syndrome_bits(bits, layout):
     flags = torch.empty((nbt, Bt), dtype=torch.int32, device=bits.device)
     raise_on(
         flooding_lib().ldpc_fused_syndrome(
-            bits.data_ptr(), flags.data_ptr(), tables, *dims, TILE_THREADS,
-            stream,
+            bits.data_ptr(), flags.data_ptr(), None, None, None, None, 0,
+            _syndrome_scratch(bits.device, nbt).data_ptr(), tables, *dims,
+            layout.max_chk_degree, stream,
         ),
         "fused_syndrome_bits",
     )
     fused_syndrome_bits.launches += 1
     return flags
+
+
+def fused_syndrome_freeze(bits, frozen, conv, iters, it, counter, layout):
+    """The streaming loop's test of iteration ``it`` and the freeze of the
+    frames that pass, in place. bits and frozen (t, VG, Z, Bt) int8, conv
+    (t * Bt,) bool, iters (t * Bt,) int32 (frame = tile * Bt + lane),
+    counter a one-element int32 tensor. A frame whose bits satisfy every
+    check and whose conv is 0 gets iters = it and its bytes of bits copied
+    to frozen; conv |= the frames that pass; counter = the frames with conv
+    0 after it. One launch of the syndrome kernel on a CUDA tensor (its
+    scratch, one a device, is zero between launches, so the launches on a
+    device must not overlap on two streams); on a CPU tensor the plain
+    version."""
+    if bits.device.type == "cpu":
+        return fused_syndrome_freeze_reference(bits, frozen, conv, iters, it, counter, layout)
+    _check_planes(bits, layout.VG, layout, torch.int8, "bits")
+    nbt, _, _, Bt = bits.shape
+    if frozen.shape != bits.shape or frozen.dtype != torch.int8:
+        raise ValueError(f"frozen must be {tuple(bits.shape)} int8")
+    for x, dtype, what in ((conv, torch.bool, "conv"), (iters, torch.int32, "iters")):
+        if x.shape != (nbt * Bt,) or x.dtype != dtype:
+            raise ValueError(f"{what} must be ({nbt * Bt},) {dtype}")
+    if counter.numel() != 1 or counter.dtype != torch.int32:
+        raise ValueError("counter must be one int32")
+    tensors = (bits, frozen, conv, iters, counter)
+    if any(x.device != bits.device or not x.is_contiguous() for x in tensors):
+        raise ValueError("the tensors must be contiguous on one device")
+    tables, dims, stream = launch_args(bits, layout)
+    raise_on(
+        flooding_lib().ldpc_fused_syndrome(
+            bits.data_ptr(), None, frozen.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+            counter.data_ptr(), it, _syndrome_scratch(bits.device, nbt).data_ptr(),
+            tables, *dims, layout.max_chk_degree, stream,
+        ),
+        "fused_syndrome_freeze",
+    )
+    fused_syndrome_freeze.launches += 1
+
+
+#: each device's scratch of the syndrome kernel (int32, zero between
+#: launches: the kernel leaves it so)
+_SCRATCH = {}
+
+
+def _syndrome_scratch(device, nbt):
+    """The syndrome kernel's scratch on ``device`` for nbt tiles (``nbt * 2
+    + 2`` int32, zero), grown when a launch needs more."""
+    scratch = _SCRATCH.get(device)
+    if scratch is None or scratch.numel() < 2 * nbt + 2:
+        scratch = _SCRATCH[device] = torch.zeros(2 * nbt + 2, dtype=torch.int32, device=device)
+    return scratch
 
 
 #: the i8 rules' word steps of ``csrc/i8.cuh``, in the order ``i8_steps``
@@ -1148,6 +1203,7 @@ fused_var.launches = 0
 fused_var_i8.launches = 0
 fused_var_float.launches = 0
 fused_syndrome_bits.launches = 0
+fused_syndrome_freeze.launches = 0
 i8_steps.launches = 0
 
 
@@ -1225,3 +1281,18 @@ def fused_syndrome_bits_reference(bits, layout):
         par = b.reshape(nbt, G, m.d, Z, Bt).sum(dim=2) & 1
         bad |= par.flatten(1, 2).any(dim=1)
     return bad.to(torch.int32)
+
+
+def fused_syndrome_freeze_reference(bits, frozen, conv, iters, it, counter, layout,
+                                    syndrome=None):
+    """The plain PyTorch version of ``fused_syndrome_freeze``, on any
+    device: the streaming loop's torch ops. ``syndrome(bits)``, (t, Bt)
+    flags, takes the place of ``fused_syndrome_bits_reference`` when
+    given."""
+    flags = fused_syndrome_bits_reference(bits, layout) if syndrome is None else syndrome(bits)
+    ok = flags.reshape(-1) == 0
+    newly = ok & ~conv
+    iters.copy_(torch.where(newly, it, iters))
+    frozen.copy_(torch.where(newly.reshape(-1, 1, 1, bits.shape[-1]), bits, frozen))
+    conv |= ok
+    counter.copy_((~conv).sum())

@@ -43,7 +43,7 @@ from .fused_bp2 import (
     _MSG_DTYPES,
     MinSumRule,
     _roll_planes,
-    fused_syndrome_bits_reference,
+    fused_syndrome_freeze_reference,
 )
 from .resident_flooding import decode_loop
 from .resident_layered import (
@@ -316,5 +316,5 @@ def compressed_flooding_decode_reference(
 
     return decode_loop(
         bits0_t, (s <= 0).to(torch.int8), step,
-        lambda bits: fused_syndrome_bits_reference(bits, layout), max_iterations,
+        functools.partial(fused_syndrome_freeze_reference, layout=layout), max_iterations,
     )

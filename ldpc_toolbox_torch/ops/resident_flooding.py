@@ -51,6 +51,8 @@ a lane, ``fused_bp2.F64_UNIT_THREADS`` threads a block.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .fused_bp2 import (
@@ -61,7 +63,7 @@ from .fused_bp2 import (
     flooding_i8_lib,
     flooding_lib,
     fused_check_reference,
-    fused_syndrome_bits_reference,
+    fused_syndrome_freeze_reference,
     fused_var_reference,
     is_float_rule,
     is_i8,
@@ -214,17 +216,18 @@ def resident_flooding_decode_reference(
     return flooding_loop(
         q_t, bits0_t, layout, rule, max_iterations,
         fused_check_reference, fused_var_reference,
-        fused_syndrome_bits_reference,
+        fused_syndrome_freeze_reference,
     )
 
 
 def flooding_loop(q_t, bits0_t, layout, rule, max_iterations, check, var,
-                  syndrome):
+                  freeze):
     """The flooding decode as a host loop over the phases ``check(v2c,
-    layout, rule)``, ``var(c2v, q, layout, rule)`` and ``syndrome(bits,
-    layout)``; same arguments and results as ``resident_flooding_decode``.
-    It stops when every frame has converged (one host read a iteration) or
-    after ``max_iterations``."""
+    layout, rule)``, ``var(c2v, q, layout, rule)`` and the test and freeze
+    ``freeze(bits, frozen, conv, iters, it, counter, layout)``
+    (``fused_syndrome_freeze``'s contract); same arguments and results as
+    ``resident_flooding_decode``. It stops when every frame has converged
+    (one host read an iteration) or after ``max_iterations``."""
     v2c = var(None, q_t, layout, rule)[0]
 
     def step():
@@ -233,33 +236,37 @@ def flooding_loop(q_t, bits0_t, layout, rule, max_iterations, check, var,
         return bits
 
     return decode_loop(
-        bits0_t, bits0_t, step, lambda bits: syndrome(bits, layout),
+        bits0_t, bits0_t, step, functools.partial(freeze, layout=layout),
         max_iterations,
     )
 
 
-def decode_loop(bits0_t, post0_t, step, syndrome, max_iterations):
+def decode_loop(bits0_t, post0_t, step, freeze, max_iterations):
     """The host loop of a plain whole decode on (nbt, VG, Z, Bt) tiles:
     iteration 0 tests the raw-channel bits ``bits0_t``; each iteration
-    ``step()`` returns the posterior hard bits and ``syndrome(bits)`` the
-    (nbt, Bt) unsatisfied-check flags (one host read an iteration); a
-    frame's bits and count freeze at its first passing iteration; the loop
-    stops once every frame has passed or after ``max_iterations``. A frame
-    that never passes gets ``max_iterations`` and its last posterior bits
-    (``post0_t`` when no iteration ran). Returns (bits int8, iters (nbt,
-    Bt) int32, conv (nbt, Bt) int32)."""
-    conv = syndrome(bits0_t) == 0
-    iters = torch.zeros(conv.shape, dtype=torch.int32, device=bits0_t.device)
-    frozen, bits = bits0_t, post0_t
+    ``step()`` returns the posterior hard bits, and ``freeze(bits, frozen,
+    conv, iters, it, counter)`` tests them and freezes in place
+    (``fused_syndrome_freeze``'s contract without its layout; one host read
+    an iteration, the counter): a frame's bits and count freeze at its
+    first passing iteration; the loop stops once every frame has passed or
+    after ``max_iterations``. A frame that never passes gets
+    ``max_iterations`` and its last posterior bits (``post0_t`` when no
+    iteration ran). Returns (bits int8, iters (nbt, Bt) int32, conv (nbt,
+    Bt) int32)."""
+    nbt, _, _, bt = bits0_t.shape
+    dev = bits0_t.device
+    frozen = torch.empty_like(bits0_t)
+    conv = torch.zeros(nbt * bt, dtype=torch.bool, device=dev)
+    iters = torch.zeros(nbt * bt, dtype=torch.int32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    freeze(bits0_t, frozen, conv, iters, 0, counter)
+    bits = post0_t
     it = 0
-    while it < max_iterations and not bool(conv.all()):
+    while it < max_iterations and int(counter):
         bits = step()
-        ok = syndrome(bits) == 0
         it += 1
-        newly = ok & ~conv
-        iters = torch.where(newly, it, iters)
-        frozen = torch.where(newly[:, None, None, :], bits, frozen)
-        conv = conv | ok
+        freeze(bits, frozen, conv, iters, it, counter)
+    conv = conv.reshape(nbt, bt)
     bits = torch.where(conv[:, None, None, :], frozen, bits)
-    iters = torch.where(conv, iters, max_iterations).to(torch.int32)
+    iters = torch.where(conv, iters.reshape(nbt, bt), max_iterations).to(torch.int32)
     return bits.contiguous(), iters, conv.to(torch.int32)

@@ -817,3 +817,142 @@ def test_i8_variants_match_plain_versions(cuda, code, decoder):
     for a, b in zip(out, plain(*args, 10)):
         assert torch.equal(a, b)
     assert int(out[2].sum()) > 0
+
+
+#: the syndrome kernel's cases: one code of each check-degree bucket the
+#: test codes reach (R1_4short 8, with missing lanes; 5G BG2 z=16 16; CCSDS
+#: C2 32, Z = 511) and a partial tile (5G BG2 z=16 at B = 130: 33 tiles, the
+#: last padded with frames that pass at once)
+SYNDROME_CASES = list(F64_BUCKETS) + ["partial tile"]
+
+
+def _syndrome_bits(code, device):
+    """(layout, the raw bits, the posterior bits after two plain flooding
+    iterations, and those with frame 0 of every other tile set to the
+    all-zero codeword, which passes) of a syndrome case."""
+    if code == "DVB-S2 R1_4short":
+        lg, batch, sigma = lifted_graph_for(DvbCode.R1_4short), 128, 0.85
+    else:
+        lg, batch, sigma = _small_or_wide("CCSDS C2" if code == "CCSDS C2" else "5G BG2 z=16")
+        batch = 130 if code == "partial tile" else batch
+    q, bits0, layout, rule = flooding_tiles(lg, make_arithmetic("Minsumbf16")[1],
+                                            _llrs(lg.n, batch, sigma, 5, device))
+    v2c = fused_bp2.fused_var_reference(None, q, layout, rule)[0]
+    for _ in range(2):
+        c2v = fused_bp2.fused_check_reference(v2c, layout, rule)
+        v2c, post = fused_bp2.fused_var_reference(c2v, q, layout, rule)
+    mixed = post.clone()
+    mixed[::2, :, :, 0] = 0
+    return layout, (bits0, post, mixed)
+
+
+def _freeze_state(nbt, device, seed):
+    """A loop's state before a freeze: a third of the frames converged,
+    their iterations and frozen bits made up."""
+    g = torch.Generator().manual_seed(seed)
+    frames = nbt * fused_bp2.BT
+    conv = torch.rand(frames, generator=g) < 0.3
+    iters = torch.randint(0, 5, (frames,), generator=g, dtype=torch.int32)
+    return conv.to(device), iters.to(device)
+
+
+@pytest.mark.parametrize("code", SYNDROME_CASES)
+def test_syndrome_kernel_matches_plain_version(cuda, code):
+    """The flags of the raw, posterior and mixed bits, bit for bit."""
+    layout, cases = _syndrome_bits(code, cuda)
+    before = fused_bp2.fused_syndrome_bits.launches
+    for bits in cases:
+        flags = fused_bp2.fused_syndrome_bits(bits, layout)
+        assert torch.equal(flags, fused_bp2.fused_syndrome_bits_reference(bits, layout))
+    assert fused_bp2.fused_syndrome_bits.launches == before + len(cases)
+    assert 0 < int(flags.sum()) < flags.numel()
+
+
+@pytest.mark.parametrize("code", SYNDROME_CASES)
+def test_syndrome_freeze_matches_plain_version(cuda, code):
+    """Three freezes in a row on one state (the mixed bits, where frames of
+    unconverged tiles pass; the posterior bits; all-zero bits, where every
+    frame passes, whole tiles at once), each against the plain version on
+    a copy: iterations, flags, frozen bits and the count, bit for bit."""
+    layout, (_, post, mixed) = _syndrome_bits(code, cuda)
+    nbt = post.shape[0]
+    conv, iters = _freeze_state(nbt, cuda, seed=1)
+    frozen = torch.randint(-128, 128, post.shape, dtype=torch.int8, device=cuda)
+    counter = torch.full((1,), -7, dtype=torch.int32, device=cuda)
+    mine = (frozen, conv, iters, counter)
+    plain = tuple(x.clone() for x in mine)
+    before = fused_bp2.fused_syndrome_freeze.launches
+    for it, bits in enumerate((mixed, post, torch.zeros_like(post)), start=5):
+        newly = int((~mine[1]).sum())
+        fused_bp2.fused_syndrome_freeze(bits, *mine[:3], it, mine[3], layout)
+        fused_bp2.fused_syndrome_freeze_reference(bits, *plain[:3], it, plain[3], layout)
+        for a, b in zip(mine, plain):
+            assert torch.equal(a, b), it
+        newly -= int((~mine[1]).sum())
+        assert int(mine[3]) == int((~mine[1]).sum())
+        assert newly > 0 or bits is post
+    assert fused_bp2.fused_syndrome_freeze.launches == before + 3
+    assert int(counter) == 0
+
+
+def test_syndrome_freeze_unaligned_tiles(cuda):
+    """frozen 4 bytes past a 16-byte boundary: the freeze copies a word a
+    lane, equal to the plain version."""
+    layout, (_, post, mixed) = _syndrome_bits("5G BG2 z=16", cuda)
+    buf = torch.zeros(post.numel() + 4, dtype=torch.int8, device=cuda)
+    frozen = buf[4:].view(post.shape)
+    assert frozen.data_ptr() % 16 == 4
+    conv, iters = _freeze_state(post.shape[0], cuda, seed=2)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    plain = (frozen.clone(), conv.clone(), iters.clone(), counter.clone())
+    fused_bp2.fused_syndrome_freeze(mixed, frozen, conv, iters, 3, counter, layout)
+    fused_bp2.fused_syndrome_freeze_reference(mixed, *plain[:3], 3, plain[3], layout)
+    for a, b in zip((frozen, conv, iters, counter), plain):
+        assert torch.equal(a, b)
+
+
+def test_syndrome_scratch_is_reset(cuda):
+    """Two launches in a row: failing bits, then bits that pass. The second
+    launch's flags are 0, so the first left no flag word or ticket behind,
+    and the scratch is all zero after both."""
+    layout, (_, post, _) = _syndrome_bits("DVB-S2 R1_4short", cuda)
+    assert bool(fused_bp2.fused_syndrome_bits(post, layout).any())
+    flags = fused_bp2.fused_syndrome_bits(torch.zeros_like(post), layout)
+    assert not bool(flags.any())
+    conv = torch.zeros(post.shape[0] * 4, dtype=torch.bool, device=cuda)
+    iters = torch.zeros_like(conv, dtype=torch.int32)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    frozen = torch.empty_like(post)
+    fused_bp2.fused_syndrome_freeze(post, frozen, conv, iters, 1, counter, layout)
+    first = int(counter)
+    fused_bp2.fused_syndrome_freeze(post, frozen, conv, iters, 2, counter, layout)
+    assert first > 0 and int(counter) == first
+    assert not bool(fused_bp2._SCRATCH[post.device].any())
+
+
+def test_syndrome_counter(cuda):
+    """The counter holds the unconverged frames whatever it held before,
+    over many tiles (R1_4short, 32 tiles; C2 at 16)."""
+    for code in ("DVB-S2 R1_4short", "CCSDS C2"):
+        layout, (_, _, mixed) = _syndrome_bits(code, cuda)
+        conv, iters = _freeze_state(mixed.shape[0], cuda, seed=3)
+        counter = torch.full((1,), 12345, dtype=torch.int32, device=cuda)
+        flags = fused_bp2.fused_syndrome_bits_reference(mixed, layout).reshape(-1)
+        left = int((~(conv | (flags == 0))).sum())
+        fused_bp2.fused_syndrome_freeze(mixed, torch.empty_like(mixed), conv, iters, 1,
+                                        counter, layout)
+        assert int(counter) == left > 0
+
+
+def test_syndrome_kernel_raises_on_other_tile_widths(cuda):
+    """The syndrome kernel takes a check lane's four frames: tiles of 8
+    raise before any launch, for the flags and for the freeze."""
+    layout, (_, post, _) = _syndrome_bits("5G BG2 z=16", cuda)
+    wide = post.reshape(post.shape[0] // 2, *post.shape[1:3], 8).contiguous()
+    with pytest.raises(ValueError, match="tile width 8"):
+        fused_bp2.fused_syndrome_bits(wide, layout)
+    conv = torch.zeros(wide.shape[0] * 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="tile width 8"):
+        fused_bp2.fused_syndrome_freeze(wide, torch.empty_like(wide), conv,
+                                        torch.zeros_like(conv, dtype=torch.int32), 1,
+                                        torch.zeros(1, dtype=torch.int32, device=cuda), layout)
