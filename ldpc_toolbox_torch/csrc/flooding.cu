@@ -121,7 +121,8 @@ struct SyndromeOut {
 };
 
 // The launch's scratch (nbt * 2 + 2 ints, zero before every launch, and
-// zero again when it ends): per tile the frames with an unsatisfied check
+// zero again when it ends, so launches that share it must not overlap:
+// the caller keeps one a stream): per tile the frames with an unsatisfied check
 // (bit f), or-ed by the tile's blocks, and the tile's blocks done; then the
 // tiles finished and their unconverged frames.
 struct SyndromeScratch {
@@ -282,8 +283,8 @@ __global__ void __launch_bounds__(kSyndromeThreads) fused_syndrome_kernel(
       if (ok && !was) {
         newly |= 1 << f;
         o.iters[i] = o.it;
+        o.conv[i] = 1;
       }
-      o.conv[i] = was || ok;
       left += !(was || ok);
     }
     ctl[2] = newly;
@@ -302,14 +303,14 @@ __global__ void __launch_bounds__(kSyndromeThreads) fused_syndrome_kernel(
 // spread over as many blocks as let the launch's blocks all be resident at
 // once (one wave), at least one, and at most one for each kMinLanes check
 // lanes a thread; the card's block slots are asked once a device and
-// table size.
+// table size by each host thread (the cache is the thread's own).
 template <int DMAX>
 cudaError_t syndrome_launch(const void* bits, const FloodingTables& t, const SyndromeOut& o,
                             const SyndromeScratch& scratch, int nbt, cudaStream_t stream) {
   auto kernel = fused_syndrome_kernel<DMAX>;
   const size_t smem = syndrome_smem(t.CG, t.E);
-  static int cached_dev = -1, slots = 0;
-  static size_t cached_smem = 0;
+  static thread_local int cached_dev = -1, slots = 0;
+  static thread_local size_t cached_smem = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev != cached_dev || smem != cached_smem)) {
@@ -403,7 +404,7 @@ extern "C" int ldpc_fused_var(const void* c2v, const void* q, void* v2c,
 
 // The syndrome of bits (nbt, VG, Z, 4) int8 (the tile width must be 4;
 // max_degree at most 64), with scratch (nbt * 2 + 2 int32, zero, and left
-// zero). flags non-null: flags (nbt, 4) int32 out, 1 where the frame has an
+// zero; no other launch may use it until this one ends). flags non-null: flags (nbt, 4) int32 out, 1 where the frame has an
 // unsatisfied check, and the rest unused. flags null: the freeze of
 // iteration it, in place: a frame that passes for the first time gets
 // iters = it, conv = 1 (conv (nbt * 4,) bool, iters (nbt * 4,) int32) and its

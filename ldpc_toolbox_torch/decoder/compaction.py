@@ -31,11 +31,9 @@ step leaves.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from ..ops.fused_bp2 import fused_syndrome_freeze_reference
+from ..ops.fused_bp2 import freeze_on_flags
 
 __all__ = ["stage_sizes", "staged_while_decode"]
 
@@ -71,16 +69,16 @@ def staged_while_decode(*, max_iterations, state, const, bits0, iteration,
     iters, it, counter) tests iteration it's bits and freezes in place (the
     contract of ``fused_syndrome_freeze`` without its layout); or, instead,
     syndrome(bits) -> (tiles, bt) int32 flags, nonzero where a frame has an
-    unsatisfied check, under the plain freeze
-    (``fused_syndrome_freeze_reference``).
+    unsatisfied check, under the plain freeze (``freeze_on_flags``, that
+    of ``fused_syndrome_freeze_reference``).
 
     Returns (bits (nbt, VG, Z, bt) int8, iters (nbt, bt) int32, conv (nbt,
     bt) int32) in the original frame order: the contract of the resident
     decodes.
     """
     if freeze is None:
-        freeze = functools.partial(fused_syndrome_freeze_reference, layout=None,
-                                   syndrome=syndrome)
+        def freeze(bits, *loop_state):
+            freeze_on_flags(syndrome(bits), bits, *loop_state)
     nbt, _, _, bt = bits0.shape
     dev = bits0.device
     out = _frames(bits0).clone()

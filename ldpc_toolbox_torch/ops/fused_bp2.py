@@ -89,6 +89,7 @@ __all__ = [
     "fused_syndrome_bits_reference",
     "fused_syndrome_freeze",
     "fused_syndrome_freeze_reference",
+    "freeze_on_flags",
     "i8_steps",
     "i8_steps_reference",
 ]
@@ -1092,7 +1093,7 @@ def fused_syndrome_bits(bits, layout):
     raise_on(
         flooding_lib().ldpc_fused_syndrome(
             bits.data_ptr(), flags.data_ptr(), None, None, None, None, 0,
-            _syndrome_scratch(bits.device, nbt).data_ptr(), tables, *dims,
+            _syndrome_scratch(bits.device, stream, nbt).data_ptr(), tables, *dims,
             layout.max_chk_degree, stream,
         ),
         "fused_syndrome_bits",
@@ -1108,10 +1109,8 @@ def fused_syndrome_freeze(bits, frozen, conv, iters, it, counter, layout):
     counter a one-element int32 tensor. A frame whose bits satisfy every
     check and whose conv is 0 gets iters = it and its bytes of bits copied
     to frozen; conv |= the frames that pass; counter = the frames with conv
-    0 after it. One launch of the syndrome kernel on a CUDA tensor (its
-    scratch, one a device, is zero between launches, so the launches on a
-    device must not overlap on two streams); on a CPU tensor the plain
-    version."""
+    0 after it. One launch of the syndrome kernel on a CUDA tensor; on a
+    CPU tensor the plain version."""
     if bits.device.type == "cpu":
         return fused_syndrome_freeze_reference(bits, frozen, conv, iters, it, counter, layout)
     _check_planes(bits, layout.VG, layout, torch.int8, "bits")
@@ -1130,7 +1129,7 @@ def fused_syndrome_freeze(bits, frozen, conv, iters, it, counter, layout):
     raise_on(
         flooding_lib().ldpc_fused_syndrome(
             bits.data_ptr(), None, frozen.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            counter.data_ptr(), it, _syndrome_scratch(bits.device, nbt).data_ptr(),
+            counter.data_ptr(), it, _syndrome_scratch(bits.device, stream, nbt).data_ptr(),
             tables, *dims, layout.max_chk_degree, stream,
         ),
         "fused_syndrome_freeze",
@@ -1138,17 +1137,21 @@ def fused_syndrome_freeze(bits, frozen, conv, iters, it, counter, layout):
     fused_syndrome_freeze.launches += 1
 
 
-#: each device's scratch of the syndrome kernel (int32, zero between
-#: launches: the kernel leaves it so)
+#: the syndrome kernel's scratch by (device, stream handle): int32, zero
+#: between launches (the kernel leaves it so); a launch uses it until it
+#: ends, so launches on one stream, which run in turn, share one, and those
+#: on two streams, which may overlap, do not
 _SCRATCH = {}
 
 
-def _syndrome_scratch(device, nbt):
-    """The syndrome kernel's scratch on ``device`` for nbt tiles (``nbt * 2
-    + 2`` int32, zero), grown when a launch needs more."""
-    scratch = _SCRATCH.get(device)
+def _syndrome_scratch(device, stream, nbt):
+    """The syndrome kernel's scratch on ``device`` for launches on the
+    stream ``stream`` (its handle) over nbt tiles: ``nbt * 2 + 2`` int32,
+    zero, grown when a launch needs more (allocated on that stream)."""
+    scratch = _SCRATCH.get((device, stream))
     if scratch is None or scratch.numel() < 2 * nbt + 2:
-        scratch = _SCRATCH[device] = torch.zeros(2 * nbt + 2, dtype=torch.int32, device=device)
+        scratch = torch.zeros(2 * nbt + 2, dtype=torch.int32, device=device)
+        _SCRATCH[device, stream] = scratch
     return scratch
 
 
@@ -1283,13 +1286,17 @@ def fused_syndrome_bits_reference(bits, layout):
     return bad.to(torch.int32)
 
 
-def fused_syndrome_freeze_reference(bits, frozen, conv, iters, it, counter, layout,
-                                    syndrome=None):
+def fused_syndrome_freeze_reference(bits, frozen, conv, iters, it, counter, layout):
     """The plain PyTorch version of ``fused_syndrome_freeze``, on any
-    device: the streaming loop's torch ops. ``syndrome(bits)``, (t, Bt)
-    flags, takes the place of ``fused_syndrome_bits_reference`` when
-    given."""
-    flags = fused_syndrome_bits_reference(bits, layout) if syndrome is None else syndrome(bits)
+    device: the streaming loop's torch ops."""
+    freeze_on_flags(fused_syndrome_bits_reference(bits, layout), bits, frozen, conv, iters,
+                    it, counter)
+
+
+def freeze_on_flags(flags, bits, frozen, conv, iters, it, counter):
+    """The freeze of ``fused_syndrome_freeze_reference`` on the (t, Bt)
+    flags of ``bits`` (nonzero where a frame has an unsatisfied check), in
+    place."""
     ok = flags.reshape(-1) == 0
     newly = ok & ~conv
     iters.copy_(torch.where(newly, it, iters))

@@ -927,7 +927,40 @@ def test_syndrome_scratch_is_reset(cuda):
     first = int(counter)
     fused_bp2.fused_syndrome_freeze(post, frozen, conv, iters, 2, counter, layout)
     assert first > 0 and int(counter) == first
-    assert not bool(fused_bp2._SCRATCH[post.device].any())
+    stream = torch.cuda.current_stream(post.device).cuda_stream
+    assert not bool(fused_bp2._SCRATCH[post.device, stream].any())
+
+
+def test_syndrome_freeze_on_two_streams(cuda):
+    """Freezes of two loop states on two streams, launched in turns
+    without waiting: each stream has its own scratch, so each state ends
+    as the plain version's, bit for bit."""
+    layout, (_, post, mixed) = _syndrome_bits("DVB-S2 R1_4short", cuda)
+    steps = (post, mixed, post, torch.zeros_like(post))
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    states, plains = [], []
+    for seed in (4, 5):
+        conv, iters = _freeze_state(post.shape[0], cuda, seed)
+        state = (torch.zeros_like(post), conv, iters,
+                 torch.zeros(1, dtype=torch.int32, device=cuda))
+        plains.append(tuple(x.clone() for x in state))
+        states.append(state)
+    torch.cuda.synchronize(cuda)
+    for _ in range(10):
+        for it, bits in enumerate(steps, start=1):
+            for stream, state in zip(streams, states):
+                with torch.cuda.stream(stream):
+                    fused_bp2.fused_syndrome_freeze(bits, *state[:3], it, state[3], layout)
+    torch.cuda.synchronize(cuda)
+    for _ in range(10):
+        for it, bits in enumerate(steps, start=1):
+            for plain in plains:
+                fused_bp2.fused_syndrome_freeze_reference(bits, *plain[:3], it, plain[3], layout)
+    for state, plain in zip(states, plains):
+        for a, b in zip(state, plain):
+            assert torch.equal(a, b)
+    for stream in streams:
+        assert not bool(fused_bp2._SCRATCH[post.device, stream.cuda_stream].any())
 
 
 def test_syndrome_counter(cuda):

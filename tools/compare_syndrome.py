@@ -16,10 +16,9 @@ copy first, the order reversed every round; CUDA events, medians of
 
 1. a streaming iteration's test and freeze on the ``Minsumbf16`` posterior
    bits after one iteration at the first Eb/N0, with the host read of the
-   unconverged count that ends it: the other copy's ``fused_syndrome_bits``
-   and the torch ops of its loop's freeze (a copy without
-   ``fused_syndrome_freeze``: those of the loop before it), against this
-   copy's ``fused_syndrome_freeze``;
+   unconverged count that ends it: each copy's ``fused_syndrome_freeze``,
+   or, in a copy from before it, its ``fused_syndrome_bits`` and the torch
+   ops of its loop's freeze;
 2. the syndrome kernel alone on the same bits and on bits where every
    frame passes (all-zero): each copy's ``fused_syndrome_bits``, and this
    copy's ``fused_syndrome_freeze`` without the host read, a launch timed
@@ -27,7 +26,8 @@ copy first, the order reversed every round; CUDA events, medians of
 3. each decoder's streaming decode (``resident=False``) at each Eb/N0.
 
 Prints the card's name and power limit, a line a comparison, and one JSON
-line with every time in milliseconds.
+line with every time in milliseconds. The timing in turns is
+``compare_forms.turns``, the LLRs ``chip_smoke.py``'s.
 """
 
 import argparse
@@ -35,19 +35,24 @@ import importlib
 import importlib.util
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+from compare_forms import turns  # puts the repository root on the path
 
-import ldpc_toolbox_torch  # noqa: E402
+import ldpc_toolbox_torch
+from chip_smoke import (
+    FLAGSHIP_BATCH as BATCH,
+    FLAGSHIP_ITERS as ITERS,
+    Code,
+    R1_2_RATE,
+    channel_llrs,
+    sigma_at,
+)
 
-BATCH, ITERS = 1024, 30
 #: launches timed in a row
 ROW = 20
 #: the sources a streaming path needs, by its rule family and schedule
@@ -82,36 +87,9 @@ def sources(names):
     return sorted(out)
 
 
-def event_ms(fn):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
-def turns(fns, reps):
-    """Medians of ``reps`` timings of each fn, in turns, the order reversed
-    every round, after a warm-up call of each."""
-    for fn in fns:
-        fn()
-    times = [[] for _ in fns]
-    for r in range(reps):
-        order = list(range(len(fns)))
-        for i in order if r % 2 == 0 else order[::-1]:
-            times[i].append(event_ms(fns[i]))
-    return [statistics.median(t) for t in times]
-
-
-def llrs_at(code, ebn0):
-    """chip_smoke.py's flagship LLRs: the all-zero codeword over BPSK +
-    AWGN, seed 0."""
-    sigma = float(np.sqrt(0.5 / (code.k / code.n * 10 ** (0.1 * ebn0))))
-    rng = np.random.default_rng(0)
-    x = -1.0 + sigma * rng.standard_normal((BATCH, code.n), dtype=np.float32)
-    return torch.from_numpy((-2.0 / sigma**2) * x).cuda()
+def llrs_at(ebn0):
+    """chip_smoke.py's flagship LLRs (R1_2, seed 0) at ``ebn0``."""
+    return channel_llrs(Code.R1_2.n, BATCH, sigma_at(R1_2_RATE, ebn0), seed=0)
 
 
 def submodule(package, name):
@@ -122,7 +100,8 @@ def freeze_step(fused_bp2, layout):
     """A copy's test and freeze of an iteration, ending with the host read
     of the unconverged count: its ``fused_syndrome_freeze`` where it has
     one, else its syndrome kernel and the torch ops of its loop
-    (``decoder/compaction.py`` before the fused step)."""
+    (``decoder/compaction.py`` before the fused step: a parent from before
+    ``fused_syndrome_freeze``)."""
     if hasattr(fused_bp2, "fused_syndrome_freeze"):
         def step(bits, frozen, conv, iters, it, counter):
             fused_bp2.fused_syndrome_freeze(bits, frozen, conv, iters, it, counter, layout)
@@ -174,7 +153,7 @@ def main():
         codes, dec_mod = submodule(pkg, "codes.dvbs2"), submodule(pkg, "decoder")
         decoders[copy] = dec_mod.Decoder(codes.Code.R1_2, "Minsumbf16", device="cuda")
     dec = decoders["this"]
-    llrs = llrs_at(submodule(ldpc_toolbox_torch, "codes.dvbs2").Code.R1_2, ebn0s[0])
+    llrs = llrs_at(ebn0s[0])
     tiles_mod = submodule(ldpc_toolbox_torch, "decoder.lifted_flooding")
     q, _, layout, rule = tiles_mod.flooding_tiles(dec.lifted, dec.arithmetic, llrs)
     c2v = this_bp2.fused_check(this_bp2.fused_var(None, q, layout, rule)[0], layout, rule)
@@ -195,12 +174,12 @@ def main():
     states = {copy: state() for copy in steps}
     assert steps["parent"](bits, *states["parent"][:3], 1, states["parent"][3]) \
         == steps["this"](bits, *states["this"][:3], 1, states["this"][3])
-    times = turns([lambda c=c: steps[c](bits, *states[c][:3], 1, states[c][3])
-                   for c in steps], args.reps)
-    result["step"] = dict(zip(steps, times))
+    times = result["step"] = turns(
+        {c: lambda c=c: steps[c](bits, *states[c][:3], 1, states[c][3]) for c in steps},
+        args.reps)
     print(f"[{card}] a streaming iteration's test and freeze (Minsumbf16 posterior bits, "
-          f"{ebn0s[0]} dB, with the host read): parent {times[0]:.3f} ms, this "
-          f"{times[1]:.3f} ms")
+          f"{ebn0s[0]} dB, with the host read): parent {times['parent']:.3f} ms, this "
+          f"{times['this']:.3f} ms")
     result["kernel"], result["kernel in a row"] = {}, {}
     for label, b in (("posterior", bits), ("passing", torch.zeros_like(bits))):
         frozen, conv, iters, counter = state()
@@ -211,15 +190,14 @@ def main():
             "this fused_syndrome_freeze": lambda b=b: this_bp2.fused_syndrome_freeze(
                 b, frozen, conv, iters, 1, counter, layout),
         }
-        times = turns(list(kernels.values()), 2 * args.reps)
-        result["kernel"][label] = dict(zip(kernels, times))
+        result["kernel"][label] = turns(kernels, 2 * args.reps)
         print(f"[{card}] the syndrome kernel alone on the {label} bits, a launch: " + ", ".join(
             f"{k} {t:.3f} ms" for k, t in result["kernel"][label].items()))
         # launches in a row: the host's part of a launch overlaps the card's
         # work but the first's
-        times = turns([lambda k=k: [k() for _ in range(ROW)] for k in kernels.values()],
+        times = turns({k: lambda f=f: [f() for _ in range(ROW)] for k, f in kernels.items()},
                       args.reps)
-        result["kernel in a row"][label] = {k: t / ROW for k, t in zip(kernels, times)}
+        result["kernel in a row"][label] = {k: t / ROW for k, t in times.items()}
         print(f"[{card}] the same, {ROW} launches in a row, a launch: " + ", ".join(
             f"{k} {t:.4f} ms" for k, t in result["kernel in a row"][label].items()))
 
@@ -233,19 +211,18 @@ def main():
                 code = submodule(pkg, "codes.dvbs2").Code.R1_2
                 d = dec_mod.Decoder(code, name, device="cuda")
                 decode = dec_mod.lifted_decode_for(d.schedule)
-                x = llrs_at(code, ebn0)
+                x = llrs_at(ebn0)
                 runs[copy] = (lambda decode=decode, d=d, x=x:
                               decode(d.lifted, d.arithmetic, x, ITERS, resident=False))
             outs = {copy: run() for copy, run in runs.items()}
             for key in ("codeword", "iterations", "success"):
                 assert torch.equal(outs["parent"][key], outs["this"][key]), (name, key)
-            times = turns(list(runs.values()), args.reps)
-            result["decode"][f"{name} {ebn0} dB"] = dict(zip(runs, times))
+            times = result["decode"][f"{name} {ebn0} dB"] = turns(runs, args.reps)
             its = outs["this"]["iterations"]
+            was, now = times["parent"], times["this"]
             print(f"[{card}] {name} streaming at {ebn0} dB ({int(outs['this']['success'].sum())}"
-                  f"/{BATCH} converged, {int(its.max())} iterations): parent {times[0]:.3f} ms, "
-                  f"this {times[1]:.3f} ms ({100 * (times[1] / times[0] - 1):+.1f} %), "
-                  "outputs equal")
+                  f"/{BATCH} converged, {int(its.max())} iterations): parent {was:.3f} ms, "
+                  f"this {now:.3f} ms ({100 * (now / was - 1):+.1f} %), outputs equal")
     print(json.dumps(result))
 
 
