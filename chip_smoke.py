@@ -37,6 +37,21 @@ partial tile), and drives the port's main paths on the flagship code
    versions on the test codes first, all 16 float names and two i8 names a
    schedule);
 
+7. the generic parity-check path (``decoder/flooding.py``,
+   ``decoder/layered.py``: torch ops, no kernel of the nine, and the
+   counts show it): flooding ``Decoder(h)`` (``Phif64``) and
+   ``Decoder(h, "Minsumf32")`` on DVB-S2 R1_2's H beside the lifted
+   decodes of the same names, layered ``HLMinsumf32`` and
+   ``HLMinstarapproxi8`` on ``results/bench_5g_bg1_384.alist`` (5G BG1
+   Z=384, B = 1024, 1.0 dB), one timed layered sweep of DVB-S2 R1_2short
+   (a layer a check), the card against the CPU on 5G BG2 z=16, AR4JA
+   K1024 R1_2 and the MacKay-Neal alist (min-sum and i8 names bit for bit,
+   float names on at least 63 of 64 frames), and the port's ``ber`` on the
+   MacKay-Neal alists at 1.5 and 2.0 dB against the recorded FER rows of
+   ``results/config{1,2}_*.txt`` (two-proportion |z| <= 3.29; the
+   non-systematic alist through the encode-side permutation) and on
+   ``ccsds-c2`` (FER >= 0.5 at 3.6 dB, <= 0.01 at 4.2 dB);
+
 each with its launch counts set to 0 just before and read just after (a
 streaming path's syndrome and freeze: ``fused_syndrome_freeze``, one
 launch an iteration, held against its plain version on the flagship's
@@ -56,7 +71,9 @@ a JSON object with "ok": true. Any failure raises and exits non-zero, as
 does a machine without a CUDA device.
 """
 
+import contextlib
 import functools
+import io
 import json
 import statistics
 from collections import Counter
@@ -70,8 +87,10 @@ import torch
 from ldpc_toolbox_torch.codes.ccsds import AR4JACode, AR4JAInfoSize, AR4JARate, C2Code
 from ldpc_toolbox_torch.codes.dvbs2 import Code
 from ldpc_toolbox_torch.codes.nr5g import BaseGraph
-from ldpc_toolbox_torch.decoder import Decoder
+from ldpc_toolbox_torch import cli
+from ldpc_toolbox_torch.decoder import DecodeGraph, Decoder
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
+from ldpc_toolbox_torch.decoder.layered import device_layers, layered_sweep
 from ldpc_toolbox_torch.decoder.lifted import (
     LiftedGraph,
     lifted_graph_for,
@@ -135,6 +154,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode_reference,
 )
 from ldpc_toolbox_torch.simulation import BerTestBuilder
+from ldpc_toolbox_torch.sparse import SparseMatrix
 
 LAYERED = ["HLMinsumf32", "HLMinsumbf16", "HLNormminsumbf16"]
 FLOODING = ["Minsumf32", "Minsumbf16", "Normminsumbf16"]
@@ -329,6 +349,9 @@ I8_FLOODING = ["Minstarapproxi8JonesDeg1Clip", "Aminstari8PartialHardLimitDeg1Cl
 FLOAT_NAMES = [s + r + p for s in ("", "HL") for r in ("Phi", "Tanh", "Minstarapprox", "Aminstar")
                for p in ("f32", "f64")]
 DECODE_KEYS = ("codeword", "iterations", "success")
+#: name -> (output, Decoder.decode_batch ms) of the lifted flagship decodes
+#: that the generic phase compares with (filled by the flagship phases)
+LIFTED = {}
 
 
 def sigma_at(rate, ebn0_db):
@@ -1086,6 +1109,7 @@ def flagship_compressed_flooding(card, llrs, worst):
                                  + layout.CG * Z * Bt * 2 * (2 * s + 1)
                                  + lane_tile * (s + 4)) / HBM_BYTES_PER_S
     mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    LIFTED["Minsumf32"] = (out, decode_ms)
     print(f"[{card}] path (b) Minsumf32 Decoder.decode_batch: {decode_ms:.3f} ms, "
           f"{mbps:.1f} Mbit/s decoded info, median of 5")
     print(f"[{card}] compressed_flooding_decode kernel (f32): {kernel_ms:.3f} ms; the "
@@ -1503,6 +1527,7 @@ def flagship_float(card, llrs, worst, name):
               f"{int(kits.max())}; output equal to the plain version (tolerance 0)")
         measured[which] = entry(launches[kernel.__name__], kernel_ms, plain_ms, b[:2])
     mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
+    LIFTED[name] = (out, decode_ms)
     print(f"[{card}] flagship {name} Decoder.decode_batch: {decode_ms:.3f} ms, "
           f"{mbps:.1f} Mbit/s decoded info, {decode_ms / executed:.3f} ms/iter, "
           f"median of 5; launches {launches}; "
@@ -1737,6 +1762,235 @@ def ber_sweep(card, lifted, name, points, iters, high_fer):
     assert low.ldpc.fer >= 0.9, f"{name}: FER at {low.ebn0_db} dB is {low.ldpc.fer}"
     assert high.ldpc.fer <= high_fer, f"{name}: FER at {high.ebn0_db} dB is {high.ldpc.fer}"
 
+# -- the generic parity-check path (torch ops: no kernel of the nine) ----------
+
+#: the recorded rows of the JAX package's whole-pipeline runs on the
+#: MacKay-Neal (3,6) n = 1024 code (tools/run_results.sh configs 1 and 2)
+FER_ROWS = {"Minstarapproxf32": "results/config1_mn_minsum.txt",
+            "Phif64": "results/config2_mn_Phif64.txt",
+            "Minstarapproxi8": "results/config2_mn_Minstarapproxi8.txt"}
+MN_SYS, MN = "results/mn_512_1024_sys.alist", "results/mn_512_1024.alist"
+BG1_384 = "results/bench_5g_bg1_384.alist"
+#: code -> the noise sigma range of the card-against-CPU frames, which gives
+#: a mix of converged and failed frames
+GENERIC_SIGMAS = {"5G BG2 z=16": (1.0, 1.6), "AR4JA K1024 R1_2": (0.85, 1.1),
+                  "MacKay-Neal n=1024": (0.7, 0.95)}
+GENERIC_EXACT = ["Minsumbf16", "Aminstari8JonesPartialHardLimitDeg1Clip", "HLMinsumf32",
+                 "HLMinstarapproxi8"]
+GENERIC_FLOAT = ["Phif64", "Tanhf32", "HLPhif32", "HLAminstarf64"]
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def no_kernel_launched(what):
+    launched = {k: v for k, v in counts().items() if v}
+    assert not launched, f"{what} launched kernels: {launched}"
+
+
+def generic_flooding(card, llrs, graph):
+    """Flooding at full width: ``Decoder(h)`` of DVB-S2 R1_2's H (the
+    generic path; no name: ``Phif64``) and ``Decoder(h, "Minsumf32")`` on
+    the flagship LLRs, beside the lifted decode of the same name."""
+    for name in ("Phif64", "Minsumf32"):
+        dec = Decoder(graph, device="cuda") if name == "Phif64" else Decoder(graph, name)
+        assert dec.implementation == name and dec.lifted is None
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+        torch.cuda.synchronize()
+        no_kernel_launched(f"generic {name}")
+        peak = peak_gib()
+        ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 2)
+        iters = out["iterations"]
+        assert out["codeword"].shape == (FLAGSHIP_BATCH, graph.n)
+        if name not in LIFTED:  # a run of this phase alone
+            lifted = Decoder(Code.R1_2, name)
+            LIFTED[name] = (lifted.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS),
+                            cuda_ms(lambda: lifted.decode_batch(
+                                llrs, max_iterations=FLAGSHIP_ITERS), 3))
+        lifted_out, lifted_ms = LIFTED[name]
+        agree = torch.ones(FLAGSHIP_BATCH, dtype=torch.bool, device=llrs.device)
+        for key in ("iterations", "success"):
+            agree &= out[key] == lifted_out[key]
+        agree &= (out["codeword"] == lifted_out["codeword"]).all(dim=1)
+        same = int(agree.sum())
+        mbps = 1e-6 * Code.R1_2.k * FLAGSHIP_BATCH / (ms * 1e-3)
+        print(f"[{card}] generic flooding {name} (DVB-S2 R1_2 H, n = {graph.n}, B = "
+              f"{FLAGSHIP_BATCH}, {FLAGSHIP_EBN0} dB, {FLAGSHIP_ITERS} iterations): "
+              f"{ms:.3f} ms a decode (median of 2), {mbps:.1f} Mbit/s, peak "
+              f"{peak:.2f} GiB allocated; {int(out['success'].sum())}/{FLAGSHIP_BATCH} "
+              f"converged, average iterations {float(iters.float().mean()):.2f}; the "
+              f"lifted decode of the same name {lifted_ms:.3f} ms; {same}/"
+              f"{FLAGSHIP_BATCH} frames equal to the lifted decode's")
+
+
+def generic_layered(card):
+    """Layered at full width: ``Decoder(SparseMatrix.from_alist_file(
+    results/bench_5g_bg1_384.alist), name)``, 5G BG1 Z=384, B = 1024,
+    1.0 dB; then one timed generic layered sweep of DVB-S2 R1_2short, whose
+    staircase makes every check a layer."""
+    t0 = time.perf_counter()
+    h = SparseMatrix.from_alist_file(BG1_384)
+    graph = DecodeGraph.from_sparse(h)
+    build_s = time.perf_counter() - t0
+    k = h.num_cols - h.num_rows
+    llrs = channel_llrs(h.num_cols, FLAGSHIP_BATCH, sigma_at(k / h.num_cols, 1.0), seed=1)
+    L, R = graph.layers.shape
+    for name in ("HLMinsumf32", "HLMinstarapproxi8"):
+        dec = Decoder(graph, name)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        first = time.perf_counter()
+        out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - first
+        no_kernel_launched(f"generic {name}")
+        peak = peak_gib()
+        ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS),
+                     3 if first < 3 else 1)
+        iters = out["iterations"]
+        assert out["codeword"].shape == (FLAGSHIP_BATCH, h.num_cols)
+        mbps = 1e-6 * k * FLAGSHIP_BATCH / (ms * 1e-3)
+        print(f"[{card}] generic layered {name} (5G BG1 Z=384 alist, n = {h.num_cols}, "
+              f"k = {k}, {L} layers of {R} checks, dc_max {graph.dc_max}; B = "
+              f"{FLAGSHIP_BATCH}, 1.0 dB, {FLAGSHIP_ITERS} iterations): {ms:.3f} ms a "
+              f"decode, {mbps:.1f} Mbit/s, peak {peak:.2f} GiB allocated; "
+              f"{int(out['success'].sum())}/{FLAGSHIP_BATCH} converged, average "
+              f"iterations {float(iters.float().mean()):.2f}, {int(iters.max())} at most "
+              f"(H read and tables built in {build_s:.1f} s on the host)")
+    t0 = time.perf_counter()
+    graph = DecodeGraph.from_sparse(Code.R1_2short.h())
+    build_s = time.perf_counter() - t0
+    _, arith = make_arithmetic("HLMinsumf32")
+    short = channel_llrs(graph.n, FLAGSHIP_BATCH, sigma_at(4 / 9, 1.0), seed=2)
+    tables = device_layers(graph, short.device)
+    qv = torch.cat([short.T.contiguous(), short.new_zeros((1, FLAGSHIP_BATCH))])
+    rcv = torch.zeros((len(tables.layer_vars), tables.rows, tables.dc, FLAGSHIP_BATCH),
+                      device=short.device)
+    layered_sweep(qv, rcv, tables, arith)
+    sweep_ms = event_ms(lambda: layered_sweep(qv, rcv, tables, arith))
+    L, R = graph.layers.shape
+    print(f"[{card}] generic layered sweep HLMinsumf32 on DVB-S2 R1_2short (staircase: "
+          f"{L} layers of {R} check): {sweep_ms:.3f} ms one sweep, "
+          f"{1e3 * sweep_ms / L:.1f} us a layer, B = {FLAGSHIP_BATCH} (tables built in "
+          f"{build_s:.1f} s on the host)")
+
+
+def generic_card_against_cpu(card):
+    """The generic decodes on the card against the same decodes on the CPU,
+    B = 64, both schedules, on 5G BG2 z=16, AR4JA K1024 R1_2 and the
+    MacKay-Neal alist: min-sum and i8 names bit for bit, float names with
+    equal success and iterations on at least 63 of 64 frames; and generic
+    Minsumf32 flooding on AR4JA equal to the lifted decode."""
+    ar4ja = AR4JACode(AR4JARate.R1_2, AR4JAInfoSize.K1024)
+    codes = {"5G BG2 z=16": BaseGraph.BG2.h(16), "AR4JA K1024 R1_2": ar4ja.h(),
+             "MacKay-Neal n=1024": SparseMatrix.from_alist_file(MN_SYS)}
+    for code, h in codes.items():
+        graph = DecodeGraph.from_sparse(h)
+        rng = np.random.default_rng(8)
+        sigma = np.linspace(*GENERIC_SIGMAS[code], 64)[:, None]
+        x = -1.0 + sigma * rng.standard_normal((64, h.num_cols))
+        cpu_llrs = torch.from_numpy(((-2.0 / sigma**2) * x).astype(np.float32))
+        llrs = cpu_llrs.cuda()
+        line = []
+        for name in GENERIC_EXACT + GENERIC_FLOAT:
+            dev = Decoder(graph, name).decode_batch(llrs, 20)
+            cpu = Decoder(graph, name, device="cpu").decode_batch(cpu_llrs, 20)
+            if name in GENERIC_EXACT:
+                same_decode(cpu, {k: v.cpu() for k, v in dev.items()}, f"{code} {name} card")
+                line.append(f"{name} equal ({int(cpu['success'].sum())}/64 converged)")
+            else:
+                agree = int(((dev["success"].cpu() == cpu["success"])
+                             & (dev["iterations"].cpu() == cpu["iterations"])).sum())
+                assert agree >= 63, f"{code} {name}: {agree}/64 frames agree"
+                line.append(f"{name} {agree}/64")
+        print(f"[{card}] generic card against CPU, {code}, B = 64, 20 iterations: "
+              + "; ".join(line))
+    llrs = channel_llrs(ar4ja.h().num_cols, 64, 0.85, seed=0)
+    generic = Decoder(ar4ja.h(), "Minsumf32").decode_batch(llrs, 10)
+    same_decode(generic, Decoder(ar4ja, "Minsumf32").decode_batch(llrs, 10),
+                "AR4JA generic Minsumf32 against the lifted decode")
+    print(f"[{card}] generic Minsumf32 flooding on AR4JA K1024 R1_2 equal to the lifted "
+          f"decode ({int(generic['success'].sum())}/64 converged)")
+
+
+def run_ber_cli(args):
+    """The port's ``ber`` command line in this process; its result rows as
+    (Eb/N0, frames, frame errors, FER)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["ber", *args, "--device", "cuda"])
+    rows = [r.split("|") for r in out.getvalue().splitlines()
+            if "|" in r and "Eb/N0" not in r and not r.startswith("--")]
+    return [(float(r[0]), int(r[1]), int(r[3]), float(r[6])) for r in rows]
+
+
+def recorded_row(path, ebn0):
+    """(frames, frame errors) of a recorded ``ber`` table's row."""
+    with open(path) as f:
+        for r in f:
+            cells = r.split("|")
+            if len(cells) > 3 and cells[0].strip() == f"{ebn0:.2f}":
+                return int(cells[1]), int(cells[3])
+    raise KeyError(f"{path}: no row at {ebn0} dB")
+
+
+def two_proportion_z(a, b):
+    (n1, e1), (n2, e2) = a, b
+    p = (e1 + e2) / (n1 + n2)
+    return (e1 / n1 - e2 / n2) / np.sqrt(p * (1 - p) * (1 / n1 + 1 / n2))
+
+
+def generic_fer_parity(card):
+    """Whole-pipeline FER parity: the port's ``ber`` on the MacKay-Neal
+    alists (configs 1 and 2 of tools/run_results.sh) against the recorded
+    rows of the JAX package's runs, |z| <= 3.29; the permutation path on
+    the non-systematic alist; and ``ber ccsds-c2``."""
+    common = ["--max-iter", "100", "--batch-size", "2048", "--seed", "1",
+              "--frame-errors", "150"]
+    runs = [(MN_SYS, name, (1.5, 2.0)) for name in FER_ROWS]
+    runs.append((MN, "Minstarapproxf32", (2.0,)))
+    for alist, name, points in runs:
+        t0 = time.perf_counter()
+        rows = run_ber_cli([alist, "--decoder", name, "--min-ebn0", str(points[0]),
+                               "--max-ebn0", str(points[-1]), "--step-ebn0", "0.5", *common])
+        seconds = time.perf_counter() - t0
+        assert [r[0] for r in rows] == list(points), rows
+        for ebn0, frames, errors, fer in rows:
+            ref = recorded_row(FER_ROWS[name], ebn0)
+            z = two_proportion_z((frames, errors), ref)
+            print(f"[{card}] ber {alist} {name} {ebn0:.2f} dB: FER {fer:.3e} "
+                  f"({errors}/{frames}), recorded {ref[1]}/{ref[0]} "
+                  f"({FER_ROWS[name]}); z = {z:+.2f} ({seconds:.1f} s for the run)")
+            assert abs(z) <= 3.29, f"{alist} {name} {ebn0} dB: z = {z}"
+    t0 = time.perf_counter()
+    rows = run_ber_cli(["ccsds-c2", "--decoder", "HLMinsumbf16", "--min-ebn0", "3.6",
+                           "--max-ebn0", "4.2", "--step-ebn0", "0.6", "--max-iter", "30",
+                           "--batch-size", "1024", "--frame-errors", "100",
+                           "--max-time", "3s", "--seed", "1"])
+    seconds = time.perf_counter() - t0
+    (low, *_, low_fer), (high, *_, high_fer) = rows
+    print(f"[{card}] ber ccsds-c2 HLMinsumbf16: {low:.2f} dB FER {low_fer:.3e} "
+          f"({rows[0][2]}/{rows[0][1]}), {high:.2f} dB FER {high_fer:.3e} "
+          f"({rows[1][2]}/{rows[1][1]}) ({seconds:.1f} s for the run)")
+    assert low == 3.6 and low_fer >= 0.5, rows
+    assert high == 4.2 and high_fer <= 0.01 and rows[1][1] >= 1024, rows
+
+
+def generic_path(card, llrs):
+    """Main path 7, the generic parity-check path (decoder/flooding.py and
+    decoder/layered.py: torch ops, no kernel of its own)."""
+    t0 = time.perf_counter()
+    graph = DecodeGraph.from_sparse(Code.R1_2.h())
+    print(f"generic path: DVB-S2 R1_2 DecodeGraph built in "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+    generic_flooding(card, llrs, graph)
+    generic_layered(card)
+    generic_card_against_cpu(card)
+    generic_fer_parity(card)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1785,6 +2039,8 @@ def main():
         measured.update(flagship_streaming(card, llrs, worst, name))
     other_instances(card, llrs, worst)
     mark("flagship paths")
+    generic_path(card, llrs)
+    mark("generic path")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)

@@ -1,9 +1,10 @@
 """Command-line interface: the ``ber`` subcommand.
 
 ``python -m ldpc_toolbox_torch ber CODE ...`` runs the BER sweep of the
-reference CLI (cli/ber.rs) on the port, for the code specs
-``dvbs2:RATE[:short]``, ``5g:BG:Z`` and ``ccsds:RATE:K`` (the AR4JA
-codes), BPSK and all 44 decoder names
+reference CLI (cli/ber.rs) on the port, for an alist path (the generic
+parity-check decode) and the code specs ``dvbs2:RATE[:short]``,
+``5g:BG:Z``, ``ccsds:RATE:K`` (the AR4JA codes) and ``ccsds-c2`` (the
+lifted decode), BPSK and all 44 decoder names
 of both schedules (``--decoder`` defaults to the reference's ``Phif64``,
 which floods; ``HLMinsumbf16`` and ``HLMinstarapproxi8`` are layered; the
 i8 names quantize the channel LLRs inside the decode). It prints the
@@ -13,11 +14,13 @@ and formatting of the JAX package's ``ber``, from this module's own copies
 of its helpers (``parse_duration``, ``_BER_HEADER``, ``_format_duration``,
 ``_format_progress``).
 
-Not ported yet (ROADMAP A5, A8, A9, A10): the live progress rows and
-checkpoints, puncturing, interleaving, 8PSK, alist files (A8: the generic
-parity-check path), ``ccsds-c2`` (A9: its rank-deficient H needs the
-encode-side permutation), and the other subcommands. Those two specs exit
-with a message that names their item.
+A code whose trailing square is singular (``ccsds-c2``, whose H is also
+rank-deficient, or a non-systematic alist) is encoded on its full-rank
+rows with its columns permuted to a systematic form and decoded in its
+own column order (``_systematic_perm_if_needed``, the JAX package's).
+
+Not ported yet (ROADMAP A5, A9, A10): the live progress rows and
+checkpoints, puncturing, interleaving, 8PSK, and the other subcommands.
 """
 
 from __future__ import annotations
@@ -101,27 +104,30 @@ def _die(msg: str):
 
 
 #: the code specs of the ``ber`` positional
-CODE_SPECS = ("dvbs2:RATE[:short], 5g:BG:Z or ccsds:RATE:K (RATE 1/2, 2/3 or 4/5; "
-              "K 1024, 4096 or 16384)")
+CODE_SPECS = ("an alist path, dvbs2:RATE[:short], 5g:BG:Z, ccsds:RATE:K (RATE 1/2, 2/3 or "
+              "4/5; K 1024, 4096 or 16384) or ccsds-c2")
 
 
 def resolve_ber_code(spec: str):
-    """``dvbs2:RATE[:short]``, ``5g:BG:Z`` or ``ccsds:RATE:K`` -> (h,
-    LiftedGraph). An alist path and ``ccsds-c2``, which the JAX package's
-    ``ber`` also takes, raise NotImplementedError naming ROADMAP A8 and
-    A9."""
+    """An alist path -> (h, None): the generic decode; exits with the JAX
+    package's "cannot read alist" message when it cannot be read.
+    ``dvbs2:RATE[:short]``, ``5g:BG:Z``, ``ccsds:RATE:K`` or ``ccsds-c2``
+    -> (h, LiftedGraph)."""
     import os
 
     from .decoder.lifted import LiftedGraph, lifted_graph_for, nr5g_maps
+    from .sparse import SparseMatrix
 
+    if os.path.exists(spec) or ":" not in spec and spec != "ccsds-c2":
+        try:
+            return SparseMatrix.from_alist_file(spec), None
+        except (FileNotFoundError, ValueError) as e:
+            _die(f"cannot read alist {spec!r}: {e}")
     if spec == "ccsds-c2":
-        raise NotImplementedError(
-            "ccsds-c2 is not ported yet: its rank-deficient H needs the "
-            "encode-side systematic permutation (ROADMAP A9)")
-    if os.path.exists(spec) or ":" not in spec:
-        raise NotImplementedError(
-            "alist files are not ported yet: they need the generic "
-            "parity-check decode path (ROADMAP A8)")
+        from .codes.ccsds import C2Code
+
+        code = C2Code()
+        return code.h(), lifted_graph_for(code)
     parts = spec.split(":")
     if parts[0] == "dvbs2" and len(parts) in (2, 3):
         from .codes.dvbs2 import Code
@@ -151,13 +157,37 @@ def resolve_ber_code(spec: str):
     raise ValueError(f"expected {CODE_SPECS}")
 
 
+def _systematic_perm_if_needed(h, device):
+    """(perm, encoder_h, encoder): (None, None, the Encoder of h on
+    ``device``) when h's trailing square is invertible, else (perm, h_enc,
+    None) with h_enc the full-rank rows of h (None when h is already full
+    rank) and perm their systematic column permutation; BerTest then
+    encodes on h_enc[:, perm] and decodes in h's column order with every
+    redundant check (CCSDS C2: 1022 rows of rank 1020, the (8176, 7156)
+    code)."""
+    from .encoder import Encoder, EncoderError
+    from .systematic import SystematicError, full_rank_rows, systematic_permutation
+
+    try:
+        return None, None, Encoder(h, device=device)
+    except EncoderError:
+        pass
+    h_enc = full_rank_rows(h)
+    try:
+        perm = systematic_permutation(h_enc)
+    except SystematicError as e:
+        _die(str(e))
+    return perm, (None if h_enc is h else h_enc), None
+
+
 def run_ber(args) -> None:
     from .simulation.factory import BerTestBuilder
 
     try:
         h, lifted = resolve_ber_code(args.code)
-    except (KeyError, ValueError, NotImplementedError) as e:
+    except (KeyError, ValueError) as e:
         _die(f"invalid code spec {args.code!r}: {e}")
+    sys_perm, enc_h, prebuilt_enc = _systematic_perm_if_needed(h, args.device)
     num_ebn0s = int((args.max_ebn0 - args.min_ebn0) / args.step_ebn0) + 1
     ebn0s = [args.min_ebn0 + i * args.step_ebn0 for i in range(num_ebn0s)]
     try:
@@ -174,6 +204,9 @@ def run_ber(args) -> None:
             batch_size=args.batch_size,
             seed=args.seed,
             device=args.device,
+            systematic_permutation=sys_perm,
+            encoder_h=enc_h,
+            prebuilt_encoder=prebuilt_enc,
         ).build()
     except (ValueError, NotImplementedError) as e:
         _die(str(e))

@@ -11,12 +11,14 @@ Public API::
 decision, the iteration count (0 if the input already satisfied H,
 ``max_iterations`` on failure) and a success flag.
 
-Ported so far: standards code objects and 5G ``(BaseGraph, Z)`` pairs on
-the lifted layout, with all 44 names of both schedules (the float, i8 and
-min-sum rules; ``Phif64``, the reference's default, when no name is
-given): the ``HL*`` names decode layered (``lifted_layered``), the others
-flooding (``lifted_flooding``). A generic ``SparseMatrix`` waits for
-ROADMAP A8.
+All 44 names of both schedules (the float, i8 and min-sum rules;
+``Phif64``, the reference's default, when no name is given): the ``HL*``
+names decode layered, the others flooding. Standards code objects and 5G
+``(BaseGraph, Z)`` pairs take the lifted layout (``lifted_layered``,
+``lifted_flooding``, the hand-written kernels on the card); a generic
+``SparseMatrix`` (an alist) or a ``DecodeGraph`` takes the generic
+parity-check path (``layered``, ``flooding``: torch ops on the compact
+and padded tables of ``layout.DecodeGraph``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import torch
 from ..sparse import SparseMatrix
 
 from .factory import DECODER_IMPLEMENTATIONS, make_arithmetic  # noqa: F401
+from .flooding import flooding_decode
+from .layered import layered_decode
+from .layout import DecodeGraph
 from .lifted import LiftedGraph, lifted_graph_for, nr5g_maps
 from .lifted_flooding import lifted_flooding_decode
 from .lifted_layered import lifted_layered_decode
@@ -36,7 +41,11 @@ from .lifted_layered import lifted_layered_decode
 __all__ = [
     "Decoder",
     "DecoderOutput",
+    "DecodeGraph",
     "DECODER_IMPLEMENTATIONS",
+    "flooding_decode",
+    "generic_decode_for",
+    "layered_decode",
     "lifted_decode_for",
 ]
 
@@ -47,6 +56,11 @@ def lifted_decode_for(schedule: str):
     return lifted_flooding_decode if schedule == "flooding" else lifted_layered_decode
 
 
+def generic_decode_for(schedule: str):
+    """The generic parity-check decode function of a schedule."""
+    return flooding_decode if schedule == "flooding" else layered_decode
+
+
 @dataclass
 class DecoderOutput:
     codeword: np.ndarray  # (n,) uint8 hard decisions
@@ -55,17 +69,24 @@ class DecoderOutput:
 
 
 class Decoder:
-    """A batched LDPC decoder for a fixed standards code on one device."""
+    """A batched LDPC decoder for a fixed code on one device."""
 
     def __init__(self, h, implementation: str = "Phif64", device="cuda"):
-        """``h``: a standards code object (``codes.dvbs2.Code``,
-        ``AR4JACode``, ``C2Code``) or a ``(BaseGraph, Z)`` pair for 5G NR.
-        ``device``: where the LLRs are decoded; on a CUDA device the decode
-        runs the hand-written kernels, on ``"cpu"`` their plain versions."""
-        if isinstance(h, SparseMatrix):
-            raise NotImplementedError(
-                "the generic parity-check path is not ported yet (ROADMAP A8)"
-            )
+        """``h``: a ``SparseMatrix`` or a ``DecodeGraph`` (the generic
+        parity-check decode), a standards code object
+        (``codes.dvbs2.Code``, ``AR4JACode``, ``C2Code``) or a
+        ``(BaseGraph, Z)`` pair for 5G NR (the lifted decode).
+        ``device``: where the LLRs are decoded; on a CUDA device the lifted
+        decode runs the hand-written kernels, on ``"cpu"`` their plain
+        versions; the generic decode runs the same torch ops on either."""
+        self.implementation = implementation
+        self.schedule, self.arithmetic = make_arithmetic(implementation)
+        self.device = torch.device(device)
+        self.lifted = self.graph = None
+        if isinstance(h, (SparseMatrix, DecodeGraph)):
+            self.graph = h if isinstance(h, DecodeGraph) else DecodeGraph.from_sparse(h)
+            self._decode = generic_decode_for(self.schedule)
+            return
         if isinstance(h, tuple):  # (BaseGraph, lifting size Z)
             bg, z = h
             self.lifted = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
@@ -73,14 +94,17 @@ class Decoder:
             self.lifted = lifted_graph_for(h)
             if self.lifted is None:
                 raise TypeError(f"unsupported code object {type(h).__name__}")
-        self.implementation = implementation
-        self.schedule, self.arithmetic = make_arithmetic(implementation)
         self._decode = lifted_decode_for(self.schedule)
-        self.device = torch.device(device)
+
+    @property
+    def _code(self):
+        """The layout the decode function takes: the LiftedGraph or the
+        DecodeGraph."""
+        return self.graph if self.lifted is None else self.lifted
 
     @property
     def n(self) -> int:
-        return self.lifted.n
+        return self._code.n
 
     def decode_batch(self, llrs, max_iterations: int = 100):
         """Decode a (B, n) batch of channel LLR frames.
@@ -91,7 +115,7 @@ class Decoder:
         llrs = torch.as_tensor(llrs, device=self.device)
         if llrs.ndim != 2 or llrs.shape[1] != self.n:
             raise ValueError(f"expected (B, {self.n}) LLRs, got {tuple(llrs.shape)}")
-        return self._decode(self.lifted, self.arithmetic, llrs, max_iterations)
+        return self._decode(self._code, self.arithmetic, llrs, max_iterations)
 
     def decode(self, llrs, max_iterations: int = 100) -> DecoderOutput:
         """Decode a single (n,) frame (convenience wrapper)."""

@@ -6,18 +6,26 @@ maps the incoming variable messages of every check node, a
 to the leave-one-out outgoing messages of the same shape (the reference's
 ``send_check_messages``, arithmetic.rs:100-102).
 
-Ported so far: the min-sum extension, the two i8 families of the
-reference (Minstarapprox and Aminstar, each with its Jones,
-PartialHardLimit and Deg1Clip variants, arithmetic.rs:585-1304), and the
-four float families (Phi, Tanh, Minstarapprox and Aminstar,
-arithmetic.rs:158-580, 899-1072) as their types and parameters: the
-decoders run them through the kernel rules of ``ops/fused_bp2.py``. Their
-``check_messages`` plane forms serve only the plane-gather and generic
-paths, which wait for ROADMAP A7 and A8.
+All 18 rules of the reference and the min-sum extension: the four float
+families (Phi, Tanh, Minstarapprox and Aminstar, arithmetic.rs:158-580,
+899-1072), the two i8 families (Minstarapprox and Aminstar, each with its
+Jones, PartialHardLimit and Deg1Clip variants, arithmetic.rs:585-1304)
+and min-sum. ``var_update(input_llr, c2v, mask)`` is the shared variable
+rule "sum minus own contribution" (arithmetic.rs:140-156), with the i8
+clips. The lifted decoders run the rules through the kernel rules of
+``ops/fused_bp2.py``; ``check_messages`` and ``var_update`` serve the
+generic parity-check path (``decoder/flooding.py``, ``decoder/layered.py``)
+and the plain layered decode.
+
+Every reduction over the degree axis is a fold in slot order
+(``_fold_sum``, the exclusive products of Tanh, the min* folds), so that
+a CPU and a CUDA device round the same sums in the same order, the order
+in which XLA's CPU reduction adds them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -53,6 +61,79 @@ def i8_correction_table() -> np.ndarray:
             break
         table[t] = x
     return table
+
+
+def _fold_sum(x, dim=1, keepdim=False):
+    """The sum over ``dim`` folded in slot order: ((x0 + x1) + x2) + ..."""
+    parts = x.unbind(dim)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc.unsqueeze(dim) if keepdim else acc
+
+
+@functools.cache
+def _fold_slots(d, device):
+    """Per folded slot k of a degree-d leave-one-out fold, as (1, d, 1) bool
+    tensors on ``device``: ``sel``, the slots j != k that fold k in, and
+    ``first``, those whose fold starts at k (the first k != j)."""
+    notk = ~np.eye(d, dtype=bool)
+    started = np.zeros(d, dtype=bool)
+    out = []
+    for k in range(d):
+        out.append((
+            torch.as_tensor(notk[k], device=device)[None, :, None],
+            torch.as_tensor(notk[k] & ~started, device=device)[None, :, None],
+        ))
+        started |= notk[k]
+    return tuple(out)
+
+
+def _first_argmin(mag, vmin):
+    """(rows, 1, batch) index of the first slot of ``mag`` (rows, d, batch)
+    that equals its minimum ``vmin``, as ``jnp.argmin`` takes it."""
+    d = mag.shape[1]
+    slot = torch.arange(d, device=mag.device)[None, :, None]
+    return torch.where(mag == vmin, slot, d).amin(dim=1, keepdim=True), slot
+
+
+def _leave_one_out_fold(mag, mask, fold):
+    """Each slot's left fold of ``fold`` over the other valid slots of
+    ``mag`` (rows, d, batch) in slot order, its first value the first
+    other valid slot (arithmetic.rs:487-521); ``mask`` (rows, d) or None
+    (every slot valid)."""
+    rows, d, _ = mag.shape
+    acc = torch.zeros_like(mag)
+    if mask is None:
+        for k, (sel, first) in enumerate(_fold_slots(d, mag.device)):
+            vk = mag[:, k : k + 1, :]
+            acc = torch.where(first, vk, torch.where(sel, fold(acc, vk), acc))
+        return acc
+    cnt = torch.zeros((rows, d, 1), dtype=torch.int32, device=mag.device)
+    for k, (sel, _) in enumerate(_fold_slots(d, mag.device)):
+        vk = mag[:, k : k + 1, :]
+        elig = mask[:, k : k + 1, None] & sel
+        first = elig & (cnt == 0)
+        acc = torch.where(first, vk, torch.where(elig, fold(acc, vk), acc))
+        cnt = cnt + elig.to(torch.int32)
+    return acc
+
+
+def _min_edge_fold(mag, onehot, mask, fold):
+    """A-Min*'s fold over the valid slots other than the minimum's
+    (``onehot``), in slot order from the first of them: (rows, 1, batch)."""
+    rows, d, batch = mag.shape
+    acc = torch.zeros((rows, 1, batch), dtype=mag.dtype, device=mag.device)
+    cnt = torch.zeros((rows, 1, batch), dtype=torch.int32, device=mag.device)
+    for k in range(d):
+        vk = mag[:, k : k + 1, :]
+        elig = ~onehot[:, k : k + 1, :]
+        if mask is not None:
+            elig = mask[:, k : k + 1, None] & elig
+        first = elig & (cnt == 0)
+        acc = torch.where(first, vk, torch.where(elig, fold(acc, vk), acc))
+        cnt = cnt + elig.to(torch.int32)
+    return acc
 
 
 def _loo_sign(x, mask_e):
@@ -103,6 +184,15 @@ class Arithmetic:
 
     def var_llr_to_llr(self, var_llr):
         return var_llr
+
+    def var_update(self, input_llr, c2v, mask=None):
+        """The variable rule (arithmetic.rs:140-156): input_llr (n, batch)
+        and c2v (n, d, batch), ``mask`` (n, d) or None (every slot a real
+        edge) -> (v2c (n, d, batch), the posterior (n, batch)); the
+        posterior is input_llr plus the slot-order sum of c2v."""
+        inc = c2v if mask is None else torch.where(mask[..., None], c2v, 0)
+        total = input_llr + _fold_sum(inc)
+        return total[:, None, :] - c2v, total
 
     def layered_x(self, qv, rold):
         """Extrinsic input for the layered check update: Qv - Rcv."""
@@ -172,13 +262,34 @@ class MinSumArithmetic(Arithmetic):
 # -- the float families ----------------------------------------------------------
 #
 # Messages, posteriors and arithmetic in ``dtype`` (float32, or float64 on
-# every device: the card has f64), identity quantization. The check rules
-# are ``ops/fused_bp2.py``'s PhiRule, TanhRule, MinstarApproxRule and
-# AminstarRule.
+# every device: the card has f64), identity quantization. The lifted
+# decoders' check rules are ``ops/fused_bp2.py``'s PhiRule, TanhRule,
+# MinstarApproxRule and AminstarRule; ``check_messages`` is the JAX
+# package's plane form of each (its ``decoder/arithmetic.py``), which Phi
+# computes with expm1 where the kernel rule takes a series.
 
 
 class PhiArithmetic(Arithmetic):
-    """phi involution sum-product (arithmetic.rs:158-298)."""
+    """phi involution sum-product (arithmetic.rs:158-298): each output is
+    phi(sum of the inputs' phis - its own) with the parity of the other
+    signs; phi(x) = ln(1 + e^-x) - ln(1 - e^-x), x at least 1e-30, with
+    ln(1 - e^-x) as log1p(-e^-x) below e^-x = 1/2 and log(-expm1(-x))
+    above."""
+
+    MIN_X = 1e-30
+
+    def _phi(self, x):
+        x = torch.clamp_min(x, self.MIN_X)
+        t = torch.exp(-x)
+        ln_1mt = torch.where(t < 0.5, torch.log1p(-t), torch.log(-torch.expm1(-x)))
+        return torch.log1p(t) - ln_1mt
+
+    def check_messages(self, x, mask=None):
+        mask_e = None if mask is None else mask[..., None]
+        phi_x = self._phi(x.abs())
+        inc = phi_x if mask_e is None else torch.where(mask_e, phi_x, 0)
+        y = self._phi(_fold_sum(inc, keepdim=True) - phi_x)
+        return _loo_sign(x, mask_e).to(self.dtype) * y
 
 
 class TanhArithmetic(Arithmetic):
@@ -195,15 +306,62 @@ class TanhArithmetic(Arithmetic):
         one = np.ones((), np.float64 if dtype == torch.float64 else np.float32)
         self.prod_max = float(np.nextafter(one, one * 0))
 
+    def check_messages(self, x, mask=None):
+        """2 atanh of the product of the other slots' tanh(x / 2), by
+        exclusive prefix and suffix products (no division: tanh can be 0),
+        each folded in slot order; a masked slot counts as tanh = 1."""
+        t = torch.tanh(torch.clamp(0.5 * x, -self.clamp, self.clamp))
+        if mask is not None:
+            t = torch.where(mask[..., None], t, 1.0)
+        ts = t.unbind(1)
+        d = len(ts)
+        pre, suf = [torch.ones_like(ts[0])], [torch.ones_like(ts[0])]
+        for k in range(1, d):
+            pre.append(ts[0] if k == 1 else pre[-1] * ts[k - 1])
+            suf.append(ts[d - 1] if k == 1 else suf[-1] * ts[d - k])
+        prod = torch.stack(pre, 1) * torch.stack(suf[::-1], 1)
+        return 2.0 * torch.atanh(torch.clamp(prod, -self.prod_max, self.prod_max))
+
 
 class MinstarApproxArithmetic(Arithmetic):
     """Pairwise min* approximation in the reference's fold order
     (arithmetic.rs:487-521): ``max(min(a, b) - ln(1 + e^-|a - b|), 0)``."""
 
+    @staticmethod
+    def _fold_op(acc, v):
+        return torch.clamp_min(
+            torch.minimum(acc, v) - torch.log1p(torch.exp(-(acc - v).abs())), 0.0
+        )
+
+    def check_messages(self, x, mask=None):
+        mask_e = None if mask is None else mask[..., None]
+        acc = _leave_one_out_fold(x.abs(), mask, self._fold_op)
+        return _loo_sign(x, mask_e).to(self.dtype) * acc
+
 
 class AminstarArithmetic(Arithmetic):
     """A-Min*-BP (arithmetic.rs:899-1072): the exact min* of the edges other
     than the least, shared with min* of the least by the others."""
+
+    @staticmethod
+    def _minstar_full(a, b):
+        return (
+            torch.minimum(a, b)
+            - torch.log1p(torch.exp(-(a - b).abs()))
+            + torch.log1p(torch.exp(-(a + b)))
+        )
+
+    def check_messages(self, x, mask=None):
+        mask_e = None if mask is None else mask[..., None]
+        big = torch.finfo(self.dtype).max
+        mag = x.abs()
+        masked_mag = mag if mask_e is None else torch.where(mask_e, mag, big)
+        vmin = masked_mag.amin(dim=1, keepdim=True)
+        argmin, slot = _first_argmin(masked_mag, vmin)
+        onehot = slot == argmin
+        delta = _min_edge_fold(mag, onehot, mask, self._minstar_full)
+        magnitude = torch.where(onehot, delta, self._minstar_full(delta, vmin))
+        return _loo_sign(x, mask_e).to(self.dtype) * magnitude
 
 
 # -- the i8 families -----------------------------------------------------------
@@ -231,13 +389,8 @@ class _I8Base(Arithmetic):
         self.jones = jones
         self.hard_limit = hard_limit
         self.deg1_clip = deg1_clip
-        table = i8_correction_table()
-        # the table is non-increasing, so table[t] is the number of its
-        # values v with t < thr_v, thr_v the count of entries >= v
-        assert np.all(np.diff(table) <= 0), "correction table not monotone"
-        self._thresholds = tuple(
-            int(np.sum(table >= v)) for v in range(1, int(table.max()) + 1)
-        )
+        self._table = torch.from_numpy(i8_correction_table())
+        self._tables = {}
 
     @property
     def storage_dtype(self):
@@ -267,12 +420,13 @@ class _I8Base(Arithmetic):
         return _clip127(var_llr)
 
     def _lookup(self, t):
-        """table[t] for t in [0, 127], 0 beyond (arithmetic.rs:604-607), as
-        a sum of compares against the table's steps."""
-        out = torch.zeros_like(t)
-        for thr in self._thresholds:
-            out = out + (t < thr).to(t.dtype)
-        return out
+        """table[t] for t >= 0: the table's entry in [0, 127], 0 beyond
+        (arithmetic.rs:604-607; the table's last entry is 0), a gather
+        from the table's copy on t's device."""
+        table = self._tables.get(t.device)
+        if table is None:
+            table = self._tables[t.device] = self._table.to(t.device)
+        return table[t.clamp_max(127)].to(t.dtype)
 
     def var_update(self, input_llr, c2v, mask=None):
         """The variable rule with its clips (arithmetic.rs:622-654):
@@ -309,34 +463,14 @@ class MinstarApproxI8Arithmetic(_I8Base):
     ``max(min(acc,v) - table[|acc-v|], 0)``; optional partial hard limit on
     the signed output."""
 
+    def _fold(self, acc, vk):
+        return torch.clamp_min(
+            torch.minimum(acc, vk) - self._lookup((acc - vk).abs()), 0
+        )
+
     def check_messages(self, x, mask=None):
-        rows, d, batch = x.shape
         mask_e = None if mask is None else mask[..., None]
-        mag = x.abs()
-        acc = torch.zeros_like(x)
-        notk = ~np.eye(d, dtype=bool)
-
-        def fold(acc, vk):
-            return torch.clamp_min(
-                torch.minimum(acc, vk) - self._lookup((acc - vk).abs()), 0
-            )
-
-        if mask is None:
-            started = np.zeros((d,), dtype=bool)
-            for k in range(d):
-                vk = mag[:, k : k + 1, :]
-                sel = torch.from_numpy(notk[k])[None, :, None]
-                first = torch.from_numpy(notk[k] & ~started)[None, :, None]
-                acc = torch.where(first, vk, torch.where(sel, fold(acc, vk), acc))
-                started |= notk[k]
-        else:
-            cnt = torch.zeros((rows, d, 1), dtype=torch.int32, device=x.device)
-            for k in range(d):
-                vk = mag[:, k : k + 1, :]
-                elig = (mask[:, k : k + 1] & torch.from_numpy(notk[k])[None, :])[..., None]
-                first = elig & (cnt == 0)
-                acc = torch.where(first, vk, torch.where(elig, fold(acc, vk), acc))
-                cnt = cnt + elig.to(torch.int32)
+        acc = _leave_one_out_fold(x.abs(), mask, self._fold)
         out = _loo_sign(x, mask_e) * acc
         if self.hard_limit:
             out = _partial_hard_limit(out)
@@ -356,27 +490,13 @@ class AminstarI8Arithmetic(_I8Base):
         )
 
     def check_messages(self, x, mask=None):
-        rows, d, batch = x.shape
         mask_e = None if mask is None else mask[..., None]
         mag = x.abs()
         masked_mag = mag if mask_e is None else torch.where(mask_e, mag, 128)
-        # the first minimum, as jnp.argmin takes it
         vmin = masked_mag.amin(dim=1, keepdim=True)
-        slot = torch.arange(d, device=x.device)[None, :, None]
-        argmin = torch.where(masked_mag == vmin, slot, d).amin(dim=1, keepdim=True)
+        argmin, slot = _first_argmin(masked_mag, vmin)
         onehot = slot == argmin
-        acc = torch.zeros((rows, 1, batch), dtype=x.dtype, device=x.device)
-        cnt = torch.zeros((rows, 1, batch), dtype=torch.int32, device=x.device)
-        for k in range(d):
-            vk = mag[:, k : k + 1, :]
-            elig = ~onehot[:, k : k + 1, :]
-            if mask is not None:
-                elig = mask[:, k : k + 1, None] & elig
-            first = elig & (cnt == 0)
-            folded = self._minstar_full(acc, vk)
-            acc = torch.where(first, vk, torch.where(elig, folded, acc))
-            cnt = cnt + elig.to(torch.int32)
-        delta = acc
+        delta = _min_edge_fold(mag, onehot, mask, self._minstar_full)
         delta_min_edge = _partial_hard_limit(delta) if self.hard_limit else delta
         delta_others = self._minstar_full(delta, vmin)
         if self.hard_limit:

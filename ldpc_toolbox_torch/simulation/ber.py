@@ -7,6 +7,14 @@ demodulate, decode, count systematic bit errors (ber.rs:436-481), and
 returns nine counters. Each step draws its message and then its noise from
 its own generator, seeded by (seed, point, step).
 
+The decode is the lifted one when the parameters give the code's
+``LiftedGraph``, else the generic parity-check decode of ``h``
+(``decoder/flooding.py``, ``decoder/layered.py``). A code whose trailing
+square is singular (CCSDS C2, a non-systematic alist) is encoded on
+``encoder_h`` with its columns permuted by ``systematic_permutation`` and
+sent in h's own column order; the message bits are then at ``perm[:k]``
+(the JAX package's encode-side permutation).
+
 Semantics kept from the reference:
 
 * sigma = sqrt(0.5 / (rate * bits_per_symbol * 10^(EbN0/10))), rate = k/n
@@ -32,10 +40,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..decoder import lifted_decode_for
+from ..decoder import DecodeGraph, generic_decode_for, lifted_decode_for
 from ..decoder.factory import make_arithmetic
 from ..encoder import Encoder
 from ..sparse import SparseMatrix
+from ..systematic import permute_columns
 from .channel import AwgnChannel
 from .modulation import Bpsk
 
@@ -80,8 +89,9 @@ class BerTestParameters:
     """Configuration of a BER test (BerTestParameters, ber.rs:60-96)."""
 
     h: SparseMatrix
-    # the block-circulant layout of h (decoder.lifted.LiftedGraph)
-    lifted_graph: object
+    # the block-circulant layout of h (decoder.lifted.LiftedGraph); None:
+    # the generic parity-check decode of h
+    lifted_graph: Optional[object] = None
     decoder_implementation: str = "Phif64"
     max_frame_errors: int = 100
     min_run_time: Optional[float] = None  # seconds
@@ -93,6 +103,18 @@ class BerTestParameters:
     batch_size: int = 128
     seed: int = 0
     device: str = "cuda"
+    # column permutation to a systematic-encodable form
+    # (systematic.systematic_permutation): encoding happens on
+    # encoder_h[:, perm], whose trailing square is invertible, the channel
+    # and the decoder run in h's column order, and bit errors are counted
+    # on the message positions perm[:k]
+    systematic_permutation: Optional[object] = None
+    # a full-rank matrix with h's null space (systematic.full_rank_rows),
+    # for a rank-deficient h such as CCSDS C2's (1022 rows, rank 1020):
+    # k = n - its rows; the decoder keeps h's redundant checks
+    encoder_h: Optional[SparseMatrix] = None
+    # an Encoder already built for encoder_h (or h), on the test's device
+    prebuilt_encoder: Optional[object] = None
 
 
 @dataclass
@@ -125,11 +147,13 @@ def step_generator(seed: int, point: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def _frame_counters(msg, out, bch_max_errors: int) -> dict:
+def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None) -> dict:
     """The step's nine counters from the messages and the decoder output,
-    as Python ints (one copy from the device)."""
+    as Python ints (one copy from the device); the message bits are the
+    codeword's first k, or its columns ``msg_cols``."""
     k = msg.shape[1]
-    errbits = (out["codeword"][:, :k] != msg).sum(dim=1, dtype=torch.int32)
+    sys_bits = out["codeword"][:, :k] if msg_cols is None else out["codeword"][:, msg_cols]
+    errbits = (sys_bits != msg).sum(dim=1, dtype=torch.int32)
     frame_err = errbits > 0
     iters = out["iterations"]
     bch_frame_err = errbits > bch_max_errors
@@ -149,28 +173,45 @@ def _frame_counters(msg, out, bch_max_errors: int) -> dict:
 
 
 class BerTest:
-    """BER test over a list of Eb/N0 points, BPSK, lifted decode (flooding
-    or layered, as the decoder name says)."""
+    """BER test over a list of Eb/N0 points, BPSK, lifted or generic decode
+    (flooding or layered, as the decoder name says)."""
 
     def __init__(self, parameters: BerTestParameters):
         p = parameters
         self.p = p
         self.modulation = Bpsk()
-        if p.lifted_graph is None:
-            raise NotImplementedError(
-                "the generic parity-check path is not ported yet (ROADMAP A8)"
-            )
         self.device = torch.device(p.device)
-        self.k = p.h.num_cols - p.h.num_rows
+        enc_h = p.encoder_h if p.encoder_h is not None else p.h
+        self.k = p.h.num_cols - enc_h.num_rows
         self.n = p.h.num_cols
         self.rate = self.k / self.n
-        self.encoder = Encoder(p.h, device=self.device)
+        self._enc_unperm = self._msg_cols = None
+        if p.systematic_permutation is not None:
+            perm = np.asarray(p.systematic_permutation, np.int64)
+            self.encoder = Encoder(permute_columns(enc_h, perm), device=self.device)
+            # the permuted codeword back to h's column order, and where
+            # the message bits are there
+            self._enc_unperm = torch.as_tensor(np.argsort(perm), device=self.device)
+            self._msg_cols = torch.as_tensor(perm[: self.k], device=self.device)
+        elif p.prebuilt_encoder is not None:
+            self.encoder = p.prebuilt_encoder
+        else:
+            self.encoder = Encoder(enc_h, device=self.device)
         self.schedule, self.arithmetic = make_arithmetic(
             p.decoder_implementation
         )
-        self.decode = lifted_decode_for(self.schedule)
-        self.graph = p.lifted_graph
+        if p.lifted_graph is None:
+            self.graph = DecodeGraph.from_sparse(p.h)
+            self.decode = generic_decode_for(self.schedule)
+        else:
+            self.graph = p.lifted_graph
+            self.decode = lifted_decode_for(self.schedule)
         self.statistics: list[Statistics] = []
+
+    def encode(self, msg: torch.Tensor) -> torch.Tensor:
+        """(B, k) messages -> (B, n) codewords in h's column order."""
+        cw = self.encoder.encode_batch(msg)
+        return cw if self._enc_unperm is None else cw[:, self._enc_unperm]
 
     def step(self, generator: torch.Generator, noise_sigma: float) -> dict:
         """One batch of frames through the whole chain; its nine counters."""
@@ -179,12 +220,11 @@ class BerTest:
             0, 2, (p.batch_size, self.k), generator=generator,
             dtype=torch.uint8, device=self.device,
         )
-        cw = self.encoder.encode_batch(msg)
-        sym = self.modulation.modulate(cw)
+        sym = self.modulation.modulate(self.encode(msg))
         rx = AwgnChannel.add_noise(sym, noise_sigma, generator)
         llr = self.modulation.demodulate(rx, noise_sigma)
         out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
-        return _frame_counters(msg, out, p.bch_max_errors)
+        return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols)
 
     def _point_statistics(
         self, c: _Counters, ebn0_db: float, elapsed: float

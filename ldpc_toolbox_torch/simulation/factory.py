@@ -1,8 +1,8 @@
 """BER test builder.
 
 Counterpart of ``ldpc_toolbox_tpu.simulation.factory``
-(src/simulation/factory.rs:44-108), for lifted codes and BPSK; 8PSK waits
-for ROADMAP A9.
+(src/simulation/factory.rs:44-108), for lifted and generic codes and BPSK;
+8PSK waits for ROADMAP A9.
 """
 
 from __future__ import annotations

@@ -55,6 +55,23 @@ class BFSResults:
     col_nodes_distance: list
 
 
+def _adjacency(n, keys, values):
+    """The adjacency lists of ``n`` nodes from their (key, value) edges in
+    insertion order, and their padded (-1) mirror and degrees as
+    ``_mirror_add`` grows it (width 4, doubled as needed)."""
+    deg = np.bincount(keys, minlength=n).astype(np.int32)
+    width = 4
+    while width < (deg.max() if n else 0):
+        width *= 2
+    adj = np.full((n, width), -1, np.int32)
+    order = np.argsort(keys, kind="stable")
+    starts = np.cumsum(deg, dtype=np.int64) - deg
+    slot = np.arange(len(keys)) - np.repeat(starts, deg)
+    adj[keys[order], slot] = values[order]
+    lists = [part.tolist() for part in np.split(values[order], np.cumsum(deg)[:-1])]
+    return lists, adj, deg
+
+
 class SparseMatrix:
     """Dual adjacency-list sparse binary matrix.
 
@@ -225,9 +242,8 @@ class SparseMatrix:
     def to_dense(self) -> np.ndarray:
         """Dense 0/1 uint8 array of shape (num_rows, num_cols)."""
         a = np.zeros((self.num_rows, self.num_cols), dtype=np.uint8)
-        if self._entries:
-            idx = np.array(sorted(self._entries), dtype=np.int64)
-            a[idx[:, 0], idx[:, 1]] = 1
+        for r, row in enumerate(self._rows):
+            a[r, row] = 1
         return a
 
     def to_edge_arrays(self) -> tuple[np.ndarray, np.ndarray]:
@@ -240,9 +256,20 @@ class SparseMatrix:
     @classmethod
     def from_dense(cls, a: np.ndarray) -> "SparseMatrix":
         a = np.asarray(a)
-        h = cls(a.shape[0], a.shape[1])
-        for r, c in zip(*np.nonzero(a)):
-            h.insert(int(r), int(c))
+        return cls.from_pairs(a.shape[0], a.shape[1], *np.nonzero(a))
+
+    @classmethod
+    def from_pairs(cls, nrows: int, ncols: int, rows, cols) -> "SparseMatrix":
+        """The matrix with the distinct entries (rows[i], cols[i]) inserted
+        in that order: the same adjacency lists and mirrors as ``insert``
+        one by one, built in bulk (a dense matrix's row echelon form has
+        millions of entries)."""
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        h = cls(nrows, ncols)
+        h._rows, h._radj, h._rdeg = _adjacency(nrows, rows, cols)
+        h._cols, h._cadj, h._cdeg = _adjacency(ncols, cols, rows)
+        h._entries = set(zip(rows.tolist(), cols.tolist()))
         return h
 
     # -- alist I/O (byte-compatible with sparse.rs:250-389) ----------------

@@ -101,10 +101,10 @@ def test_decoder_single_frame_and_refusals():
         assert one.success == bool(jout["success"][i])
         assert one.iterations == int(jout["iterations"][i])
         assert (one.codeword == np.asarray(jout["codeword"][i])).all()
-    # every name builds now; the generic parity-check path is still refused
+    # every name builds; a parity-check matrix takes the generic path
     assert Decoder(torch_codes.dvbs2.Code.R1_4short, "Phif64", device="cpu").schedule == "flooding"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Decoder(torch_codes.dvbs2.Code.R1_4short.h(), "Phif64", device="cpu")
+    generic = Decoder(torch_codes.dvbs2.Code.R1_4short.h(), "Phif64", device="cpu")
+    assert generic.lifted is None and generic.schedule == "flooding"
 
 
 def test_ber_step_matches_jax():

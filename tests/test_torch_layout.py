@@ -381,5 +381,6 @@ def test_port_never_imports_jax():
     assert "ldpc_toolbox_torch.cli" in proc.stdout
     assert "ldpc_toolbox_torch.codes.dvbs2" in proc.stdout
     assert "ldpc_toolbox_torch.decoder.lifted_flooding" in proc.stdout
-    for module in ("decoder.compaction", "ops.resident_compressed", "ops.fused_layered"):
+    for module in ("decoder.compaction", "ops.resident_compressed", "ops.fused_layered",
+                   "decoder.layout", "decoder.flooding", "decoder.layered", "systematic"):
         assert f"ldpc_toolbox_torch.{module}" in proc.stdout, module

@@ -74,7 +74,8 @@ def test_decoder_class():
     assert not fout["codeword"][ok].any()
     assert (fout["iterations"][~ok] == 10).all()
     assert Decoder(DvbCode.R1_4short, "HLPhif32", device="cpu").schedule == "layered"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Decoder(DvbCode.R1_4short.h(), "HLMinsumbf16")
+    # a parity-check matrix takes the generic path (decoder/layered.py)
+    generic = Decoder(DvbCode.R1_4short.h(), "HLMinsumbf16", device="cpu")
+    assert generic.lifted is None and generic.n == DvbCode.R1_4short.n
     with pytest.raises(ValueError):
         dec.decode_batch(x[:, :-1])

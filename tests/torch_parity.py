@@ -130,9 +130,10 @@ def jax_flooding_case(code, decoder, resident):
     return tlg, x, out
 
 
-def torch_transcendentals(monkeypatch, module):
-    """Patch ``module.jnp`` so that its exp, log, log1p and tanh are
-    torch's, through ``jax.pure_callback``: eager and traced code alike
+def torch_transcendentals(monkeypatch, module, names=("exp", "log", "log1p", "tanh")):
+    """Patch ``module.jnp`` so that its exp, log, log1p and tanh (or the
+    functions ``names``: jnp's names, torch's ``atanh`` for ``arctanh``)
+    are torch's, through ``jax.pure_callback``: eager and traced code alike
     (a Pallas kernel in interpret mode too) then evaluates them as the
     port's plain versions do. XLA's own CPU transcendentals are other
     approximations, which the float rules' cancellations amplify
@@ -154,6 +155,56 @@ def torch_transcendentals(monkeypatch, module):
         def __getattr__(self, name):
             return getattr(jnp, name)
 
-    for name in ("exp", "log", "log1p", "tanh"):
-        setattr(TorchMath, name, staticmethod(via(getattr(torch, name))))
+    for name in names:
+        fn = getattr(torch, {"arctanh": "atanh"}.get(name, name))
+        setattr(TorchMath, name, staticmethod(via(fn)))
     monkeypatch.setattr(module, "jnp", TorchMath())
+
+
+#: the generic path's test codes from alists (MacKay-Neal and PEG, n =
+#: 1024, as ``tools/run_results.sh`` builds them), besides ``parity_check``'s
+ALISTS = {
+    "mn": "results/mn_512_1024_sys.alist",
+    "mn-nonsys": "results/mn_512_1024.alist",
+    "peg": "results/peg_512_1024_sys.alist",
+}
+
+
+def generic_h(name, sparse, codes):
+    """The parity-check matrix of a generic-path test code, from a
+    package's ``sparse`` and ``codes`` modules: an alist of ``ALISTS``, a
+    staircase code (``staircase``: m = 48, n = 96, random information
+    columns of weight 3 from a seed, then the double diagonal, so that
+    every check of the layered schedule is a layer of its own), or a test
+    code of ``parity_check``."""
+    import pathlib
+
+    if name in ALISTS:
+        root = pathlib.Path(__file__).resolve().parent.parent
+        return sparse.SparseMatrix.from_alist_file(root / ALISTS[name])
+    if name == "staircase":
+        m, n = 48, 96
+        rng = np.random.default_rng(11)
+        h = sparse.SparseMatrix(m, n)
+        for c in range(n - m):
+            for r in sorted(rng.choice(m, 3, replace=False)):
+                h.insert(int(r), c)
+        for r in range(m):
+            h.insert(r, n - m + r)
+            if r:
+                h.insert(r, n - m + r - 1)
+        return h
+    return parity_check(name, codes)
+
+
+def mixed_llrs(n, batch, seed, sigmas=(0.7, 0.95)):
+    """BPSK all-zero-codeword channel LLRs at noise sigma ``sigmas[0]`` to
+    ``sigmas[1]`` over the frames, float32 (batch, n); frame 0 has every
+    LLR positive, so that its channel bits already satisfy H (iteration
+    0)."""
+    rng = np.random.default_rng(seed)
+    sigma = np.linspace(*sigmas, batch)[:, None]
+    x = -1.0 + sigma * rng.standard_normal((batch, n))
+    out = ((-2.0 / sigma**2) * x).astype(np.float32)
+    out[0] = np.abs(out[0]) + 0.5
+    return out
