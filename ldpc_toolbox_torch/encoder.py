@@ -11,6 +11,9 @@ square invertible, the codeword is [message ‖ parity]. Two strategies
 * **dense generator**: Gauss-reduce [H1 H0] on the host to G0 = H1^{-1}H0
   (once per code); parity = G0·m mod 2 as a float32 product (exact: row
   sums stay below 2^24).
+
+``encode`` takes one message through the same tables on the host, in
+numpy (encoder.rs's single-codeword ``encode``).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class Encoder:
             idx = np.full((n, d), self.k, dtype=np.int64)
             for r, row in enumerate(rows):
                 idx[r, : len(row)] = row
+            self._h0_idx_host = idx
             self._h0_idx = torch.as_tensor(idx, device=device)
         else:
             # A = [H1 H0]; after Gauss-Jordan the right block is G0 = H1^-1 H0
@@ -77,6 +81,7 @@ class Encoder:
                     "the square matrix formed by the last columns of the "
                     "parity check is not invertible"
                 ) from None
+            self._g0 = a[:, n:]  # (n, k) uint8, for encode
             self._g0t = torch.as_tensor(
                 a[:, n:].T.astype(np.float32), device=device
             )
@@ -96,3 +101,14 @@ class Encoder:
             prod = msg.to(torch.float32) @ self._g0t
             parity = prod.to(torch.int32) & 1
         return torch.cat([msg, parity.to(torch.uint8)], dim=1)
+
+    def encode(self, message) -> np.ndarray:
+        """Encode a single (k,) message on the host (numpy in and out)."""
+        message = np.asarray(message)
+        if self.staircase:
+            bits = np.concatenate([message.astype(np.uint8), [0]])
+            pre = bits[self._h0_idx_host].sum(axis=1) & 1
+            parity = np.bitwise_and(np.cumsum(pre), 1).astype(np.uint8)
+        else:
+            parity = (self._g0.astype(np.uint32) @ message.astype(np.uint32)) & 1
+        return np.concatenate([message.astype(np.uint8), parity.astype(np.uint8)])

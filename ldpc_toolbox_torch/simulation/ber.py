@@ -2,10 +2,13 @@
 
 Counterpart of ``ldpc_toolbox_tpu.simulation.ber`` (the reference's
 ``src/simulation/ber.rs``). One step runs the whole per-frame chain over a
-batch of frames on the test's device: random message, encode, BPSK, AWGN,
-demodulate, decode, count systematic bit errors (ber.rs:436-481), and
+batch of frames on the test's device: random message, encode, puncture,
+interleave, modulate (BPSK or 8PSK), AWGN, demodulate, deinterleave,
+depuncture, decode, count systematic bit errors (ber.rs:436-481), and
 returns nine counters. Each step draws its message and then its noise from
-its own generator, seeded by (seed, point, step).
+its own generator, seeded by (seed, point, step), and its counters are
+read as it ends; so a sweep resumed from a checkpoint gives the counters
+of an uninterrupted one.
 
 The decode is the lifted one when the parameters give the code's
 ``LiftedGraph``, else the generic parity-check decode of ``h``
@@ -17,25 +20,31 @@ sent in h's own column order; the message bits are then at ``perm[:k]``
 
 Semantics kept from the reference:
 
-* sigma = sqrt(0.5 / (rate * bits_per_symbol * 10^(EbN0/10))), rate = k/n
-  (ber.rs:246-302);
+* sigma = sqrt(0.5 / (rate * bits_per_symbol * 10^(EbN0/10))), with
+  rate = k/n after puncturing (ber.rs:246-302);
 * bit errors counted on systematic bits only (ber.rs:467-472);
 * ``false_decode`` = decoder converged but wrong (ber.rs:474);
 * stop rule per point: frame_errors >= max AND elapsed >= min_time, or
   elapsed >= max_time (ber.rs:522-531); with ``bch_max_errors`` the rule
   keys on the virtual BCH decoder's frame errors (ber.rs:514-520);
-* throughput_mbps = 1e-6*k*frames/elapsed (ber.rs:550-582).
+* throughput_mbps = 1e-6*k*frames/elapsed (ber.rs:550-582);
+* a ``reporter(stats, final)`` called every ``report_interval`` seconds
+  and once as each point ends; with ``checkpoint_path`` the sweep's state
+  is saved as often and after every point, in the JAX package's JSON
+  format, and resumed from there; on Ctrl-C the point's partial state is
+  saved and the interrupt raised again.
 
-Not ported yet (ROADMAP A5, A9, A11): checkpoints, the live reporter,
-puncturing, interleaving, 8PSK and sharding over several devices.
+Not ported yet (ROADMAP A11): sharding over several devices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +55,9 @@ from ..encoder import Encoder
 from ..sparse import SparseMatrix
 from ..systematic import permute_columns
 from .channel import AwgnChannel
+from .interleaving import Interleaver
 from .modulation import Bpsk
+from .puncturing import Puncturer
 
 __all__ = [
     "BerTest",
@@ -93,16 +104,25 @@ class BerTestParameters:
     # the generic parity-check decode of h
     lifted_graph: Optional[object] = None
     decoder_implementation: str = "Phif64"
+    puncturing_pattern: Optional[Sequence[bool]] = None
+    # abs value = columns; negative = read rows backwards (ber.rs:66-70)
+    interleaving_columns: Optional[int] = None
     max_frame_errors: int = 100
     min_run_time: Optional[float] = None  # seconds
     max_run_time: Optional[float] = None
     max_iterations: int = 100
     ebn0s_db: Sequence[float] = field(default_factory=list)
+    # reporter(stats, final) called every >= report_interval and per point
+    reporter: Optional[Callable[[Statistics, bool], None]] = None
+    report_interval: float = 0.5
     bch_max_errors: int = 0
     # frames per decode step
     batch_size: int = 128
     seed: int = 0
     device: str = "cuda"
+    # checkpoint file: the sweep's state is saved after every point (and
+    # every report_interval within one), so a long sweep resumes
+    checkpoint_path: Optional[str] = None
     # column permutation to a systematic-encodable form
     # (systematic.systematic_permutation): encoding happens on
     # encoder_h[:, perm], whose trailing square is invertible, the channel
@@ -173,17 +193,27 @@ def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None) -> dict:
 
 
 class BerTest:
-    """BER test over a list of Eb/N0 points, BPSK, lifted or generic decode
-    (flooding or layered, as the decoder name says)."""
+    """BER test over a list of Eb/N0 points, BPSK or 8PSK, lifted or generic
+    decode (flooding or layered, as the decoder name says)."""
 
-    def __init__(self, parameters: BerTestParameters):
+    def __init__(self, parameters: BerTestParameters, modulation=None):
         p = parameters
         self.p = p
-        self.modulation = Bpsk()
+        self.modulation = modulation if modulation is not None else Bpsk()
         self.device = torch.device(p.device)
         enc_h = p.encoder_h if p.encoder_h is not None else p.h
         self.k = p.h.num_cols - enc_h.num_rows
-        self.n = p.h.num_cols
+        self.n_cw = p.h.num_cols
+        self.puncturer = (
+            Puncturer(p.puncturing_pattern) if p.puncturing_pattern else None
+        )
+        self.interleaver = (
+            Interleaver(abs(p.interleaving_columns), p.interleaving_columns < 0)
+            if p.interleaving_columns
+            else None
+        )
+        punct_rate = self.puncturer.rate() if self.puncturer else 1.0
+        self.n = round(self.n_cw / punct_rate)
         self.rate = self.k / self.n
         self._enc_unperm = self._msg_cols = None
         if p.systematic_permutation is not None:
@@ -209,9 +239,22 @@ class BerTest:
         self.statistics: list[Statistics] = []
 
     def encode(self, msg: torch.Tensor) -> torch.Tensor:
-        """(B, k) messages -> (B, n) codewords in h's column order."""
+        """(B, k) messages -> (B, n_cw) codewords in h's column order."""
         cw = self.encoder.encode_batch(msg)
         return cw if self._enc_unperm is None else cw[:, self._enc_unperm]
+
+    def channel_llrs(self, cw: torch.Tensor, noise_sigma: float,
+                     generator: torch.Generator) -> torch.Tensor:
+        """(B, n_cw) codewords -> (B, n_cw) decoder LLRs: puncture,
+        interleave, modulate, AWGN from ``generator``, demodulate,
+        deinterleave, depuncture (zero LLRs at the punctured bits)."""
+        tx = self.puncturer.puncture(cw) if self.puncturer else cw
+        tx = self.interleaver.interleave(tx) if self.interleaver else tx
+        sym = self.modulation.modulate(tx)
+        rx = AwgnChannel.add_noise(sym, noise_sigma, generator)
+        llr = self.modulation.demodulate(rx, noise_sigma)
+        llr = self.interleaver.deinterleave(llr) if self.interleaver else llr
+        return self.puncturer.depuncture(llr) if self.puncturer else llr
 
     def step(self, generator: torch.Generator, noise_sigma: float) -> dict:
         """One batch of frames through the whole chain; its nine counters."""
@@ -220,11 +263,15 @@ class BerTest:
             0, 2, (p.batch_size, self.k), generator=generator,
             dtype=torch.uint8, device=self.device,
         )
-        sym = self.modulation.modulate(self.encode(msg))
-        rx = AwgnChannel.add_noise(sym, noise_sigma, generator)
-        llr = self.modulation.demodulate(rx, noise_sigma)
+        llr = self.channel_llrs(self.encode(msg), noise_sigma, generator)
         out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
         return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols)
+
+    def noise_sigma(self, ebn0_db: float) -> float:
+        """The channel's sigma at an Eb/N0 (ber.rs:246-302)."""
+        ebn0 = 10.0 ** (0.1 * float(ebn0_db))
+        esn0 = self.rate * self.modulation.BITS_PER_SYMBOL * ebn0
+        return float(np.sqrt(0.5 / esn0))
 
     def _point_statistics(
         self, c: _Counters, ebn0_db: float, elapsed: float
@@ -264,34 +311,113 @@ class BerTest:
             bch=bch,
         )
 
+    # -- sweep checkpoints: the JAX package's format and rules -------------
+
+    def _checkpoint_state(self, point, counters, step_idx, point_elapsed):
+        return {
+            "version": 1,
+            "seed": self.p.seed,
+            "ebn0s_db": [float(e) for e in self.p.ebn0s_db],
+            "decoder": self.p.decoder_implementation,
+            "completed": [dataclasses.asdict(s) for s in self.statistics],
+            "point": point,
+            "counters": dataclasses.asdict(counters),
+            "step_idx": step_idx,
+            "point_elapsed": point_elapsed,
+        }
+
+    def _save_checkpoint(self, state) -> None:
+        tmp = self.p.checkpoint_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, self.p.checkpoint_path)
+
+    def _load_checkpoint(self):
+        """The saved state, its completed points appended to
+        ``statistics``; None when there is none or it was saved for another
+        seed, Eb/N0 list or decoder (the sweep then starts afresh)."""
+        path = self.p.checkpoint_path
+        if not path or not os.path.exists(path):
+            return None
+        with open(path) as f:
+            state = json.load(f)
+        if (
+            state.get("version") != 1
+            or state.get("seed") != self.p.seed
+            or state.get("ebn0s_db") != [float(e) for e in self.p.ebn0s_db]
+            or state.get("decoder") != self.p.decoder_implementation
+        ):
+            return None
+        for s in state["completed"]:
+            ldpc = CodeStatistics(**s.pop("ldpc"))
+            bch = s.pop("bch")
+            self.statistics.append(
+                Statistics(
+                    **s, ldpc=ldpc, bch=CodeStatistics(**bch) if bch else None
+                )
+            )
+        return state
+
     def run(self) -> list[Statistics]:
         p = self.p
         min_time = p.min_run_time or 0.0
         max_time = p.max_run_time if p.max_run_time is not None else float("inf")
+        resume = self._load_checkpoint()
+        start_point = resume["point"] if resume is not None else 0
         for point, ebn0_db in enumerate(p.ebn0s_db):
-            ebn0 = 10.0 ** (0.1 * float(ebn0_db))
-            esn0 = self.rate * self.modulation.BITS_PER_SYMBOL * ebn0
-            noise_sigma = float(np.sqrt(0.5 / esn0))
-            counters = _Counters()
-            step_idx = 0
-            start = time.monotonic()
-            while True:
-                elapsed = time.monotonic() - start
-                errors = (
-                    counters.bch_frame_errors
-                    if p.bch_max_errors > 0
-                    else counters.frame_errors
-                )
-                if (
-                    errors >= p.max_frame_errors and elapsed >= min_time
-                ) or elapsed >= max_time:
-                    break
-                gen = step_generator(p.seed, point, step_idx, self.device)
-                counters.add(self.step(gen, noise_sigma))
-                step_idx += 1
-            self.statistics.append(
-                self._point_statistics(
-                    counters, ebn0_db, time.monotonic() - start
-                )
+            if point < start_point:
+                continue  # restored from the checkpoint
+            noise_sigma = self.noise_sigma(ebn0_db)
+            if point == start_point and resume is not None:
+                counters = _Counters(**resume["counters"])
+                step_idx = resume["step_idx"]
+                start = time.monotonic() - resume["point_elapsed"]
+            else:
+                counters = _Counters()
+                step_idx = 0
+                start = time.monotonic()
+            last_report = time.monotonic()
+            try:
+                while True:
+                    elapsed = time.monotonic() - start
+                    errors = (
+                        counters.bch_frame_errors
+                        if p.bch_max_errors > 0
+                        else counters.frame_errors
+                    )
+                    if (
+                        errors >= p.max_frame_errors and elapsed >= min_time
+                    ) or elapsed >= max_time:
+                        break
+                    gen = step_generator(p.seed, point, step_idx, self.device)
+                    counters.add(self.step(gen, noise_sigma))
+                    step_idx += 1
+                    now = time.monotonic()
+                    if now - last_report >= p.report_interval:
+                        last_report = now
+                        if p.reporter is not None:
+                            p.reporter(
+                                self._point_statistics(counters, ebn0_db, now - start),
+                                False,
+                            )
+                        if p.checkpoint_path:
+                            self._save_checkpoint(self._checkpoint_state(
+                                point, counters, step_idx, now - start))
+            except KeyboardInterrupt:
+                # graceful Ctrl-C (reference cli/ber.rs:254-261): leave a
+                # resumable checkpoint of the steps done, then unwind
+                if p.checkpoint_path:
+                    self._save_checkpoint(self._checkpoint_state(
+                        point, counters, step_idx, time.monotonic() - start))
+                raise
+            stats = self._point_statistics(
+                counters, ebn0_db, time.monotonic() - start
             )
+            self.statistics.append(stats)
+            if p.reporter is not None:
+                p.reporter(stats, True)
+            if p.checkpoint_path:
+                self._save_checkpoint(
+                    self._checkpoint_state(point + 1, _Counters(), 0, 0.0)
+                )
         return self.statistics

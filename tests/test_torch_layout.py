@@ -382,5 +382,7 @@ def test_port_never_imports_jax():
     assert "ldpc_toolbox_torch.codes.dvbs2" in proc.stdout
     assert "ldpc_toolbox_torch.decoder.lifted_flooding" in proc.stdout
     for module in ("decoder.compaction", "ops.resident_compressed", "ops.fused_layered",
-                   "decoder.layout", "decoder.flooding", "decoder.layered", "systematic"):
+                   "decoder.layout", "decoder.flooding", "decoder.layered", "systematic",
+                   "simulation.puncturing", "simulation.interleaving", "utils.chacha",
+                   "utils.rng", "mackay_neal", "peg"):
         assert f"ldpc_toolbox_torch.{module}" in proc.stdout, module

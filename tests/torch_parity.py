@@ -208,3 +208,35 @@ def mixed_llrs(n, batch, seed, sigmas=(0.7, 0.95)):
     out = ((-2.0 / sigma**2) * x).astype(np.float32)
     out[0] = np.abs(out[0]) + 0.5
     return out
+
+
+def jax_psk8_row(ebn0_db, batch=64, frame_errors=100, max_seconds=1800.0, seed=1):
+    """The JAX package's ``ber`` row of the DVB-S2 8PSK r=3/5 pipeline
+    (RESULTS.md:410-418: backwards-read 3-column interleaver, Gray 8PSK,
+    exact max-* demap, ``Minsumbf16``, 30 iterations) at one Eb/N0, run on
+    the CPU until ``frame_errors`` frame errors or ``max_seconds``: (frames,
+    frame errors, average iterations). chip_smoke.py holds the port's
+    rows on the card against these (``python tests/torch_parity.py``)."""
+    from ldpc_toolbox_tpu.simulation import BerTestBuilder, Modulation
+
+    code = jax_codes.dvbs2.Code.R3_5
+    (s,) = BerTestBuilder(
+        h=code.h(), lifted_graph=jax_lifted.lifted_graph_for(code),
+        modulation=Modulation.PSK8, decoder_implementation="Minsumbf16",
+        interleaving_columns=-3, max_iterations=30, ebn0s_db=[ebn0_db],
+        batch_size=batch, seed=seed, max_frame_errors=frame_errors,
+        max_run_time=max_seconds,
+    ).build().run()
+    return s.num_frames, s.ldpc.frame_errors, s.average_iterations
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py 3.6 3.8
+    import sys
+    import time
+
+    for arg in sys.argv[1:]:
+        t0 = time.perf_counter()
+        frames, errors, iters = jax_psk8_row(float(arg))
+        print(f"{float(arg):.2f} dB: {errors}/{frames} frame errors, average iterations "
+              f"{iters:.2f} ({time.perf_counter() - t0:.0f} s on the CPU)", flush=True)
