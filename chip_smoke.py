@@ -55,15 +55,17 @@ partial tile), and drives the port's main paths on the flagship code
    r=3/5 pipeline of RESULTS.md (``ber dvbs2:3/5 --modulation 8PSK
    --interleaving -3 --decoder Minsumbf16``, B = 256: the flooding bf16
    kernel at bucket 16), its FER at 3.6, 3.7 and 3.8 dB held against the
-   JAX package's rows (tests/torch_parity.py, |z| <= 3.29) and at 4.2 dB
-   below RESULTS' round-3 2.0e-2, its Mbit/s at 4.5 dB for 10 s at B =
-   256 and 1024, and one B = 1024 step's CUDA-event split (encode; the
-   channel: puncture, interleave, modulate, noise, demap, deinterleave;
-   decode; counters) with the demap's time and memory; config 3 of tools/run_results.sh (AR4JA
-   r=4/5 k=4096, its last block punctured, ``HLMinstarapproxf32``: the
-   float MinstarApprox layered kernel at bucket 32) at 2.50 and 2.75 dB
-   against ``results/config3_ccsds_hl.txt`` (|z| <= 3.29); and
+   JAX package's rows (tests/torch_parity.py, |z| <= 3.29), its Mbit/s at
+   4.5 dB for 10 s at B = 256 and 1024; config 3 of tools/run_results.sh
+   (AR4JA r=4/5 k=4096, its last block punctured, ``HLMinstarapproxf32``:
+   the float MinstarApprox layered kernel at bucket 32) at 2.50 and 2.75
+   dB against ``results/config3_ccsds_hl.txt`` (|z| <= 3.29); and
    ``encode`` with puncturing on the card, byte for byte the CPU's file;
+   then, after the counts are read, one B = 1024 step of each ``ber``
+   pipeline with its decode held against the kernel's plain version on
+   the step's LLRs (tolerance 0), and the 8PSK step's CUDA-event split
+   (encode; the channel: puncture, interleave, modulate, noise, demap,
+   deinterleave; decode; counters) with the demap's time and memory;
 
 each with its launch counts set to 0 just before and read just after (a
 streaming path's syndrome and freeze: ``fused_syndrome_freeze``, one
@@ -562,10 +564,11 @@ def tile_iterations(iters, bt):
 
 def hold(worst, kernel, label, out, ref):
     """Fail unless a kernel's outputs equal its plain version's; keep the
-    kernel's worst difference in ``worst``."""
+    kernel's worst difference in ``worst``; returns the difference."""
     err = max_abs_diff(out, ref)
     worst[kernel] = max(worst[kernel], err)
     assert err == 0, f"{kernel} differs from its plain version: {label}"
+    return err
 
 
 def same_decode(a, b, what):
@@ -1933,19 +1936,14 @@ def generic_card_against_cpu(card):
 
 def run_ber_cli(args):
     """The port's ``ber`` command line in this process; the final row of
-    each Eb/N0 point as (Eb/N0, frames, frame errors, FER, Mbit/s) (the
-    live reporter rewrites a point's row in place while it runs)."""
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        cli.main(["ber", *args, "--device", "cuda"])
-    rows = {}
-    for line in out.getvalue().splitlines():
-        line = line.split("\x1b[2K")[-1]
-        if "|" in line and "Eb/N0" not in line and not line.startswith("--"):
-            cells = line.split("|")
-            rows[cells[0]] = cells
-    return [(float(r[0]), int(r[1]), int(r[3]), float(r[6]), float(r[9]))
-            for r in rows.values()]
+    each Eb/N0 point, read from its ``--output-file``, as (Eb/N0, frames,
+    frame errors, FER, Mbit/s)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):  # the live rows
+            cli.main(["ber", *args, "--device", "cuda", "--output-file", f"{tmp}/rows.txt"])
+        with open(f"{tmp}/rows.txt") as f:
+            rows = [line.split("|") for line in f.read().splitlines()[2:]]  # past the header
+    return [(float(r[0]), int(r[1]), int(r[3]), float(r[6]), float(r[9])) for r in rows]
 
 
 def recorded_row(path, ebn0):
@@ -2025,49 +2023,36 @@ PSK8_ARGS = ["dvbs2:3/5", "--modulation", "8PSK", "--interleaving", "-3",
 #: errors): ``JAX_PLATFORMS=cpu python tests/torch_parity.py 3.6 3.7 3.8``
 #: on the CPU (seed 1, B = 64, until 100 frame errors or 30 minutes)
 PSK8_JAX_ROWS = {3.6: (576, 113), 3.7: (37632, 100), 3.8: (63168, 0)}
-#: RESULTS.md's round-3 rows of the pipeline (FER 1.0 at 3.6 dB, 2.0e-2 at
-#: 4.2 dB) are not what the JAX package gives now (FER 0.196 at 3.6 dB,
-#: none in 63168 frames at 3.8); they are printed beside, and the FER at
-#: 4.2 dB is held below 2.0e-2
-PSK8_RESULTS_FER = {3.6: 1.0, 4.2: 2.0e-2}
 #: config 3 of tools/run_results.sh: AR4JA r=4/5 k=4096, its last block
 #: punctured, HLMinstarapproxf32, 60 iterations, B = 1024
 CONFIG3_ARGS = ["ccsds:4/5:4096", "--decoder", "HLMinstarapproxf32", "--puncturing",
                 "1,1,1,1,1,1,1,1,1,1,0", "--max-iter", "60", "--batch-size", "1024",
                 "--seed", "1", "--frame-errors", "100", "--max-time", "120s"]
 CONFIG3_ROWS = "results/config3_ccsds_hl.txt"
+CONFIG3_PUNCTURING = [True] * 10 + [False]
 
 
 def psk8_sweep(card):
     """(a) ``ber dvbs2:3/5 --modulation 8PSK --interleaving -3 --decoder
     Minsumbf16``, B = 256: the FER at 3.6, 3.7 and 3.8 dB (100 frame
     errors or 12 s a point) held against the JAX package's rows (|z| <=
-    3.29), at 4.2 dB (6 s) below RESULTS' 2.0e-2; then the Mbit/s at 4.5
-    dB for 10 s at B = 256 and 1024."""
+    3.29); then the Mbit/s at 4.5 dB for 10 s at B = 256 and 1024."""
     t0 = time.perf_counter()
     # --max-ebn0 3.85: the points are min + i * step for i up to
     # int((max - min) / step), which rounds (3.8 - 3.6) / 0.1 down to 1
     rows = run_ber_cli([*PSK8_ARGS, "--batch-size", "256", "--min-ebn0", "3.6",
                         "--max-ebn0", "3.85", "--step-ebn0", "0.1", "--frame-errors", "100",
                         "--max-time", "12s"])
-    rows += run_ber_cli([*PSK8_ARGS, "--batch-size", "256", "--min-ebn0", "4.2",
-                         "--max-ebn0", "4.2", "--step-ebn0", "1", "--frame-errors", "100",
-                         "--max-time", "6s"])
     seconds = time.perf_counter() - t0
-    assert [r[0] for r in rows] == [3.6, 3.7, 3.8, 4.2], rows
+    assert [r[0] for r in rows] == [3.6, 3.7, 3.8], rows
     for ebn0, n, e, fer, mbps in rows:
-        line = (f"[{card}] ber dvbs2:3/5 8PSK Minsumbf16, B = 256, {ebn0:.2f} dB: FER "
-                f"{fer:.3e} ({e}/{n}), {mbps:.3f} Mbit/s")
-        if ebn0 in PSK8_JAX_ROWS:
-            ref = PSK8_JAX_ROWS[ebn0]
-            z = two_proportion_z((n, e), ref)
-            line += f"; the JAX package {ref[1]}/{ref[0]}, z = {z:+.2f}"
-            assert abs(z) <= 3.29, f"8PSK {ebn0} dB: z = {z}"
-        if ebn0 in PSK8_RESULTS_FER:
-            line += f"; RESULTS.md (round 3) {PSK8_RESULTS_FER[ebn0]:.1e}"
-        print(line)
-    print(f"[{card}] ber dvbs2:3/5 8PSK: {seconds:.1f} s for the two runs")
-    assert rows[-1][3] <= PSK8_RESULTS_FER[4.2] and rows[0][3] > rows[-1][3], rows
+        ref = PSK8_JAX_ROWS[ebn0]
+        z = two_proportion_z((n, e), ref)
+        print(f"[{card}] ber dvbs2:3/5 8PSK Minsumbf16, B = 256, {ebn0:.2f} dB: FER "
+              f"{fer:.3e} ({e}/{n}), {mbps:.3f} Mbit/s; the JAX package {ref[1]}/{ref[0]}, "
+              f"z = {z:+.2f}")
+        assert abs(z) <= 3.29, f"8PSK {ebn0} dB: z = {z}"
+    print(f"[{card}] ber dvbs2:3/5 8PSK: {seconds:.1f} s for the run")
     for batch in (256, 1024):
         ((ebn0, n, e, fer, mbps),) = run_ber_cli([
             *PSK8_ARGS, "--batch-size", str(batch), "--min-ebn0", "4.5", "--max-ebn0", "4.5",
@@ -2077,18 +2062,42 @@ def psk8_sweep(card):
         assert n >= batch and fer <= 0.01
 
 
-def psk8_step_split(card):
-    """One B = 1024 step of the 8PSK pipeline at 4.2 dB, CUDA events
-    between its parts: encode; puncture, interleave, modulate, noise,
-    demap and deinterleave (``BerTest.channel_llrs``); decode; counters;
-    and the demap alone with the memory it takes above what is allocated
-    before it."""
+def held_step(card, test, ebn0, worst, kernel, plain, tiles):
+    """Step 0 of a ``BerTest``'s first point at ``ebn0`` (the stream
+    ``step_generator(seed, 0, 0)``, as ``ber`` draws it): its decode held
+    against ``kernel``'s plain version on the step's LLRs, tolerance 0."""
+    batch, iters = test.p.batch_size, test.p.max_iterations
+    gen = step_generator(test.p.seed, 0, 0, test.device)
+    msg = torch.randint(0, 2, (batch, test.k), generator=gen, dtype=torch.uint8,
+                        device=test.device)
+    llr = test.channel_llrs(test.encode(msg), test.noise_sigma(ebn0), gen)
+    out = test.decode(test.graph, test.arithmetic, llr, iters)
+    ref = tiles_to_output(test.graph, *plain(*tiles(test.graph, test.arithmetic, llr), iters),
+                          batch)
+    label = f"{test.p.decoder_implementation} B={batch} {ebn0:.2f} dB ber step"
+    err = hold(worst, kernel.__name__, label, [out[k] for k in DECODE_KEYS],
+               [ref[k] for k in DECODE_KEYS])
+    print(f"[{card}] {label}, n = {test.n_cw}: {kernel.__name__} decode equal to its plain "
+          f"version on the step's LLRs (max abs diff {err}), "
+          f"{int(out['success'].sum())}/{batch} converged")
+
+
+def psk8_step_split(card, worst):
+    """One B = 1024 step of the 8PSK pipeline at 3.6 and 4.2 dB held
+    against the flooding kernel's plain version (``held_step``); then the
+    4.2 dB step, on the same stream, with CUDA events between its parts:
+    encode; puncture, interleave, modulate, noise, demap and deinterleave
+    (``BerTest.channel_llrs``); decode; counters; and the demap alone with
+    the memory it takes above what is allocated before it."""
     test = BerTestBuilder(
         h=Code.R3_5.h(), lifted_graph=lifted_graph_for(Code.R3_5),
         modulation=Modulation.PSK8, decoder_implementation="Minsumbf16",
         interleaving_columns=-3, max_iterations=30, batch_size=FLAGSHIP_BATCH, seed=1,
         device="cuda",
     ).build()
+    for ebn0 in (3.6, 4.2):
+        held_step(card, test, ebn0, worst, resident_flooding_decode,
+                  resident_flooding_decode_reference, flooding_tiles)
     sigma = test.noise_sigma(4.2)
 
     def step(events):
@@ -2153,6 +2162,20 @@ def config3_parity(card):
         assert abs(z) <= 3.29, f"config 3 {ebn0} dB: z = {z}"
 
 
+def config3_step(card, worst):
+    """One B = 1024 step of config 3 at 2.50 and 2.75 dB held against the
+    layered kernel's plain version (``held_step``)."""
+    h, lifted = cli.resolve_ber_code(CONFIG3_ARGS[0])
+    test = BerTestBuilder(
+        h=h, lifted_graph=lifted, decoder_implementation="HLMinstarapproxf32",
+        puncturing_pattern=CONFIG3_PUNCTURING, max_iterations=60, batch_size=1024, seed=1,
+        device="cuda",
+    ).build()
+    for ebn0 in (2.5, 2.75):
+        held_step(card, test, ebn0, worst, resident_layered_decode_float,
+                  resident_layered_decode_reference, tile_inputs)
+
+
 def encode_on_card(card):
     """(c) ``encode`` of 4096 messages of AR4JA r=1/2 k=1024 (the
     reference's example code) with puncturing 1,1,1,1,0 on the card: its
@@ -2179,21 +2202,23 @@ def encode_on_card(card):
           f"{card_s:.2f} s and {cpu_s:.2f} s, the host's file work included)")
 
 
-def rest_of_ber(card):
+def rest_of_ber(card, worst):
     """Main path 8, the rest of ``ber``: the 8PSK pipeline through the
     flooding bf16 kernel (#4/#5, bucket 16: R3_5's check degree is at most
     11), config 3 through the float MinstarApprox layered kernel (#1,
     bucket 32), and ``encode`` on the card; the launch counts show both
-    kernels."""
+    kernels. Then, outside the counted run, a step of each pipeline held
+    against its kernel's plain version, and the 8PSK step's split."""
     reset_counts()
     psk8_sweep(card)
     config3_parity(card)
-    psk8_step_split(card)
     encode_on_card(card)
     launched = counts()
     print(f"rest of ber: launches {json.dumps({k: v for k, v in launched.items() if v})}")
     assert launched["resident_flooding_decode"] > 0, launched
     assert launched["resident_layered_decode_float"] > 0, launched
+    config3_step(card, worst)
+    psk8_step_split(card, worst)
 
 
 def main():
@@ -2245,7 +2270,7 @@ def main():
     mark("flagship paths")
     generic_path(card, llrs)
     mark("generic path")
-    rest_of_ber(card)
+    rest_of_ber(card, worst)
     mark("rest of ber")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)

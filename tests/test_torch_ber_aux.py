@@ -10,6 +10,7 @@ import json
 import math
 
 import pytest
+import torch
 
 from ldpc_toolbox_tpu.mackay_neal import Config as JaxMNConfig
 from ldpc_toolbox_tpu.simulation import BerTestBuilder as JaxBerTestBuilder
@@ -18,6 +19,10 @@ from ldpc_toolbox_tpu.systematic import parity_to_systematic as jax_parity_to_sy
 from ldpc_toolbox_torch.mackay_neal import Config as MNConfig
 from ldpc_toolbox_torch.simulation import BerTestBuilder, Modulation
 from ldpc_toolbox_torch.systematic import parity_to_systematic
+
+# The tests run many small ops on small tensors; one intra-op thread per
+# process keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 
 @functools.cache

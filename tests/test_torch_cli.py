@@ -15,10 +15,15 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from ldpc_toolbox_tpu import cli as jax_cli
 from ldpc_toolbox_torch import cli
 from ldpc_toolbox_torch.simulation import ber as torch_ber
+
+# The tests run many small ops on small tensors; one intra-op thread per
+# process keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 #: a 2 x 4 alist whose two rows are equal (rank 1, its trailing square
 #: singular)

@@ -38,6 +38,10 @@ from ldpc_toolbox_torch.simulation import (
     Puncturer,
 )
 from ldpc_toolbox_torch.simulation.ber import step_generator
+
+# The tests run many small ops on small tensors; one intra-op thread per
+# process keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 from ldpc_toolbox_torch.simulation.puncturing import PuncturingError
 from ldpc_toolbox_torch.systematic import parity_to_systematic
 
