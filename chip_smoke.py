@@ -66,6 +66,22 @@ partial tile), and drives the port's main paths on the flagship code
    the step's LLRs (tolerance 0), and the 8PSK step's CUDA-event split
    (encode; the channel: puncture, interleave, modulate, noise, demap,
    deinterleave; decode; counters) with the demap's time and memory;
+9. the port's last modules: (a) ``selftest`` through the command line,
+   all 14 families (each rule family's kernels against the plane path,
+   B = 128, 8 iterations); (b) the flagship on the torch paths, for the
+   external-decoder example's offset min-sum, which has no kernel:
+   ``Decoder(Code.R1_2, "Offsetminsumf32")`` (the plane-gather flooding
+   path) and ``"HLOffsetminsumf32"`` (the plain layered path), their wall,
+   peak memory, no kernel launched, 16 frames equal to the CPU's bit for
+   bit; the plane path of ``Minsumf32`` timed in turns with its kernel,
+   and at 2.5 dB held against it under the selftest's rule; (c) config 5
+   of tools/run_results.sh (PEG alist, ``Minstarapproxf32``, ``ber
+   --shard``, a mesh of one, B = 2048) at 1.5 and 2.0 dB against
+   ``results/config5_peg_sharded.txt`` (|z| <= 3.29); (d) one
+   ``HLMinsumbf16`` ``ber`` step of the flagship at 1.5 dB sharded over
+   two processes that share the card (gloo), whose summed counters equal
+   the unsharded step's, the kernels not built again; (e)
+   ``examples/external_decoder_ber_torch.py`` on the card;
 
 each with its launch counts set to 0 just before and read just after (a
 streaming path's syndrome and freeze: ``fused_syndrome_freeze``, one
@@ -88,8 +104,12 @@ does a machine without a CUDA device.
 
 import contextlib
 import functools
+import importlib.util
 import io
 import json
+import os
+import runpy
+import socket
 import statistics
 from collections import Counter
 import subprocess
@@ -115,6 +135,7 @@ from ldpc_toolbox_torch.decoder.lifted import (
 from ldpc_toolbox_torch.decoder.lifted_flooding import (
     flooding_tiles,
     lifted_flooding_decode,
+    plane_flooding_decode,
     streaming_flooding_decode,
 )
 from ldpc_toolbox_torch.decoder.lifted_layered import (
@@ -2221,6 +2242,241 @@ def rest_of_ber(card, worst):
     psk8_step_split(card, worst)
 
 
+# -- the port's last modules: the plane path, selftest, sharded ber ------------
+
+#: config 5 of tools/run_results.sh: a PEG (wc = 3) alist, Minstarapproxf32,
+#: the batch sharded (``--shard``; here a mesh of one), B = 2048
+CONFIG5_ARGS = ["results/peg_512_1024_sys.alist", "--decoder", "Minstarapproxf32", "--shard",
+                "--batch-size", "2048", "--max-iter", "100", "--frame-errors", "100",
+                "--seed", "1"]
+CONFIG5_ROWS = "results/config5_peg_sharded.txt"
+EXAMPLE = "examples/external_decoder_ber_torch.py"
+#: one rank of phase 9's two-rank ``ber`` step: argv rank, port, batch,
+#: seed, Eb/N0; both ranks on cuda:0, joined over gloo
+SHARD_WORKER = r"""
+import json, sys, time
+import torch
+from ldpc_toolbox_torch.codes.dvbs2 import Code
+from ldpc_toolbox_torch.decoder.lifted import lifted_graph_for
+from ldpc_toolbox_torch.ops.resident_layered import resident_layered_decode
+from ldpc_toolbox_torch.parallel import default_mesh
+from ldpc_toolbox_torch.parallel.multihost import initialize
+from ldpc_toolbox_torch.simulation import BerTestBuilder
+from ldpc_toolbox_torch.simulation.ber import step_generator
+
+rank, port, batch, seed, ebn0 = sys.argv[1:]
+rank, batch, seed, ebn0 = int(rank), int(batch), int(seed), float(ebn0)
+t0 = time.perf_counter()
+initialize(init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+mesh = default_mesh("cuda:0")
+test = BerTestBuilder(h=Code.R1_2.h(), lifted_graph=lifted_graph_for(Code.R1_2),
+                      decoder_implementation="HLMinsumbf16", max_iterations=30,
+                      batch_size=batch, seed=seed, device=mesh.device, mesh=mesh).build()
+sigma = test.noise_sigma(ebn0)
+counters = test.step(step_generator(seed, 0, 0, mesh.device), sigma)
+launches = resident_layered_decode.launches
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+test.step(step_generator(seed, 0, 1, mesh.device), sigma)
+torch.cuda.synchronize()
+print("SHARD " + json.dumps({"rank": mesh.rank, "device": str(mesh.device),
+                             "counters": counters, "launches": launches,
+                             "step_ms": 1e3 * (time.perf_counter() - t1),
+                             "setup_s": t1 - t0}), flush=True)
+"""
+
+
+def load_example():
+    """The external-decoder example as a module, its names registered."""
+    spec = importlib.util.spec_from_file_location("external_decoder_ber_torch", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.register()
+    return example
+
+
+def selftest_on_card(card):
+    """(a) ``selftest`` through the command line on the card, all 14
+    families (B = 128, 8 iterations): the kernel route against the plane
+    path; no family may fail."""
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["selftest", "--device", "cuda"])  # exits 1 on a failure
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{card}] selftest: {line}")
+    assert len(lines) == 14 and all(line.startswith("OK  ") for line in lines), lines
+    launched = {k: v for k, v in counts().items() if v}
+    print(f"[{card}] selftest launches {json.dumps(launched)}")
+
+
+def plane_paths_at_full_width(card, llrs):
+    """(b) The flagship on the torch paths: ``Decoder(Code.R1_2,
+    "Offsetminsumf32")`` (the example's arithmetic, no kernel rule: the
+    plane-gather flooding path) and ``"HLOffsetminsumf32"`` (the plain
+    layered path), B = 1024, 1.0 dB, 30 iterations: wall, peak memory, no
+    kernel launched, and 16 frames on the card equal to the CPU's; the
+    plane path of ``Minsumf32`` timed in turns with its kernel; and at 2.5
+    dB ``Minsumf32`` through its kernel against the plane path under the
+    selftest's rule."""
+    lg = lifted_graph_for(Code.R1_2)
+    for name, path in (("Offsetminsumf32", "plane-gather flooding"),
+                       ("HLOffsetminsumf32", "plain layered")):
+        dec = Decoder(Code.R1_2, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        first = time.perf_counter()
+        out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - first
+        no_kernel_launched(f"{name} on the {path} path")
+        peak = peak_gib()
+        ms = event_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS))
+        assert out["codeword"].shape == (FLAGSHIP_BATCH, Code.R1_2.n)
+        t0 = time.perf_counter()
+        cpu = Decoder(Code.R1_2, name, device="cpu").decode_batch(
+            llrs[:16].cpu(), max_iterations=FLAGSHIP_ITERS)
+        cpu_s = time.perf_counter() - t0
+        same_decode(cpu, {k: v[:16].cpu() for k, v in out.items()}, f"{name} card against CPU")
+        iters = out["iterations"]
+        print(f"[{card}] {name} ({path} path, no kernel launched; DVB-S2 R1_2, B = "
+              f"{FLAGSHIP_BATCH}, {FLAGSHIP_EBN0} dB, {FLAGSHIP_ITERS} iterations): "
+              f"{ms:.3f} ms a decode (first {1e3 * first:.3f} ms, the tables built), "
+              f"{1e-6 * Code.R1_2.k * FLAGSHIP_BATCH / (ms * 1e-3):.1f} Mbit/s, peak "
+              f"{peak:.2f} GiB allocated; {int(out['success'].sum())}/{FLAGSHIP_BATCH} "
+              f"converged, average iterations {float(iters.float().mean()):.2f}; 16 frames "
+              f"equal to the CPU's bit for bit (CPU {cpu_s:.1f} s)")
+    _, arith = make_arithmetic("Minsumf32")
+    kernel = Decoder(Code.R1_2, "Minsumf32")
+    plane_ms, kernel_ms = pair_ms(
+        lambda: plane_flooding_decode(lg, arith, llrs, FLAGSHIP_ITERS),
+        lambda: kernel.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plane_flooding_decode(lg, arith, llrs, FLAGSHIP_ITERS)
+    torch.cuda.synchronize()
+    print(f"[{card}] Minsumf32 at {FLAGSHIP_EBN0} dB, in turns: the plane-gather path "
+          f"{plane_ms:.3f} ms a decode (peak {peak_gib():.2f} GiB allocated), the "
+          f"compressed flooding kernel's decode {kernel_ms:.3f} ms "
+          f"({plane_ms / kernel_ms:.1f} times)")
+    llrs25 = channel_llrs(Code.R1_2.n, FLAGSHIP_BATCH, sigma_at(R1_2_RATE, 2.5), seed=3)
+    reset_counts()
+    k_out = kernel.decode_batch(llrs25, max_iterations=FLAGSHIP_ITERS)
+    launched = counts()["compressed_flooding_decode"]
+    p_out = plane_flooding_decode(lg, arith, llrs25, FLAGSHIP_ITERS)
+    both = k_out["success"] & p_out["success"]
+    assert launched == 1, counts()
+    assert torch.equal(k_out["success"], p_out["success"])
+    assert torch.equal(k_out["iterations"], p_out["iterations"])
+    assert torch.equal(k_out["codeword"][both], p_out["codeword"][both])
+    print(f"[{card}] Minsumf32 at 2.5 dB, B = {FLAGSHIP_BATCH}: the compressed flooding "
+          f"kernel ({launched} launch) against the plane-gather path: success and "
+          f"iterations equal on every frame, the {int(both.sum())} converged frames' "
+          f"codewords equal; average iterations "
+          f"{float(k_out['iterations'].float().mean()):.2f}")
+
+
+def config5_sharded(card):
+    """(c) Config 5 through ``ber --shard`` (a mesh of one: one process) at
+    1.5 and 2.0 dB against its recorded rows, |z| <= 3.29."""
+    t0 = time.perf_counter()
+    rows = run_ber_cli([*CONFIG5_ARGS, "--min-ebn0", "1.5", "--max-ebn0", "2.0",
+                        "--step-ebn0", "0.5"])
+    seconds = time.perf_counter() - t0
+    assert [r[0] for r in rows] == [1.5, 2.0], rows
+    for ebn0, frames, errors, fer, mbps in rows:
+        ref = recorded_row(CONFIG5_ROWS, ebn0)
+        z = two_proportion_z((frames, errors), ref)
+        print(f"[{card}] ber peg_512_1024_sys Minstarapproxf32 --shard {ebn0:.2f} dB: FER "
+              f"{fer:.3e} ({errors}/{frames}), recorded {ref[1]}/{ref[0]} "
+              f"({CONFIG5_ROWS}); z = {z:+.2f}; {mbps:.3f} Mbit/s ({seconds:.1f} s for "
+              f"the run)")
+        assert abs(z) <= 3.29, f"config 5 {ebn0} dB: z = {z}"
+
+
+def two_ranks_on_one_card(card, batch=FLAGSHIP_BATCH, seed=2, ebn0=1.5):
+    """(d) One ``HLMinsumbf16`` ``ber`` step of the flagship (B = 1024, 1.5
+    dB) sharded over two processes that share the card (gloo, 512 frames a
+    rank, the kernels loaded from this run's build): each rank's summed
+    counters equal to the unsharded step's in this process."""
+    test = BerTestBuilder(h=Code.R1_2.h(), lifted_graph=lifted_graph_for(Code.R1_2),
+                          decoder_implementation="HLMinsumbf16", max_iterations=30,
+                          batch_size=batch, seed=seed, device="cuda").build()
+    sigma = test.noise_sigma(ebn0)
+    reset_counts()
+    ref = test.step(step_generator(seed, 0, 0, "cuda"), sigma)
+    assert counts()["resident_layered_decode"] == 1, counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test.step(step_generator(seed, 0, 1, "cuda"), sigma)
+    torch.cuda.synchronize()
+    local_ms = 1e3 * (time.perf_counter() - t0)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": os.getcwd()}
+    built = sorted(_build.BUILD_DIR.glob("*.so"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", SHARD_WORKER, str(rank), str(port),
+                               str(batch), str(seed), str(ebn0)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env) for rank in range(2)]
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=240)
+            assert proc.returncode == 0, err[-3000:]
+            results.append(json.loads(out.split("SHARD ", 1)[1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    assert sorted(_build.BUILD_DIR.glob("*.so")) == built, "a rank built the kernels again"
+    for r in results:
+        assert r["counters"] == ref, (r, ref)
+        assert r["launches"] == 1 and r["device"] == "cuda:0", r
+    print(f"[{card}] ber step HLMinsumbf16, DVB-S2 R1_2, B = {batch}, {ebn0} dB, over two "
+          f"ranks sharing cuda:0 (gloo, {batch // 2} frames a rank, one resident layered "
+          f"launch each): counters {json.dumps(ref)} on both ranks, equal to the unsharded "
+          f"step's; a warm step {results[0]['step_ms']:.3f} and {results[1]['step_ms']:.3f} "
+          f"ms (the unsharded step {local_ms:.3f} ms); rank set-up "
+          f"{results[0]['setup_s']:.1f} and {results[1]['setup_s']:.1f} s, {wall:.1f} s "
+          "for the two processes")
+
+
+def example_on_card(card):
+    """(e) The external-decoder example's sweep on the card."""
+    buf = io.StringIO()
+    argv = sys.argv
+    try:
+        sys.argv = [EXAMPLE]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(EXAMPLE, run_name="__main__")
+    finally:
+        sys.argv = argv
+    rows = buf.getvalue().splitlines()
+    assert [r.split(":")[0] for r in rows] == ["Eb/N0  2.0 dB", "Eb/N0  3.0 dB"], rows
+    for row in rows:
+        print(f"[{card}] {EXAMPLE}: {row}")
+
+
+def rest_of_port(card, llrs):
+    """Main path 9, the port's last modules: ``selftest``; the plane-gather
+    flooding path and the plain layered path at full width for an
+    arithmetic without a kernel; config 5 through ``ber --shard``; a
+    ``ber`` step over two ranks on the card; the external-decoder
+    example."""
+    load_example()
+    for part in (lambda: selftest_on_card(card), lambda: plane_paths_at_full_width(card, llrs),
+                 lambda: config5_sharded(card), lambda: two_ranks_on_one_card(card),
+                 lambda: example_on_card(card)):
+        t0 = time.perf_counter()
+        part()
+        print(f"rest of the port: part done in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2272,6 +2528,8 @@ def main():
     mark("generic path")
     rest_of_ber(card, worst)
     mark("rest of ber")
+    rest_of_port(card, llrs)
+    mark("rest of the port")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)

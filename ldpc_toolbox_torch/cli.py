@@ -1,7 +1,7 @@
 """Command-line interface.
 
 ``python -m ldpc_toolbox_torch <subcommand>``: the nine subcommands of the
-reference CLI (cli.rs:30-51) but ``selftest``, with the JAX package's
+reference CLI (cli.rs:30-51) and ``selftest``, with the JAX package's
 names, flags and output: ``5g``, ``ber``, ``ccsds``, ``ccsds-c2``,
 ``dvbs2``, ``encode``, ``mackay-neal``, ``peg``, ``systematic``. The
 constructions print alists on stdout; ``--girth`` prints as the reference
@@ -24,6 +24,14 @@ writes each point's final row to ``--output-file`` (and, with
 keeps a resumable ``--checkpoint``, and on Ctrl-C exits 130 after saving
 it. ``--num-threads`` is accepted and ignored: the analog of the
 reference's worker pool is the decode batch, ``--batch-size``.
+``--no-lifted`` decodes a standards code on the generic parity-check path.
+``--shard`` shards each step's batch over the ranks of
+``torch.distributed``, one process a device (``torchrun --nproc-per-node
+N -m ldpc_toolbox_torch ber ... --shard``; rank r decodes on
+``cuda:LOCAL_RANK``; the JAX package runs one process over every local
+device instead): only rank 0 prints the table and writes the output
+files, and rank r > 0 keeps its checkpoint at ``CHECKPOINT.rankR``.
+Without torchrun it is a mesh of one.
 
 A code whose trailing square is singular (``ccsds-c2``, whose H is also
 rank-deficient, or a non-systematic alist) is encoded on its full-rank
@@ -31,7 +39,8 @@ rows with its columns permuted to a systematic form and decoded in its
 own column order (``_systematic_perm_if_needed``, the JAX package's).
 The helpers are this module's own copies of the JAX package's.
 
-Not ported yet (ROADMAP A10): ``selftest``.
+``selftest`` holds each rule family's kernels against the independent
+plane path on ``--device`` (``selftest.py``) and exits 1 on a mismatch.
 """
 
 from __future__ import annotations
@@ -421,13 +430,26 @@ def run_ber(args) -> None:
         h, lifted = resolve_ber_code(args.code)
     except (KeyError, ValueError) as e:
         _die(f"invalid code spec {args.code!r}: {e}")
-    sys_perm, enc_h, prebuilt_enc = _systematic_perm_if_needed(h, args.device)
+    if args.no_lifted:
+        lifted = None
+    mesh, device, checkpoint = None, args.device, args.checkpoint
+    if args.shard:
+        from .parallel import default_mesh
+        from .parallel.multihost import initialize
+
+        initialize()
+        mesh = default_mesh(args.device)
+        device = mesh.device
+        if checkpoint and mesh.rank:
+            checkpoint = f"{checkpoint}.rank{mesh.rank}"
+    lead = mesh is None or mesh.rank == 0  # prints and writes the rows
+    sys_perm, enc_h, prebuilt_enc = _systematic_perm_if_needed(h, device)
     num_ebn0s = int((args.max_ebn0 - args.min_ebn0) / args.step_ebn0) + 1
     ebn0s = [args.min_ebn0 + i * args.step_ebn0 for i in range(num_ebn0s)]
-    out_file = open(args.output_file, "w") if args.output_file else None
+    out_file = open(args.output_file, "w") if args.output_file and lead else None
     out_file_ldpc = (
         open(args.output_file_ldpc, "w")
-        if (args.output_file_ldpc and args.bch_max_errors > 0)
+        if (args.output_file_ldpc and args.bch_max_errors > 0 and lead)
         else None
     )
     try:
@@ -444,19 +466,21 @@ def run_ber(args) -> None:
                 max_run_time=parse_duration(args.max_time) if args.max_time else None,
                 max_iterations=args.max_iter,
                 ebn0s_db=ebn0s,
-                reporter=_live_reporter(out_file, out_file_ldpc),
+                reporter=_live_reporter(out_file, out_file_ldpc) if lead else None,
                 bch_max_errors=args.bch_max_errors,
                 batch_size=args.batch_size,
                 seed=args.seed,
-                device=args.device,
-                checkpoint_path=args.checkpoint,
+                device=device,
+                checkpoint_path=checkpoint,
                 systematic_permutation=sys_perm,
                 encoder_h=enc_h,
                 prebuilt_encoder=prebuilt_enc,
+                mesh=mesh,
             ).build()
         except (ValueError, NotImplementedError) as e:
             _die(str(e))
-        print(_BER_HEADER, flush=True)
+        if lead:
+            print(_BER_HEADER, flush=True)
         for f in (out_file, out_file_ldpc):
             if f:
                 f.write(_BER_HEADER + "\n")
@@ -474,6 +498,21 @@ def run_ber(args) -> None:
         for f in (out_file, out_file_ldpc):
             if f:
                 f.close()
+
+
+def run_selftest(args) -> None:
+    """Each rule family's kernels against the plane path (selftest.py);
+    exit 1 on any mismatch."""
+    from .selftest import SELFTEST_FAMILIES, run_selftest as _run
+
+    families = args.families.split(",") if args.families else SELFTEST_FAMILIES
+
+    def log(name, ok, detail):
+        print(f"{'OK  ' if ok else 'FAIL'} {name:44s} {detail}", flush=True)
+
+    failures = _run(families, iterations=args.max_iter, log=log, device=args.device)
+    if failures:
+        _die(f"selftest failed: {', '.join(failures)}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -513,7 +552,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for reference-CLI compatibility (ignored)")
     s.add_argument("--checkpoint", help="sweep checkpoint file (resumable)")
     s.add_argument("--device", default="cuda",
-                   help="torch device that runs the sweep (default cuda)")
+                   help="torch device that runs the sweep (default cuda; with "
+                        "--shard, cuda is cuda:LOCAL_RANK)")
+    s.add_argument("--shard", action="store_true",
+                   help="shard the batch over the ranks of torch.distributed "
+                        "(torchrun), one process a device")
+    s.add_argument("--no-lifted", action="store_true",
+                   help="decode a standards code on the generic parity-check path")
     s.set_defaults(func=run_ber)
 
     s = sub.add_parser("ccsds", help="Generates the alist of CCSDS LDPCs")
@@ -569,6 +614,17 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument("alist")
     s.set_defaults(func=run_systematic)
+
+    s = sub.add_parser(
+        "selftest",
+        help="Kernel-against-plane-path exactness check per rule family "
+        "(framework extension)",
+    )
+    s.add_argument("--families", help="comma-separated decoder names")
+    s.add_argument("--max-iter", type=int, default=8)
+    s.add_argument("--device", default="cuda",
+                   help="torch device that runs the check (default cuda)")
+    s.set_defaults(func=run_selftest)
     return p
 
 

@@ -25,14 +25,18 @@ package's ``_fused_layered_decode`` does at the flagship shape:
   frames that pass and counts those left) one launch each an iteration,
   under ``decoder/compaction.staged_while_decode``.
 
-A check wider than the rule's kernels take raises a ValueError on every
-device (``check_degree_cap``).
-
 The routing is ``takes_compressed_state``'s (its reason is there). All
 forms give the same bits, iterations and success flags. On
 CPU tensors every kernel wrapper runs its plain version, so the CPU runs
-the same routing. ``plain_layered_decode`` is the twin of the JAX
-package's jnp path, for any arithmetic with a layered rule.
+the same routing.
+
+``plain_layered_decode`` is the twin of the JAX package's jnp path, for
+any arithmetic. ``lifted_layered_decode`` takes it, silently as the JAX
+package does, when the kernels do not take the arithmetic or the graph
+(``kernel_fallback``: no kernel rule, a check wider than the rule's
+kernels take, or a circulant missing more than one lane). The route is
+chosen from the rule and the graph before anything runs; the kernel
+wrappers still refuse what they do not take (``check_degree_cap``).
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ from .lifted import LiftedGraph
 
 __all__ = [
     "device_layout",
+    "kernel_fallback",
+    "kernel_layered_decode",
     "lifted_layered_decode",
     "pad_to_tiles",
     "plain_layered_decode",
@@ -81,7 +87,38 @@ def lifted_layered_decode(
 ):
     """Decode a (B, n) batch of channel LLRs, layered schedule, lifted
     layout. Returns a dict of tensors on the LLRs' device: ``codeword``
-    (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool."""
+    (B, n) uint8, ``iterations`` (B,) int32, ``success`` (B,) bool. An
+    arithmetic or graph the kernels do not take (``kernel_fallback``)
+    decodes on ``plain_layered_decode``."""
+    if kernel_fallback(lg, arithmetic) is not None:
+        return plain_layered_decode(lg, arithmetic, llrs, max_iterations)
+    return kernel_layered_decode(lg, arithmetic, llrs, max_iterations, resident)
+
+
+def kernel_fallback(lg: LiftedGraph, arithmetic):
+    """Why the kernels do not take this arithmetic on this graph, or None
+    when they do: the arithmetic has no kernel rule (``rule_for``), a
+    check is wider than the rule's kernels take (``max_check_degree``), or
+    a circulant misses more than one lane (``build_fused_layout`` takes
+    one). The JAX package falls back on the same conditions; its variable
+    degree cap has no counterpart, because the port's kernels loop over a
+    variable's edges, whatever their number."""
+    rule = rule_for(arithmetic)
+    if rule is None:
+        return f"{type(arithmetic).__name__} has no kernel rule"
+    if any(len(lanes) != 1 for _, _, lanes, _ in lg.missing):
+        return "a circulant misses more than one lane"
+    dmax = max((b.degree for b in lg.chk_buckets if len(b.groups)), default=0)
+    if dmax > rule.max_check_degree:
+        return (f"check degree {dmax} above {rule.max_check_degree}, the most the "
+                f"kernels of {type(rule).__name__} take")
+    return None
+
+
+def kernel_layered_decode(lg, arithmetic, llrs, max_iterations, resident=True):
+    """``lifted_layered_decode`` on the kernels, whatever
+    ``kernel_fallback`` says: the route ``selftest`` holds against
+    ``plain_layered_decode``."""
     qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
     if not resident:
         decode = streaming_layered_decode
@@ -149,6 +186,8 @@ class _ArithmeticRule:
 
 
 def plain_layered_decode(lg, arithmetic, llrs, max_iterations):
+    """The layered decode in torch ops on whole planes, for any arithmetic
+    (the JAX package's jnp path); the output of ``lifted_layered_decode``."""
     layout = device_layout(lg, llrs.device)
     llr_planes, col_of = _planes_of(lg, llrs)
     q = arithmetic.quantize(llr_planes)

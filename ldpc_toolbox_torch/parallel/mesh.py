@@ -1,0 +1,79 @@
+"""Data-parallel Monte-Carlo decoding over ranks: one process a device.
+
+Counterpart of ``ldpc_toolbox_tpu.parallel.mesh``. The JAX package shards
+the codeword batch over a 1-D device mesh inside one program; here each
+device has a process of its own (a rank of ``torch.distributed``, started
+by ``torchrun`` or by hand), and a ``Mesh`` is this rank's view of the
+world: the process group, its index, the world size and its device. Every
+rank draws the whole batch and decodes its own rows (``shard_batch``); a
+step's counters, a few scalars, are the only traffic between ranks. They
+go over a gloo group on CPU tensors, so two ranks may share one card,
+which NCCL refuses.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["Mesh", "default_mesh", "max_over", "shard_batch", "sum_over"]
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """One rank's view of the batch axis: ``group`` (the process group,
+    None in a single process), ``rank`` and ``size`` in it, and the device
+    this rank decodes on."""
+
+    group: object
+    rank: int
+    size: int
+    device: torch.device
+
+
+def default_mesh(devices=None) -> Mesh:
+    """The mesh over every rank when ``torch.distributed`` is initialised
+    (over gloo: ``multihost.initialize``), else a mesh of one. This rank's
+    device is ``devices`` (a device or its name); ``cuda`` without an index
+    and None where a card is mean ``cuda:LOCAL_RANK``; None without a card
+    the CPU."""
+    if dist.is_available() and dist.is_initialized():
+        rank, size, group = dist.get_rank(), dist.get_world_size(), dist.group.WORLD
+    else:
+        rank, size, group = 0, 1, None
+    if devices is None:
+        devices = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(devices)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    return Mesh(group=group, rank=rank, size=size, device=device)
+
+
+def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's rows of ``x``: the ``rank``-th of ``size`` equal slices
+    of its leading axis. A batch the world size does not divide raises a
+    ValueError."""
+    if x.shape[0] % mesh.size:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over {mesh.size} ranks")
+    rows = x.shape[0] // mesh.size
+    return x[mesh.rank * rows : (mesh.rank + 1) * rows]
+
+
+def sum_over(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
+    """``values`` summed over the ranks, on the CPU (one gloo all-reduce)."""
+    values = values.cpu()
+    if mesh.group is not None:
+        dist.all_reduce(values, op=dist.ReduceOp.SUM, group=mesh.group)
+    return values
+
+
+def max_over(mesh: Mesh, value: float) -> float:
+    """The largest of every rank's ``value`` (one gloo all-reduce)."""
+    if mesh.group is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(t[0])

@@ -34,7 +34,14 @@ Semantics kept from the reference:
   format, and resumed from there; on Ctrl-C the point's partial state is
   saved and the interrupt raised again.
 
-Not ported yet (ROADMAP A11): sharding over several devices.
+With a ``mesh`` (``parallel.mesh.Mesh``, one rank a device) the batch is
+sharded over the ranks: every rank draws the whole batch's message and
+noise from the step's generator, so the Monte-Carlo stream does not
+depend on the number of ranks, then decodes and counts its own rows
+(``shard_batch``); the counters are summed over the ranks before they are
+read, and the stop rule reads the largest of the ranks' clocks, so every
+rank stops after the same step. Each rank writes the checkpoint it is
+given and calls a reporter only where it is given one.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 from ..decoder import DecodeGraph, generic_decode_for, lifted_decode_for
 from ..decoder.factory import make_arithmetic
 from ..encoder import Encoder
+from ..parallel.mesh import max_over, shard_batch, sum_over
 from ..sparse import SparseMatrix
 from ..systematic import permute_columns
 from .channel import AwgnChannel
@@ -135,6 +143,9 @@ class BerTestParameters:
     encoder_h: Optional[SparseMatrix] = None
     # an Encoder already built for encoder_h (or h), on the test's device
     prebuilt_encoder: Optional[object] = None
+    # parallel.mesh.Mesh: shard each step's batch over the ranks (the
+    # device stays ``device``: give each rank its mesh.device)
+    mesh: Optional[object] = None
 
 
 @dataclass
@@ -167,10 +178,11 @@ def step_generator(seed: int, point: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None) -> dict:
+def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None, mesh=None) -> dict:
     """The step's nine counters from the messages and the decoder output,
-    as Python ints (one copy from the device); the message bits are the
-    codeword's first k, or its columns ``msg_cols``."""
+    as Python ints (one copy from the device), summed over the ranks of
+    ``mesh`` when given; the message bits are the codeword's first k, or
+    its columns ``msg_cols``."""
     k = msg.shape[1]
     sys_bits = out["codeword"][:, :k] if msg_cols is None else out["codeword"][:, msg_cols]
     errbits = (sys_bits != msg).sum(dim=1, dtype=torch.int32)
@@ -188,8 +200,10 @@ def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None) -> dict:
         torch.where(bch_frame_err, errbits, zero).sum(dtype=torch.int64),
         bch_frame_err.sum(dtype=torch.int64),
         torch.where(bch_frame_err, zero, iters).sum(dtype=torch.int64),
-    ]).tolist()
-    return dict(zip(_COUNTER_NAMES, values))
+    ])
+    if mesh is not None:
+        values = sum_over(mesh, values)
+    return dict(zip(_COUNTER_NAMES, values.tolist()))
 
 
 class BerTest:
@@ -227,6 +241,10 @@ class BerTest:
             self.encoder = p.prebuilt_encoder
         else:
             self.encoder = Encoder(enc_h, device=self.device)
+        if p.mesh is not None and p.batch_size % p.mesh.size:
+            raise ValueError(
+                f"batch size {p.batch_size} does not split over {p.mesh.size} ranks"
+            )
         self.schedule, self.arithmetic = make_arithmetic(
             p.decoder_implementation
         )
@@ -257,15 +275,19 @@ class BerTest:
         return self.puncturer.depuncture(llr) if self.puncturer else llr
 
     def step(self, generator: torch.Generator, noise_sigma: float) -> dict:
-        """One batch of frames through the whole chain; its nine counters."""
+        """One batch of frames through the whole chain; its nine counters
+        (with a mesh: this rank's rows decoded, the counters summed over
+        the ranks)."""
         p = self.p
         msg = torch.randint(
             0, 2, (p.batch_size, self.k), generator=generator,
             dtype=torch.uint8, device=self.device,
         )
         llr = self.channel_llrs(self.encode(msg), noise_sigma, generator)
+        if p.mesh is not None:
+            msg, llr = shard_batch(msg, p.mesh), shard_batch(llr, p.mesh)
         out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
-        return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols)
+        return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols, p.mesh)
 
     def noise_sigma(self, ebn0_db: float) -> float:
         """The channel's sigma at an Eb/N0 (ber.rs:246-302)."""
@@ -380,6 +402,8 @@ class BerTest:
             try:
                 while True:
                     elapsed = time.monotonic() - start
+                    if p.mesh is not None:  # every rank decides alike
+                        elapsed = max_over(p.mesh, elapsed)
                     errors = (
                         counters.bch_frame_errors
                         if p.bch_max_errors > 0

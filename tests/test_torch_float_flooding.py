@@ -6,13 +6,16 @@ test_fused_float_matches_plane_gather_path: DVB-S2 R1_4short, noisy
 codewords of its encoder, B = 128, sigma 0.85, seed 2, 12 iterations) and
 on 5G BG2 z=16; the float names' defaults and refusals: ``Phif64`` is
 the default of ``Decoder``, of ``BerTestParameters`` and of the ``ber``
-command; a check wider than MinstarApprox's kernels take (32) raises and
-names the cap; and ``resident=False`` of a float name equals its resident
-decode. The rules and the layered decodes are in test_torch_float.py, the
-streaming path against the JAX package in test_torch_streaming_float*.py."""
+command; the kernels' inputs for a check wider than MinstarApprox's
+kernels take (32) are refused, naming the cap, and the decoders take the
+torch path instead; and ``resident=False`` of a float name equals its
+resident decode. The rules and the layered decodes are in
+test_torch_float.py, the streaming path against the JAX package in
+test_torch_streaming_float*.py."""
 
 import functools
 import types
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -155,16 +158,36 @@ def _one_wide_check(degree):
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 def test_minstarapprox_refuses_checks_above_32(schedule):
     """MinstarApprox's kernels unroll their O(d^2) fold to the degree bucket
-    and take degree 32 at most: a check of 33 raises a ValueError that
-    names the cap, on the CPU as on the card; Phi (cap 64) decodes it."""
+    and take degree 32 at most: the kernels' inputs for a check of 33 are
+    refused with a ValueError that names the cap, on the CPU as on the
+    card, and the decoders, which choose their route first, decode it on
+    the torch path of the schedule instead (flooding: the plane-gather
+    path, with a warning naming the cap; layered: the plain layered
+    decode, silently), as the JAX package falls back; Phi (cap 64) decodes
+    it on the kernels."""
     prefix = "HL" if schedule == "layered" else ""
-    decode = (lifted_layered.lifted_layered_decode if schedule == "layered"
-              else lifted_flooding.lifted_flooding_decode)
+    if schedule == "layered":
+        decode, tiles = lifted_layered.lifted_layered_decode, lifted_layered.tile_inputs
+        torch_path = lifted_layered.plain_layered_decode
+    else:
+        decode, tiles = lifted_flooding.lifted_flooding_decode, lifted_flooding.flooding_tiles
+        torch_path = lifted_flooding.plane_flooding_decode
     x = torch.from_numpy(llrs(33, 4, 0.8, seed=2))
     for prec in ("f32", "f64"):
         _, ta = make_arithmetic(prefix + "Minstarapprox" + prec)
         with pytest.raises(ValueError, match="above 32"):
-            decode(_one_wide_check(33), ta, x, 4)
+            tiles(_one_wide_check(33), ta, x)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = decode(_one_wide_check(33), ta, x, 4)
+        warned = [str(w.message) for w in caught]
+        if schedule == "flooding":
+            assert len(warned) == 1 and "above 32" in warned[0], warned
+        else:
+            assert not warned, warned
+        ref = torch_path(_one_wide_check(33), ta, x, 4)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key], ref[key]), key
         assert decode(_one_wide_check(32), ta, x[:, :32], 4)["codeword"].shape == (4, 32)
     _, phi = make_arithmetic(prefix + "Phif32")
     assert decode(_one_wide_check(33), phi, x, 4)["codeword"].shape == (4, 33)
