@@ -35,7 +35,8 @@ partial tile), and drives the port's main paths on the flagship code
    (layered: those of the sweep), each equal to the resident decode of its
    name (the i8 and float streaming instances held against their plain
    versions on the test codes first, all 16 float names and two i8 names a
-   schedule);
+   schedule); and ``HLPhif64``'s, its sweeps counted, timed in turns with
+   its resident decode (the kernels line keeps ``HLPhif32``'s sweep);
 
 7. the generic parity-check path (``decoder/flooding.py``,
    ``decoder/layered.py``: torch ops, no kernel of the nine, and the
@@ -1304,7 +1305,7 @@ def float_checks(graphs, worst):
     versions on the four test codes, all 16 float names (on 5G BG2 z=16
     with 64 large-magnitude frames besides; R1_2 at 8 iterations, not 30,
     to keep the plain layered sweeps' time), and a partial tile through the
-    decoders' glue against the CPU (the four f32 layered names, whose check
+    decoders' glue against the CPU (the eight layered names, whose check
     lanes take units of their own, and an f64 flooding one); worst
     differences into ``worst``."""
     cases = [
@@ -1330,8 +1331,9 @@ def float_checks(graphs, worst):
               f"({name})")
     bg2 = graphs["5G BG2 z=16"]
     llrs = channel_llrs(bg2.n, 130, 1.3, seed=11)
-    # every f32 layered rule (its check lanes' own units) and an f64 flooding one
-    for name in ("HLPhif32", "HLTanhf32", "HLMinstarapproxf32", "HLAminstarf32", "Aminstarf64"):
+    # every layered float rule (its check lanes' own units) and an f64 flooding one
+    for name in ("HLPhif32", "HLTanhf32", "HLMinstarapproxf32", "HLAminstarf32", "HLPhif64",
+                 "HLTanhf64", "HLMinstarapproxf64", "HLAminstarf64", "Aminstarf64"):
         kernel = float_kernel_and_plain(name)[0]
         decode = lifted_layered_decode if name.startswith("HL") else lifted_flooding_decode
         _, arith = make_arithmetic(name)
@@ -2252,7 +2254,8 @@ CONFIG5_ARGS = ["results/peg_512_1024_sys.alist", "--decoder", "Minstarapproxf32
 CONFIG5_ROWS = "results/config5_peg_sharded.txt"
 EXAMPLE = "examples/external_decoder_ber_torch.py"
 #: one rank of phase 9's two-rank ``ber`` step: argv rank, port, batch,
-#: seed, Eb/N0; both ranks on cuda:0, joined over gloo
+#: seed, Eb/N0; both ranks on cuda:0, joined over gloo, the group ended by
+#: ``multihost.shutdown`` before the exit
 SHARD_WORKER = r"""
 import json, sys, time
 import torch
@@ -2260,7 +2263,7 @@ from ldpc_toolbox_torch.codes.dvbs2 import Code
 from ldpc_toolbox_torch.decoder.lifted import lifted_graph_for
 from ldpc_toolbox_torch.ops.resident_layered import resident_layered_decode
 from ldpc_toolbox_torch.parallel import default_mesh
-from ldpc_toolbox_torch.parallel.multihost import initialize
+from ldpc_toolbox_torch.parallel.multihost import initialize, shutdown
 from ldpc_toolbox_torch.simulation import BerTestBuilder
 from ldpc_toolbox_torch.simulation.ber import step_generator
 
@@ -2283,6 +2286,7 @@ print("SHARD " + json.dumps({"rank": mesh.rank, "device": str(mesh.device),
                              "counters": counters, "launches": launches,
                              "step_ms": 1e3 * (time.perf_counter() - t1),
                              "setup_s": t1 - t0}), flush=True)
+shutdown()
 """
 
 
@@ -2522,6 +2526,9 @@ def main():
         measured.update(flagship_float(card, llrs, worst, name))
     for name in (None, "Minstarapproxi8", "HLPhif32", "HLMinstarapproxi8"):
         measured.update(flagship_streaming(card, llrs, worst, name))
+    # HLPhif64 both ways, end to end, and the f64 sweep's launches a decode
+    # (the kernels line keeps HLPhif32's path for the float sweep)
+    flagship_streaming(card, llrs, worst, "HLPhif64")
     other_instances(card, llrs, worst)
     mark("flagship paths")
     generic_path(card, llrs)

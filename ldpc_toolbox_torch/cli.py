@@ -418,6 +418,19 @@ def _live_reporter(out_file, out_file_ldpc):
 
 
 def run_ber(args) -> None:
+    """``ber``; with ``--shard`` the process group ends as the run does
+    (``multihost.shutdown``), after the rows are written, even when it
+    raises."""
+    try:
+        _run_ber(args)
+    finally:
+        if args.shard:
+            from .parallel.multihost import shutdown
+
+            shutdown()
+
+
+def _run_ber(args) -> None:
     from .simulation.factory import BerTestBuilder, Modulation
 
     try:

@@ -35,10 +35,29 @@
 // at degree 8, so a block of 512 threads runs at 64 registers, two blocks
 // (32 warps) an SM, the four threads of a lane reading its 32-byte cells
 // together. In turns on the card (tools/compare_forms.py), a frame pair a
-// unit and blocks of 384 to 768 threads ran slower. The layered f64
-// instances keep a lane's four frames. What bounds the f64 instances then
-// is the f64 phi itself: the flagship's check phase runs near the rate at
-// which the card evaluates phi alone (tools/count_math_ops.py --rate).
+// unit and blocks of 384 to 768 threads ran slower. What bounds the f64
+// flooding instances then is the f64 phi itself: the flagship's check
+// phase runs near the rate at which the card evaluates phi alone
+// (tools/count_math_ops.py --rate).
+//
+// The f64 instances of the layered kernels, the resident one (TPU #1,
+// LayeredUnits) and the streaming sweep (#3, SweepUnits), give a check
+// lane's thread a frame pair of a lane at 384 threads, two blocks an SM at
+// 80 registers: a tile walks its check groups one after another, so a
+// group's check lanes set the pace, and a lane's four frames in two passes
+// of 256 threads (the last 104 wide) left 16 warps an SM, each running a
+// chain of 56 phis (degree 7, Phi); the pair halves each chain, and a
+// group's 720 units take two passes of 384 (the last 336 wide) at 24 warps
+// an SM, the two threads of a lane reading its 32-byte cells together. In
+// turns on the flagship (tools/compare_forms.py, HLPhif64): the resident
+// decode 217.1 ms and the sweep 12.34 ms against 264.7 and 14.96 for a
+// lane's four frames at 256; one frame at 512 (64 registers) and at 256,
+// the pair at 256 and at 512, and a lane's four frames at 384 ran 232 to
+// 293 ms; loading Rold again for each delta instead of keeping it (2.3
+// times slower), or issuing a unit's d Qv loads together after its outputs
+// (12-26 % slower; both spill more), lost. Every f64 layered form spills
+// (444 bytes a thread at 128 registers, 1136 at 80): the math library's
+// f64 routines hold many registers.
 //
 // The f32 instances of the resident layered kernel (TPU #1) give a check
 // lane's thread a frame pair (LayeredUnits): a tile's check groups run one after another, so what bounds a tile is the
@@ -54,9 +73,9 @@
 // 336 bytes a thread and ran 43 % slower than a lane's four frames, and
 // every block above 256 lost too; against the pair at 256, one frame a
 // thread and prefetching the next unit's loads ran slower, and a lane's
-// four frames 8 % slower a decode. The streaming sweep (TPU #3) keeps a
-// lane's four frames a thread, as every other rule does: there the pair
-// ran 4 % slower.
+// four frames 8 % slower a decode. The f32 streaming sweep (TPU #3) keeps
+// a lane's four frames a thread, as every rule but the f64 ones does:
+// there the pair ran 4 % slower.
 //
 // Bit-exactness with the plain versions on the card: every operation is
 // the one of the plain version, in its order, in the type T; add_rn,
@@ -358,16 +377,18 @@ __device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatPara
 // The float rule RULE in T, for csrc/message_kernels.cuh: posteriors,
 // messages and deltas in T; x = Qv - Rold, one rounding; the rule's
 // parameters from FloatParams; the flooding kernels' unit a lane's four
-// frames in f32, one frame in f64, the resident layered kernel's check
-// lanes' a frame pair in f32 and a lane's four in f64 (see the head of this
-// file).
+// frames in f32, one frame in f64; the resident layered kernel's check
+// lanes' a frame pair in both (at 256 threads in f32, 384 in f64); the
+// streaming sweep's a lane's four frames in f32, a frame pair at 384
+// threads in f64 (see the head of this file).
 template <typename T, int RULE>
 struct FloatRule : FloatParams<T> {
   using Q = T;
   using Msg = T;
   using P = T;
   using FloodUnits = std::conditional_t<std::is_same_v<T, double>, Units<1, 512>, Units<>>;
-  using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, Units<2>, Units<>>;
+  using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, Units<2>, Units<2, 384>>;
+  using SweepUnits = std::conditional_t<std::is_same_v<T, double>, LayeredUnits, Units<>>;
 
   __device__ __forceinline__ T extrinsic(T q, T rold) const { return sub_rn(q, rold); }
   __device__ __forceinline__ T diff(T rn, T rold) const { return sub_rn(rn, rold); }

@@ -328,6 +328,7 @@ struct I8Rule {
   using P = int;
   using FloodUnits = Units<kBt, 512>;
   using LayeredUnits = Units<kBt, 384>;
+  using SweepUnits = Units<>;
   static constexpr bool kWords = true;
   static constexpr int big = 127;
   static constexpr uint32_t bigs = k127s;

@@ -26,11 +26,12 @@
 // most 16 at once) and park f64 deltas.
 //
 // A rule may give a thread less than a lane's four frames (Units): the f64
-// float rules in the flooding kernels, the f32 float rules in the resident
-// layered kernel. The layered sweep then walks (lane, unit) pairs of a check group
-// with a lane's units on neighbouring threads, each unit loading and
-// storing its frames of the lane's cells; the park update, the syndrome and
-// the hard decisions keep a thread per lane.
+// float rules in the flooding kernels and in both layered kernels, the f32
+// float rules in the resident layered kernel. The layered sweep then walks
+// (lane, unit) pairs of a check group with a lane's units on neighbouring
+// threads, each unit loading and storing its frames of the lane's cells;
+// the park update, the syndrome and the hard decisions keep a thread per
+// lane.
 
 #pragma once
 
@@ -58,14 +59,16 @@ using D4 = Four<double>;
 // (csrc/message_kernels.cuh resident_flooding_kernel, csrc/streaming.cuh
 // fused_check_kernel and fused_var_kernel) by the rule's FloodUnits, the
 // resident layered kernel's check lanes (layered_sweep4 in
-// resident_layered_kernel) by its LayeredUnits: a thread per unit of F of a
-// lane's four frames, kPerLane units a lane, the units of a lane on
-// neighbouring threads (frames innermost, so they read its cells
+// resident_layered_kernel) by its LayeredUnits, the streaming sweep's
+// (csrc/streaming.cuh fused_layered_kernel) by its SweepUnits: a thread per
+// unit of F of a lane's four frames, kPerLane units a lane, the units of a
+// lane on neighbouring threads (frames innermost, so they read its cells
 // together), Threads threads a block and two blocks an SM (the launch
 // bounds: 65536 / (2 * Threads) registers a thread). Every rule takes a
 // lane's four frames at kThreads (128 registers) but the f64 float rules'
-// flooding units and the f32 float rules' layered units (csrc/float_rules.cuh);
-// the streaming sweep gives every rule a lane's four frames.
+// flooding units (one frame at 512), the float rules' layered units (a
+// frame pair: at 256 in f32, at 384 in f64, whose sweep takes them too)
+// and the i8 rules' blocks (csrc/float_rules.cuh, csrc/i8.cuh).
 template <int F = kBt, int Threads = kThreads>
 struct Units {
   static_assert(kBt % F == 0, "a unit is a whole share of a lane's frames");
@@ -197,8 +200,8 @@ __device__ __forceinline__ void store4(int* p, const I4& a) {
 }
 
 // A unit's F frames of a lane at p (see Units): the lane's four as loaded
-// (load_raw) and stored (store4), an f32 frame pair (8 bytes) or one f64
-// frame.
+// (load_raw) and stored (store4), a frame pair (8 bytes in f32, 16 in f64)
+// or one f64 frame.
 template <int F, typename Msg>
 __device__ __forceinline__ auto load_unit(const Msg* p) {
   if constexpr (F == kBt) {
@@ -207,9 +210,13 @@ __device__ __forceinline__ auto load_unit(const Msg* p) {
     static_assert(F == 2, "an f32 unit of fewer frames than a lane's is a frame pair");
     const float2 a = *reinterpret_cast<const float2*>(p);
     return Frames<float, 2>{{a.x, a.y}};
+  } else if constexpr (F == 2) {
+    static_assert(std::is_same_v<Msg, double>, "a frame pair is f32 or f64");
+    const double2 a = *reinterpret_cast<const double2*>(p);
+    return Frames<double, 2>{{a.x, a.y}};
   } else {
     static_assert(std::is_same_v<Msg, double> && F == 1,
-                  "an f64 unit of fewer frames than a lane's is one frame");
+                  "an f64 unit of fewer frames than a pair is one frame");
     return Frames<double, 1>{{*p}};
   }
 }
@@ -225,6 +232,9 @@ __device__ __forceinline__ void store_unit(float* p, const Frames<float, 2>& a) 
 }
 __device__ __forceinline__ void store_unit(double* p, const Frames<double, 1>& a) {
   *p = a.v[0];
+}
+__device__ __forceinline__ void store_unit(double* p, const Frames<double, 2>& a) {
+  *reinterpret_cast<double2*>(p) = make_double2(a.v[0], a.v[1]);
 }
 
 // v plus a parked delta d, per frame: one f32 or f64 rounding, or an int

@@ -36,11 +36,12 @@
 //   lane's four int8 inputs as one word, set(k, word) for k = 0, 1, ...
 //   in order, then outputs(d, emit) calls emit(k, word) with slot k's four
 //   outputs as one word; bigs is the missing lane's input word;
-// - FloodUnits and LayeredUnits, the work unit and block of the flooding
-//   kernels and of the resident layered kernel's check lanes (lanes.cuh
-//   Units; the streaming sweep takes a lane's four frames): a lane's four
-//   frames at kThreads but for the f64 float rules' flooding units and the
-//   f32 float rules' layered units, whose Check then folds a unit's frames
+// - FloodUnits, LayeredUnits and SweepUnits, the work unit and block of
+//   the flooding kernels, of the resident layered kernel's check lanes and
+//   of the streaming sweep's (csrc/streaming.cuh; lanes.cuh Units): a
+//   lane's four frames at kThreads but for the f64 float rules' flooding,
+//   layered and sweep units, the f32 float rules' layered units and the i8
+//   rules' flooding and layered blocks; a Check then folds a unit's frames
 //   (outputs(x, d, emit) over the unit's values).
 //
 // Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
@@ -71,6 +72,7 @@ struct MinSumRule {
   using P = float;
   using FloodUnits = Units<>;
   using LayeredUnits = Units<>;
+  using SweepUnits = Units<>;
   float big, scale;
 
   __device__ __forceinline__ float extrinsic(float q, float rold) const {
@@ -212,7 +214,7 @@ __device__ __forceinline__ void layered_check_words(
 }
 
 // Check update of a unit of check lane c of group g in one layered tile
-// (U: F frames, a lane's four or an f32 frame pair; qv, rcv and park those
+// (U: F frames, a lane's four or a frame pair; qv, rcv and park those
 // of the unit's first frame): every x from the layer-entry
 // Qv (big at the missing lane), Rnew in place (0 at the missing lane), and
 // the deltas Rnew - Rold either added to Qv (parked false; no other lane

@@ -13,7 +13,8 @@
 // ten layered tables (see Tables in layered.cuh). kind: 0 Phi, 1 Tanh, 2
 // MinstarApprox, 3 Aminstar; big the missing-lane poke, clamp and prod_max
 // Tanh's clamps. Bt must be 4, the check degree at most 64 (32 for
-// MinstarApprox) and threads at most 256. Returns the launch's cudaError_t.
+// MinstarApprox) and threads at most 384 (a thread per frame pair of a lane
+// in the check lanes). Returns the launch's cudaError_t.
 extern "C" int ldpc_resident_layered_float_decode(
     void* qv, void* rcv, void* bits, void* iters, void* conv, void* park,
     const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,

@@ -34,7 +34,8 @@
 // csrc/lanes.cuh): a thread per lane of a tile's four frames, so a lane's
 // values move as one 4- to 32-byte vector and each table load and mod-Z
 // index is done once a lane (the f64 float rules' phases a thread per
-// (lane, frame), whose rule is their cost: csrc/float_rules.cuh); the
+// (lane, frame) and their sweep a thread per frame pair of a lane, whose
+// rule is their cost: csrc/float_rules.cuh); the
 // check lane's loads unrolled to the degree bucket, all issued before its
 // rule; the variable lane issuing its next
 // lane's loads before this lane's stores; the tables in shared memory. The
@@ -219,14 +220,14 @@ __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_var_kernel(
 // One horizontal-layered sweep of one tile per block under a rule, in place
 // on qv (VG, Z, 4) and rcv (E, Z, 4), then the hard bits qv <= 0: one
 // iteration of resident_layered_kernel without the syndrome and the freeze
-// (the same layered_sweep4 over layered_check_lane, but a lane's four
-// frames a thread under every rule: the f32 float rules' frame pair of the
-// resident kernel ran 4 % slower here, csrc/float_rules.cuh; park_all the
-// device park, or null to park in shared memory after the tables).
+// (the same layered_sweep4 over layered_check_lane, the check lanes a unit
+// of Rule::SweepUnits a thread; park_all the device park, or null to park
+// in shared memory after the tables).
 template <int DMAX, class Rule>
-__global__ void __launch_bounds__(kThreads, 2) fused_layered_kernel(
+__global__ void __launch_bounds__(Rule::SweepUnits::kBlock, 2) fused_layered_kernel(
     typename Rule::Q* qv_all, typename Rule::Msg* rcv_all, int8_t* bits_all,
     typename Rule::P* park_all, Tables t, size_t park_elems, Rule rule) {
+  using U = typename Rule::SweepUnits;
   extern __shared__ __align__(16) int smem[];
   const size_t tile = blockIdx.x;
   const size_t lanes = (size_t)t.VG * t.Z;
@@ -235,8 +236,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layered_kernel(
   auto* qv = qv_all + tile * lanes * kBt;
   auto* rcv = rcv_all + tile * t.E * t.Z * kBt;
   int8_t* bits = bits_all + tile * lanes * kBt;
-  layered_sweep4<DMAX>(qv, park, lt, [&](int g, int c, int, bool parked) {
-    layered_check_lane<DMAX, Units<>>(qv, rcv, park, lt, g, c, parked, rule);
+  layered_sweep4<DMAX, U>(qv, park, lt, [&](int g, int c, int f0, bool parked) {
+    layered_check_lane<DMAX, U>(qv + f0, rcv + f0, park + f0, lt, g, c, parked, rule);
   });
   for (size_t i = threadIdx.x; i < lanes; i += blockDim.x)
     store_word(bits + i * kBt, hard_word(qv + i * kBt));
@@ -266,7 +267,8 @@ cudaError_t phase_grid(Kernel kernel, int units, int nbt, int threads,
 // The launches of the three kernels on nbt tiles (see the C entry points
 // of csrc/flooding.cu and csrc/fused_layered.cu for the arguments). A tile
 // is 4 frames and a block at most the rule's FloodUnits::kBlock threads (a
-// phase's; its grid counts units) or kThreads (the sweep's).
+// phase's; its grid counts units) or Rule::SweepUnits::kBlock (the
+// sweep's).
 template <int DMAX, class Rule>
 cudaError_t fused_check_launch(const Rule& rule, const void* v2c, void* c2v,
                                const FloodingTables& t, int nbt, int threads,
@@ -306,7 +308,7 @@ cudaError_t fused_layered_launch(const Rule& rule, void* qv, void* rcv,
                                  int nbt, size_t park_elems, int threads,
                                  cudaStream_t stream) {
   using P = typename Rule::P;
-  if (threads > kThreads) return cudaErrorInvalidValue;
+  if (threads > Rule::SweepUnits::kBlock) return cudaErrorInvalidValue;
   return launch(fused_layered_kernel<DMAX, Rule>, nbt, threads,
                 smem_bytes(t, park ? 0 : park_elems, sizeof(P)), stream,
                 static_cast<typename Rule::Q*>(qv),

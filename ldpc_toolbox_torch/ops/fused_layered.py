@@ -17,7 +17,8 @@ storage type, f32 or f64.
 
 On a CUDA tensor it launches ``fused_layered_kernel`` of
 ``csrc/streaming.cuh`` (one thread block per tile of 4 frames, a thread
-per lane: the resident layered kernel's sweep, one iteration a launch) on
+per lane, or per frame pair of a lane for the f64 float rules: the
+resident layered kernel's sweep, one iteration a launch) on
 the rule's family: min-sum from ``csrc/fused_layered.cu``, the i8 rules
 from ``csrc/fused_layered_i8.cu`` (``fused_layered_iteration_i8``), the
 float rules from ``csrc/fused_layered_f32.cu`` and ``_f64.cu``
@@ -36,6 +37,7 @@ import torch
 from . import _build
 from .fused_bp2 import _MSG_DTYPES, is_float_rule, is_i8
 from .resident_layered import (
+    F64_LAYERED_THREADS,
     LANE_THREADS,
     layered_launch,
     message_sweep,
@@ -48,6 +50,7 @@ __all__ = [
     "fused_layered_iteration_float",
     "fused_layered_iteration_i8",
     "fused_layered_iteration_reference",
+    "sweep_threads",
 ]
 
 #: the sources of the float-rule instances, by storage type
@@ -102,6 +105,15 @@ def _lib_float(name):
     return bind_float(_build.load(name))
 
 
+def sweep_threads(rule) -> int:
+    """Threads per block of a rule's sweep (``csrc/float_rules.cuh``
+    FloatRule's SweepUnits): ``F64_LAYERED_THREADS`` for an f64 float rule,
+    whose sweep takes its resident layered kernel's frame pairs,
+    ``LANE_THREADS`` (a lane's four frames) for every other."""
+    f64 = is_float_rule(rule) and rule.storage_dtype == torch.float64
+    return F64_LAYERED_THREADS if f64 else LANE_THREADS
+
+
 def _sweep_args(qv_t, rcv_t, layout, rule):
     """The checks of a sweep launch; returns (bits, the launch's leading
     arguments: the four pointers, the tables and the dims)."""
@@ -119,7 +131,7 @@ def _sweep_args(qv_t, rcv_t, layout, rule):
         )
     bits = torch.empty(qv_t.shape, dtype=torch.int8, device=qv_t.device)
     head = (qv_t.data_ptr(), rcv_t.data_ptr(), bits.data_ptr(),
-            None if park is None else park.data_ptr(), tables, *dims, LANE_THREADS)
+            None if park is None else park.data_ptr(), tables, *dims, sweep_threads(rule))
     return bits, head, stream
 
 

@@ -37,9 +37,10 @@ a CUDA tensor ``resident_layered_decode`` passes them to
 ``resident_layered_decode_float``, the wrapper of the kernel's float-rule
 instances (``csrc/resident_layered_f32.cu`` and ``_f64.cu``; check degree
 at most the rule's ``max_check_degree``: 64, 32 for MinstarApprox), which
-counts their launches apart. The f32 instances' check lanes give a thread
-a frame pair of a lane (``csrc/float_rules.cuh`` FloatRule's
-LayeredUnits), at ``LANE_THREADS`` a block as every other instance.
+counts their launches apart. The check lanes give a thread a frame pair
+of a lane (``csrc/float_rules.cuh`` FloatRule's LayeredUnits): the f32
+instances at ``LANE_THREADS`` a block as every other instance, the f64
+ones at ``F64_LAYERED_THREADS`` (``float_layered_threads``).
 
 The layered kernels (this one, ``ops/resident_compressed.py``'s and
 ``ops/fused_layered.py``'s) share the launch checks of this module. The
@@ -76,6 +77,7 @@ from .fused_bp2 import (
 __all__ = [
     "BT",
     "I8_MAX_CHECK_DEGREE",
+    "F64_LAYERED_THREADS",
     "I8_LAYERED_THREADS",
     "LANE_THREADS",
     "LAYERED_TABLES",
@@ -101,6 +103,11 @@ LANE_THREADS = 256
 #: (``csrc/i8.cuh`` I8Rule's LayeredUnits: a lane's four frames a thread, a
 #: flagship check group of 360 lanes in one pass)
 I8_LAYERED_THREADS = 384
+#: threads per block of the f64 float rules' resident layered kernel
+#: (``csrc/float_rules.cuh`` FloatRule's LayeredUnits: a check lane's thread
+#: takes a frame pair of a lane, a flagship check group's 720 units in two
+#: passes, at 80 registers; their streaming sweep's too, SweepUnits)
+F64_LAYERED_THREADS = 384
 #: shared-memory ints of their decode-loop control words
 _CONTROL_INTS = 8
 #: dynamic shared memory a block may use on Hopper
@@ -359,6 +366,13 @@ def resident_layered_decode_i8(qv0_t, bits0_t, layout, rule, max_iterations: int
     return bits, iters, conv
 
 
+def float_layered_threads(rule) -> int:
+    """Threads per block of a float rule's resident layered kernel:
+    ``F64_LAYERED_THREADS`` for an f64 rule, ``LANE_THREADS`` for an f32
+    one (a frame pair of a lane a thread)."""
+    return F64_LAYERED_THREADS if rule.storage_dtype == torch.float64 else LANE_THREADS
+
+
 def resident_layered_decode_float(qv0_t, bits0_t, layout, rule, max_iterations: int):
     """``resident_layered_decode`` for a float rule, through the kernel's
     float-rule instances: qv0_t (nbt, VG, Z, 4) and Rcv in the rule's
@@ -385,7 +399,8 @@ def resident_layered_decode_float(qv0_t, bits0_t, layout, rule, max_iterations: 
     err = lib.ldpc_resident_layered_float_decode(
         qv.data_ptr(), rcv.data_ptr(), bits.data_ptr(), iters.data_ptr(),
         conv.data_ptr(), None if park is None else park.data_ptr(), tables,
-        *dims, int(max_iterations), LANE_THREADS, rule.kind, rule.big, rule.clamp,
+        *dims, int(max_iterations), float_layered_threads(rule), rule.kind, rule.big,
+        rule.clamp,
         rule.prod_max, stream,
     )
     raise_on(lib, err, "resident_layered_decode_float")

@@ -9,12 +9,19 @@ rank draws the whole batch and decodes its own rows (``shard_batch``); a
 step's counters, a few scalars, are the only traffic between ranks. They
 go over a gloo group on CPU tensors, so two ranks may share one card,
 which NCCL refuses.
+
+A mesh holds its process group weakly: ``torch.distributed`` owns the
+group until ``multihost.shutdown`` ends it, and the group's threads
+(gloo's and the TCP store's) end there, whatever meshes are left. A group
+freed at interpreter exit instead can abort the process (a joinable
+``std::thread`` destroyed: ``terminate called without an active
+exception``).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -22,16 +29,29 @@ import torch.distributed as dist
 __all__ = ["Mesh", "default_mesh", "max_over", "shard_batch", "sum_over"]
 
 
-@dataclass(frozen=True)
 class Mesh:
     """One rank's view of the batch axis: ``group`` (the process group,
-    None in a single process), ``rank`` and ``size`` in it, and the device
-    this rank decodes on."""
+    None in a single process; held weakly, see the head of this module),
+    ``rank`` and ``size`` in it, and the device this rank decodes on."""
 
-    group: object
-    rank: int
-    size: int
-    device: torch.device
+    __slots__ = ("_ref", "rank", "size", "device")
+
+    def __init__(self, group, rank: int, size: int, device: torch.device):
+        self._ref = None if group is None else weakref.ref(group)
+        self.rank, self.size, self.device = rank, size, device
+
+    @property
+    def group(self):
+        if self._ref is None:
+            return None
+        group = self._ref()
+        if group is None:
+            raise RuntimeError("the mesh's process group has been shut down")
+        return group
+
+    def __repr__(self):
+        group = "None" if self._ref is None else repr(self._ref())
+        return f"Mesh(group={group}, rank={self.rank}, size={self.size}, device={self.device!r})"
 
 
 def default_mesh(devices=None) -> Mesh:

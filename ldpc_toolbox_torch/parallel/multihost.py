@@ -14,6 +14,12 @@ Usage, one process a card (``torchrun --nproc-per-node N script.py``)::
     mesh = global_mesh()             # every rank; this rank's device
     BerTestBuilder(..., mesh=mesh, device=mesh.device,
                    batch_size=global_batch).build().run()
+    shutdown()                       # every rank, once the run is done
+
+``shutdown`` ends the process group while the interpreter still runs, so
+its threads are joined there: a group left to the interpreter's exit
+aborted one rank in 20 of a two-rank run (``std::terminate`` from its
+teardown), after the run's output was complete.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.distributed as dist
 
 from .mesh import default_mesh
 
-__all__ = ["global_mesh", "initialize"]
+__all__ = ["global_mesh", "initialize", "shutdown"]
 
 
 def initialize(**kwargs) -> None:
@@ -46,3 +52,12 @@ def initialize(**kwargs) -> None:
 def global_mesh():
     """The mesh over every rank of every host."""
     return default_mesh()
+
+
+def shutdown() -> None:
+    """End the process group ``initialize`` started, if any: its threads
+    (gloo's and the TCP store's) are joined before this returns. Meshes
+    hold the group weakly (``parallel.mesh``), so none keeps it alive;
+    a mesh's collectives raise afterwards."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

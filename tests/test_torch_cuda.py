@@ -57,6 +57,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
+from ldpc_toolbox_torch.sparse import SparseMatrix
 
 pytestmark = pytest.mark.cuda
 DECODERS = ["HLMinsumf32", "HLMinsumbf16", "HLNormminsumbf16"]
@@ -756,6 +757,89 @@ def test_f32_layered_partial_tile(cuda, decoder):
     """A batch of 130 (a partial tile) through the layered decoder's glue
     onto the f32 instances, resident (frame pairs) and streaming, against
     the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    ref = lifted_layered_decode(lg, arith, x.cpu(), 10)
+    for resident in (True, False):
+        out = lifted_layered_decode(lg, arith, x, 10, resident=resident)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key].cpu(), ref[key]), (resident, key)
+
+
+#: the f64 layered float names, whose resident layered kernel (TPU #1) and
+#: streaming sweep (#3) give a check lane's thread one frame of a lane at
+#: their own blocks; the check-degree buckets of the f64 flooding cases and
+#: 64, which a quasi-cyclic code of degree 40 reaches (MinstarApprox takes 32
+#: at most)
+F64_LAYERED = ["HLPhif64", "HLTanhf64", "HLMinstarapproxf64", "HLAminstarf64"]
+F64_LAYERED_BUCKETS = {**F64_BUCKETS, "QC 3x40 z=16": 64}
+
+
+def _qc_degree40():
+    """A quasi-cyclic code of 3 x 40 circulants of Z = 16, each a seeded
+    shift (every check of degree 40: bucket 64, which no standards code
+    reaches), and its (batch, sigma): 88 of 128 frames converge within 10
+    iterations."""
+    rng = np.random.default_rng(64)
+    z, rows, cols = 16, 3, 40
+    h = SparseMatrix(rows * z, cols * z)
+    for r in range(rows):
+        for c in range(cols):
+            s = int(rng.integers(z))
+            for i in range(z):
+                h.insert(r * z + i, c * z + (i + s) % z)
+    blocks = lambda j: (j // z, j % z)  # noqa: E731
+    return LiftedGraph.from_sparse(h, blocks, blocks, z, cols, rows), 128, 0.45
+
+
+def _f64_layered_case(code, decoder, device):
+    """Layered tiles of an f64 name on the codes of ``_f32_layered_case``,
+    or on the degree-40 quasi-cyclic code (bucket 64)."""
+    if code != "QC 3x40 z=16":
+        return _f32_layered_case(code, decoder, device)
+    lg, batch, sigma = _qc_degree40()
+    return tile_inputs(lg, make_arithmetic(decoder)[1], _llrs(lg.n, batch, sigma, 5, device))
+
+
+@pytest.mark.parametrize("decoder,code", [
+    (decoder, code) for code in F64_LAYERED_BUCKETS for decoder in F64_LAYERED
+    if not (decoder == "HLMinstarapproxf64" and F64_LAYERED_BUCKETS[code] > 32)
+])
+def test_f64_layered_units_match_plain_versions(cuda, code, decoder):
+    """The f64 instances of the resident layered kernel and of the streaming
+    sweep (one frame of a lane a thread in the check lanes) against the
+    plain versions on the card, bit for bit, at each degree bucket: a
+    decode, and two sweeps in place; launches counted on the float
+    wrappers."""
+    qv0, bits0, layout, rule = _f64_layered_case(code, decoder, cuda)
+    assert qv0.dtype == torch.float64
+    bucket = min(b for b in (8, 16, 32, 64) if b >= layout.max_chk_degree)
+    assert bucket == F64_LAYERED_BUCKETS[code]
+    before = resident_layered_decode_float.launches
+    out = resident_layered_decode(qv0, bits0, layout, rule, 10)
+    assert resident_layered_decode_float.launches == before + 1
+    for a, b in zip(out, resident_layered_decode_reference(qv0, bits0, layout, rule, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0
+    sweep = fused_layered_ops.fused_layered_iteration_float
+    rcv0 = torch.zeros((qv0.shape[0], layout.E, layout.Z, 4), dtype=torch.float64,
+                       device=cuda)
+    kernel, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+    before = sweep.launches
+    for _ in range(2):
+        out = fused_layered_iteration(*kernel, layout, rule)
+        ref = fused_layered_iteration_reference(*plain, layout, rule)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        kernel, plain = out[:2], ref[:2]
+    assert sweep.launches == before + 2
+
+
+@pytest.mark.parametrize("decoder", F64_LAYERED)
+def test_f64_layered_partial_tile(cuda, decoder):
+    """A batch of 130 (a partial tile) through the layered decoder's glue
+    onto the f64 instances, resident and streaming, against the CPU."""
     lg = _bg2z16()
     _, arith = make_arithmetic(decoder)
     x = _llrs(lg.n, 130, 1.3, 11, cuda)

@@ -24,7 +24,7 @@ from ldpc_toolbox_torch import gf2
 from ldpc_toolbox_torch.convert import layout_to_device
 from ldpc_toolbox_torch.decoder import lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
-from ldpc_toolbox_torch.ops import fused_bp2
+from ldpc_toolbox_torch.ops import fused_bp2, fused_layered, resident_layered
 from ldpc_toolbox_torch.ops.resident_compressed import shared_ints
 from ldpc_toolbox_torch.ops.resident_layered import (
     I8_LAYERED_THREADS,
@@ -222,27 +222,96 @@ def test_f64_flooding_units_match_the_wrappers():
         assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
 
 
-def test_f32_layered_units_match_the_wrappers():
-    """The resident layered kernel's check units (``csrc/float_rules.cuh``
-    FloatRule's LayeredUnits over ``csrc/lanes.cuh`` Units, read from the
-    source): the f32 float rules give a check lane's thread a frame pair of
-    a lane, so the flagship's check group of Z = 360 lanes takes three
-    passes, at Units' block, the lane kernels' that the wrappers pass
-    (``LANE_THREADS``; the kernel refuses a larger one), two blocks an SM at
-    128 registers; the f64 float rules and min-sum keep a lane's four
-    frames (the i8 rules': test_i8_units_match_the_wrappers)."""
+def _float_units(name):
+    """(frames, threads) a unit of FloatRule's ``name`` units (LayeredUnits
+    or SweepUnits) in f32 and in f64, read from ``csrc/float_rules.cuh``
+    over ``csrc/lanes.cuh`` Units (``Units<>``: a lane's four frames at
+    kThreads; ``LayeredUnits``: the precision's layered units)."""
     csrc = REPO / "ldpc_toolbox_torch" / "csrc"
-    units = re.search(r"using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, "
-                      r"Units<(\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
-    assert units, "FloatRule's LayeredUnits is not in csrc/float_rules.cuh"
-    frames = int(units[1])
-    assert frames == 2
     lanes = (csrc / "lanes.cuh").read_text()
     assert "template <int F = kBt, int Threads = kThreads>\nstruct Units {" in lanes
-    assert int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1]) == LANE_THREADS
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1])
+    line = re.search(rf"  using {name} = std::conditional_t<std::is_same_v<T, (float|double)>, "
+                     r"(Units<[\d, ]*>|LayeredUnits), (Units<[\d, ]*>|LayeredUnits)>;\n",
+                     (csrc / "float_rules.cuh").read_text())
+    assert line, f"FloatRule's {name} is not in csrc/float_rules.cuh"
+
+    def parse(units, f32):
+        if units == "LayeredUnits":
+            return _float_units("LayeredUnits")[0 if f32 else 1]
+        args = [int(a) for a in re.findall(r"\d+", units)]
+        return tuple(args + [fused_bp2.BT, threads][len(args):])
+
+    f32_first = line[1] == "float"
+    picked, other = parse(line[2], f32_first), parse(line[3], not f32_first)
+    return (picked, other) if f32_first else (other, picked)
+
+
+def _passes(frames, threads, z=360):
+    """Passes of a block over a flagship check group's units."""
+    return -(-z * fused_bp2.BT // (frames * threads))
+
+
+def test_f32_layered_units_match_the_wrappers():
+    """The f32 float rules' layered units (``csrc/float_rules.cuh``
+    FloatRule's LayeredUnits and SweepUnits, read from the source): the
+    resident layered kernel gives a check lane's thread a frame pair of a
+    lane, so the flagship's check group of Z = 360 lanes takes three
+    passes, at the block the wrappers pass (``LANE_THREADS``; the kernel
+    refuses a larger one), two blocks an SM at 128 registers; the streaming
+    sweep keeps a lane's four frames at that block, as min-sum does in both
+    (the i8 rules': test_i8_units_match_the_wrappers; f64:
+    test_f64_layered_units_match_the_wrappers)."""
+    csrc = REPO / "ldpc_toolbox_torch" / "csrc"
+    layered, sweep = _float_units("LayeredUnits")[0], _float_units("SweepUnits")[0]
+    assert layered == (2, LANE_THREADS)
+    assert sweep == (fused_bp2.BT, LANE_THREADS)
     assert 65536 // (2 * LANE_THREADS) == 128
-    assert -(-360 * fused_bp2.BT // (frames * LANE_THREADS)) == 3
+    assert _passes(*layered) == 3 and _passes(*sweep) == 2
+    rule = fused_bp2.rule_for(make_arithmetic("HLPhif32")[1])
+    assert resident_layered.float_layered_threads(rule) == LANE_THREADS
+    assert fused_layered.sweep_threads(rule) == LANE_THREADS
     assert "  using LayeredUnits = Units<>;\n" in (csrc / "message_kernels.cuh").read_text()
+    for name in ("HLMinsumbf16", "HLMinstarapproxi8"):
+        rule = fused_bp2.rule_for(make_arithmetic(name)[1])
+        assert fused_layered.sweep_threads(rule) == LANE_THREADS, name
+    # min-sum's and the i8 rules' sweeps take a lane's four frames; the
+    # sweep's launch bounds and launch check are its rule's SweepUnits'
+    for header in ("message_kernels.cuh", "i8.cuh"):
+        assert "  using SweepUnits = Units<>;\n" in (csrc / header).read_text(), header
+    streaming = (csrc / "streaming.cuh").read_text()
+    assert "__launch_bounds__(Rule::SweepUnits::kBlock, 2) fused_layered_kernel(" in streaming
+    assert "if (threads > Rule::SweepUnits::kBlock) return cudaErrorInvalidValue;" in streaming
+
+
+def test_f64_layered_units_match_the_wrappers():
+    """The f64 float rules' layered units (``csrc/float_rules.cuh``
+    FloatRule's LayeredUnits and SweepUnits, read from the source): both
+    the resident layered kernel (TPU #1) and the streaming sweep (#3) give a
+    check lane's thread a frame pair of a lane at the block the wrappers
+    pass them (``F64_LAYERED_THREADS``: 384; the sweep's units are the
+    resident kernel's), two blocks an SM at 85 registers at most, so the
+    flagship's check group of 720 units takes two passes, the last 336
+    wide; each kernel refuses a larger block (its launch check is the
+    unit's)."""
+    csrc = REPO / "ldpc_toolbox_torch" / "csrc"
+    layered, sweep = _float_units("LayeredUnits")[1], _float_units("SweepUnits")[1]
+    assert layered == (2, resident_layered.F64_LAYERED_THREADS) == (2, 384)
+    assert sweep == layered
+    assert 65536 // (2 * 384) == 85
+    assert _passes(*layered) == _passes(*sweep) == 2
+    assert 360 * fused_bp2.BT // 2 - 384 == 336  # the last pass's width
+    rule = fused_bp2.rule_for(make_arithmetic("HLPhif64")[1])
+    assert resident_layered.float_layered_threads(rule) == resident_layered.F64_LAYERED_THREADS
+    assert fused_layered.sweep_threads(rule) == resident_layered.F64_LAYERED_THREADS
+    messages = (csrc / "message_kernels.cuh").read_text()
+    assert "__launch_bounds__(Rule::LayeredUnits::kBlock, 2) resident_layered_kernel(" in messages
+    assert "if (threads > Rule::LayeredUnits::kBlock) return cudaErrorInvalidValue;" in messages
+    # every f64 name's layered units are the same: the rule's precision picks them
+    for name in ("HLTanhf64", "HLMinstarapproxf64", "HLAminstarf64"):
+        r = fused_bp2.rule_for(make_arithmetic(name)[1])
+        assert resident_layered.float_layered_threads(r) == 384, name
+        assert fused_layered.sweep_threads(r) == 384, name
 
 
 def test_i8_units_match_the_wrappers():

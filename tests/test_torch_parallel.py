@@ -10,7 +10,9 @@ z=16 ``HLMinsumf32`` decode, equal to the unsharded step's; and a two-point
 sweep under the stop rule, crashed after point 0, resumed from each rank's
 own checkpoint, reported on rank 0 only, whose statistics equal a
 single-process run's. A fourth: a clock that only rank 1 reads past
-``max_time`` ends both ranks at the same step. In one process ``--shard``
+``max_time`` ends both ranks at the same step. Then each rank ends its
+group through ``multihost.shutdown`` and exits 0; ``ber --shard`` over two
+processes does the same. In one process ``--shard``
 is a mesh of one and prints the deterministic columns of a run without
 it; ``--no-lifted`` decodes a standards code as its alist does."""
 
@@ -40,7 +42,7 @@ pid, port, ckpt_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 import torch
 torch.set_num_threads(1)
 
-from ldpc_toolbox_torch.parallel.multihost import global_mesh, initialize
+from ldpc_toolbox_torch.parallel.multihost import global_mesh, initialize, shutdown
 
 initialize(init_method=f"tcp://localhost:{port}", world_size=2, rank=pid)
 mesh = global_mesh()
@@ -156,6 +158,15 @@ kw = dict(h=h, decoder_implementation="Phif32", ebn0s_db=[1.0], max_frame_errors
           device="cpu")
 (s,) = BerTestBuilder(**kw).build().run()
 say("CLOCK", s.num_frames)
+
+# the group ends here, its threads joined, though meshes remain
+shutdown()
+try:
+    mesh.group
+    raise SystemExit("the mesh kept its process group")
+except RuntimeError:
+    pass
+print("SHUTDOWN ok", flush=True)
 """
 
 
@@ -220,6 +231,13 @@ def test_one_rank_clock_stops_both_ranks(workers):
     assert a == b and 8 <= a < 10**6
 
 
+def test_shutdown_ends_the_group(workers):
+    """``multihost.shutdown`` ended each rank's group, which no mesh kept
+    alive, and both ranks then exited 0 (the fixture's assertion)."""
+    for out in workers:
+        assert "SHUTDOWN ok" in out
+
+
 def test_mesh_of_one_and_batch_split():
     mesh = default_mesh("cpu")
     assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
@@ -244,6 +262,39 @@ def _rows(args, tmp_path):
     rows = [r.split("|")[:-2] for r in out.read_text().splitlines()[2:]]
     assert [float(r[0]) for r in rows] == [0.0, 1.0]
     return rows
+
+
+def test_two_rank_ber_cli_exits_cleanly(tmp_path):
+    """``python -m ldpc_toolbox_torch ber ... --shard`` in two processes
+    (gloo, the CPU, torchrun's environment variables by hand): both ranks
+    exit 0, through ``multihost.shutdown``, and rank 0's rows are a
+    single-process run's deterministic columns."""
+    alist = str(REPO / "results/mn_512_1024_sys.alist")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "sharded.txt"
+    args = [sys.executable, "-m", "ldpc_toolbox_torch", "ber", alist, "--shard",
+            "--device", "cpu", "--min-ebn0", "0", "--max-ebn0", "1", "--step-ebn0", "1",
+            "--max-iter", "10", "--frame-errors", "40", "--batch-size", "64",
+            "--decoder", "HLMinsumbf16", "--output-file", str(out)]
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
+           "WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    procs = [
+        subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=tmp_path)
+        for r in range(2)
+    ]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (stdout, err) in zip(procs, results):
+        assert p.returncode == 0, err[-4000:]
+    assert results[0][0].startswith(cli._BER_HEADER) and results[1][0] == ""
+    rows = [r.split("|")[:-2] for r in out.read_text().splitlines()[2:]]
+    assert rows == _rows([alist], tmp_path)
 
 
 def test_shard_on_a_mesh_of_one(tmp_path, capsys):

@@ -15,10 +15,11 @@ includes), built here with the package's nvcc flags; "repo" is the package's
 own ``csrc/``, built into the package's ``build/`` as its wrappers build it.
 ``--form`` forms share the package's C interface and run at the package's
 block sizes, or at THREADS a block where given (every lane kernel of the
-form, the f32 float rules' layered frame pairs and the i8 instances among
-them: a form of before the f64 float rules' (lane, frame) units runs its
+form, the float rules' layered frame pairs, the f64 sweep's and the i8
+instances among them: a form of before the f64 float rules' (lane, frame) units runs its
 f64 flooding kernels at 256, and so does a form of before the i8 rules'
-blocks of 512 and 384 run its i8 kernels). ``--base`` names a directory holding the sources
+blocks of 512 and 384 run its i8 kernels, or one of before the f64 layered
+frame pairs of 384 its f64 layered kernels and sweep). ``--base`` names a directory holding the sources
 of commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
 compressed, flooding and resident_layered and ``layered.cuh``), whose
 message kernels give a thread one (lane, frame); they run as they ran there:
@@ -183,6 +184,7 @@ def with_lib(module, getter, lib, threads, fn, *args):
     if threads is not None:
         patches += [(m, name, threads) for m, name in (
             (module, "LANE_THREADS"), (module, "I8_LAYERED_THREADS"),
+            (module, "F64_LAYERED_THREADS"),
             (fused_bp2, "PHASE_THREADS"), (fused_bp2, "F64_UNIT_THREADS"),
             (fused_bp2, "I8_FLOODING_THREADS")) if hasattr(m, name)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
