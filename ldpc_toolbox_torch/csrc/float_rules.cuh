@@ -40,6 +40,26 @@
 // phase runs near the rate at which the card evaluates phi alone
 // (tools/count_math_ops.py --rate).
 //
+// The f32 instances of the flooding kernels give the check lanes of the
+// resident kernel (TPU #4/#5) and of the check phase (#7) a thread a frame
+// pair of a lane at 384 threads, two blocks an SM at 80 registers
+// (FloodUnits), with the rule's loops rolled (kRuleUnroll); the variable
+// phase (#8, VarUnits) keeps a lane's four frames at 256, and so does the
+// resident kernel's variable phase, at its block of 384 with chunks of 4
+// c2v (lanes.cuh kVarChunkOf). A lane's four frames at 256 and 128
+// registers, the rule's loops unrolled, spilled 464 bytes in the resident
+// kernel at bucket 8; doubling the warps an SM (one frame at 512) sped
+// the check phase 4 %, so the f32 phase is not held by latency: it runs
+// near the issue rate of its phis' instructions (177.8 G phis/s, above
+// the 156.2 G of one dependent chain a thread, tools/count_math_ops.py
+// --rate), and the thread map mostly moves the resident kernel's spills.
+// In turns on the flagship (tools/compare_forms.py, Phif32): the resident
+// decode 102.9 ms and a check phase 2.391 ms against 131.6 and 2.623;
+// fewer frames in the variable phase slowed it 9-48 %; one frame at 512 or
+// 256, the pair at 256 or 512 and a lane's four frames at 384 ran the
+// resident decode 4-15 % slower, one log behind a branch in phi (a warp
+// holds both sides of t = 1/2) 0-5 % slower.
+//
 // The f64 instances of the layered kernels, the resident one (TPU #1,
 // LayeredUnits) and the streaming sweep (#3, SweepUnits), give a check
 // lane's thread a frame pair of a lane at 384 threads, two blocks an SM at
@@ -226,17 +246,22 @@ struct Signs {
 // them (rolled, 1576 instructions: the flagship's f64 check phase, the
 // resident flooding and layered decodes 12-16 % faster, in turns on the
 // card; tools/compare_forms.py). Rolled in f32 too, the degree-8 layered
-// instances ran 8 % slower and the flooding check phase 2 % slower (in
-// turns on the card): unlike f64's, the f32 routines fit the caches.
-template <int DMAX, typename T>
-constexpr int kRuleUnroll = DMAX <= 16 && !std::is_same_v<T, double> ? DMAX : 1;
+// instances ran 8 % slower and the flooding check phase at 128 registers 2 %
+// slower (in turns on the card): unlike f64's, the f32 routines fit the
+// caches. A unit whose block leaves fewer than 128 registers (above
+// kThreads: the f32 flooding units, U) keeps them rolled in f32 too:
+// unrolled, the resident flooding kernel at 80 registers spilled 416 bytes
+// against 196 and ran 5 % slower.
+template <int DMAX, typename T, class U = Units<>>
+constexpr int kRuleUnroll =
+    DMAX <= 16 && !std::is_same_v<T, double> && U::kBlock <= kThreads ? DMAX : 1;
 
 // The check outputs of one frame under RULE, in place: x[k] (k < d) holds
-// slot k's input on entry and its output on exit.
-template <int DMAX, typename T, int RULE>
+// slot k's input on entry and its output on exit; Unit the kernel's unit.
+template <int DMAX, typename T, int RULE, class Unit>
 __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
                                            const FloatParams<T>& p) {
-  constexpr int U = kRuleUnroll<DMAX, T>;
+  constexpr int U = kRuleUnroll<DMAX, T, Unit>;
   if constexpr (RULE == kPhiRule) {
     // the sum of the phis, each output phi(sum - own phi)
     const Signs<DMAX> s(x, d);
@@ -351,9 +376,9 @@ __device__ __forceinline__ void rule_check(T (&x)[DMAX], int d,
 
 // The check outputs of a lane's frames under RULE, in place: x[k] (k < d)
 // holds slot k's F inputs (a lane's four, Four<T>, or a unit's, Frames<T,
-// F>) on entry and its outputs on exit. A rolled loop over the frames (see
-// the head of this file).
-template <int DMAX, typename T, int RULE, class V>
+// F>, U's) on entry and its outputs on exit. A rolled loop over the frames
+// (see the head of this file).
+template <int DMAX, typename T, int RULE, class U, class V>
 __device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatParams<T>& p) {
   constexpr int F = sizeof(x[0].v) / sizeof(T);
 #pragma unroll 1
@@ -362,7 +387,7 @@ __device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatPara
 #pragma unroll
     for (int k = 0; k < DMAX; ++k)
       if (k < d) v[k] = x[k].v[0];
-    rule_check<DMAX, T, RULE>(v, d, p);
+    rule_check<DMAX, T, RULE, U>(v, d, p);
 #pragma unroll
     for (int k = 0; k < DMAX; ++k) {
       if (k < d) {
@@ -376,24 +401,26 @@ __device__ __forceinline__ void float_check(V (&x)[DMAX], int d, const FloatPara
 
 // The float rule RULE in T, for csrc/message_kernels.cuh: posteriors,
 // messages and deltas in T; x = Qv - Rold, one rounding; the rule's
-// parameters from FloatParams; the flooding kernels' unit a lane's four
-// frames in f32, one frame in f64; the resident layered kernel's check
-// lanes' a frame pair in both (at 256 threads in f32, 384 in f64); the
-// streaming sweep's a lane's four frames in f32, a frame pair at 384
-// threads in f64 (see the head of this file).
+// parameters from FloatParams; the flooding kernels' check unit a frame
+// pair at 384 threads in f32, one frame at 512 in f64, their variable
+// unit a lane's four frames at 256 in f32, the check unit in f64; the
+// resident layered kernel's check lanes' a frame pair in both (at 256
+// threads in f32, 384 in f64); the streaming sweep's a lane's four frames
+// in f32, a frame pair at 384 threads in f64 (see the head of this file).
 template <typename T, int RULE>
 struct FloatRule : FloatParams<T> {
   using Q = T;
   using Msg = T;
   using P = T;
-  using FloodUnits = std::conditional_t<std::is_same_v<T, double>, Units<1, 512>, Units<>>;
+  using FloodUnits = std::conditional_t<std::is_same_v<T, double>, Units<1, 512>, Units<2, 384>>;
+  using VarUnits = std::conditional_t<std::is_same_v<T, double>, FloodUnits, Units<>>;
   using LayeredUnits = std::conditional_t<std::is_same_v<T, float>, Units<2>, Units<2, 384>>;
   using SweepUnits = std::conditional_t<std::is_same_v<T, double>, LayeredUnits, Units<>>;
 
   __device__ __forceinline__ T extrinsic(T q, T rold) const { return sub_rn(q, rold); }
   __device__ __forceinline__ T diff(T rn, T rold) const { return sub_rn(rn, rold); }
 
-  template <int DMAX>
+  template <int DMAX, class U = Units<>>
   struct Check {
     FloatParams<T> p;
 
@@ -404,17 +431,17 @@ struct FloatRule : FloatParams<T> {
     __device__ __forceinline__ void set(int, const V&) {}
     template <class V, class Emit>
     __device__ __forceinline__ void outputs(V (&x)[DMAX], int d, Emit&& emit) {
-      float_check<DMAX, T, RULE>(x, d, p);
+      float_check<DMAX, T, RULE, U>(x, d, p);
 #pragma unroll
       for (int k = 0; k < DMAX; ++k)
         if (k < d) emit(k, x[k]);
     }
   };
 
-  template <class Cells, int F>
+  template <class Cells, int F, int C>
   __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
                                              int p0, int p1, int w,
-                                             const VarLoads<T, F>& v) const {
+                                             const VarLoads<T, F, C>& v) const {
     ldpc::var_update(cells, post, p0, p1, w, v);
   }
 };

@@ -10,7 +10,8 @@
 // tables (see Tables in layered.cuh), the tile shape (Bt must be 4), the
 // largest check degree (at most 64, 32 for MinstarApprox), kind (0 Phi, 1
 // Tanh, 2 MinstarApprox, 3 Aminstar), big the missing-lane poke and
-// Tanh's clamp and prod_max; threads is at most 256. msg (nbt, E, Z, 4)
+// Tanh's clamp and prod_max; threads is at most 512 (one frame of a lane a
+// thread; FloatRule's FloodUnits). msg (nbt, E, Z, 4)
 // and post (nbt, VG, Z, 4) int8 scratch; q (nbt, VG, Z, 4) channel
 // values; bits (nbt, VG, Z, 4) int8 raw-channel bits in, decoded bits
 // out; iters and conv (nbt, 4) int32 out. Returns the launch's
@@ -29,7 +30,8 @@ extern "C" int ldpc_resident_flooding_float_decode(
 // int32 tables of csrc/flooding.cu (an array of device pointers), the tile
 // shape (Bt must be 4), kind (0 Phi, 1 Tanh, 2 MinstarApprox, 3 Aminstar),
 // big the missing-lane poke and Tanh's clamp and prod_max; threads is at
-// most 256. Each returns the launch's cudaError_t.
+// most 512 (one frame of a lane a thread; FloodUnits and VarUnits). Each
+// returns the launch's cudaError_t.
 
 // c2v (nbt, E, Z, 4) from v2c (nbt, E, Z, 4); max_degree the largest check
 // degree (at most 64, 32 for MinstarApprox).

@@ -327,6 +327,7 @@ struct I8Rule {
   using Msg = int8_t;
   using P = int;
   using FloodUnits = Units<kBt, 512>;
+  using VarUnits = FloodUnits;
   using LayeredUnits = Units<kBt, 384>;
   using SweepUnits = Units<>;
   static constexpr bool kWords = true;

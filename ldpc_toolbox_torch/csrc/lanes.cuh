@@ -27,11 +27,12 @@
 //
 // A rule may give a thread less than a lane's four frames (Units): the f64
 // float rules in the flooding kernels and in both layered kernels, the f32
-// float rules in the resident layered kernel. The layered sweep then walks
-// (lane, unit) pairs of a check group with a lane's units on neighbouring
-// threads, each unit loading and storing its frames of the lane's cells;
-// the park update, the syndrome and the hard decisions keep a thread per
-// lane.
+// float rules in the resident layered kernel and in the flooding kernels'
+// check lanes (resident and check phase; their variable lanes keep a
+// lane's four frames). The layered sweep then walks (lane, unit) pairs of
+// a check group with a lane's units on neighbouring threads, each unit
+// loading and storing its frames of the lane's cells; the park update, the
+// syndrome and the hard decisions keep a thread per lane.
 
 #pragma once
 
@@ -57,18 +58,21 @@ using D4 = Four<double>;
 
 // How a kernel gives its threads work under a rule: the flooding kernels
 // (csrc/message_kernels.cuh resident_flooding_kernel, csrc/streaming.cuh
-// fused_check_kernel and fused_var_kernel) by the rule's FloodUnits, the
-// resident layered kernel's check lanes (layered_sweep4 in
-// resident_layered_kernel) by its LayeredUnits, the streaming sweep's
-// (csrc/streaming.cuh fused_layered_kernel) by its SweepUnits: a thread per
-// unit of F of a lane's four frames, kPerLane units a lane, the units of a
-// lane on neighbouring threads (frames innermost, so they read its cells
-// together), Threads threads a block and two blocks an SM (the launch
-// bounds: 65536 / (2 * Threads) registers a thread). Every rule takes a
-// lane's four frames at kThreads (128 registers) but the f64 float rules'
-// flooding units (one frame at 512), the float rules' layered units (a
-// frame pair: at 256 in f32, at 384 in f64, whose sweep takes them too)
-// and the i8 rules' blocks (csrc/float_rules.cuh, csrc/i8.cuh).
+// fused_check_kernel) by the rule's FloodUnits, their variable lanes
+// (fused_var_kernel, and the resident kernel's variable phase at the
+// FloodUnits' block) by its VarUnits, the resident layered kernel's check
+// lanes (layered_sweep4 in resident_layered_kernel) by its LayeredUnits,
+// the streaming sweep's (csrc/streaming.cuh fused_layered_kernel) by its
+// SweepUnits: a thread per unit of F of a lane's four frames, kPerLane
+// units a lane, the units of a lane on neighbouring threads (frames
+// innermost, so they read its cells together), Threads threads a block and
+// two blocks an SM (the launch bounds: 65536 / (2 * Threads) registers a
+// thread). Every rule takes a lane's four frames at kThreads (128
+// registers) but the float rules' flooding units (a frame pair at 384 in
+// f32, one frame at 512 in f64, whose variable units they are too), the
+// float rules' layered units (a frame pair: at 256 in f32, at 384 in f64,
+// whose sweep takes them too) and the i8 rules' blocks
+// (csrc/float_rules.cuh, csrc/i8.cuh).
 template <int F = kBt, int Threads = kThreads>
 struct Units {
   static_assert(kBt % F == 0, "a unit is a whole share of a lane's frames");
@@ -360,15 +364,20 @@ __device__ __forceinline__ int minus_mod(int r, int rot, int Z) {
   return w < 0 ? w + Z : w;
 }
 
-// Edges of a flooding variable unit of F frames whose loads go out
-// together: 8 for a lane's four frames; 4 for an f64 unit of fewer, whose
-// next unit's prefetch then fits 64 registers (in turns on the card, the
-// flagship's f64 variable phase 25 % faster than with 8, which spilled),
-// and 4 for int8 messages, whose kernels run 512 threads at 64 registers
-// too (the flagship's i8 decode 11 % faster than with 8, which spilled).
+// Edges of a flooding variable unit of F frames in a block of Threads whose
+// loads go out together: 8 for a lane's four frames at kThreads (128
+// registers); 4 for an f64 unit of fewer, whose next unit's prefetch then
+// fits 64 registers (in turns on the card, the flagship's f64 variable
+// phase 25 % faster than with 8, which spilled), 4 for int8 messages,
+// whose kernels run 512 threads at 64 registers too (the flagship's i8
+// decode 11 % faster than with 8, which spilled), and 4 for a lane's four
+// f32 frames in the f32 float rules' resident flooding kernel, whose block
+// of 384 leaves 80 registers (the flagship's `Phif32` decode 24 % faster
+// than with 8, which spilled 860 bytes).
 constexpr int kVarChunk = 8;
-template <int F, typename Msg = float>
-constexpr int kVarChunkOf = F == kBt && !std::is_same_v<Msg, int8_t> ? kVarChunk : 4;
+template <int F, typename Msg, int Threads = kThreads>
+constexpr int kVarChunkOf =
+    F == kBt && !std::is_same_v<Msg, int8_t> && Threads <= kThreads ? kVarChunk : 4;
 
 // The resident flooding kernels keep one message array in check-major
 // cells. The cell of var-major edge p at variable lane w: its message lives
@@ -401,46 +410,47 @@ struct ArrayCells {
 };
 
 // What a flooding variable unit of F frames loads first: q and the c2v of
-// its first kVarChunkOf<F> edges.
-template <typename Msg, int F = kBt>
+// its first Chunk edges (kVarChunkOf its block's).
+template <typename Msg, int F = kBt, int Chunk = kVarChunkOf<F, Msg>>
 struct VarLoads {
   UnitRaw<Msg, F> q;
-  UnitRaw<Msg, F> y0[kVarChunkOf<F, Msg>];
+  UnitRaw<Msg, F> y0[Chunk];
 };
 
 // The first loads of variable lane w of group vg, whose edges are p0..p1
 // (cells and q those of the unit's first frame).
-template <int F, typename Msg, class Cells>
+template <int F, typename Msg, class Cells, int C>
 __device__ __forceinline__ void var_load(const Cells& cells, const Msg* q, int Z,
                                          int vg, int w, int p0, int p1,
-                                         VarLoads<Msg, F>& v) {
+                                         VarLoads<Msg, F, C>& v) {
   v.q = load_unit<F>(q + ((size_t)vg * Z + w) * kBt);
 #pragma unroll
-  for (int j = 0; j < kVarChunkOf<F, Msg>; ++j)
+  for (int j = 0; j < C; ++j)
     if (p0 + j < p1) v.y0[j] = load_unit<F>(cells.in(p0 + j, w));
 }
 
 // A flooding variable phase over the units r0, r0 + stride, ... of a tile's
-// vn variable lanes, F frames a unit (Units; var_cs ends with E), each
-// thread issuing its next unit's loads before this unit's stores (in a
-// phase each cell belongs to one lane, so no load can miss a store):
-// update(vg, w, f0, loads) updates the unit of lane w of group vg whose
-// first frame is f0.
-template <int F, typename Msg, class Cells, class Update>
+// vn variable lanes, F frames a unit in a block of Threads (Units; var_cs
+// ends with E), each thread issuing its next unit's loads before this
+// unit's stores (in a phase each cell belongs to one lane, so no load can
+// miss a store): update(vg, w, f0, loads) updates the unit of lane w of
+// group vg whose first frame is f0.
+template <int F, int Threads, typename Msg, class Cells, class Update>
 __device__ __forceinline__ void var_phase(const Cells& cells, const Msg* q,
                                           const int* var_cs, int vn, int Z,
                                           int r0, int stride, Update&& update) {
+  using Loads = VarLoads<Msg, F, kVarChunkOf<F, Msg, Threads>>;
   constexpr int U = kBt / F;
   const int n = vn * U;
-  auto load = [&](int r, VarLoads<Msg, F>& v) {
+  auto load = [&](int r, Loads& v) {
     const int lane = r / U, f0 = r % U * F, vg = lane / Z;
     var_load<F>(cells.at(f0), q + f0, Z, vg, lane % Z, var_cs[vg], var_cs[vg + 1], v);
   };
-  VarLoads<Msg, F> v;
+  Loads v;
   int r = r0;
   if (r < n) load(r, v);
   for (; r < n; r += stride) {
-    VarLoads<Msg, F> next;
+    Loads next;
     const int rn = r + stride;
     if (rn < n) load(rn, next);
     const int lane = r / U;
@@ -455,13 +465,13 @@ __device__ __forceinline__ void var_phase(const Cells& cells, const Msg* q,
 // (add_rn); output k = store(tot - y_k) (sub_rn) goes to the cells as v2c,
 // and the hard decisions tot <= 0 to the unit's bytes of the lane's word
 // at post. The first chunk's c2v stay in registers through the outputs; a
-// lane of more than kVarChunkOf<F> edges reads its later chunks again. Computed
-// in f32 for f32 and bf16 messages, in f64 for f64 ones.
-template <typename Msg, int F, class Cells>
+// lane of more than C edges reads its later chunks again. Computed in f32
+// for f32 and bf16 messages, in f64 for f64 ones.
+template <typename Msg, int F, int C, class Cells>
 __device__ __forceinline__ void var_update(const Cells& cells, int8_t* post,
                                            int p0, int p1, int w,
-                                           const VarLoads<Msg, F>& v) {
-  constexpr int kChunk = kVarChunkOf<F>;
+                                           const VarLoads<Msg, F, C>& v) {
+  constexpr int kChunk = C;
   auto tot = unpack(v.q);
 #pragma unroll
   for (int j = 0; j < kChunk; ++j) {

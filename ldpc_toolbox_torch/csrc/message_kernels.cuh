@@ -22,8 +22,9 @@
 //   of the flooding channel values) and of the layered park's deltas;
 // - big, the missing lane's input, and extrinsic(q, rold) and diff(rn,
 //   rold), one frame's layered x = Qv - Rold and delta Rnew - Rold;
-// - Check<DMAX>, made from the rule, over the lane's array x of the d
-//   slots' inputs (four frames each): set(k, x[k]) as slot k's input is
+// - Check<DMAX, U>, made from the rule, over the array x of the d slots'
+//   inputs of a unit U (a lane's four frames or U's; the float rules'
+//   loops roll by U's registers): set(k, x[k]) as slot k's input is
 //   ready (k = 0, 1, ... in order; min-sum and i8 fold it at once), then
 //   outputs(x, d, emit) calls emit(k, o) with slot k's four outputs for
 //   k = 0 .. d - 1 in order (the float rules fold x there, in place);
@@ -36,13 +37,15 @@
 //   lane's four int8 inputs as one word, set(k, word) for k = 0, 1, ...
 //   in order, then outputs(d, emit) calls emit(k, word) with slot k's four
 //   outputs as one word; bigs is the missing lane's input word;
-// - FloodUnits, LayeredUnits and SweepUnits, the work unit and block of
-//   the flooding kernels, of the resident layered kernel's check lanes and
-//   of the streaming sweep's (csrc/streaming.cuh; lanes.cuh Units): a
-//   lane's four frames at kThreads but for the f64 float rules' flooding,
-//   layered and sweep units, the f32 float rules' layered units and the i8
-//   rules' flooding and layered blocks; a Check then folds a unit's frames
-//   (outputs(x, d, emit) over the unit's values).
+// - FloodUnits, VarUnits, LayeredUnits and SweepUnits, the work unit and
+//   block of the flooding kernels' check lanes, of their variable lanes, of
+//   the resident layered kernel's check lanes and of the streaming sweep's
+//   (csrc/streaming.cuh; lanes.cuh Units): a lane's four frames at kThreads
+//   but for the float rules' flooding units (f64 and f32: their check
+//   lanes; f64: their variable lanes too), the float rules' layered and
+//   the f64 ones' sweep units and the i8 rules' flooding and layered
+//   blocks; a Check then folds a unit's frames (outputs(x, d, emit) over
+//   the unit's values).
 //
 // Semantics, every rule (the JAX package's jnp paths and Pallas kernels):
 // layered: every x of a check group from the layer-entry Qv, big at the
@@ -71,6 +74,7 @@ struct MinSumRule {
   using Msg = MsgT;
   using P = float;
   using FloodUnits = Units<>;
+  using VarUnits = Units<>;
   using LayeredUnits = Units<>;
   using SweepUnits = Units<>;
   float big, scale;
@@ -82,7 +86,7 @@ struct MinSumRule {
     return __fsub_rn(rn, rold);
   }
 
-  template <int DMAX>
+  template <int DMAX, class U = Units<>>
   struct Check {
     Fold<DMAX> fold;
     float scale;
@@ -244,7 +248,7 @@ __device__ __forceinline__ void layered_check_lane(
         r[k] = load_unit<F>(rcv + ((size_t)e * Z + c) * kBt);
       }
     }
-    typename Rule::template Check<DMAX> check(rule);
+    typename Rule::template Check<DMAX, U> check(rule);
     V own[DMAX];
     auto& x = input_array(q, own);
 #pragma unroll
@@ -332,12 +336,12 @@ cudaError_t layered_launch(const Rule& rule, void* qv, void* rcv, void* bits,
 
 // Check update of a unit of check lane c of a flooding check group whose d
 // edges are e0..e0+d (Rule::FloodUnits: F frames from v2c's first, a
-// lane's four or one f64 frame): folds its d v2c, read from its cells (e,
-// c) of v2c (check-major, check lane coordinates; big at the missing lane
-// syn_mask[e], whatever the cell holds), and calls out(e, o) with each
-// edge's F c2v, 0 at the missing lane. The resident kernel writes them back
-// to the same cells, the streaming check phase (csrc/streaming.cuh) to the
-// var-major c2v planes.
+// lane's four, an f32 frame pair or one f64 frame): folds its d v2c, read
+// from its cells (e, c) of v2c (check-major, check lane coordinates; big
+// at the missing lane syn_mask[e], whatever the cell holds), and calls
+// out(e, o) with each edge's F c2v, 0 at the missing lane. The resident
+// kernel writes them back to the same cells, the streaming check phase
+// (csrc/streaming.cuh) to the var-major c2v planes.
 template <int DMAX, class Rule, class Out>
 __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
                                                const int* syn_mask, int Z,
@@ -366,7 +370,7 @@ __device__ __forceinline__ void flooding_check(const typename Rule::Msg* v2c,
 #pragma unroll
     for (int k = 0; k < DMAX; ++k)
       if (k < d) raw[k] = load_unit<F>(v2c + ((size_t)(e0 + k) * Z + c) * kBt);
-    typename Rule::template Check<DMAX> check(rule);
+    typename Rule::template Check<DMAX, typename Rule::FloodUnits> check(rule);
     V own[DMAX];
     auto& x = input_array(raw, own);
 #pragma unroll
@@ -410,7 +414,8 @@ __device__ __forceinline__ void flooding_check_lane(typename Rule::Msg* msg,
 // aliased single array of resident_flooding.py's TPU kernel); q (VG, Z, 4)
 // the channel values; post (VG, Z, 4) int8 the posterior hard decisions;
 // bits the raw-channel bits on entry and the decoded bits on exit. The
-// phases give a thread a unit of Rule::FloodUnits (lanes.cuh Units).
+// check phase gives a thread a unit of Rule::FloodUnits, the variable
+// phase one of Rule::VarUnits, at the FloodUnits' block (lanes.cuh Units).
 template <int DMAX, class Rule>
 __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) resident_flooding_kernel(
     typename Rule::Msg* msg_all, const typename Rule::Msg* q_all,
@@ -445,12 +450,12 @@ __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) resident_flooding
         }
         __syncthreads();
         const ArrayCells<Msg> cells{msg, lt};
-        var_phase<U::kFrames>(cells, q, lt.var_cs, vn, Z, threadIdx.x, blockDim.x,
-                              [&](int vg, int w, int f0, const auto& v) {
-                                rule.var_update(cells.at(f0),
-                                                post + ((size_t)vg * Z + w) * kBt + f0,
-                                                lt.var_cs[vg], lt.var_cs[vg + 1], w, v);
-                              });
+        var_phase<Rule::VarUnits::kFrames, U::kBlock>(
+            cells, q, lt.var_cs, vn, Z, threadIdx.x, blockDim.x,
+            [&](int vg, int w, int f0, const auto& v) {
+              rule.var_update(cells.at(f0), post + ((size_t)vg * Z + w) * kBt + f0,
+                              lt.var_cs[vg], lt.var_cs[vg + 1], w, v);
+            });
         __syncthreads();
         syndrome4<DMAX>(post, lt, bad);
       });

@@ -34,8 +34,9 @@
 // csrc/lanes.cuh): a thread per lane of a tile's four frames, so a lane's
 // values move as one 4- to 32-byte vector and each table load and mod-Z
 // index is done once a lane (the f64 float rules' phases a thread per
-// (lane, frame) and their sweep a thread per frame pair of a lane, whose
-// rule is their cost: csrc/float_rules.cuh); the
+// (lane, frame) and their sweep a thread per frame pair of a lane, the f32
+// ones' check phase a thread per frame pair, whose rule is their cost:
+// csrc/float_rules.cuh); the
 // check lane's loads unrolled to the degree bucket, all issued before its
 // rule; the variable lane issuing its next
 // lane's loads before this lane's stores; the tables in shared memory. The
@@ -181,12 +182,12 @@ __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_check_kerne
 }
 
 // Variable phase of a tile's variable lanes (blockIdx.y the tile), a unit
-// of Rule::FloodUnits a thread: the rule's variable update (lanes.cuh
+// of Rule::VarUnits a thread: the rule's variable update (lanes.cuh
 // var_update, i8.cuh i8_var_update) through PhaseCells, the hard bits tot
 // <= 0 to bits. c2v_all null runs the initialisation, a lane a thread:
 // every output is q (no rule clips), the hard bits q <= 0.
 template <class Rule>
-__global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_var_kernel(
+__global__ void __launch_bounds__(Rule::VarUnits::kBlock, 2) fused_var_kernel(
     const typename Rule::Msg* c2v_all, const typename Rule::Msg* q_all,
     typename Rule::Msg* v2c_all, int8_t* bits_all, FloodingTables t, Rule rule) {
   using Msg = typename Rule::Msg;
@@ -210,7 +211,7 @@ __global__ void __launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_var_kernel(
     }
     return;
   }
-  var_phase<Rule::FloodUnits::kFrames>(
+  var_phase<Rule::VarUnits::kFrames, Rule::VarUnits::kBlock>(
       cells, q, s.cs, vn, Z, r0, stride, [&](int vg, int w, int f0, const auto& v) {
         rule.var_update(cells.at(f0), bits + ((size_t)vg * Z + w) * kBt + f0, s.cs[vg],
                         s.cs[vg + 1], w, v);
@@ -266,9 +267,9 @@ cudaError_t phase_grid(Kernel kernel, int units, int nbt, int threads,
 
 // The launches of the three kernels on nbt tiles (see the C entry points
 // of csrc/flooding.cu and csrc/fused_layered.cu for the arguments). A tile
-// is 4 frames and a block at most the rule's FloodUnits::kBlock threads (a
-// phase's; its grid counts units) or Rule::SweepUnits::kBlock (the
-// sweep's).
+// is 4 frames and a block at most the rule's FloodUnits::kBlock threads
+// (the check phase's), VarUnits::kBlock (the variable phase's; a phase's
+// grid counts units) or SweepUnits::kBlock (the sweep's).
 template <int DMAX, class Rule>
 cudaError_t fused_check_launch(const Rule& rule, const void* v2c, void* c2v,
                                const FloodingTables& t, int nbt, int threads,
@@ -290,7 +291,7 @@ cudaError_t fused_var_launch(const Rule& rule, const void* c2v, const void* q,
                              void* v2c, void* bits, const FloodingTables& t,
                              int nbt, int threads, cudaStream_t stream) {
   using Msg = typename Rule::Msg;
-  using U = typename Rule::FloodUnits;
+  using U = typename Rule::VarUnits;
   if (t.Bt != kBt || threads > U::kBlock) return cudaErrorInvalidValue;
   auto kernel = fused_var_kernel<Rule>;
   const size_t smem = phase_smem(t.VG, t.E);

@@ -760,6 +760,12 @@ PHASE_THREADS = 256
 #: phases, which give a thread one frame of a lane (``csrc/float_rules.cuh``
 #: FloatRule's FloodUnits)
 F64_UNIT_THREADS = 512
+#: threads per block of the f32 float rules' flooding kernels, resident and
+#: check phase, which give a check lane's thread a frame pair of a lane
+#: (FloatRule's FloodUnits), and of their variable phase, which keeps a
+#: lane's four frames a thread (FloatRule's VarUnits)
+F32_UNIT_THREADS = 384
+F32_VAR_THREADS = 256
 #: threads per block of the i8 rules' flooding kernels, resident and
 #: phases (``csrc/i8.cuh`` I8Rule's FloodUnits: a lane's four frames a
 #: thread, 32 warps an SM)
@@ -860,13 +866,25 @@ def bind_flooding_float(lib):
 
 
 def unit_threads(rule, lane_threads: int) -> int:
-    """Threads per block of a float or i8 rule's flooding kernel whose
-    block is ``lane_threads`` where a thread takes a lane's four frames:
-    ``F64_UNIT_THREADS`` for an f64 rule, ``I8_FLOODING_THREADS`` for an i8
+    """Threads per block of a float or i8 rule's flooding kernel, resident
+    or check phase, whose block is ``lane_threads`` where a thread takes a
+    lane's four frames: ``F64_UNIT_THREADS`` for an f64 rule,
+    ``F32_UNIT_THREADS`` for an f32 one, ``I8_FLOODING_THREADS`` for an i8
     one."""
     if is_i8(rule):
         return I8_FLOODING_THREADS
+    if rule.storage_dtype == torch.float32:
+        return F32_UNIT_THREADS
     return F64_UNIT_THREADS if rule.storage_dtype == torch.float64 else lane_threads
+
+
+def var_threads(rule, lane_threads: int) -> int:
+    """Threads per block of a float or i8 rule's variable phase kernel
+    (the rule's VarUnits): ``F32_VAR_THREADS`` for an f32 rule, else its
+    ``unit_threads``."""
+    if not is_i8(rule) and rule.storage_dtype == torch.float32:
+        return F32_VAR_THREADS
+    return unit_threads(rule, lane_threads)
 
 
 def launch_args(x, layout, rule=None):
@@ -974,7 +992,8 @@ def fused_check_float(v2c, layout, rule):
     """``fused_check`` for a float rule, through the float-rule instances of
     ``csrc/flooding_f32.cu`` or ``_f64.cu``: planes and arithmetic in the
     rule's storage type; check degree at most ``rule.max_check_degree``.
-    The f64 instances give a thread one (lane, frame) (``unit_threads``)."""
+    The f64 instances give a thread one (lane, frame), the f32 ones a frame
+    pair of a lane (``unit_threads``)."""
     if v2c.device.type == "cpu":
         return fused_check_reference(v2c, layout, rule)
     if not is_float_rule(rule):
@@ -1062,7 +1081,7 @@ def fused_var_i8(c2v, q, layout, rule):
 def fused_var_float(c2v, q, layout, rule):
     """``fused_var`` for a float rule, through the float-rule instances of
     ``csrc/flooding_f32.cu`` or ``_f64.cu``: planes and arithmetic in the
-    rule's storage type."""
+    rule's storage type; ``var_threads`` a block."""
     if q.device.type == "cpu":
         return fused_var_reference(c2v, q, layout, rule)
     if not is_float_rule(rule):
@@ -1072,7 +1091,7 @@ def fused_var_float(c2v, q, layout, rule):
     raise_on(
         lib.ldpc_fused_var_float(
             None if c2v is None else c2v.data_ptr(), q.data_ptr(), v2c.data_ptr(),
-            bits.data_ptr(), tables, *dims, unit_threads(rule, PHASE_THREADS), rule.kind,
+            bits.data_ptr(), tables, *dims, var_threads(rule, PHASE_THREADS), rule.kind,
             rule.big, rule.clamp, rule.prod_max, stream,
         ),
         "fused_var_float", lib.ldpc_flooding_float_error_string,

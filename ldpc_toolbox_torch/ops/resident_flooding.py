@@ -46,7 +46,10 @@ the missing lanes. On a CUDA tensor ``resident_flooding_decode`` passes
 them to ``resident_flooding_decode_float``, the wrapper of the kernel's
 float-rule instances (``csrc/flooding_f32.cu`` and ``_f64.cu``), which
 counts their launches apart. The f64 instances give a thread one frame of
-a lane, ``fused_bp2.F64_UNIT_THREADS`` threads a block.
+a lane, ``fused_bp2.F64_UNIT_THREADS`` threads a block; the f32 instances
+give a check lane's thread a frame pair and a variable lane's thread a
+lane's four frames, ``fused_bp2.F32_UNIT_THREADS`` threads a block
+(``csrc/float_rules.cuh`` FloatRule's FloodUnits and VarUnits).
 """
 
 from __future__ import annotations

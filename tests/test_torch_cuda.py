@@ -850,6 +850,69 @@ def test_f64_layered_partial_tile(cuda, decoder):
             assert torch.equal(out[key].cpu(), ref[key]), (resident, key)
 
 
+#: the f32 flooding float names, whose resident flooding kernel (TPU #4/#5)
+#: and check and variable phases (#7, #8) give a thread a unit of their own
+#: (FloatRule's FloodUnits) at ``fused_bp2.F32_UNIT_THREADS``
+F32_FLOODING = ["Phif32", "Tanhf32", "Minstarapproxf32", "Aminstarf32"]
+
+
+def _f32_flooding_case(code, decoder, device):
+    """Flooding tiles of an f32 name on the codes of ``_f64_case``, or on
+    the degree-40 quasi-cyclic code (bucket 64)."""
+    if code != "QC 3x40 z=16":
+        return _f64_case(code, decoder, device)
+    lg, batch, sigma = _qc_degree40()
+    return flooding_tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, batch, sigma, 5, device))
+
+
+@pytest.mark.parametrize("decoder,code", [
+    (decoder, code) for code in F64_LAYERED_BUCKETS for decoder in F32_FLOODING
+    if not (decoder == "Minstarapproxf32" and F64_LAYERED_BUCKETS[code] > 32)
+])
+def test_f32_flooding_units_match_plain_versions(cuda, code, decoder):
+    """The f32 instances of the resident flooding kernel and of the check
+    and variable phases, a unit of FloodUnits a thread, against the plain
+    versions on the card, bit for bit, at each degree bucket: a decode, the
+    initialisation and two iterations of phases; launches counted on the
+    float wrappers."""
+    q, bits0, layout, rule = _f32_flooding_case(code, decoder, cuda)
+    assert q.dtype == torch.float32
+    bucket = min(b for b in (8, 16, 32, 64) if b >= layout.max_chk_degree)
+    assert bucket == F64_LAYERED_BUCKETS[code]
+    before = resident_flooding_decode_float.launches
+    out = resident_flooding_decode(q, bits0, layout, rule, 10)
+    assert resident_flooding_decode_float.launches == before + 1
+    for a, b in zip(out, resident_flooding_decode_reference(q, bits0, layout, rule, 10)):
+        assert torch.equal(a, b)
+    assert int(out[2].sum()) > 0
+    before = (fused_bp2.fused_check_float.launches, fused_bp2.fused_var_float.launches)
+    v2c, bits = fused_bp2.fused_var(None, q, layout, rule)
+    ref = fused_bp2.fused_var_reference(None, q, layout, rule)
+    assert torch.equal(v2c, ref[0]) and torch.equal(bits, ref[1])
+    for _ in range(2):
+        c2v = fused_bp2.fused_check(v2c, layout, rule)
+        assert torch.equal(c2v, fused_bp2.fused_check_reference(v2c, layout, rule))
+        v2c, bits = fused_bp2.fused_var(c2v, q, layout, rule)
+        ref = fused_bp2.fused_var_reference(c2v, q, layout, rule)
+        assert torch.equal(v2c, ref[0]) and torch.equal(bits, ref[1])
+    assert (fused_bp2.fused_check_float.launches, fused_bp2.fused_var_float.launches) == (
+        before[0] + 2, before[1] + 3)
+
+
+@pytest.mark.parametrize("decoder", F32_FLOODING)
+def test_f32_flooding_partial_tile(cuda, decoder):
+    """A batch of 130 (a partial tile) through the flooding decoder's glue
+    onto the f32 units, resident and streaming, against the CPU."""
+    lg = _bg2z16()
+    _, arith = make_arithmetic(decoder)
+    x = _llrs(lg.n, 130, 1.3, 11, cuda)
+    ref = lifted_flooding_decode(lg, arith, x.cpu(), 10)
+    for resident in (True, False):
+        out = lifted_flooding_decode(lg, arith, x, 10, resident=resident)
+        for key in ("codeword", "iterations", "success"):
+            assert torch.equal(out[key].cpu(), ref[key]), (resident, key)
+
+
 def test_i8_steps_exhaustive(cuda):
     """The i8 rules' word steps on the card (``csrc/i8.cuh`` through
     ``i8_steps``: the correction table, both families' folds, the partial

@@ -196,49 +196,87 @@ def test_float_kernel_constants_match_the_rules():
 
 def test_f64_flooding_units_match_the_wrappers():
     """The flooding kernels' work units (``csrc/lanes.cuh`` Units and
-    ``csrc/float_rules.cuh`` FloatRule's FloodUnits, read from the source):
-    the f64 float rules give a thread one frame of a lane at the block the
-    wrappers pass them (``F64_UNIT_THREADS``), two blocks an SM at 64
-    registers; the other float rules and min-sum a lane's four frames at
-    the lane kernels' 256 (the i8 rules': test_i8_units_match_the_wrappers)."""
+    ``csrc/float_rules.cuh`` FloatRule's FloodUnits and VarUnits, read from
+    the source): the f64 float rules give a thread one frame of a lane in
+    every flooding kernel, resident and phases, at the block the wrappers
+    pass them (``F64_UNIT_THREADS``), two blocks an SM at 64 registers;
+    min-sum a lane's four frames at the lane kernels' 256 (the f32 float
+    rules': test_f32_flooding_units_match_the_wrappers; the i8 rules':
+    test_i8_units_match_the_wrappers)."""
     csrc = REPO / "ldpc_toolbox_torch" / "csrc"
-    units = re.search(r"using FloodUnits = std::conditional_t<std::is_same_v<T, double>, "
-                      r"Units<(\d+), (\d+)>, Units<>>;", (csrc / "float_rules.cuh").read_text())
-    assert units, "FloatRule's FloodUnits is not in csrc/float_rules.cuh"
-    assert (int(units[1]), int(units[2])) == (1, fused_bp2.F64_UNIT_THREADS)
+    assert _float_units("FloodUnits")[1] == (1, fused_bp2.F64_UNIT_THREADS)
+    assert _float_units("VarUnits")[1] == (1, fused_bp2.F64_UNIT_THREADS)
     lanes = (csrc / "lanes.cuh").read_text()
     assert "template <int F = kBt, int Threads = kThreads>\nstruct Units {" in lanes
     assert int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1]) == LANE_THREADS
     assert LANE_THREADS == fused_bp2.PHASE_THREADS
     assert 65536 // (2 * fused_bp2.F64_UNIT_THREADS) == 64
-    for name, threads in (("Phif64", fused_bp2.F64_UNIT_THREADS), ("Aminstarf64", 512),
-                          ("Phif32", LANE_THREADS), ("Minstarapproxf32", 256)):
+    messages = (csrc / "message_kernels.cuh").read_text()
+    assert "  using FloodUnits = Units<>;\n  using VarUnits = Units<>;\n" in messages
+    for name in ("Phif64", "Aminstarf64"):
         rule = fused_bp2.rule_for(make_arithmetic(name)[1])
-        assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
-    # a layered name's rule floods as its flooding name's does: the f32
-    # float rules' frame pairs are the resident layered kernel's alone
-    for name, threads in (("HLPhif32", LANE_THREADS), ("HLPhif64", fused_bp2.F64_UNIT_THREADS)):
+        assert fused_bp2.unit_threads(rule, LANE_THREADS) == 512, name
+        assert fused_bp2.var_threads(rule, LANE_THREADS) == 512, name
+    # a layered name's rule floods as its flooding name's does
+    rule = fused_bp2.rule_for(make_arithmetic("HLPhif64")[1])
+    assert fused_bp2.unit_threads(rule, LANE_THREADS) == fused_bp2.F64_UNIT_THREADS
+
+
+def test_f32_flooding_units_match_the_wrappers():
+    """The f32 float rules' flooding units (``csrc/float_rules.cuh``
+    FloatRule's FloodUnits and VarUnits, read from the source): the
+    resident flooding kernel (TPU #4/#5) and the check phase (#7) give a
+    thread a frame pair of a lane at the block the wrappers pass them
+    (``F32_UNIT_THREADS``: 384, two blocks an SM at 80 registers), so the
+    flagship's 32,400 check lanes of a tile take 169 passes of a resident
+    block; the variable phase (#8) keeps a lane's four frames at 256
+    (``F32_VAR_THREADS``), and so does the resident kernel's variable
+    phase, at its block of 384; each kernel's launch bounds and launch
+    check are its units'."""
+    csrc = REPO / "ldpc_toolbox_torch" / "csrc"
+    flood, var = _float_units("FloodUnits")[0], _float_units("VarUnits")[0]
+    assert flood == (2, fused_bp2.F32_UNIT_THREADS) == (2, 384)
+    assert var == (fused_bp2.BT, fused_bp2.F32_VAR_THREADS) == (fused_bp2.BT, LANE_THREADS)
+    assert 65536 // (2 * 384) // 8 * 8 == 80
+    assert -(-32400 * fused_bp2.BT // (flood[0] * flood[1])) == 169
+    for name in ("Phif32", "Tanhf32", "Minstarapproxf32", "Aminstarf32", "HLPhif32"):
         rule = fused_bp2.rule_for(make_arithmetic(name)[1])
-        assert fused_bp2.unit_threads(rule, LANE_THREADS) == threads, name
+        assert fused_bp2.unit_threads(rule, LANE_THREADS) == fused_bp2.F32_UNIT_THREADS, name
+        assert fused_bp2.var_threads(rule, LANE_THREADS) == fused_bp2.F32_VAR_THREADS, name
+    messages = (csrc / "message_kernels.cuh").read_text()
+    streaming = (csrc / "streaming.cuh").read_text()
+    assert "__launch_bounds__(Rule::FloodUnits::kBlock, 2) resident_flooding_kernel(" in messages
+    assert "if (threads > Rule::FloodUnits::kBlock) return cudaErrorInvalidValue;" in messages
+    assert "var_phase<Rule::VarUnits::kFrames, U::kBlock>(" in messages
+    assert "__launch_bounds__(Rule::FloodUnits::kBlock, 2) fused_check_kernel(" in streaming
+    assert "__launch_bounds__(Rule::VarUnits::kBlock, 2) fused_var_kernel(" in streaming
+    assert "var_phase<Rule::VarUnits::kFrames, Rule::VarUnits::kBlock>(" in streaming
+    assert streaming.count("  using U = typename Rule::FloodUnits;\n  if (t.Bt != kBt || "
+                           "threads > U::kBlock) return cudaErrorInvalidValue;") == 1
+    assert streaming.count("  using U = typename Rule::VarUnits;\n  if (t.Bt != kBt || "
+                           "threads > U::kBlock) return cudaErrorInvalidValue;") == 1
+    # the i8 rules' variable phase takes their flooding units
+    assert "  using VarUnits = FloodUnits;\n" in (csrc / "i8.cuh").read_text()
 
 
 def _float_units(name):
-    """(frames, threads) a unit of FloatRule's ``name`` units (LayeredUnits
-    or SweepUnits) in f32 and in f64, read from ``csrc/float_rules.cuh``
-    over ``csrc/lanes.cuh`` Units (``Units<>``: a lane's four frames at
-    kThreads; ``LayeredUnits``: the precision's layered units)."""
+    """(frames, threads) a unit of FloatRule's ``name`` units (FloodUnits,
+    VarUnits, LayeredUnits or SweepUnits) in f32 and in f64, read from
+    ``csrc/float_rules.cuh`` over ``csrc/lanes.cuh`` Units (``Units<>``: a
+    lane's four frames at kThreads; a name of other units: the
+    precision's)."""
     csrc = REPO / "ldpc_toolbox_torch" / "csrc"
     lanes = (csrc / "lanes.cuh").read_text()
     assert "template <int F = kBt, int Threads = kThreads>\nstruct Units {" in lanes
     threads = int(re.search(r"constexpr int kThreads = (\d+);", lanes)[1])
     line = re.search(rf"  using {name} = std::conditional_t<std::is_same_v<T, (float|double)>, "
-                     r"(Units<[\d, ]*>|LayeredUnits), (Units<[\d, ]*>|LayeredUnits)>;\n",
+                     r"(Units<[\d, ]*>|\w+Units), (Units<[\d, ]*>|\w+Units)>;\n",
                      (csrc / "float_rules.cuh").read_text())
     assert line, f"FloatRule's {name} is not in csrc/float_rules.cuh"
 
     def parse(units, f32):
-        if units == "LayeredUnits":
-            return _float_units("LayeredUnits")[0 if f32 else 1]
+        if not units.startswith("Units<"):
+            return _float_units(units)[0 if f32 else 1]
         args = [int(a) for a in re.findall(r"\d+", units)]
         return tuple(args + [fused_bp2.BT, threads][len(args):])
 

@@ -1,7 +1,8 @@
 """Time forms of kernel sources in turns on one GPU.
 
     python3 tools/compare_forms.py --source SOURCE [--source SOURCE ...]
-        [--form NAME=DIR[:THREADS] ...] [--base DIR] [--reps 5] [--batch 1024 ...]
+        [--form NAME=DIR[:THREADS[:VAR]] ...] [--base DIR] [--reps 5] [--batch 1024 ...]
+        [--buckets]
 
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
@@ -19,7 +20,9 @@ form, the float rules' layered frame pairs, the f64 sweep's and the i8
 instances among them: a form of before the f64 float rules' (lane, frame) units runs its
 f64 flooding kernels at 256, and so does a form of before the i8 rules'
 blocks of 512 and 384 run its i8 kernels, or one of before the f64 layered
-frame pairs of 384 its f64 layered kernels and sweep). ``--base`` names a directory holding the sources
+frame pairs of 384 its f64 layered kernels and sweep; VAR, where given, sets
+the block of the f32 float rules' variable phase apart, whose units are its
+own). ``--base`` names a directory holding the sources
 of commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
 compressed, flooding and resident_layered and ``layered.cuh``), whose
 message kernels give a thread one (lane, frame); they run as they ran there:
@@ -65,9 +68,11 @@ the other on the same builds (528 frames: one tile an SM of the card's 132,
 against the flagship's two).
 
 Prints the card's name and power limit, a line a tile set with each form's
-time and, from nvcc's report of its build, the registers and spill-store
-bytes of the flagship instance it ran (bucket 8, the name's rule), and one
-JSON line with every time in milliseconds.
+time and, from nvcc's report of its build, the registers, stack-frame and
+spill-store bytes of the flagship instance it ran (bucket 8, the name's
+rule), and one JSON line with every time in milliseconds; ``--buckets``
+prints that report for every degree bucket's instance of the name's rule
+too.
 """
 
 import argparse
@@ -179,14 +184,18 @@ def build(source, name, src_dir):
 def with_lib(module, getter, lib, threads, fn, *args):
     """fn(*args) with ``module``'s wrappers launching ``lib``, at
     ``threads`` threads a block unless it is None (the lane kernels, the
-    phases, the f64 flooding kernels and the i8 instances)."""
+    phases, the f64 flooding kernels and the i8 instances; ``threads`` a
+    pair: the f32 float rules' variable phase at the second)."""
     patches = [(module, getter, lambda *_: lib)]
     if threads is not None:
+        threads, var = threads
         patches += [(m, name, threads) for m, name in (
             (module, "LANE_THREADS"), (module, "I8_LAYERED_THREADS"),
             (module, "F64_LAYERED_THREADS"),
             (fused_bp2, "PHASE_THREADS"), (fused_bp2, "F64_UNIT_THREADS"),
-            (fused_bp2, "I8_FLOODING_THREADS")) if hasattr(m, name)]
+            (fused_bp2, "F32_UNIT_THREADS"), (fused_bp2, "I8_FLOODING_THREADS"))
+            if hasattr(m, name)]
+        patches.append((fused_bp2, "F32_VAR_THREADS", var))
     saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
     for m, name, value in patches:
         setattr(m, name, value)
@@ -255,20 +264,27 @@ def instance(wrapper, rule):
 @functools.cache
 def ptxas_report(log):
     """{kernel (demangled, ``ldpc::`` and spaces dropped): (registers,
-    spill-store bytes)} of an nvcc ``-Xptxas -v`` report."""
-    regs, spills, fn = {}, {}, None
+    stack-frame bytes, spill-store bytes)} of an nvcc ``-Xptxas -v``
+    report."""
+    regs, frames, fn = {}, {}, None
     for line in pathlib.Path(log).read_text().splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line):
             fn = m.group(1)
-        elif fn and (m := re.search(r"(\d+) bytes spill stores", line)):
-            spills[fn] = int(m.group(1))
+        elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)):
+            frames[fn] = (int(m.group(1)), int(m.group(2)))
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
             regs[fn] = int(m.group(1))
     names = subprocess.run(["c++filt"], input="\n".join(regs), capture_output=True,
                            text=True, check=True).stdout.splitlines()
     short = (re.sub(r"\(anonymous namespace\)::|ldpc::", "", n).split("(")[0] for n in names)
-    return {re.sub(r"\s", "", n).removeprefix("void"): (r, spills.get(k, 0))
+    return {re.sub(r"\s", "", n).removeprefix("void"): (r, *frames.get(k, (0, 0)))
             for n, (k, r) in zip(short, regs.items())}
+
+
+def report_text(found):
+    """nvcc's report of one kernel as printed: registers, stack, spills."""
+    regs, stack, spill = found
+    return f"{regs} regs, {stack} B stack, {spill} B spill"
 
 
 def make_rule(name):
@@ -277,15 +293,34 @@ def make_rule(name):
 
 
 def registers(source, forms, wrapper, rule):
-    """{form: "R regs, S B spill"} of the instance each form of ``source``
-    ran, from nvcc's report of its build (empty where no report is kept)."""
+    """{form: "R regs, S B stack, P B spill"} of the instance each form of
+    ``source`` ran, from nvcc's report of its build (empty where no report
+    is kept)."""
     out = {}
     for form in forms:
         log = LOGS.get((source, form))
         found = ptxas_report(str(log)).get(instance(wrapper, rule)) if log else None
         if found:
-            out[form] = f"{found[0]} regs, {found[1]} B spill"
+            out[form] = report_text(found)
     return out
+
+
+def print_buckets(source, forms):
+    """Prints, for each form of ``source``, nvcc's report of every degree
+    bucket's instance of each kernel under the rule of the source's first
+    name (the float instances above bucket 16 keep their arrays in local
+    memory)."""
+    tag = instance("resident_layered_decode", make_rule(
+        SOURCE_NAMES.get(source, NAMES["layered"])[0])).split(",", 1)[1][:-1]
+    for form in forms:
+        log = LOGS.get((source, form))
+        if log is None:
+            continue
+        found = sorted(((k, v) for k, v in ptxas_report(str(log)).items() if tag in k),
+                       key=lambda kv: (kv[0].split("<")[0], len(kv[0]), kv[0]))
+        print(f"{source} {form} ({tag}): " + "; ".join(
+            re.sub(r"<(\d+,)?.*", lambda m: f" {m[1][:-1]}" if m[1] else "", k)
+            + f" {report_text(v)}" for k, v in found))
 
 
 def turns(fns, reps):
@@ -305,11 +340,14 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--source", action="append", required=True,
                    choices=sorted(PLAN) + sorted(SWEEPS) + ["streaming"])
-    p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS]")
+    p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS[:VAR]]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--batch", type=int, action="append",
                    help=f"frames a decode (repeatable; default {FLAGSHIP_BATCH})")
+    p.add_argument("--buckets", action="store_true",
+                   help="print nvcc's report of every degree bucket's instance of the "
+                        "sources' flagship rules")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -323,7 +361,8 @@ def main():
         name, spec = form.split("=", 1)
         forms[name], _, n = spec.partition(":")
         if n:
-            block[name] = int(n)
+            n, _, var = n.partition(":")
+            block[name] = (int(n), int(var or n))
     if args.base:
         forms["base"] = args.base
     sources = [s for s in args.source if s != "streaming"]
@@ -362,6 +401,9 @@ def main():
             n, differ = sass_differs(_build.library_path(source), OUT / f"{source}-{form}.so")
             print(f"{source} {form}: {n} kernels, SASS differing from repo: "
                   + (", ".join(differ) or "none"))
+    if args.buckets:
+        for source in sources:
+            print_buckets(source, ["repo", *forms])
 
     lg = lifted_graph_for(Code.R1_2)
     result = {"card": card}
@@ -455,7 +497,8 @@ def run_streaming(forms, lg, llrs, reps, card, result):
     def sweep(form, state):
         lane, lib, _ = forms[form]
         n = None if lane else PER_FRAME_SWEEP_THREADS
-        return with_lib(fused_layered, "_lib", lib, n, fused_layered.fused_layered_iteration,
+        return with_lib(fused_layered, "_lib", lib, n and (n, n),
+                    fused_layered.fused_layered_iteration,
                         *state, layout, rule)
 
     hold_and_time_sweep(sweep, forms, qv0, rcv0,
@@ -578,7 +621,7 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
                 if form == "base" and source == "flooding":
                     fns[form] = lambda lib=lib, t=t: base_flooding(lib, *t, FLAGSHIP_ITERS)
                 else:
-                    n = block.get(form, BASE_THREADS[source] if form == "base" else None)
+                    n = block.get(form, (BASE_THREADS[source],) * 2 if form == "base" else None)
                     fns[form] = lambda lib=bind_form(bind, lib), n=n, t=t: with_lib(
                         module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
             if other is not None:
