@@ -61,7 +61,7 @@ instances' 64 bucket), and drives the port's main paths on the flagship code
    --interleaving -3 --decoder Minsumbf16``, B = 256: the flooding bf16
    kernel at bucket 16), its FER at 3.6, 3.7 and 3.8 dB held against the
    JAX package's rows (tests/torch_parity.py, |z| <= 3.29), its Mbit/s at
-   4.5 dB for 4 s at B = 256 and 1024; config 3 of tools/run_results.sh
+   4.5 dB for 2 s at B = 256 and 1024; config 3 of tools/run_results.sh
    (AR4JA r=4/5 k=4096, its last block punctured, ``HLMinstarapproxf32``:
    the float MinstarApprox layered kernel at bucket 32) at 2.50 and 2.75
    dB against ``results/config3_ccsds_hl.txt`` (|z| <= 3.29); and
@@ -87,6 +87,17 @@ instances' 64 bucket), and drives the port's main paths on the flagship code
    two processes that share the card (gloo), whose summed counters equal
    the unsharded step's, the kernels not built again; (e)
    ``examples/external_decoder_ber_torch.py`` on the card;
+10. the probes of the card's own ceilings (``ldpc_toolbox_torch/probes``,
+   the TPU probes of ``tools/prof_*.py``) at their tools' full shapes,
+   each kernel held against its plain version (tolerance 0, ``fma`` too:
+   see ``vpu_peak``) and timed: P1 the copy stream at the
+   six slab shapes beside torch's ``src + 1``, P2 the four chained ops on
+   132 planes beside the issue rate and the data sheet's f32 rate, P3 the
+   rotated gather's four modes, P4 the copy (beside ``Tensor.copy_``) and
+   the min-sum's contiguous and scattered writes, P5 the layered sweep's
+   five variants at B = 512 and 1024 (``full`` is
+   ``fused_layered_iteration``), a line a mode in the kernels JSON (but
+   ``full``, #3's own line) and a ``probes`` JSON line with every rate;
 
 each with its launch counts set to 0 just before and read just after (a
 streaming path's syndrome and freeze: ``fused_syndrome_freeze``, one
@@ -100,8 +111,8 @@ are medians of CUDA-event timings. Before the last line it prints a JSON
 line with every kernel's launches, worst difference from its plain
 version (the syndrome kernel's over both its wrappers), time, plain time
 and bound (an i8 instance's from its word
-steps' executed SASS instructions, tools/count_math_ops.py); the last
-line of standard output is
+steps' executed SASS instructions, tools/count_math_ops.py), after the
+probes' line; the last line of standard output is
 a JSON object with "ok": true. Any failure raises and exits non-zero, as
 does a machine without a CUDA device.
 """
@@ -195,6 +206,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
+from ldpc_toolbox_torch.probes import copybw, layered_variants, roll, v2, vpu_peak
 from ldpc_toolbox_torch.simulation import AwgnChannel, BerTestBuilder, Modulation
 from ldpc_toolbox_torch.simulation.ber import _frame_counters, step_generator
 from ldpc_toolbox_torch.sparse import SparseMatrix
@@ -1874,7 +1886,7 @@ def ber_sweep(card, lifted, name, points, iters, high_fer):
     """A two-point BER sweep through BerTestBuilder on the card."""
     test = BerTestBuilder(
         h=Code.R1_2.h(), lifted_graph=lifted, decoder_implementation=name,
-        max_frame_errors=2000, max_run_time=6.0, max_iterations=iters,
+        max_frame_errors=2000, max_run_time=3.0, max_iterations=iters,
         ebn0s_db=points, batch_size=FLAGSHIP_BATCH, seed=0, device="cuda",
     ).build()
     low, high = test.run()
@@ -1926,7 +1938,8 @@ def generic_flooding(card, llrs, graph):
         torch.cuda.synchronize()
         no_kernel_launched(f"generic {name}")
         peak = peak_gib()
-        ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS), 2)
+        # one run after the decode above, the warm-up
+        ms = event_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS))
         iters = out["iterations"]
         assert out["codeword"].shape == (FLAGSHIP_BATCH, graph.n)
         if name not in LIFTED:  # a run of this phase alone
@@ -1943,7 +1956,7 @@ def generic_flooding(card, llrs, graph):
         mbps = 1e-6 * Code.R1_2.k * FLAGSHIP_BATCH / (ms * 1e-3)
         print(f"[{card}] generic flooding {name} (DVB-S2 R1_2 H, n = {graph.n}, B = "
               f"{FLAGSHIP_BATCH}, {FLAGSHIP_EBN0} dB, {FLAGSHIP_ITERS} iterations): "
-              f"{ms:.3f} ms a decode (median of 2), {mbps:.1f} Mbit/s, peak "
+              f"{ms:.3f} ms a decode (one run), {mbps:.1f} Mbit/s, peak "
               f"{peak:.2f} GiB allocated; {int(out['success'].sum())}/{FLAGSHIP_BATCH} "
               f"converged, average iterations {float(iters.float().mean()):.2f}; the "
               f"lifted decode of the same name {lifted_ms:.3f} ms; {same}/"
@@ -1970,14 +1983,12 @@ def generic_layered(card):
         dec = Decoder(graph, name)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        first = time.perf_counter()
         out = dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS)
         torch.cuda.synchronize()
-        first = time.perf_counter() - first
         no_kernel_launched(f"generic {name}")
         peak = peak_gib()
-        ms = cuda_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS),
-                     3 if first < 3 else 1)
+        # one run after the decode above, the warm-up
+        ms = event_ms(lambda: dec.decode_batch(llrs, max_iterations=FLAGSHIP_ITERS))
         iters = out["iterations"]
         assert out["codeword"].shape == (FLAGSHIP_BATCH, h.num_cols)
         mbps = 1e-6 * k * FLAGSHIP_BATCH / (ms * 1e-3)
@@ -2011,6 +2022,10 @@ def generic_layered(card):
           f"built in {build_s:.1f} s on the host)")
 
 
+#: iterations of phase 7's decodes held against the CPU
+CPU_ITERS = 10
+
+
 def generic_card_against_cpu(card):
     """The generic decodes on the card against the same decodes on the CPU,
     B = 64, both schedules, on 5G BG2 z=16, AR4JA K1024 R1_2 and the
@@ -2029,8 +2044,8 @@ def generic_card_against_cpu(card):
         llrs = cpu_llrs.cuda()
         line = []
         for name in GENERIC_EXACT + GENERIC_FLOAT:
-            dev = Decoder(graph, name).decode_batch(llrs, 20)
-            cpu = Decoder(graph, name, device="cpu").decode_batch(cpu_llrs, 20)
+            dev = Decoder(graph, name).decode_batch(llrs, CPU_ITERS)
+            cpu = Decoder(graph, name, device="cpu").decode_batch(cpu_llrs, CPU_ITERS)
             if name in GENERIC_EXACT:
                 same_decode(cpu, {k: v.cpu() for k, v in dev.items()}, f"{code} {name} card")
                 line.append(f"{name} equal ({int(cpu['success'].sum())}/64 converged)")
@@ -2039,7 +2054,7 @@ def generic_card_against_cpu(card):
                              & (dev["iterations"].cpu() == cpu["iterations"])).sum())
                 assert agree >= 63, f"{code} {name}: {agree}/64 frames agree"
                 line.append(f"{name} {agree}/64")
-        print(f"[{card}] generic card against CPU, {code}, B = 64, 20 iterations: "
+        print(f"[{card}] generic card against CPU, {code}, B = 64, {CPU_ITERS} iterations: "
               + "; ".join(line))
     llrs = channel_llrs(ar4ja.h().num_cols, 64, 0.85, seed=0)
     generic = Decoder(ar4ja.h(), "Minsumf32").decode_batch(llrs, 10)
@@ -2139,7 +2154,7 @@ PSK8_ARGS = ["dvbs2:3/5", "--modulation", "8PSK", "--interleaving", "-3",
 #: on the CPU (seed 1, B = 64, until 100 frame errors or 30 minutes)
 PSK8_JAX_ROWS = {3.6: (576, 113), 3.7: (37632, 100), 3.8: (63168, 0)}
 #: seconds of each 8PSK Mbit/s run (B = 256 and 1024)
-PSK8_RATE_SECONDS = 4
+PSK8_RATE_SECONDS = 2
 #: config 3 of tools/run_results.sh: AR4JA r=4/5 k=4096, its last block
 #: punctured, HLMinstarapproxf32, 60 iterations, B = 1024
 CONFIG3_ARGS = ["ccsds:4/5:4096", "--decoder", "HLMinstarapproxf32", "--puncturing",
@@ -2152,7 +2167,7 @@ CONFIG3_PUNCTURING = [True] * 10 + [False]
 def psk8_sweep(card):
     """(a) ``ber dvbs2:3/5 --modulation 8PSK --interleaving -3 --decoder
     Minsumbf16``, B = 256: the FER at 3.6, 3.7 and 3.8 dB (100 frame
-    errors or 12 s a point) held against the JAX package's rows (|z| <=
+    errors or 8 s a point) held against the JAX package's rows (|z| <=
     3.29); then the Mbit/s at 4.5 dB for ``PSK8_RATE_SECONDS`` at B = 256
     and 1024."""
     t0 = time.perf_counter()
@@ -2160,7 +2175,7 @@ def psk8_sweep(card):
     # int((max - min) / step), which rounds (3.8 - 3.6) / 0.1 down to 1
     rows = run_ber_cli([*PSK8_ARGS, "--batch-size", "256", "--min-ebn0", "3.6",
                         "--max-ebn0", "3.85", "--step-ebn0", "0.1", "--frame-errors", "100",
-                        "--max-time", "12s"])
+                        "--max-time", "8s"])
     seconds = time.perf_counter() - t0
     assert [r[0] for r in rows] == [3.6, 3.7, 3.8], rows
     for ebn0, n, e, fer, mbps in rows:
@@ -2583,6 +2598,231 @@ def rest_of_port(card, llrs):
         print(f"rest of the port: part done in {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 10: the probes of the card's own ceilings (tools/prof_*.py) ---------
+
+#: the probes' kernels in the kernels line, by wrapper (a probe with modes a
+#: line a mode: ``wrapper:mode``, its tool's first shape): (source, the TPU
+#: kernel it replaces)
+PROBE_KERNELS = {
+    "stream_slabs": ("ldpc_toolbox_torch/csrc/probes.cu", "tools/prof_copybw.py:45"),
+    **{f"alu_chain:{m}": ("ldpc_toolbox_torch/csrc/probes.cu", "tools/prof_vpu_peak.py:43")
+       for m in vpu_peak.MODES},
+    **{f"rotated_gather:{m}": ("ldpc_toolbox_torch/csrc/probes.cu", "tools/prof_roll.py:24")
+       for m in roll.MODES},
+    "plane_copy": ("ldpc_toolbox_torch/csrc/probes.cu", "tools/prof_v2.py:39"),
+    **{f"minsum_planes:{m}": ("ldpc_toolbox_torch/csrc/probes.cu", "tools/prof_v2.py:39")
+       for m in v2.MODES[1:]},
+    # P5's full is #3's kernel (fused_layered_iteration), in its own line
+    **{f"layered_sweep_parts:{v}": ("ldpc_toolbox_torch/csrc/probe_layered.cu",
+                                    "tools/prof_layered_variants.py:45")
+       for v in layered_variants.VARIANTS if v != "full"},
+}
+PROBE_WRAPPERS = (copybw.stream_slabs, vpu_peak.alu_chain, roll.rotated_gather, v2.plane_copy,
+                  v2.minsum_planes, layered_variants.layered_sweep_parts,
+                  fused_layered_iteration)
+#: P5's batches: the tool's, and the flagship's (TPU #3's row)
+PROBE_BATCHES = (512, 1024)
+
+
+def seeded_cuda(shape, dtype, seed, scale=1.0):
+    """Standard normal values times ``scale`` made on the card from a seed,
+    rounded to ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def probe_timed(wrapper, fn, reps):
+    """(launches, median ms) of ``reps`` CUDA-event timings of fn() after a
+    warm-up: a probe's main path, its counts set to 0 just before and read
+    just after."""
+    for w in PROBE_WRAPPERS:
+        w.launches = 0
+    ms = cuda_ms(fn, reps)
+    launches = wrapper.launches
+    assert launches > 0, f"{wrapper.__name__} was not launched"
+    return launches, ms
+
+
+def probe_hold(what, out, ref):
+    """Fail unless a probe kernel's outputs equal its plain version's;
+    returns the difference (0)."""
+    err = max_abs_diff(out, ref)
+    assert err == 0, f"{what} differs from its plain version"
+    return err
+
+
+def probe_entry(launches, ms, plain_ms, b, err, library_ms=None):
+    return {**entry(launches, ms, plain_ms, b), "max_abs_err": err, "library_ms": library_ms}
+
+
+def probe_copy_stream(card, measured):
+    """P1 at the tool's six slab shapes: ``stream_slabs`` against ``src +
+    1``, the plain version and the library call in one."""
+    big = torch.zeros(256 * 1024 * 1024, dtype=torch.bfloat16, device="cuda")  # 0.5 GB
+    lib_ms = cuda_ms(lambda: big + 1, 10)
+    rows = {"torch_x_plus_1_0.5GB_gb_s": 2 * big.nbytes / lib_ms / 1e6}
+    del big
+    for i, (P, Z, Bt, G, dtype) in enumerate(copybw.CONFIGS):
+        src = seeded_cuda((G, P, Z, Bt), dtype, 100 + i, scale=300.0)
+        ref, plain_ms = timed_once(lambda: copybw.stream_slabs_reference(src))
+        err = probe_hold(f"stream_slabs {tuple(src.shape)}", [copybw.stream_slabs(src)], [ref])
+        del ref
+        launches, ms = probe_timed(copybw.stream_slabs, lambda: copybw.stream_slabs(src), 10)
+        torch_ms = cuda_ms(lambda: src + 1, 10)
+        gbs = 2 * src.nbytes / ms / 1e6
+        tag = f"P={P} Z={Z} Bt={Bt} G={G} {str(dtype)[6:]}"
+        rows[tag] = {"gb_s": gbs, "torch_src_plus_1_gb_s": 2 * src.nbytes / torch_ms / 1e6}
+        print(f"[{card}] P1 stream {tag}: {ms:.4f} ms, {gbs:.1f} GB/s; torch src + 1 "
+              f"{torch_ms:.4f} ms, {rows[tag]['torch_src_plus_1_gb_s']:.1f} GB/s; equal")
+        if i == 0:
+            measured["stream_slabs"] = probe_entry(
+                launches, ms, plain_ms, bound(2 * src.nbytes, src.numel()), err, torch_ms)
+    return rows
+
+
+def probe_alu_chain(card, measured):
+    """P2: every op at the tool's rounds on ``vpu_peak.PLANES`` planes,
+    held against the plain version, fma too (see ``vpu_peak``)."""
+    x = vpu_peak.planes(vpu_peak.PLANES)
+    rounds = vpu_peak.R * vpu_peak.K
+    rows = {"issue_rate_per_s": vpu_peak.ISSUE_RATE, "data_sheet_f32_per_s": F32_OPS_PER_S}
+    for mode in vpu_peak.MODES:
+        ref, plain_ms = timed_once(lambda: vpu_peak.alu_chain_reference(x, mode, rounds))
+        err = probe_hold(f"alu_chain {mode}", [vpu_peak.alu_chain(x, mode, rounds)], [ref])
+        launches, ms = probe_timed(vpu_peak.alu_chain, lambda: vpu_peak.alu_chain(x, mode), 5)
+        rounds_done = x.numel() * rounds
+        rate = rounds_done * vpu_peak.OPS[mode] / (ms * 1e-3)
+        rows[mode] = {"ops_per_s": rate, "rounds_per_s": rounds_done / (ms * 1e-3)}
+        # an FMA counts two operations at the f32 rate, as in bound()
+        ops = rounds_done * (2 if mode == "fma" else vpu_peak.OPS[mode])
+        b = bound(2 * x.nbytes, ops)
+        print(f"[{card}] P2 alu chain {mode}: {ms:.3f} ms, {rate / 1e12:.3f} T ops/s "
+              f"({vpu_peak.OPS[mode]} an element a round), {100 * rate / vpu_peak.ISSUE_RATE:.1f} "
+              f"% of the issue rate {vpu_peak.ISSUE_RATE / 1e12:.1f} T/s, "
+              f"{100 * rate / F32_OPS_PER_S:.1f} % of {F32_OPS_PER_S / 1e12:.0f} T/s; equal")
+        measured[f"alu_chain:{mode}"] = probe_entry(launches, ms, plain_ms, b, err)
+    return rows
+
+
+def probe_rotated_gather(card, measured):
+    """P3: the four modes at the tool's shapes."""
+    src, planes, shifts = roll.inputs()
+    rows = {}
+    for mode in roll.MODES:
+        ref, plain_ms = timed_once(
+            lambda: roll.rotated_gather_reference(src, planes, shifts, mode))
+        err = probe_hold(f"rotated_gather {mode}",
+                         [roll.rotated_gather(src, planes, shifts, mode)], [ref])
+        launches, ms = probe_timed(
+            roll.rotated_gather, lambda: roll.rotated_gather(src, planes, shifts, mode), 30)
+        nbytes = roll.moved_bytes(ref)
+        rows[mode] = {"gb_s": nbytes / ms / 1e6}
+        print(f"[{card}] P3 rotated gather {mode}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s; "
+              f"equal")
+        measured[f"rotated_gather:{mode}"] = probe_entry(
+            launches, ms, plain_ms, bound(nbytes, ref.numel() * (roll.D - 1)), err)
+    return rows
+
+
+def probe_minsum_writes(card, measured):
+    """P4: the copy and the three min-sum modes at the tool's shapes and
+    tile widths (B = 512); the copy beside ``Tensor.copy_``."""
+    rng = np.random.default_rng(0)
+    dest = torch.from_numpy(rng.permutation(v2.P).astype(np.int32)).cuda()
+    shifts = torch.from_numpy(rng.integers(0, v2.Z, v2.P).astype(np.int32)).cuda()
+    rows = {}
+    for bt in (128, 256, 512):
+        src = seeded_cuda((v2.B // bt, v2.G, v2.D, v2.Z, bt), torch.bfloat16, bt)
+        for mode in (m for m in v2.MODES if bt in v2.TILES[m]):
+            if mode == "copy":
+                fn, plain = (lambda: v2.plane_copy(src)), (lambda: v2.plane_copy_reference(src))
+            else:
+                fn = lambda: v2.minsum_planes(src, mode, dest, shifts)  # noqa: E731
+                plain = lambda: v2.minsum_planes_reference(src, mode, dest, shifts)  # noqa: E731
+            ref, plain_ms = timed_once(plain)
+            err = probe_hold(f"P4 {mode} Bt={bt}", [fn()], [ref])
+            del ref
+            wrapper = v2.plane_copy if mode == "copy" else v2.minsum_planes
+            launches, ms = probe_timed(wrapper, fn, 30)
+            gbs = 2 * src.nbytes / ms / 1e6
+            rows[f"{mode} Bt={bt}"] = {"gb_s": gbs}
+            library_ms = None
+            if mode == "copy":
+                out = torch.empty_like(src)
+                library_ms = cuda_ms(lambda: out.copy_(src), 30)
+                rows[f"{mode} Bt={bt}"]["copy__gb_s"] = 2 * src.nbytes / library_ms / 1e6
+                del out
+            print(f"[{card}] P4 {mode} Bt={bt}: {ms:.4f} ms, {gbs:.1f} GB/s"
+                  + (f"; Tensor.copy_ {library_ms:.4f} ms" if library_ms else "") + "; equal")
+            if bt == 128:
+                name = "plane_copy" if mode == "copy" else f"minsum_planes:{mode}"
+                # per element: the fold's compare, min, max and selects, the
+                # sign's parity and the output's select and negation
+                ops = 0 if mode == "copy" else src.numel() * (CHECK_OPS - 1)
+                measured[name] = probe_entry(launches, ms, plain_ms, bound(2 * src.nbytes, ops),
+                                             err, library_ms)
+        del src
+    return rows
+
+
+def probe_layered_sweep(card, measured):
+    """P5: each variant's sweep at B = 512 and 1024 on the tool's case
+    (DVB-S2 R1_2, ``HLMinsumbf16``), held against its plain version over two
+    sweeps; ms a sweep over ``layered_variants.K`` chained sweeps. ``full``
+    is ``fused_layered_iteration`` (TPU #3) itself, the others the probe's
+    kernel."""
+    rows = {}
+    for batch in PROBE_BATCHES:
+        layout, rule, qv0, rcv0 = layered_variants.case(batch)
+        rows[f"B={batch}"] = {}
+        nbt, VG, Z, Bt = qv0.shape
+        lanes, edges = VG * Z * Bt * nbt, layout.E * Z * Bt * nbt
+        rcv_bytes = edges * 2 * rcv0.element_size()
+        for variant in layered_variants.VARIANTS:
+            mine, plain = (qv0.clone(), rcv0.clone()), (qv0.clone(), rcv0.clone())
+            plain_ms = err = 0.0
+            for sweep in range(2):
+                out = layered_variants.layered_sweep_parts(*mine, layout, rule, variant)
+                ref, ms = timed_once(lambda: layered_variants.layered_sweep_parts_reference(
+                    *plain, layout, rule, variant))
+                plain_ms = plain_ms or ms
+                err = max(err, probe_hold(f"P5 {variant} B={batch}, sweep {sweep}", out, ref))
+            for w in PROBE_WRAPPERS:
+                w.launches = 0
+            ms = layered_variants.sweeps_ms(layout, rule, qv0, rcv0, variant)
+            launches = (layered_variants.layered_sweep_parts.launches
+                        + fused_layered_iteration.launches)
+            assert launches == layered_variants.K, f"P5 {variant}: {launches} launches"
+            rows[f"B={batch}"][variant] = ms
+            qv_bytes = lanes * (5 if variant in ("normw", "dmaonly") else 9)
+            ops = {"full": CHECK_OPS + LAYERED_EXTRA_OPS, "noroll": CHECK_OPS + LAYERED_EXTRA_OPS,
+                   "norule": LAYERED_EXTRA_OPS, "normw": CHECK_OPS + 2, "dmaonly": 0}[variant]
+            b = bound(qv_bytes + rcv_bytes, edges * ops + lanes * VAR_LANE_OPS)
+            print(f"[{card}] P5 layered sweep {variant} B={batch}: {ms:.4f} ms a sweep "
+                  f"(median of {layered_variants.K} chained), bound {b[0]:.4f} ms by {b[1]}; "
+                  f"equal over two sweeps")
+            if batch == FLAGSHIP_BATCH and variant != "full":
+                measured[f"layered_sweep_parts:{variant}"] = probe_entry(
+                    launches, ms, plain_ms, b, err)
+    return rows
+
+
+def probes(card, measured):
+    """Phase 10: the five probes (P1-P5) at their tools' full shapes, each
+    kernel held against its plain version and timed; prints the probes
+    JSON line's numbers and returns them."""
+    found = {"card": card}
+    for key, part in (("copy_stream", probe_copy_stream), ("alu_chain", probe_alu_chain),
+                      ("rotated_gather", probe_rotated_gather),
+                      ("minsum_writes", probe_minsum_writes),
+                      ("layered_sweep", probe_layered_sweep)):
+        t0 = time.perf_counter()
+        found[key] = part(card, measured)
+        torch.cuda.empty_cache()
+        print(f"probes: {key} done in {time.perf_counter() - t0:.1f} s")
+    return found
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2649,6 +2889,8 @@ def main():
     mark("rest of ber")
     rest_of_port(card, llrs)
     mark("rest of the port")
+    probe_rows = probes(card, measured)
+    mark("probes")
     layered_at_working_point(card, layered)
     ber_sweep(card, layered.lifted, "HLMinsumbf16", [0.5, 2.0], FLAGSHIP_ITERS, 0.01)
     ber_sweep(card, layered.lifted, "Minsumbf16", [0.5, 2.5], FLAGSHIP_ITERS, 0.01)
@@ -2661,11 +2903,13 @@ def main():
     # #9's max_abs_err covers both wrappers of its kernel
     worst["fused_syndrome_freeze"] = max(worst["fused_syndrome_freeze"],
                                          worst.pop("fused_syndrome_bits"))
+    # a probe's entry carries its own max_abs_err and library_ms
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "max_abs_err": worst[name.split(":")[0]], "library_ms": None, **measured[name]}
-        for name, (source, replaces) in KERNELS.items()
+         "max_abs_err": worst.get(name.split(":")[0]), "library_ms": None, **measured[name]}
+        for name, (source, replaces) in {**KERNELS, **PROBE_KERNELS}.items()
     ]
+    print(json.dumps({"probes": probe_rows}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

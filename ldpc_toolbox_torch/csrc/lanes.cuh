@@ -561,11 +561,26 @@ struct Fold {
   }
 };
 
+// The parts of a layered sweep that run: every decode runs the whole
+// sweep; the probe of csrc/probe_layered.cu (the bisect of
+// tools/prof_layered_variants.py) takes one part away: the Qv update
+// (kSweepNoQvWrite: Rcv is still written), the lane rotations (kSweepNoRoll:
+// check lane c reads and updates variable lane c), the rule (kSweepNoRule:
+// each output is its input x), or all the arithmetic (kSweepRcvOnly: Rcv is
+// read and written back, Qv left as it is).
+enum SweepParts : int {
+  kSweepWhole = 0,
+  kSweepNoQvWrite = 1,
+  kSweepNoRoll = 2,
+  kSweepNoRule = 3,
+  kSweepRcvOnly = 4,
+};
+
 // The parked group's Qv update at variable lane w: each edge's Qv cell
 // gathered once, the parked deltas added in edge order (an edge into a
 // variable group an earlier edge reached continues from that edge's sum),
 // stored. Qv f32 with f32 deltas, or int16 with int32 deltas.
-template <int DMAX, typename Q, typename P>
+template <int DMAX, int PARTS = kSweepWhole, typename Q, typename P>
 __device__ __forceinline__ void layered_update_lane(Q* qv, const P* park,
                                                     const LaneTables& t, int g,
                                                     int w) {
@@ -585,7 +600,8 @@ __device__ __forceinline__ void layered_update_lane(Q* qv, const P* park,
 #pragma unroll
       for (int j = 0; j < k; ++j)
         if (t.qbase[e0 + j] == t.qbase[e0 + k]) v[k] = v[j];
-      add4(v[k], load4(park + ((size_t)k * Z + minus_mod(w, t.chk_rot[e0 + k], Z)) * kBt));
+      const int c = PARTS == kSweepNoRoll ? w : minus_mod(w, t.chk_rot[e0 + k], Z);
+      add4(v[k], load4(park + ((size_t)k * Z + c) * kBt));
     }
   }
 #pragma unroll
@@ -599,8 +615,10 @@ __device__ __forceinline__ void layered_update_lane(Q* qv, const P* park,
 // either adds its deltas to Qv itself (parked false: the group reaches no
 // variable group twice, so no other lane touches those cells) or parks them
 // at park[(k * Z + c) * 4 + f0]; a parked group's variable lanes then add
-// them in edge order, a lane a thread.
-template <int DMAX, class U = Units<>, typename Q, typename P, class CheckLane>
+// them in edge order, a lane a thread (PARTS: SweepParts; no parked
+// update without the Qv update).
+template <int DMAX, class U = Units<>, int PARTS = kSweepWhole, typename Q, typename P,
+          class CheckLane>
 __device__ void layered_sweep4(Q* qv, const P* park, const LaneTables& t,
                                CheckLane&& check_lane) {
   for (int g = 0; g < t.CG; ++g) {
@@ -608,9 +626,9 @@ __device__ void layered_sweep4(Q* qv, const P* park, const LaneTables& t,
     for (int r = threadIdx.x; r < t.Z * U::kPerLane; r += blockDim.x)
       check_lane(g, r / U::kPerLane, r % U::kPerLane * U::kFrames, parked);
     __syncthreads();
-    if (parked) {
+    if (PARTS != kSweepNoQvWrite && parked) {
       for (int w = threadIdx.x; w < t.Z; w += blockDim.x)
-        layered_update_lane<DMAX>(qv, park, t, g, w);
+        layered_update_lane<DMAX, PARTS>(qv, park, t, g, w);
       __syncthreads();
     }
   }

@@ -225,8 +225,10 @@ __device__ __forceinline__ void layered_check_words(
 // touches those cells in this group) or parked at park[(k * Z + c) * 4].
 // The edge loops are unrolled to the degree bucket, so a check's d Qv
 // gathers and d Rcv loads go out before its rule; Rold stays in registers
-// as loaded (bf16 packed) through its outputs.
-template <int DMAX, class U, class Rule>
+// as loaded (bf16 packed) through its outputs. PARTS (lanes.cuh
+// SweepParts, the whole sweep in every decode) takes a part away for the
+// probe of csrc/probe_layered.cu.
+template <int DMAX, class U, int PARTS = kSweepWhole, class Rule>
 __device__ __forceinline__ void layered_check_lane(
     typename Rule::Q* qv, typename Rule::Msg* rcv, typename Rule::P* park,
     const LaneTables& t, int g, int c, bool parked, const Rule& rule) {
@@ -235,7 +237,12 @@ __device__ __forceinline__ void layered_check_lane(
   using V = std::conditional_t<F == kBt, Vec4<Q>, Frames<Q, F>>;
   const int Z = t.Z;
   const int e0 = t.chk_cs[g], d = t.chk_cs[g + 1] - e0;
+  // the variable lane that check lane c of edge e reads and updates
+  const auto var_lane = [&](int e) {
+    return PARTS == kSweepNoRoll ? c : minus_mod(c, t.syn_rot[e], Z);
+  };
   if constexpr (WordRule<Rule>::value) {
+    static_assert(PARTS == kSweepWhole, "the word rules run the whole sweep");
     layered_check_words<DMAX>(qv, rcv, park, t, c, e0, d, parked, rule);
   } else {
     decltype(gather_unit<F>(qv)) q[DMAX];
@@ -244,7 +251,7 @@ __device__ __forceinline__ void layered_check_lane(
     for (int k = 0; k < DMAX; ++k) {
       if (k < d) {
         const int e = e0 + k;
-        q[k] = gather_unit<F>(qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt);
+        q[k] = gather_unit<F>(qv + ((size_t)t.qbase[e] + var_lane(e)) * kBt);
         r[k] = load_unit<F>(rcv + ((size_t)e * Z + c) * kBt);
       }
     }
@@ -259,10 +266,10 @@ __device__ __forceinline__ void layered_check_lane(
 #pragma unroll
         for (int f = 0; f < F; ++f)
           x[k].v[f] = missing ? rule.big : rule.extrinsic(qk.v[f], rold.v[f]);
-        check.set(k, x[k]);
+        if constexpr (PARTS != kSweepNoRule) check.set(k, x[k]);
       }
     }
-    check.outputs(x, d, [&](int k, const V& o) {
+    const auto emit = [&](int k, const V& o) {
       const int e = e0 + k;
       const bool missing = c == t.syn_mask[e];
       const V rold = unpack(r[k]);
@@ -273,15 +280,24 @@ __device__ __forceinline__ void layered_check_lane(
         delta.v[f] = rule.diff(rn.v[f], rold.v[f]);
       }
       store_unit(rcv + ((size_t)e * Z + c) * kBt, rn);
-      if (parked) {
-        store_unit(park + ((size_t)k * Z + c) * kBt, delta);
-      } else {
-        Q* cell = qv + ((size_t)t.qbase[e] + minus_mod(c, t.syn_rot[e], Z)) * kBt;
-        V qc = unpack(load_unit<F>(cell));
-        add4(qc, delta);
-        store_unit(cell, qc);
+      if constexpr (PARTS != kSweepNoQvWrite) {
+        if (parked) {
+          store_unit(park + ((size_t)k * Z + c) * kBt, delta);
+        } else {
+          Q* cell = qv + ((size_t)t.qbase[e] + var_lane(e)) * kBt;
+          V qc = unpack(load_unit<F>(cell));
+          add4(qc, delta);
+          store_unit(cell, qc);
+        }
       }
-    });
+    };
+    if constexpr (PARTS == kSweepNoRule) {
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k)
+        if (k < d) emit(k, x[k]);
+    } else {
+      check.outputs(x, d, emit);
+    }
   }
 }
 

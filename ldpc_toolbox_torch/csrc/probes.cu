@@ -1,0 +1,504 @@
+// Probes of the card's own ceilings, at the shapes of the decode kernels:
+// - stream_plus_one_kernel (P1): out = src + 1 over a bf16 or f32 array,
+//   streamed through shared memory by TMA bulk copies; replaces the Pallas
+//   TPU kernel of tools/prof_copybw.py pallas_stream (G slabs of (P, Z, Bt),
+//   double-buffered DMA in and out);
+// - alu_chain_kernel (P2): R x K chained rounds of one elementwise op over
+//   (360, 128) f32 planes (add, fma, sel, roll); replaces
+//   tools/prof_vpu_peak.py make;
+// - rotated_gather_kernel (P3): out[bt, g] = sum over t < d of a rotated
+//   window of plane planes[g d + t], f32 sum, bf16 out; replaces
+//   tools/prof_roll.py make (modes dma, roll0, switch and dynroll);
+// - copy_kernel and minsum_planes_kernel (P4): a blocked copy, and the
+//   min-sum of d planes written in place, to scattered planes, or rolled
+//   along Z and scattered; replace tools/prof_v2.py make (copy, contig,
+//   scatw, scatw_roll).
+// The fifth probe, the layered sweep with its parts removed
+// (tools/prof_layered_variants.py), is csrc/probe_layered.cu.
+//
+// What bounds them on an H100: P1, P3 and P4 move every byte of their
+// inputs and outputs once through device memory (3.35 TB/s on the data
+// sheet); P2 keeps its planes in registers (and shared memory for roll), so
+// it is bound by the rate at which the SMs issue its instructions: four
+// sub-partitions an SM, each issuing one warp instruction (32 lanes) a
+// clock.
+//
+// What the designs do about it: P1 keeps a ring of shared-memory stages a
+// block, each filled by one cp.async.bulk whose completion an mbarrier
+// counts (the Hopper counterpart of the TPU's make_async_copy), so several
+// 16 KB chunks are in flight an SM while the block adds 1 to the chunk that
+// arrived and stores it with 16-byte stores; a slab of 645 KB does not fit
+// an SM, so blocks take the array's chunks in turn. P2 runs each element's
+// chain in a register, a thread an element, the rounds unrolled; enough
+// planes to fill the card's 132 SMs (one plane fills about 22); roll
+// rotates the plane's columns through shared memory each round (two
+// buffers, one barrier a round). P3 and P4 give a thread 8 consecutive
+// frames (16 bytes of bf16) of one lane, so a warp reads and writes whole
+// 512-byte rows; a rotation is an offset in the row index.
+//
+// Every result is bit for bit its plain version's
+// (ldpc_toolbox_torch/probes/*.py); fma's too from the tool's inputs in
+// [0.4, 0.6), where fmaf's one rounding and the plain version's two agree
+// (ldpc_toolbox_torch/probes/vpu_peak.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+// -- P1: the copy stream ------------------------------------------------------
+
+constexpr int kStreamThreads = 256;
+constexpr int kChunk = 16384;  // bytes a stage
+constexpr int kStages = 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One bulk copy of bytes (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory, its completion counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 16 bytes plus one: eight bf16 or four f32, added in f32 and rounded to
+// nearest even (bf16: the exact sum's rounding, f32 holding twice bf16's
+// bits and two more).
+__device__ __forceinline__ uint4 plus_one(uint4 v, const __nv_bfloat16*) {
+  uint32_t* w = &v.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
+    const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(lo, 1.0f)));
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(hi, 1.0f)));
+    w[i] = a | b << 16;
+  }
+  return v;
+}
+__device__ __forceinline__ uint4 plus_one(uint4 v, const float*) {
+  uint32_t* w = &v.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = __float_as_uint(__fadd_rn(__uint_as_float(w[i]), 1.0f));
+  return v;
+}
+
+// out = src + 1 over bytes bytes: chunk c of kChunk bytes (the last may be
+// shorter) goes to block c % gridDim.x, which keeps up to kStages of its
+// chunks in flight.
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads) stream_plus_one_kernel(const T* src, T* out,
+                                                                        size_t bytes) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  const size_t chunks = (bytes + kChunk - 1) / kChunk;
+  const size_t mine = chunks > blockIdx.x ? (chunks - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const auto* in = reinterpret_cast<const unsigned char*>(src);
+  auto* o = reinterpret_cast<unsigned char*>(out);
+  const auto chunk_of = [&](size_t i) { return blockIdx.x + i * gridDim.x; };
+  const auto size_of = [&](size_t c) {
+    const size_t left = bytes - c * kChunk;
+    return static_cast<uint32_t>(left < kChunk ? left : kChunk);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (size_t i = 0; i < mine && i < kStages; ++i) {
+      const size_t c = chunk_of(i);
+      bulk_load(ring + i * kChunk, in + c * kChunk, size_of(c), &full[i]);
+    }
+  }
+  __syncthreads();
+  for (size_t i = 0; i < mine; ++i) {
+    const int s = i % kStages;
+    const size_t c = chunk_of(i);
+    const uint32_t n = size_of(c);
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const uint4* stage = reinterpret_cast<const uint4*>(ring + s * kChunk);
+    uint4* dst = reinterpret_cast<uint4*>(o + c * kChunk);
+    for (uint32_t v = threadIdx.x; v < n / 16; v += blockDim.x)
+      dst[v] = plus_one(stage[v], src);
+    __syncthreads();  // every thread has read stage s
+    if (threadIdx.x == 0 && i + kStages < mine) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const size_t next = chunk_of(i + kStages);
+      bulk_load(ring + s * kChunk, in + next * kChunk, size_of(next), &full[s]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t stream_launch(const void* src, void* out, size_t bytes, cudaStream_t stream) {
+  auto kernel = stream_plus_one_kernel<T>;
+  const int smem = kStages * kChunk;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStreamThreads, smem);
+  if (err != cudaSuccess) return err;
+  const size_t chunks = (bytes + kChunk - 1) / kChunk;
+  const int grid = (int)std::min(chunks, (size_t)sms * std::max(per_sm, 1));
+  if (grid == 0) return cudaSuccess;
+  kernel<<<grid, kStreamThreads, smem, stream>>>(static_cast<const T*>(src), static_cast<T*>(out),
+                                                 bytes);
+  return cudaGetLastError();
+}
+
+// -- P2: the ALU chain ---------------------------------------------------------
+
+enum ChainOp : int { kAdd = 0, kFma = 1, kSel = 2, kRoll = 3 };
+constexpr int kChainThreads = 256;
+constexpr int kRollCols = 32;     // a warp's columns
+constexpr int kRollRows = 12;     // rows of threads: 384 a block
+constexpr int kRollPerThread = 32;  // values a thread: Z <= 384
+constexpr int kRollShift = 37;
+
+template <int OP>
+__device__ __forceinline__ float chain_step(float x) {
+  if constexpr (OP == kAdd) {
+    return __fadd_rn(x, 1.0000001f);
+  } else if constexpr (OP == kFma) {
+    return fmaf(x, 1.0000001f, 1e-7f);
+  } else {
+    return x > 0.5f ? __fadd_rn(x, 1.0000001f) : __fsub_rn(x, 0.9999999f);
+  }
+}
+
+// A thread an element of n: its value through rounds chained steps.
+template <int OP>
+__global__ void __launch_bounds__(kChainThreads) alu_chain_kernel(const float* in, float* out,
+                                                                 size_t n, int rounds) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float x = in[i];
+#pragma unroll 64
+    for (int r = 0; r < rounds; ++r) x = chain_step<OP>(x);
+    out[i] = x;
+  }
+}
+
+// roll: x = roll(x, 37, axis 0) + 1.0000001 on (planes, Z, B) f32, a block
+// kRollCols columns of one plane (blockIdx.y), each thread the rows
+// threadIdx.y + kRollRows j of its column; the plane's column block goes
+// through shared memory each round, two buffers in turn.
+__global__ void __launch_bounds__(kRollCols* kRollRows) roll_chain_kernel(const float* in,
+                                                                         float* out, int Z,
+                                                                         int B, int rounds) {
+  extern __shared__ float cols[];  // 2 x (Z, kRollCols)
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const size_t plane = (size_t)blockIdx.y * Z * B;
+  const int col = blockIdx.x * kRollCols + tx;
+  const int shift = kRollShift % Z;
+  float x[kRollPerThread];
+  int from[kRollPerThread];
+#pragma unroll
+  for (int j = 0; j < kRollPerThread; ++j) {
+    const int r = ty + kRollRows * j;
+    if (r < Z) {
+      x[j] = in[plane + (size_t)r * B + col];
+      from[j] = (r - shift + Z) % Z;
+    }
+  }
+  for (int round = 0; round < rounds; ++round) {
+    float* buf = cols + (round & 1) * Z * kRollCols;
+#pragma unroll
+    for (int j = 0; j < kRollPerThread; ++j) {
+      const int r = ty + kRollRows * j;
+      if (r < Z) buf[r * kRollCols + tx] = x[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRollPerThread; ++j)
+      if (ty + kRollRows * j < Z) x[j] = __fadd_rn(buf[from[j] * kRollCols + tx], 1.0000001f);
+  }
+#pragma unroll
+  for (int j = 0; j < kRollPerThread; ++j) {
+    const int r = ty + kRollRows * j;
+    if (r < Z) out[plane + (size_t)r * B + col] = x[j];
+  }
+}
+
+template <int OP>
+cudaError_t chain_launch(const float* in, float* out, size_t n, int rounds, cudaStream_t stream) {
+  const size_t blocks = (n + kChainThreads - 1) / kChainThreads;
+  if (blocks == 0) return cudaSuccess;
+  alu_chain_kernel<OP><<<(unsigned)std::min(blocks, (size_t)1 << 20), kChainThreads, 0, stream>>>(
+      in, out, n, rounds);
+  return cudaGetLastError();
+}
+
+// -- P3 and P4: gathers and scattered writes of 16-byte pieces of bf16 rows --
+
+// Eight bf16 values as f32, and back rounded to nearest even.
+struct F8 {
+  float v[8];
+};
+
+__device__ __forceinline__ F8 unpack8(uint4 u) {
+  F8 f;
+  const uint32_t* w = &u.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.v[2 * i] = __uint_as_float(w[i] << 16);
+    f.v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  return f;
+}
+
+__device__ __forceinline__ uint4 pack8(const F8& f) {
+  uint4 u;
+  uint32_t* w = &u.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(f.v[2 * i]));
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(f.v[2 * i + 1]));
+    w[i] = a | b << 16;
+  }
+  return u;
+}
+
+enum GatherMode : int { kAligned = 0, kRollFive = 1, kRotated = 2 };
+
+// out (nbt, G, Z, Bt) bf16: out[bt, g, z] = sum over t < d, in t order, in
+// f32, of src (nbt, P, rows, Bt) bf16 at plane planes[e] (e = g d + t) and
+// row: start + z (kRotated; start = Z - shifts[e]); hi + z (kAligned; hi
+// = start rounded down to a multiple of align); hi + (z - 5 mod Z + align)
+// (kRollFive: the aligned window of Z + align rows rolled by 5). A thread
+// 8 frames of one output lane.
+__global__ void __launch_bounds__(256) rotated_gather_kernel(
+    const uint4* src, const int* planes, const int* shifts, uint4* out, int nbt, int P, int rows,
+    int Z, int Bt, int G, int d, int align, int mode) {
+  const int vecs = Bt / 8;
+  const size_t n = (size_t)nbt * G * Z * vecs;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int v = i % vecs;
+    const size_t lane = i / vecs;
+    const int z = lane % Z;
+    const int g = lane / Z % G;
+    const int bt = lane / ((size_t)Z * G);
+    F8 acc;
+    for (int t = 0; t < d; ++t) {
+      const int e = g * d + t;
+      const int start = Z - shifts[e];
+      const int hi = start / align * align;
+      int row = start + z;
+      if (mode == kAligned) {
+        row = hi + z;
+      } else if (mode == kRollFive) {
+        const int w = z - 5;
+        row = hi + (w < 0 ? w + Z + align : w);
+      }
+      const F8 x = unpack8(src[(((size_t)bt * P + planes[e]) * rows + row) * vecs + v]);
+#pragma unroll
+      for (int f = 0; f < 8; ++f) acc.v[f] = t == 0 ? x.v[f] : __fadd_rn(acc.v[f], x.v[f]);
+    }
+    out[i] = pack8(acc);
+  }
+}
+
+enum MinsumMode : int { kContig = 0, kScatter = 1, kScatterRoll = 2 };
+constexpr int kMinsumMax = 8;
+
+// The min-sum of d planes: src (nbt, G, d, Z, Bt) bf16 -> output t of
+// group g, at lane z: kContig to (nbt, G, d, Z, Bt) in place of its input;
+// kScatter to plane dest[g d + t] of (nbt, G d, Z, Bt) at lane z;
+// kScatterRoll there at lane z + shifts[g d + t] mod Z (the plane rolled
+// along Z). In f32: m1 the least |x| (the first of equal ones), m2 the
+// fold min(m2, max(m1, |x|)) from 3.4e38, the parity of the signs x < 0;
+// output t is m2 at the argmin, else m1, negated where the parity without
+// x_t is odd. A thread 8 frames of one lane of a group.
+__global__ void __launch_bounds__(256) minsum_planes_kernel(const uint4* src, const int* dest,
+                                                            const int* shifts, uint4* out,
+                                                            int nbt, int G, int d, int Z, int Bt,
+                                                            int mode) {
+  const int vecs = Bt / 8;
+  const size_t n = (size_t)nbt * G * Z * vecs;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int v = i % vecs;
+    const size_t lane = i / vecs;
+    const int z = lane % Z;
+    const size_t grp = lane / Z;  // bt G + g
+    const int g = grp % G;
+    const size_t bt = grp / G;
+    F8 x[kMinsumMax];
+#pragma unroll
+    for (int t = 0; t < kMinsumMax; ++t)
+      if (t < d) x[t] = unpack8(src[((grp * d + t) * Z + z) * vecs + v]);
+    float m1[8], m2[8];
+    int arg[8];
+    bool par[8];
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      m1[f] = fabsf(x[0].v[f]);
+      m2[f] = 3.4e38f;
+      arg[f] = 0;
+      par[f] = x[0].v[f] < 0.0f;
+    }
+#pragma unroll
+    for (int t = 1; t < kMinsumMax; ++t) {
+      if (t < d) {
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          const float mk = fabsf(x[t].v[f]);
+          m2[f] = fminf(m2[f], fmaxf(m1[f], mk));
+          const bool take = mk < m1[f];
+          m1[f] = take ? mk : m1[f];
+          arg[f] = take ? t : arg[f];
+          par[f] ^= x[t].v[f] < 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kMinsumMax; ++t) {
+      if (t < d) {
+        F8 o;
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          const float loo = arg[f] == t ? m2[f] : m1[f];
+          o.v[f] = par[f] != (x[t].v[f] < 0.0f) ? -loo : loo;
+        }
+        size_t cell;
+        if (mode == kContig) {
+          cell = (grp * d + t) * Z + z;
+        } else {
+          const int e = g * d + t;
+          int w = z;
+          if (mode == kScatterRoll) {
+            w = z + shifts[e];
+            w = w < Z ? w : w - Z;
+          }
+          cell = ((bt * G * d + dest[e]) * Z + w);
+        }
+        out[cell * vecs + v] = pack8(o);
+      }
+    }
+  }
+}
+
+// dst = src, 16 bytes a thread.
+__global__ void __launch_bounds__(256) copy_kernel(const uint4* src, uint4* dst, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = src[i];
+}
+
+// Blocks of 256 threads for n items: a few waves of the card's blocks at
+// most, the rest taken in grid-stride loops.
+unsigned grid_for(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return (unsigned)std::min(blocks, (size_t)132 * 8 * 4);
+}
+
+}  // namespace
+
+// out = src + 1 over bytes bytes (a multiple of 16; both 16-byte aligned)
+// of bf16 (bf16 true) or f32. Returns the launch's cudaError_t.
+extern "C" int ldpc_probe_stream(const void* src, void* out, long long bytes, int bf16,
+                                 void* stream) {
+  if (bytes < 0 || bytes % 16) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? stream_launch<__nv_bfloat16>(src, out, bytes, s)
+                               : stream_launch<float>(src, out, bytes, s));
+}
+
+// rounds chained steps of op (0 add, 1 fma, 2 sel, 3 roll) on planes (n, Z,
+// B) f32; roll needs B a multiple of 32 and Z at most 384.
+extern "C" int ldpc_probe_alu_chain(const float* in, float* out, int planes, int Z, int B,
+                                    int op, int rounds, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t n = (size_t)planes * Z * B;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (op) {
+    case kAdd: err = chain_launch<kAdd>(in, out, n, rounds, s); break;
+    case kFma: err = chain_launch<kFma>(in, out, n, rounds, s); break;
+    case kSel: err = chain_launch<kSel>(in, out, n, rounds, s); break;
+    case kRoll: {
+      if (B % kRollCols || Z > kRollRows * kRollPerThread || Z < 1) break;
+      const int smem = 2 * Z * kRollCols * (int)sizeof(float);
+      err = cudaFuncSetAttribute(roll_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess || planes == 0) break;
+      roll_chain_kernel<<<dim3(B / kRollCols, planes), dim3(kRollCols, kRollRows), smem, s>>>(
+          in, out, Z, B, rounds);
+      err = cudaGetLastError();
+      break;
+    }
+  }
+  return static_cast<int>(err);
+}
+
+// P3 on src (nbt, P, rows, Bt) bf16, planes and shifts (G d,) int32, out
+// (nbt, G, Z, Bt) bf16; mode 0 aligned, 1 roll by 5, 2 rotated. Bt a
+// multiple of 8.
+extern "C" int ldpc_probe_rotated_gather(const void* src, const int* planes, const int* shifts,
+                                         void* out, int nbt, int P, int rows, int Z, int Bt,
+                                         int G, int d, int align, int mode, void* stream) {
+  if (Bt % 8 || mode < kAligned || mode > kRotated || align < 1) return cudaErrorInvalidValue;
+  const size_t n = (size_t)nbt * G * Z * (Bt / 8);
+  if (n == 0) return cudaSuccess;
+  rotated_gather_kernel<<<grid_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), planes, shifts, static_cast<uint4*>(out), nbt, P, rows, Z,
+      Bt, G, d, align, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P4's copy: bytes bytes (a multiple of 16, both 16-byte aligned).
+extern "C" int ldpc_probe_copy(const void* src, void* out, long long bytes, void* stream) {
+  if (bytes < 0 || bytes % 16) return cudaErrorInvalidValue;
+  const size_t n = bytes / 16;
+  if (n == 0) return cudaSuccess;
+  copy_kernel<<<grid_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P4's min-sum modes on src (nbt, G, d, Z, Bt) bf16 (d at most 8, Bt a
+// multiple of 8): mode 0 in place of the input's shape, 1 scattered to
+// (nbt, G d, Z, Bt) by dest, 2 rolled by shifts and scattered.
+extern "C" int ldpc_probe_minsum(const void* src, const int* dest, const int* shifts, void* out,
+                                 int nbt, int G, int d, int Z, int Bt, int mode, void* stream) {
+  if (Bt % 8 || d < 1 || d > kMinsumMax || mode < kContig || mode > kScatterRoll)
+    return cudaErrorInvalidValue;
+  const size_t n = (size_t)nbt * G * Z * (Bt / 8);
+  if (n == 0) return cudaSuccess;
+  minsum_planes_kernel<<<grid_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), dest, shifts, static_cast<uint4*>(out), nbt, G, d, Z, Bt,
+      mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* ldpc_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

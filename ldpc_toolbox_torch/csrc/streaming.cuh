@@ -218,30 +218,42 @@ __global__ void __launch_bounds__(Rule::VarUnits::kBlock, 2) fused_var_kernel(
       });
 }
 
-// One horizontal-layered sweep of one tile per block under a rule, in place
-// on qv (VG, Z, 4) and rcv (E, Z, 4), then the hard bits qv <= 0: one
-// iteration of resident_layered_kernel without the syndrome and the freeze
-// (the same layered_sweep4 over layered_check_lane, the check lanes a unit
-// of Rule::SweepUnits a thread; park_all the device park, or null to park
-// in shared memory after the tables).
+// The body of a streaming layered sweep kernel: one horizontal-layered
+// sweep of tile blockIdx.x under a rule, in place on qv (VG, Z, 4) and rcv
+// (E, Z, 4), then the hard bits qv <= 0: one iteration of
+// resident_layered_kernel without the syndrome and the freeze (the same
+// layered_sweep4 over layered_check_lane, the check lanes a unit of
+// Rule::SweepUnits a thread; park_all the device park, or null to park in
+// shared memory after the tables). PARTS (lanes.cuh SweepParts) is the
+// whole sweep in fused_layered_kernel; the probe of csrc/probe_layered.cu
+// takes a part away. It reads the kernel's parameters by their names (see
+// fused_layered_kernel). A macro rather than a __device__ function: the
+// production instances inlining such a function, its arguments by value
+// or by reference, compiled to other SASS than this body written in the
+// kernel (tools/compare_forms.py).
+#define LDPC_FUSED_LAYERED_BODY(PARTS)                                                    \
+  using U = typename Rule::SweepUnits;                                                    \
+  extern __shared__ __align__(16) int smem[];                                             \
+  const size_t tile = blockIdx.x;                                                         \
+  const size_t lanes = (size_t)t.VG * t.Z;                                                \
+  const LaneTables lt = load_tables(t, smem + kCtlInts);                                  \
+  auto* park = lane_park(park_all, park_elems, smem, t);                                  \
+  auto* qv = qv_all + tile * lanes * kBt;                                                 \
+  auto* rcv = rcv_all + tile * t.E * t.Z * kBt;                                           \
+  int8_t* bits = bits_all + tile * lanes * kBt;                                           \
+  layered_sweep4<DMAX, U, PARTS>(qv, park, lt, [&](int g, int c, int f0, bool parked) {   \
+    layered_check_lane<DMAX, U, PARTS>(qv + f0, rcv + f0, park + f0, lt, g, c, parked,    \
+                                       rule);                                             \
+  });                                                                                     \
+  for (size_t i = threadIdx.x; i < lanes; i += blockDim.x)                                \
+    store_word(bits + i * kBt, hard_word(qv + i * kBt));
+
+// The streaming layered sweep, a tile a block: LDPC_FUSED_LAYERED_BODY.
 template <int DMAX, class Rule>
 __global__ void __launch_bounds__(Rule::SweepUnits::kBlock, 2) fused_layered_kernel(
     typename Rule::Q* qv_all, typename Rule::Msg* rcv_all, int8_t* bits_all,
     typename Rule::P* park_all, Tables t, size_t park_elems, Rule rule) {
-  using U = typename Rule::SweepUnits;
-  extern __shared__ __align__(16) int smem[];
-  const size_t tile = blockIdx.x;
-  const size_t lanes = (size_t)t.VG * t.Z;
-  const LaneTables lt = load_tables(t, smem + kCtlInts);
-  auto* park = lane_park(park_all, park_elems, smem, t);
-  auto* qv = qv_all + tile * lanes * kBt;
-  auto* rcv = rcv_all + tile * t.E * t.Z * kBt;
-  int8_t* bits = bits_all + tile * lanes * kBt;
-  layered_sweep4<DMAX, U>(qv, park, lt, [&](int g, int c, int f0, bool parked) {
-    layered_check_lane<DMAX, U>(qv + f0, rcv + f0, park + f0, lt, g, c, parked, rule);
-  });
-  for (size_t i = threadIdx.x; i < lanes; i += blockDim.x)
-    store_word(bits + i * kBt, hard_word(qv + i * kBt));
+  LDPC_FUSED_LAYERED_BODY(kSweepWhole)
 }
 
 // Blocks a tile of a phase kernel: enough for every SM to hold as many
@@ -303,18 +315,32 @@ cudaError_t fused_var_launch(const Rule& rule, const void* c2v, const void* q,
                 static_cast<int8_t*>(bits), t, rule);
 }
 
+// A sweep kernel's type: fused_layered_kernel's, or a probe's of the same
+// arguments (csrc/probe_layered.cu).
+template <class Rule>
+using SweepKernel = void (*)(typename Rule::Q*, typename Rule::Msg*, int8_t*,
+                             typename Rule::P*, Tables, size_t, Rule);
+
+template <class Rule>
+cudaError_t sweep_launch(SweepKernel<Rule> kernel, const Rule& rule, void* qv, void* rcv,
+                         void* bits, void* park, const Tables& t, int nbt,
+                         size_t park_elems, int threads, cudaStream_t stream) {
+  using P = typename Rule::P;
+  if (threads > Rule::SweepUnits::kBlock) return cudaErrorInvalidValue;
+  return launch(kernel, nbt, threads,
+                smem_bytes(t, park ? 0 : park_elems, sizeof(P)), stream,
+                static_cast<typename Rule::Q*>(qv),
+                static_cast<typename Rule::Msg*>(rcv), static_cast<int8_t*>(bits),
+                static_cast<P*>(park), t, park_elems, rule);
+}
+
 template <int DMAX, class Rule>
 cudaError_t fused_layered_launch(const Rule& rule, void* qv, void* rcv,
                                  void* bits, void* park, const Tables& t,
                                  int nbt, size_t park_elems, int threads,
                                  cudaStream_t stream) {
-  using P = typename Rule::P;
-  if (threads > Rule::SweepUnits::kBlock) return cudaErrorInvalidValue;
-  return launch(fused_layered_kernel<DMAX, Rule>, nbt, threads,
-                smem_bytes(t, park ? 0 : park_elems, sizeof(P)), stream,
-                static_cast<typename Rule::Q*>(qv),
-                static_cast<typename Rule::Msg*>(rcv), static_cast<int8_t*>(bits),
-                static_cast<P*>(park), t, park_elems, rule);
+  return sweep_launch(fused_layered_kernel<DMAX, Rule>, rule, qv, rcv, bits, park, t, nbt,
+                      park_elems, threads, stream);
 }
 
 }  // namespace ldpc

@@ -35,11 +35,11 @@ _TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 #: instances of the message kernels and of the flooding phases in sources
 #: of their own, the float-rule ones one a precision, and the streaming
 #: layered sweep's apart from the resident layered kernel's, so that the
-#: parallel build keeps its length)
+#: parallel build keeps its length; the probes of ``probes/`` last)
 SOURCES = ("resident_layered", "flooding", "compressed", "resident_layered_i8",
            "flooding_i8", "resident_layered_f32", "resident_layered_f64",
            "flooding_f32", "flooding_f64", "fused_layered", "fused_layered_i8",
-           "fused_layered_f32", "fused_layered_f64")
+           "fused_layered_f32", "fused_layered_f64", "probes", "probe_layered")
 
 
 def _nvcc() -> str:

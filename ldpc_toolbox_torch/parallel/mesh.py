@@ -57,18 +57,19 @@ class Mesh:
 def default_mesh(devices=None) -> Mesh:
     """The mesh over every rank when ``torch.distributed`` is initialised
     (over gloo: ``multihost.initialize``), else a mesh of one. This rank's
-    device is ``devices`` (a device or its name); ``cuda`` without an index
-    and None where a card is mean ``cuda:LOCAL_RANK``; None without a card
-    the CPU."""
+    device is ``devices`` (a device or its name; None means ``cuda``);
+    ``cuda`` without an index means ``cuda:LOCAL_RANK``. A CUDA device on a
+    machine without a card raises; the mesh never falls back to the CPU."""
     if dist.is_available() and dist.is_initialized():
         rank, size, group = dist.get_rank(), dist.get_world_size(), dist.group.WORLD
     else:
         rank, size, group = 0, 1, None
-    if devices is None:
-        devices = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(devices)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    device = torch.device("cuda" if devices is None else devices)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: name the device to decode on ('cpu')")
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
     return Mesh(group=group, rank=rank, size=size, device=device)
 
 

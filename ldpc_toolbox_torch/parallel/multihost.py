@@ -11,7 +11,7 @@ Usage, one process a card (``torchrun --nproc-per-node N script.py``)::
 
     from ldpc_toolbox_torch.parallel.multihost import global_mesh, initialize
     initialize()                     # torchrun's environment, gloo
-    mesh = global_mesh()             # every rank; this rank's device
+    mesh = global_mesh()             # every rank; cuda:LOCAL_RANK
     BerTestBuilder(..., mesh=mesh, device=mesh.device,
                    batch_size=global_batch).build().run()
     shutdown()                       # every rank, once the run is done
@@ -49,9 +49,11 @@ def initialize(**kwargs) -> None:
     dist.init_process_group(backend="gloo", **kwargs)
 
 
-def global_mesh():
-    """The mesh over every rank of every host."""
-    return default_mesh()
+def global_mesh(device=None):
+    """The mesh over every rank of every host, this rank decoding on
+    ``device`` (``parallel.mesh.default_mesh``: None means
+    ``cuda:LOCAL_RANK``, and raises on a machine without a card)."""
+    return default_mesh(device)
 
 
 def shutdown() -> None:

@@ -17,7 +17,7 @@ import torch
 from ldpc_toolbox_torch.codes.ccsds import C2Code
 from ldpc_toolbox_torch.codes.dvbs2 import Code as DvbCode
 from ldpc_toolbox_torch.codes.nr5g import BaseGraph
-from ldpc_toolbox_torch.decoder import Decoder
+from ldpc_toolbox_torch.decoder import Decoder, lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.decoder.lifted_flooding import (
     flooding_tiles,
@@ -1197,3 +1197,91 @@ def test_generic_decodes_on_two_streams(cuda):
         cpu = Decoder(h, name, device="cpu").decode_batch(llrs, 20)
         for key in ("codeword", "iterations", "success"):
             assert torch.equal(out[key].cpu(), cpu[key]), (name, key)
+
+
+# -- the probes (ldpc_toolbox_torch/probes, csrc/probes.cu and
+# csrc/probe_layered.cu), small sizes --------------------------------------
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 7, 40, 128), torch.bfloat16),  # not a whole number of 16 KB chunks
+    ((2, 5, 24, 128), torch.float32),
+    ((400, 7, 64, 128), torch.bfloat16),  # several chunks a block
+])
+def test_probe_stream_slabs(cuda, shape, dtype):
+    from ldpc_toolbox_torch.probes import copybw
+
+    src = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32))
+    src = (src * 300).to(cuda, dtype)
+    before = copybw.stream_slabs.launches
+    out = copybw.stream_slabs(src)
+    assert copybw.stream_slabs.launches == before + 1
+    assert torch.equal(out, copybw.stream_slabs_reference(src))
+
+
+@pytest.mark.parametrize("mode", ["add", "fma", "sel", "roll"])
+def test_probe_alu_chain(cuda, mode):
+    from ldpc_toolbox_torch.probes import vpu_peak
+
+    rng = np.random.default_rng(2)
+    for shape in ((3, 40, 64), (2, 360, 128)):
+        x = torch.from_numpy(rng.uniform(0.4, 0.6, shape).astype(np.float32)).to(cuda)
+        out = vpu_peak.alu_chain(x, mode, 300)
+        ref = vpu_peak.alu_chain_reference(x, mode, 300)
+        # fma too: from inputs in [0.4, 0.6) one rounding and two agree
+        assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="roll"):
+        vpu_peak.alu_chain(torch.zeros((1, 8, 40), device=cuda), "roll", 1)
+
+
+@pytest.mark.parametrize("mode", ["dma", "roll0", "switch", "dynroll"])
+def test_probe_rotated_gather(cuda, mode):
+    from ldpc_toolbox_torch.probes import roll
+
+    src, planes, shifts = roll.inputs(seed=4, device=cuda, nbt=2, p=10, z=24, bt=16, g=3)
+    out = roll.rotated_gather(src, planes, shifts, mode)
+    assert torch.equal(out, roll.rotated_gather_reference(src, planes, shifts, mode))
+
+
+@pytest.mark.parametrize("mode", ["copy", "contig", "scatw", "scatw_roll"])
+def test_probe_minsum_planes(cuda, mode):
+    from ldpc_toolbox_torch.probes import v2
+
+    for bt in (8, 16):
+        src, dest, shifts = v2.inputs(bt, seed=5, device=cuda, b=32, g=3, d=7, z=24)
+        out = v2.run(mode, src, dest, shifts)
+        ref = (v2.plane_copy_reference(src) if mode == "copy"
+               else v2.minsum_planes_reference(src, mode, dest, shifts))
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("code", ["R1_4short", "5G BG2 z=16"])
+@pytest.mark.parametrize("decoder", ["HLMinsumbf16", "HLMinsumf32"])
+def test_probe_layered_sweep_parts(cuda, code, decoder):
+    """Each variant of the probe's sweep equals its plain version over two
+    sweeps, and the whole sweep is ``fused_layered_iteration``, the
+    streaming sweep itself: its launch counted there, not as the probe's."""
+    from ldpc_toolbox_torch.probes import layered_variants
+
+    lg = (lifted_graph_for(DvbCode.R1_4short) if code == "R1_4short"
+          else LiftedGraph.from_sparse(BaseGraph.BG2.h(16), *nr5g_maps(BaseGraph.BG2, 16)))
+    layout = lifted_layered.device_layout(lg, cuda)
+    rule = fused_bp2.rule_for(make_arithmetic(decoder)[1])
+    rng = np.random.default_rng(6)
+    qv0 = torch.from_numpy(rng.standard_normal((3, layout.VG, layout.Z, 4), dtype=np.float32) * 4)
+    rcv0 = torch.from_numpy(rng.standard_normal((3, layout.E, layout.Z, 4), dtype=np.float32))
+    qv0, rcv0 = qv0.to(cuda), rcv0.to(cuda, rule.storage_dtype)
+    for variant in layered_variants.VARIANTS:
+        mine = (qv0.clone(), rcv0.clone())
+        plain = (qv0.clone(), rcv0.clone())
+        for _ in range(2):
+            out = layered_variants.layered_sweep_parts(*mine, layout, rule, variant)
+            ref = layered_variants.layered_sweep_parts_reference(*plain, layout, rule, variant)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b), variant
+    probe, sweep = layered_variants.layered_sweep_parts.launches, fused_layered_iteration.launches
+    whole = layered_variants.layered_sweep_parts(qv0.clone(), rcv0.clone(), layout, rule, "full")
+    assert layered_variants.layered_sweep_parts.launches == probe
+    assert fused_layered_iteration.launches == sweep + 1
+    for a, b in zip(whole, fused_layered_iteration(qv0.clone(), rcv0.clone(), layout, rule)):
+        assert torch.equal(a, b)

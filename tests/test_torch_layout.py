@@ -491,5 +491,6 @@ def test_port_never_imports_jax():
     for module in ("decoder.compaction", "ops.resident_compressed", "ops.fused_layered",
                    "decoder.layout", "decoder.flooding", "decoder.layered", "systematic",
                    "simulation.puncturing", "simulation.interleaving", "utils.chacha",
-                   "utils.rng", "mackay_neal", "peg"):
+                   "utils.rng", "mackay_neal", "peg", "probes.copybw", "probes.vpu_peak",
+                   "probes.roll", "probes.v2", "probes.layered_variants"):
         assert f"ldpc_toolbox_torch.{module}" in proc.stdout, module

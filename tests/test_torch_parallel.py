@@ -3,8 +3,8 @@
 
 Two processes join over gloo on localhost through
 ``parallel.multihost.initialize`` and run the three scenarios of the JAX
-package's tests/test_multihost.py on ``global_mesh()``, each rank on the
-CPU: one step of a MacKay-Neal code, whose summed counters are the same on
+package's tests/test_multihost.py on ``global_mesh("cpu")``, each rank on
+the CPU: one step of a MacKay-Neal code, whose summed counters are the same on
 both ranks and equal to the unsharded step's; one step of a lifted 5G BG2
 z=16 ``HLMinsumf32`` decode, equal to the unsharded step's; and a two-point
 sweep under the stop rule, crashed after point 0, resumed from each rank's
@@ -45,7 +45,7 @@ torch.set_num_threads(1)
 from ldpc_toolbox_torch.parallel.multihost import global_mesh, initialize, shutdown
 
 initialize(init_method=f"tcp://localhost:{port}", world_size=2, rank=pid)
-mesh = global_mesh()
+mesh = global_mesh("cpu")
 assert (mesh.rank, mesh.size) == (pid, 2), mesh
 assert mesh.device == torch.device("cpu"), mesh
 
@@ -236,6 +236,23 @@ def test_shutdown_ends_the_group(workers):
     alive, and both ranks then exited 0 (the fixture's assertion)."""
     for out in workers:
         assert "SHUTDOWN ok" in out
+
+
+def test_default_mesh_has_no_cpu_fallback():
+    """With no device named a mesh decodes on ``cuda:LOCAL_RANK``; on a
+    machine without a card that raises (as the kernels' build does), in
+    ``default_mesh`` and in ``global_mesh``, and never becomes the CPU."""
+    from ldpc_toolbox_torch.parallel.multihost import global_mesh
+
+    for make in (default_mesh, global_mesh):
+        if torch.cuda.is_available():
+            assert make().device == torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make("cuda:0")
+        assert make("cpu").device == torch.device("cpu")
 
 
 def test_mesh_of_one_and_batch_split():
