@@ -90,10 +90,12 @@ instances' 64 bucket), and drives the port's main paths on the flagship code
 10. the probes of the card's own ceilings (``ldpc_toolbox_torch/probes``,
    the TPU probes of ``tools/prof_*.py``) at their tools' full shapes,
    each kernel held against its plain version (tolerance 0, ``fma`` too:
-   see ``vpu_peak``) and timed: P1 the copy stream at the
-   six slab shapes beside torch's ``src + 1``, P2 the four chained ops on
+   see ``vpu_peak``) and timed as a chain of launches behind a busy
+   stream, the host path out of the window (``probes._kernels.chain_ms``;
+   the host time a launch printed beside): P1 the copy stream at the
+   six slab shapes in turns with torch's ``src + 1``, P2 the four chained ops on
    132 planes beside the issue rate and the data sheet's f32 rate, P3 the
-   rotated gather's four modes, P4 the copy (beside ``Tensor.copy_``) and
+   rotated gather's four modes, P4 the copy (in turns with ``Tensor.copy_``) and
    the min-sum's contiguous and scattered writes, P5 the layered sweep's
    five variants at B = 512 and 1024 (``full`` is
    ``fused_layered_iteration``), a line a mode in the kernels JSON (but
@@ -206,6 +208,7 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
+from ldpc_toolbox_torch.probes import _kernels as probe_kernels
 from ldpc_toolbox_torch.probes import copybw, layered_variants, roll, v2, vpu_peak
 from ldpc_toolbox_torch.simulation import AwgnChannel, BerTestBuilder, Modulation
 from ldpc_toolbox_torch.simulation.ber import _frame_counters, step_generator
@@ -2631,16 +2634,22 @@ def seeded_cuda(shape, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def probe_timed(wrapper, fn, reps):
-    """(launches, median ms) of ``reps`` CUDA-event timings of fn() after a
-    warm-up: a probe's main path, its counts set to 0 just before and read
+def probe_timed(wrapper, fns, launches, rounds=1):
+    """(launches, {name: Chain}) of the chains of each fn of ``fns`` {name:
+    fn}, in turns (``probes._kernels.turns``), the probe's wrapper among
+    them: a probe's main path, its counts set to 0 just before and read
     just after."""
     for w in PROBE_WRAPPERS:
         w.launches = 0
-    ms = cuda_ms(fn, reps)
-    launches = wrapper.launches
-    assert launches > 0, f"{wrapper.__name__} was not launched"
-    return launches, ms
+    found = probe_kernels.turns(fns, launches, rounds)
+    n = wrapper.launches
+    assert n > 0, f"{wrapper.__name__} was not launched"
+    return n, found
+
+
+def chain_text(chain):
+    """A chain's host time a launch and longest device gap, as printed."""
+    return f"host {chain.host_ms:.4f} ms a launch, gap {chain.gap_ms:.4f} ms"
 
 
 def probe_hold(what, out, ref):
@@ -2656,10 +2665,10 @@ def probe_entry(launches, ms, plain_ms, b, err, library_ms=None):
 
 
 def probe_copy_stream(card, measured):
-    """P1 at the tool's six slab shapes: ``stream_slabs`` against ``src +
-    1``, the plain version and the library call in one."""
+    """P1 at the tool's six slab shapes: ``stream_slabs`` in turns with
+    ``src + 1``, the plain version and the library call in one."""
     big = torch.zeros(256 * 1024 * 1024, dtype=torch.bfloat16, device="cuda")  # 0.5 GB
-    lib_ms = cuda_ms(lambda: big + 1, 10)
+    lib_ms = probe_kernels.chain_ms(lambda: big + 1).ms
     rows = {"torch_x_plus_1_0.5GB_gb_s": 2 * big.nbytes / lib_ms / 1e6}
     del big
     for i, (P, Z, Bt, G, dtype) in enumerate(copybw.CONFIGS):
@@ -2667,13 +2676,17 @@ def probe_copy_stream(card, measured):
         ref, plain_ms = timed_once(lambda: copybw.stream_slabs_reference(src))
         err = probe_hold(f"stream_slabs {tuple(src.shape)}", [copybw.stream_slabs(src)], [ref])
         del ref
-        launches, ms = probe_timed(copybw.stream_slabs, lambda: copybw.stream_slabs(src), 10)
-        torch_ms = cuda_ms(lambda: src + 1, 10)
+        launches, found = probe_timed(copybw.stream_slabs, {
+            "kernel": lambda: copybw.stream_slabs(src), "src + 1": lambda: src + 1}, 20, 3)
+        ms, torch_ms = found["kernel"].ms, found["src + 1"].ms
         gbs = 2 * src.nbytes / ms / 1e6
         tag = f"P={P} Z={Z} Bt={Bt} G={G} {str(dtype)[6:]}"
-        rows[tag] = {"gb_s": gbs, "torch_src_plus_1_gb_s": 2 * src.nbytes / torch_ms / 1e6}
-        print(f"[{card}] P1 stream {tag}: {ms:.4f} ms, {gbs:.1f} GB/s; torch src + 1 "
-              f"{torch_ms:.4f} ms, {rows[tag]['torch_src_plus_1_gb_s']:.1f} GB/s; equal")
+        rows[tag] = {"ms": ms, "gb_s": gbs, "torch_src_plus_1_ms": torch_ms,
+                     "torch_src_plus_1_gb_s": 2 * src.nbytes / torch_ms / 1e6}
+        print(f"[{card}] P1 stream {tag}: {ms:.4f} ms, {gbs:.1f} GB/s "
+              f"({chain_text(found['kernel'])}); "
+              f"torch src + 1 {torch_ms:.4f} ms, {rows[tag]['torch_src_plus_1_gb_s']:.1f} GB/s "
+              f"({chain_text(found['src + 1'])}); in turns; equal")
         if i == 0:
             measured["stream_slabs"] = probe_entry(
                 launches, ms, plain_ms, bound(2 * src.nbytes, src.numel()), err, torch_ms)
@@ -2689,7 +2702,9 @@ def probe_alu_chain(card, measured):
     for mode in vpu_peak.MODES:
         ref, plain_ms = timed_once(lambda: vpu_peak.alu_chain_reference(x, mode, rounds))
         err = probe_hold(f"alu_chain {mode}", [vpu_peak.alu_chain(x, mode, rounds)], [ref])
-        launches, ms = probe_timed(vpu_peak.alu_chain, lambda: vpu_peak.alu_chain(x, mode), 5)
+        launches, found = probe_timed(vpu_peak.alu_chain,
+                                      {mode: lambda: vpu_peak.alu_chain(x, mode)}, 5)
+        ms = found[mode].ms
         rounds_done = x.numel() * rounds
         rate = rounds_done * vpu_peak.OPS[mode] / (ms * 1e-3)
         rows[mode] = {"ops_per_s": rate, "rounds_per_s": rounds_done / (ms * 1e-3)}
@@ -2699,7 +2714,8 @@ def probe_alu_chain(card, measured):
         print(f"[{card}] P2 alu chain {mode}: {ms:.3f} ms, {rate / 1e12:.3f} T ops/s "
               f"({vpu_peak.OPS[mode]} an element a round), {100 * rate / vpu_peak.ISSUE_RATE:.1f} "
               f"% of the issue rate {vpu_peak.ISSUE_RATE / 1e12:.1f} T/s, "
-              f"{100 * rate / F32_OPS_PER_S:.1f} % of {F32_OPS_PER_S / 1e12:.0f} T/s; equal")
+              f"{100 * rate / F32_OPS_PER_S:.1f} % of {F32_OPS_PER_S / 1e12:.0f} T/s "
+              f"({chain_text(found[mode])}); equal")
         measured[f"alu_chain:{mode}"] = probe_entry(launches, ms, plain_ms, b, err)
     return rows
 
@@ -2713,12 +2729,13 @@ def probe_rotated_gather(card, measured):
             lambda: roll.rotated_gather_reference(src, planes, shifts, mode))
         err = probe_hold(f"rotated_gather {mode}",
                          [roll.rotated_gather(src, planes, shifts, mode)], [ref])
-        launches, ms = probe_timed(
-            roll.rotated_gather, lambda: roll.rotated_gather(src, planes, shifts, mode), 30)
+        launches, found = probe_timed(
+            roll.rotated_gather, {mode: lambda: roll.rotated_gather(src, planes, shifts, mode)}, 30)
+        ms = found[mode].ms
         nbytes = roll.moved_bytes(ref)
         rows[mode] = {"gb_s": nbytes / ms / 1e6}
-        print(f"[{card}] P3 rotated gather {mode}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s; "
-              f"equal")
+        print(f"[{card}] P3 rotated gather {mode}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s "
+              f"({chain_text(found[mode])}); equal")
         measured[f"rotated_gather:{mode}"] = probe_entry(
             launches, ms, plain_ms, bound(nbytes, ref.numel() * (roll.D - 1)), err)
     return rows
@@ -2743,17 +2760,24 @@ def probe_minsum_writes(card, measured):
             err = probe_hold(f"P4 {mode} Bt={bt}", [fn()], [ref])
             del ref
             wrapper = v2.plane_copy if mode == "copy" else v2.minsum_planes
-            launches, ms = probe_timed(wrapper, fn, 30)
-            gbs = 2 * src.nbytes / ms / 1e6
-            rows[f"{mode} Bt={bt}"] = {"gb_s": gbs}
-            library_ms = None
+            fns = {mode: fn}
             if mode == "copy":
                 out = torch.empty_like(src)
-                library_ms = cuda_ms(lambda: out.copy_(src), 30)
-                rows[f"{mode} Bt={bt}"]["copy__gb_s"] = 2 * src.nbytes / library_ms / 1e6
+                fns["Tensor.copy_"] = lambda: out.copy_(src)  # noqa: B023
+            launches, found = probe_timed(wrapper, fns, 30, 3 if mode == "copy" else 1)
+            ms = found[mode].ms
+            gbs = 2 * src.nbytes / ms / 1e6
+            rows[f"{mode} Bt={bt}"] = {"ms": ms, "gb_s": gbs}
+            library_ms = None
+            if mode == "copy":
+                library_ms = found["Tensor.copy_"].ms
+                rows[f"{mode} Bt={bt}"].update(copy__ms=library_ms,
+                                               copy__gb_s=2 * src.nbytes / library_ms / 1e6)
                 del out
-            print(f"[{card}] P4 {mode} Bt={bt}: {ms:.4f} ms, {gbs:.1f} GB/s"
-                  + (f"; Tensor.copy_ {library_ms:.4f} ms" if library_ms else "") + "; equal")
+            print(f"[{card}] P4 {mode} Bt={bt}: {ms:.4f} ms, {gbs:.1f} GB/s "
+                  f"({chain_text(found[mode])})"
+                  + (f"; Tensor.copy_ {library_ms:.4f} ms ({chain_text(found['Tensor.copy_'])}), "
+                     "in turns" if library_ms else "") + "; equal")
             if bt == 128:
                 name = "plane_copy" if mode == "copy" else f"minsum_planes:{mode}"
                 # per element: the fold's compare, min, max and selects, the
@@ -2789,18 +2813,20 @@ def probe_layered_sweep(card, measured):
                 err = max(err, probe_hold(f"P5 {variant} B={batch}, sweep {sweep}", out, ref))
             for w in PROBE_WRAPPERS:
                 w.launches = 0
-            ms = layered_variants.sweeps_ms(layout, rule, qv0, rcv0, variant)
+            chain = layered_variants.sweeps_ms(layout, rule, qv0, rcv0, variant)
+            ms = chain.ms
             launches = (layered_variants.layered_sweep_parts.launches
                         + fused_layered_iteration.launches)
-            assert launches == layered_variants.K, f"P5 {variant}: {launches} launches"
+            want = layered_variants.K + probe_kernels.WARM_UPS
+            assert launches == want, f"P5 {variant}: {launches} launches, not {want}"
             rows[f"B={batch}"][variant] = ms
             qv_bytes = lanes * (5 if variant in ("normw", "dmaonly") else 9)
             ops = {"full": CHECK_OPS + LAYERED_EXTRA_OPS, "noroll": CHECK_OPS + LAYERED_EXTRA_OPS,
                    "norule": LAYERED_EXTRA_OPS, "normw": CHECK_OPS + 2, "dmaonly": 0}[variant]
             b = bound(qv_bytes + rcv_bytes, edges * ops + lanes * VAR_LANE_OPS)
             print(f"[{card}] P5 layered sweep {variant} B={batch}: {ms:.4f} ms a sweep "
-                  f"(median of {layered_variants.K} chained), bound {b[0]:.4f} ms by {b[1]}; "
-                  f"equal over two sweeps")
+                  f"(median of {layered_variants.K} chained; {chain_text(chain)}), bound "
+                  f"{b[0]:.4f} ms by {b[1]}; equal over two sweeps")
             if batch == FLAGSHIP_BATCH and variant != "full":
                 measured[f"layered_sweep_parts:{variant}"] = probe_entry(
                     launches, ms, plain_ms, b, err)

@@ -1,18 +1,17 @@
 // Probes of the card's own ceilings, at the shapes of the decode kernels:
-// - stream_plus_one_kernel (P1): out = src + 1 over a bf16 or f32 array,
-//   streamed through shared memory by TMA bulk copies; replaces the Pallas
-//   TPU kernel of tools/prof_copybw.py pallas_stream (G slabs of (P, Z, Bt),
-//   double-buffered DMA in and out);
+// - stream_kernel<T, PlusOne> (P1): out = src + 1 over a bf16 or f32 array;
+//   replaces the Pallas TPU kernel of tools/prof_copybw.py pallas_stream (G
+//   slabs of (P, Z, Bt), double-buffered DMA in and out);
 // - alu_chain_kernel (P2): R x K chained rounds of one elementwise op over
 //   (360, 128) f32 planes (add, fma, sel, roll); replaces
 //   tools/prof_vpu_peak.py make;
 // - rotated_gather_kernel (P3): out[bt, g] = sum over t < d of a rotated
 //   window of plane planes[g d + t], f32 sum, bf16 out; replaces
 //   tools/prof_roll.py make (modes dma, roll0, switch and dynroll);
-// - copy_kernel and minsum_planes_kernel (P4): a blocked copy, and the
-//   min-sum of d planes written in place, to scattered planes, or rolled
-//   along Z and scattered; replace tools/prof_v2.py make (copy, contig,
-//   scatw, scatw_roll).
+// - stream_kernel<T, Identity> and minsum_planes_kernel (P4): P1's stream
+//   as a copy, and the min-sum of d planes written in place, to scattered
+//   planes, or rolled along Z and scattered; replace tools/prof_v2.py make
+//   (copy, contig, scatw, scatw_roll).
 // The fifth probe, the layered sweep with its parts removed
 // (tools/prof_layered_variants.py), is csrc/probe_layered.cu.
 //
@@ -23,17 +22,21 @@
 // sub-partitions an SM, each issuing one warp instruction (32 lanes) a
 // clock.
 //
-// What the designs do about it: P1 keeps a ring of shared-memory stages a
-// block, each filled by one cp.async.bulk whose completion an mbarrier
-// counts (the Hopper counterpart of the TPU's make_async_copy), so several
-// 16 KB chunks are in flight an SM while the block adds 1 to the chunk that
-// arrived and stores it with 16-byte stores; a slab of 645 KB does not fit
-// an SM, so blocks take the array's chunks in turn. P2 runs each element's
-// chain in a register, a thread an element, the rounds unrolled; enough
-// planes to fill the card's 132 SMs (one plane fills about 22); roll
-// rotates the plane's columns through shared memory each round (two
-// buffers, one barrier a round). P3 and P4 give a thread 8 consecutive
-// frames (16 bytes of bf16) of one lane, so a warp reads and writes whole
+// What the designs do about it: P1 and P4's copy are one template, a
+// thread one 16-byte vector, blocks of 512 over the array in one launch,
+// so that the blocks resident at a time sweep device memory in order. In
+// turns on the card (tools/compare_forms.py --source probes) it ties
+// torch's own elementwise and copy kernels, where a ring of shared-memory
+// stages filled and drained by TMA bulk copies (cp.async.bulk both ways on
+// mbarriers, a persistent grid of whole waves) ran 4 % slower at its best
+// and a persistent grid of threads with 2 to 8 loads in flight 6 % slower
+// (what counts, inferred from those times: blocks that sweep memory in
+// order, not more bytes in flight). P2 runs each element's chain in a
+// register, a thread an element, the rounds unrolled; enough planes to
+// fill the card's 132 SMs (one plane fills about 22); roll rotates the
+// plane's columns through shared memory each round (two buffers, one
+// barrier a round). P3 and P4's min-sum give a thread 8 consecutive frames
+// (16 bytes of bf16) of one lane, so a warp reads and writes whole
 // 512-byte rows; a rotation is an offset in the row index.
 //
 // Every result is bit for bit its plain version's
@@ -49,46 +52,17 @@
 
 namespace {
 
-// -- P1: the copy stream ------------------------------------------------------
+// -- P1 and P4's copy: one stream template -----------------------------------
 
-constexpr int kStreamThreads = 256;
-constexpr int kChunk = 16384;  // bytes a stage
-constexpr int kStages = 4;
+constexpr int kStreamThreads = 512;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One bulk copy of bytes (a multiple of 16, both addresses 16-byte aligned)
-// from device memory into shared memory, its completion counted on bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+// What the stream does to each 16 bytes between its load and its store.
+struct Identity {  // P4's copy
+  static constexpr bool kTouches = false;
+};
+struct PlusOne {  // P1
+  static constexpr bool kTouches = true;
+};
 
 // 16 bytes plus one: eight bf16 or four f32, added in f32 and rounded to
 // nearest even (bf16: the exact sum's rounding, f32 holding twice bf16's
@@ -111,66 +85,32 @@ __device__ __forceinline__ uint4 plus_one(uint4 v, const float*) {
   return v;
 }
 
-// out = src + 1 over bytes bytes: chunk c of kChunk bytes (the last may be
-// shorter) goes to block c % gridDim.x, which keeps up to kStages of its
-// chunks in flight.
-template <typename T>
-__global__ void __launch_bounds__(kStreamThreads) stream_plus_one_kernel(const T* src, T* out,
-                                                                        size_t bytes) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t full[kStages];
-  const size_t chunks = (bytes + kChunk - 1) / kChunk;
-  const size_t mine = chunks > blockIdx.x ? (chunks - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  const auto* in = reinterpret_cast<const unsigned char*>(src);
-  auto* o = reinterpret_cast<unsigned char*>(out);
-  const auto chunk_of = [&](size_t i) { return blockIdx.x + i * gridDim.x; };
-  const auto size_of = [&](size_t c) {
-    const size_t left = bytes - c * kChunk;
-    return static_cast<uint32_t>(left < kChunk ? left : kChunk);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (size_t i = 0; i < mine && i < kStages; ++i) {
-      const size_t c = chunk_of(i);
-      bulk_load(ring + i * kChunk, in + c * kChunk, size_of(c), &full[i]);
-    }
-  }
-  __syncthreads();
-  for (size_t i = 0; i < mine; ++i) {
-    const int s = i % kStages;
-    const size_t c = chunk_of(i);
-    const uint32_t n = size_of(c);
-    mbar_wait(&full[s], (i / kStages) & 1);
-    const uint4* stage = reinterpret_cast<const uint4*>(ring + s * kChunk);
-    uint4* dst = reinterpret_cast<uint4*>(o + c * kChunk);
-    for (uint32_t v = threadIdx.x; v < n / 16; v += blockDim.x)
-      dst[v] = plus_one(stage[v], src);
-    __syncthreads();  // every thread has read stage s
-    if (threadIdx.x == 0 && i + kStages < mine) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const size_t next = chunk_of(i + kStages);
-      bulk_load(ring + s * kChunk, in + next * kChunk, size_of(next), &full[s]);
-    }
+// out = Op(src) over n 16-byte vectors of T: a thread one vector, a block
+// 512 consecutive ones, one block a tile of the array in one launch (no
+// grid-stride loop), so the blocks the card runs at a time sweep the array
+// in order. Plain loads and stores: a streaming hint on the load alone
+// (ld.global.nc.L1::no_allocate, or .cs) ran 1.5 % slower.
+template <typename T, typename Op>
+__global__ void __launch_bounds__(kStreamThreads) stream_kernel(const uint4* __restrict__ src,
+                                                                uint4* __restrict__ out,
+                                                                size_t n) {
+  const size_t i = blockIdx.x * (size_t)kStreamThreads + threadIdx.x;
+  if (i >= n) return;
+  if constexpr (Op::kTouches) {
+    out[i] = plus_one(src[i], static_cast<const T*>(nullptr));
+  } else {
+    out[i] = src[i];
   }
 }
 
-template <typename T>
+// out = Op(src) over bytes bytes (a multiple of 16, both 16-byte aligned)
+// on stream; no launch attribute to set up.
+template <typename T, typename Op>
 cudaError_t stream_launch(const void* src, void* out, size_t bytes, cudaStream_t stream) {
-  auto kernel = stream_plus_one_kernel<T>;
-  const int smem = kStages * kChunk;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStreamThreads, smem);
-  if (err != cudaSuccess) return err;
-  const size_t chunks = (bytes + kChunk - 1) / kChunk;
-  const int grid = (int)std::min(chunks, (size_t)sms * std::max(per_sm, 1));
-  if (grid == 0) return cudaSuccess;
-  kernel<<<grid, kStreamThreads, smem, stream>>>(static_cast<const T*>(src), static_cast<T*>(out),
-                                                 bytes);
+  const size_t n = bytes / 16;
+  if (n == 0) return cudaSuccess;
+  stream_kernel<T, Op><<<(unsigned)((n + kStreamThreads - 1) / kStreamThreads), kStreamThreads, 0,
+                         stream>>>(static_cast<const uint4*>(src), static_cast<uint4*>(out), n);
   return cudaGetLastError();
 }
 
@@ -407,13 +347,6 @@ __global__ void __launch_bounds__(256) minsum_planes_kernel(const uint4* src, co
   }
 }
 
-// dst = src, 16 bytes a thread.
-__global__ void __launch_bounds__(256) copy_kernel(const uint4* src, uint4* dst, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    dst[i] = src[i];
-}
-
 // Blocks of 256 threads for n items: a few waves of the card's blocks at
 // most, the rest taken in grid-stride loops.
 unsigned grid_for(size_t n) {
@@ -429,8 +362,8 @@ extern "C" int ldpc_probe_stream(const void* src, void* out, long long bytes, in
                                  void* stream) {
   if (bytes < 0 || bytes % 16) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? stream_launch<__nv_bfloat16>(src, out, bytes, s)
-                               : stream_launch<float>(src, out, bytes, s));
+  return static_cast<int>(bf16 ? stream_launch<__nv_bfloat16, PlusOne>(src, out, bytes, s)
+                               : stream_launch<float, PlusOne>(src, out, bytes, s));
 }
 
 // rounds chained steps of op (0 add, 1 fma, 2 sel, 3 roll) on planes (n, Z,
@@ -477,11 +410,8 @@ extern "C" int ldpc_probe_rotated_gather(const void* src, const int* planes, con
 // P4's copy: bytes bytes (a multiple of 16, both 16-byte aligned).
 extern "C" int ldpc_probe_copy(const void* src, void* out, long long bytes, void* stream) {
   if (bytes < 0 || bytes % 16) return cudaErrorInvalidValue;
-  const size_t n = bytes / 16;
-  if (n == 0) return cudaSuccess;
-  copy_kernel<<<grid_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      stream_launch<uint4, Identity>(src, out, bytes, static_cast<cudaStream_t>(stream)));
 }
 
 // P4's min-sum modes on src (nbt, G, d, Z, Bt) bf16 (d at most 8, Bt a
@@ -498,6 +428,9 @@ extern "C" int ldpc_probe_minsum(const void* src, const int* dest, const int* sh
       mode);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The bytes a block of the copy stream (P1, P4's copy) takes.
+extern "C" int ldpc_probe_stream_block_bytes() { return kStreamThreads * 16; }
 
 extern "C" const char* ldpc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

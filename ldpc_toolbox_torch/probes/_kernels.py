@@ -6,6 +6,8 @@ import ctypes
 import functools
 import statistics
 import subprocess
+import time
+from typing import NamedTuple
 
 import torch
 
@@ -83,17 +85,64 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() in milliseconds, after
-    one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+class Chain(NamedTuple):
+    """A chain of launches timed by ``chain_ms``."""
+
+    #: the median of the launches' CUDA-event times, ms
+    ms: float
+    #: the median host time a launch took to enqueue (the call's own path,
+    #: its two events included), ms
+    host_ms: float
+    #: the longest the device waited between one launch's end event and
+    #: the next one's start event, ms: near 0 when the queue stayed ahead
+    gap_ms: float
+
+
+#: the calls ``chain_ms`` makes before its chain
+WARM_UPS = 2
+#: ``torch.cuda._sleep`` cycles a millisecond at the H100's top clock
+#: (1.98 GHz); at a lower clock the sleep lasts longer
+_CYCLES_PER_MS = 1_980_000
+
+
+def chain_ms(fn, launches: int = 20) -> Chain:
+    """Times ``launches`` calls of fn() as one chain, the host path out of
+    the window: after ``WARM_UPS`` calls, a ``torch.cuda._sleep`` keeps the
+    current stream busy for longer than the host takes to enqueue the
+    chain (twice the last warm-up's host time a launch, and 1 ms more),
+    each call between a start and an end event, one synchronize at the end;
+    the median of the event pairs. Every probe kernel and library call is
+    timed with it."""
+    for _ in range(WARM_UPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(launches)]
+    torch.cuda._sleep(int(min(2 * launches * host + 1.0, 500.0) * _CYCLES_PER_MS))
+    hosts = []
+    for start, end in pairs:
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        hosts.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    gaps = [end.elapsed_time(start) for (_, end), (start, _) in zip(pairs, pairs[1:])]
+    return Chain(statistics.median(s.elapsed_time(e) for s, e in pairs),
+                 statistics.median(hosts), max(gaps, default=0.0))
+
+
+def turns(fns, launches: int = 20, rounds: int = 5) -> dict:
+    """{name: Chain} of each fn in ``fns`` {name: fn}, timed by ``chain_ms``
+    in turns (the order reversed every round): each field the median over
+    ``rounds`` chains."""
+    found = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            found[name].append(chain_ms(fns[name], launches))
+    return {name: Chain(*(statistics.median(field) for field in zip(*chains)))
+            for name, chains in found.items()}

@@ -3,15 +3,18 @@
 Ports ``tools/prof_copybw.py`` of the JAX package: ``pallas_stream`` (its
 TPU kernel streams the slabs through vector memory with double-buffered
 DMA in and out) becomes ``stream_slabs``, the kernel
-``stream_plus_one_kernel`` of ``csrc/probes.cu`` (a ring of shared-memory
-stages a block filled by TMA bulk copies); ``xla_copy`` (``x + 1`` over
-0.5 GB, XLA's own op) stays the torch op ``src + 1``, which is also the
-plain version.
+``stream_kernel<T, PlusOne>`` of ``csrc/probes.cu`` (a thread 16 bytes,
+blocks in order over the array in one launch; P4's copy is the same
+template); ``xla_copy`` (``x + 1`` over 0.5 GB, XLA's own op) stays the
+torch op ``src + 1``, which is also the plain version.
 
     python -m ldpc_toolbox_torch.probes.copybw
 
 prints torch's ``x + 1`` over 0.5 GB, then for each of the tool's six
-slab shapes the kernel's and torch's time and GB/s (read and write).
+slab shapes the kernel's and torch's ``src + 1``'s time and GB/s (read
+and write), in turns, each a chain of launches timed by
+``_kernels.chain_ms`` (the host path out of the window), and the host
+time a launch of each.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ import torch
 
 from . import _kernels
 
-__all__ = ["CONFIGS", "main", "stream_slabs", "stream_slabs_reference"]
+__all__ = ["BLOCK_BYTES", "CONFIGS", "main", "stream_slabs", "stream_slabs_reference"]
+
+#: the bytes a block of the copy stream takes (``csrc/probes.cu``: 512
+#: threads of 16 bytes; the last block's share shorter)
+BLOCK_BYTES = 8192
 
 #: the tool's configurations (P, Z, Bt, G, dtype): the BP kernels' slab
 #: (d = 7, Z = 360, Bt = 128) in bf16; Z at 16-row alignment (352, 368);
@@ -45,8 +52,8 @@ def stream_slabs(src: torch.Tensor) -> torch.Tensor:
         raise TypeError("src must be (G, P, Z, Bt) bf16 or f32")
     if src.nbytes % 16:
         raise ValueError("the slabs' bytes must be a multiple of 16")
+    stream = _kernels.on_card("stream_slabs", src)
     out = torch.empty_like(src)
-    stream = _kernels.on_card("stream_slabs", src, out)
     lib = _kernels.lib()
     err = lib.ldpc_probe_stream(src.data_ptr(), out.data_ptr(), src.nbytes,
                                 int(src.dtype == torch.bfloat16), stream)
@@ -67,18 +74,18 @@ def stream_slabs_reference(src: torch.Tensor) -> torch.Tensor:
 def main():
     print(_kernels.card_line())
     x = torch.zeros(256 * 1024 * 1024, dtype=torch.bfloat16, device="cuda")  # 0.5 GB
-    t = _kernels.event_ms(lambda: x + 1)
+    t = _kernels.chain_ms(lambda: x + 1).ms
     print(f"torch x+1 0.5GB    : {t:7.2f} ms  {2 * x.nbytes / t / 1e6:6.1f} GB/s", flush=True)
     del x
     for P, Z, Bt, G, dtype in CONFIGS:
         src = torch.zeros((G, P, Z, Bt), dtype=dtype, device="cuda")
         slab = src.nbytes // G
-        kernel = _kernels.event_ms(lambda: stream_slabs(src))
-        plain = _kernels.event_ms(lambda: src + 1)
+        found = _kernels.turns({"kernel": lambda: stream_slabs(src), "torch": lambda: src + 1})
+        kernel, plain = found["kernel"], found["torch"]
         print(f"stream P={P:4d} Z={Z} Bt={Bt} {str(dtype)[6:]:8s} slab={slab / 1024:7.0f}KB "
-              f"G={G:5d}: {kernel:7.3f} ms {2 * src.nbytes / kernel / 1e6:6.1f} GB/s "
-              f"(torch src+1 {plain:7.3f} ms {2 * src.nbytes / plain / 1e6:6.1f} GB/s)",
-              flush=True)
+              f"G={G:5d}: {kernel.ms:7.4f} ms {2 * src.nbytes / kernel.ms / 1e6:6.1f} GB/s "
+              f"(torch src+1 {plain.ms:7.4f} ms {2 * src.nbytes / plain.ms / 1e6:6.1f} GB/s; "
+              f"host a launch {kernel.host_ms:.4f} and {plain.host_ms:.4f} ms)", flush=True)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ min-sum rule; each variant also writes the hard bits qv <= 0:
 
     python -m ldpc_toolbox_torch.probes.layered_variants
 
-prints each variant's ms a sweep (a median over ``K`` chained sweeps) on
-DVB-S2 R1_2 under ``HLMinsumbf16`` at B = 512, the tool's case.
+prints each variant's ms a sweep (a median over ``K`` chained sweeps,
+``_kernels.chain_ms``) on DVB-S2 R1_2 under ``HLMinsumbf16`` at B = 512,
+the tool's case.
 """
 
 from __future__ import annotations
@@ -127,29 +128,20 @@ def case(batch: int = BATCH, seed: int = 0, device="cuda"):
     return layout, rule, torch.from_numpy(qv0).to(device), rcv0
 
 
-def sweeps_ms(layout, rule, qv0, rcv0, variant, sweeps: int = K) -> float:
-    """Median ms of one sweep of ``variant`` over ``sweeps`` chained sweeps
-    from (qv0, rcv0), CUDA events a sweep."""
+def sweeps_ms(layout, rule, qv0, rcv0, variant, sweeps: int = K) -> _kernels.Chain:
+    """One sweep of ``variant`` timed by ``_kernels.chain_ms`` over
+    ``sweeps`` chained sweeps in place from (qv0, rcv0) (after its
+    warm-ups, which sweep on the same planes)."""
     qv, rcv = qv0.clone(), rcv0.clone()
-    times = []
-    for _ in range(sweeps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        layered_sweep_parts(qv, rcv, layout, rule, variant)
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in times]))
+    return _kernels.chain_ms(lambda: layered_sweep_parts(qv, rcv, layout, rule, variant), sweeps)
 
 
 def main():
     print(_kernels.card_line())
     layout, rule, qv0, rcv0 = case()
     for variant in VARIANTS:
-        sweeps_ms(layout, rule, qv0, rcv0, variant, 2)  # warm-up
         t = sweeps_ms(layout, rule, qv0, rcv0, variant)
-        print(f"{variant:8s}: {t:6.3f} ms/iter", flush=True)
+        print(f"{variant:8s}: {t.ms:6.3f} ms/iter", flush=True)
 
 
 if __name__ == "__main__":

@@ -122,7 +122,7 @@ def main():
     src, planes, shifts = inputs()
     for mode in MODES:
         out = rotated_gather(src, planes, shifts, mode)
-        t = _kernels.event_ms(lambda: rotated_gather(src, planes, shifts, mode), reps=30)
+        t = _kernels.chain_ms(lambda: rotated_gather(src, planes, shifts, mode), 30).ms
         print(f"{mode:8s} {t:.3f} ms  {moved_bytes(out) / t / 1e6:.0f} GB/s", flush=True)
 
 

@@ -5,8 +5,9 @@ read (d, Z, Bt) blocks of a group's d planes and write the min-sum outputs
 back as a block, or plane by plane to scattered positions by DMA, rolled
 first or not). On src (nbt, G, d, Z, Bt) bf16:
 
-- ``copy``: ``plane_copy``, out = src (``copy_kernel`` of
-  ``csrc/probes.cu``);
+- ``copy``: ``plane_copy``, out = src (``stream_kernel<T, Identity>`` of
+  ``csrc/probes.cu``, P1's stream with nothing done between load and
+  store);
 - ``contig``: ``minsum_planes``, the min-sum outputs of each group's d
   planes in place of its inputs (``minsum_planes_kernel``);
 - ``scatw``: output t of group g to plane dest[g d + t] of (nbt, G d, Z,
@@ -22,7 +23,9 @@ parity without x_t is odd; stored as bf16.
     python -m ldpc_toolbox_torch.probes.v2
 
 prints each mode's time and GB/s (the tool's count: the input read and
-the output written) for Bt = 128 and 256 (and 512 for copy) at B = 512.
+the output written) for Bt = 128 and 256 (and 512 for copy) at B = 512, a
+chain of launches timed by ``_kernels.chain_ms``; the copy in turns with
+``Tensor.copy_``.
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ def plane_copy(src: torch.Tensor) -> torch.Tensor:
     if src.device.type == "cpu":
         return plane_copy_reference(src)
     _check(src, "plane_copy")
+    stream = _kernels.on_card("plane_copy", src)
     out = torch.empty_like(src)
-    stream = _kernels.on_card("plane_copy", src, out)
     lib = _kernels.lib()
     err = lib.ldpc_probe_copy(src.data_ptr(), out.data_ptr(), src.nbytes, stream)
     _kernels.raise_on(lib, err, "plane_copy")
@@ -167,9 +170,14 @@ def main():
     for mode in MODES:
         for bt in TILES[mode]:
             src, dest, shifts = inputs(bt)
-            t = _kernels.event_ms(lambda: run(mode, src, dest, shifts), reps=30)
-            print(f"{mode:11s} Bt={bt:3d}: {t:7.3f} ms  {2 * src.nbytes / t / 1e6:4.0f} GB/s",
-                  flush=True)
+            fns = {mode: lambda: run(mode, src, dest, shifts)}
+            if mode == "copy":
+                out = torch.empty_like(src)
+                fns["Tensor.copy_"] = lambda: out.copy_(src)
+            found = _kernels.turns(fns, launches=30)
+            print(f"{mode:11s} Bt={bt:3d}: " + "; ".join(
+                f"{name} {t.ms:7.4f} ms {2 * src.nbytes / t.ms / 1e6:4.0f} GB/s"
+                for name, t in found.items()), flush=True)
 
 
 if __name__ == "__main__":

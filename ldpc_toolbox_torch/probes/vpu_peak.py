@@ -107,7 +107,7 @@ def main():
     x = planes(PLANES)
     print(f"{PLANES} planes ({Z},{B}) f32, {R * K} chained rounds (R={R} x K={K})")
     for mode in MODES:
-        t = _kernels.event_ms(lambda: alu_chain(x, mode), reps=5)
+        t = _kernels.chain_ms(lambda: alu_chain(x, mode), 5).ms
         rate = PLANES * Z * B * R * K * OPS[mode] / (t * 1e-3)
         print(f"{mode:5s}: {t:8.3f} ms  {rate / 1e12:6.3f} Te-ops/s ({OPS[mode]} op/elem/round)",
               flush=True)

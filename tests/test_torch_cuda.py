@@ -1203,20 +1203,64 @@ def test_generic_decodes_on_two_streams(cuda):
 # csrc/probe_layered.cu), small sizes --------------------------------------
 
 
+#: rows of 16 bytes in a block of the probes' copy stream (``copybw.BLOCK_BYTES``)
+_BLOCK_ROWS = 8192 // 16
+#: 16-byte rows the copy-stream cases stream: not a whole number of blocks,
+#: shorter than one, exactly one, and a prime number of blocks and 3 rows
+#: (the last block's share is 48 bytes)
+_STREAM_ROWS = {"13.25 blocks": 13 * _BLOCK_ROWS + 128, "under a block": 128,
+                "one block": _BLOCK_ROWS, "3203 blocks and 48 bytes": 3203 * _BLOCK_ROWS + 3}
+
+
 @pytest.mark.parametrize("shape,dtype", [
-    ((3, 7, 40, 128), torch.bfloat16),  # not a whole number of 16 KB chunks
+    ((3, 7, 40, 128), torch.bfloat16),  # not a whole number of blocks
     ((2, 5, 24, 128), torch.float32),
-    ((400, 7, 64, 128), torch.bfloat16),  # several chunks a block
+    ((400, 7, 64, 128), torch.bfloat16),  # more blocks than the card runs at once
+    *[((1, 1, rows, 8), torch.bfloat16) for rows in _STREAM_ROWS.values()],
+    *[((1, 1, rows, 4), torch.float32) for rows in _STREAM_ROWS.values()],
 ])
 def test_probe_stream_slabs(cuda, shape, dtype):
-    from ldpc_toolbox_torch.probes import copybw
+    from ldpc_toolbox_torch.probes import _kernels, copybw
 
+    assert copybw.BLOCK_BYTES == 16 * _BLOCK_ROWS == _kernels.lib().ldpc_probe_stream_block_bytes()
     src = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32))
     src = (src * 300).to(cuda, dtype)
     before = copybw.stream_slabs.launches
     out = copybw.stream_slabs(src)
     assert copybw.stream_slabs.launches == before + 1
     assert torch.equal(out, copybw.stream_slabs_reference(src))
+
+
+@pytest.mark.parametrize("rows", list(_STREAM_ROWS.values()), ids=list(_STREAM_ROWS))
+def test_probe_plane_copy(cuda, rows):
+    """P4's copy on the copy stream's kernel over the same byte counts."""
+    from ldpc_toolbox_torch.probes import v2
+
+    src = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 1, 1, rows, 8)))
+    src = src.to(cuda, torch.bfloat16)
+    before = v2.plane_copy.launches
+    out = v2.plane_copy(src)
+    assert v2.plane_copy.launches == before + 1
+    assert torch.equal(out, v2.plane_copy_reference(src))
+
+
+def test_probe_stream_on_another_stream(cuda):
+    """The copy stream launches on the caller's current stream: a second
+    launch, on another stream, set up by nothing but its arguments, is
+    right and ordered after the work that stream waits for."""
+    from ldpc_toolbox_torch.probes import copybw, v2
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    src = torch.randn((2, 3, 7, 40, 16), generator=gen, device=cuda).to(torch.bfloat16)
+    copybw.stream_slabs(src[0])
+    v2.plane_copy(src)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        plus, copy = copybw.stream_slabs(src[0]), v2.plane_copy(src)
+    side.synchronize()
+    assert torch.equal(plus, copybw.stream_slabs_reference(src[0]))
+    assert torch.equal(copy, src)
 
 
 @pytest.mark.parametrize("mode", ["add", "fma", "sel", "roll"])

@@ -82,10 +82,18 @@ class _SeededZeros:
         return jnp.asarray(self.data, dtype)
 
 
+#: (G, P, Z, Bt) slabs: the first 3 of the kernel's blocks in bf16 (6 in
+#: f32), the second 4.69 blocks in bf16 and 9.38 in f32
+COPY_SHAPES = [(3, 2, 16, 128), (3, 5, 20, 64)]
+
+
+@pytest.mark.parametrize("shape", COPY_SHAPES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_copy_stream_matches_the_tool(tools, monkeypatch, dtype):
+def test_copy_stream_matches_the_tool(tools, monkeypatch, dtype, shape):
     m = tools["prof_copybw"]
-    x = np.random.default_rng(1).standard_normal((3, 2, 16, 128)).astype(np.float32) * 100
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32) * 100
+    if shape != COPY_SHAPES[0]:
+        assert x.size * getattr(torch, dtype).itemsize % copybw.BLOCK_BYTES
     outs = []
 
     def timeit(fn, *args, reps=10):
@@ -94,7 +102,8 @@ def test_copy_stream_matches_the_tool(tools, monkeypatch, dtype):
 
     monkeypatch.setattr(m, "jnp", _SeededZeros(x))
     monkeypatch.setattr(m, "timeit", timeit)
-    m.pallas_stream(2, 16, 128, 3, getattr(jnp, dtype))
+    G, P, Z, Bt = shape
+    m.pallas_stream(P, Z, Bt, G, getattr(jnp, dtype))
     port = copybw.stream_slabs(torch.from_numpy(x).to(getattr(torch, dtype)))
     assert port.dtype == getattr(torch, dtype) and port.shape == x.shape
     _same(outs[0], port)
@@ -142,10 +151,12 @@ def test_rotated_gather_matches_the_tool(tools, mode):
     _same(got, port)
 
 
-@pytest.mark.parametrize("mode", v2.MODES)
-def test_minsum_writes_match_the_tool(tools, monkeypatch, mode):
+@pytest.mark.parametrize("mode,z,b,bt", [(mode, 16, 16, 8) for mode in v2.MODES]
+                         # the copy over 6.56 of the kernel's blocks
+                         + [("copy", 40, 32, 16)])
+def test_minsum_writes_match_the_tool(tools, monkeypatch, mode, z, b, bt):
     m = tools["prof_v2"]
-    z, g, d, b, bt, seed = 16, 3, 7, 16, 8, 5
+    g, d, seed = 3, 7, 5
     for name, value in dict(Z=z, G=g, d=d, B=b, P=g * d).items():
         monkeypatch.setattr(m, name, value)
     rng = np.random.default_rng(seed)
@@ -154,6 +165,8 @@ def test_minsum_writes_match_the_tool(tools, monkeypatch, mode):
     monkeypatch.setattr(m, "shifts", rng.integers(0, z, g * d).astype(np.int32))
     src, dest, shifts = v2.inputs(bt, seed=seed, device="cpu", b=b, g=g, d=d, z=z)
     np.testing.assert_array_equal(dest.numpy(), m.dest)
+    if z == 40:
+        assert src.nbytes % copybw.BLOCK_BYTES
     fn, _ = m.make(mode, bt)
     port = v2.run(mode, src, dest, shifts)
     _same(fn(), port)

@@ -2,15 +2,16 @@
 
     python3 tools/compare_forms.py --source SOURCE [--source SOURCE ...]
         [--form NAME=DIR[:THREADS[:VAR]] ...] [--base DIR] [--reps 5] [--batch 1024 ...]
-        [--buckets]
+        [--buckets] [--sass-only]
 
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
 resident_layered_f64, flooding_f32, flooding_f64 (the float-rule instances),
 fused_layered_i8, fused_layered_f32, fused_layered_f64 (the streaming
-sweep's i8 and float instances), or streaming (the min-sum streaming
+sweep's i8 and float instances), streaming (the min-sum streaming
 kernels: the layered sweep of ``csrc/fused_layered.cu`` and the check and
-variable phases of ``csrc/flooding.cu``). A form is a directory holding a
+variable phases of ``csrc/flooding.cu``), or probes (the copy stream of
+``csrc/probes.cu``: P1 and P4's copy). A form is a directory holding a
 version of the kernel sources (``csrc/<source>.cu`` and the headers it
 includes), built here with the package's nvcc flags; "repo" is the package's
 own ``csrc/``, built into the package's ``build/`` as its wrappers build it.
@@ -63,9 +64,19 @@ For every source and form it also compares each kernel's SASS (``cuobjdump
 -sass``, addresses and encodings dropped) with the package's build and names
 the kernels whose code differs: a kernel of the same code runs the same.
 
+``probes`` holds P1 (``copybw.stream_slabs``) at the tool's six slab
+shapes and P4's copy (``v2.plane_copy``) at Bt = 128, 256 and 512 (B =
+512) of every form equal to the plain version, bit for bit, then times
+every form and the library call (torch's ``src + 1``, ``Tensor.copy_``) in
+turns, each a chain of launches behind a busy stream, the host path out of
+the window (``probes._kernels.chain_ms`` and ``turns``: the median over
+``--reps`` rounds of each chain's median), and prints nvcc's registers,
+stack and spills of each form's stream kernels.
+
 ``--batch`` times every source at other batch sizes too, one run after
 the other on the same builds (528 frames: one tile an SM of the card's 132,
-against the flagship's two).
+against the flagship's two). ``--sass-only`` stops after the builds and
+the SASS comparison: nothing is timed.
 
 Prints the card's name and power limit, a line a tile set with each form's
 time and, from nvcc's report of its build, the registers, stack-frame and
@@ -98,6 +109,7 @@ from chip_smoke import (  # noqa: E402
     R1_2_RATE,
     channel_llrs,
     event_ms,
+    seeded_cuda,
     sigma_at,
 )
 from ldpc_toolbox_torch.codes.dvbs2 import Code  # noqa: E402
@@ -113,6 +125,8 @@ from ldpc_toolbox_torch.ops import (  # noqa: E402
     resident_flooding,
     resident_layered,
 )
+from ldpc_toolbox_torch.probes import _kernels as probe_kernels  # noqa: E402
+from ldpc_toolbox_torch.probes import copybw, v2  # noqa: E402
 
 OUT = _build.BUILD_DIR / "forms"
 #: the frames of the decodes being timed
@@ -339,7 +353,7 @@ def main():
     global BATCH
     p = argparse.ArgumentParser()
     p.add_argument("--source", action="append", required=True,
-                   choices=sorted(PLAN) + sorted(SWEEPS) + ["streaming"])
+                   choices=sorted(PLAN) + sorted(SWEEPS) + ["streaming", "probes"])
     p.add_argument("--form", action="append", default=[], metavar="NAME=DIR[:THREADS[:VAR]]")
     p.add_argument("--base", metavar="DIR")
     p.add_argument("--reps", type=int, default=5)
@@ -348,6 +362,8 @@ def main():
     p.add_argument("--buckets", action="store_true",
                    help="print nvcc's report of every degree bucket's instance of the "
                         "sources' flagship rules")
+    p.add_argument("--sass-only", action="store_true",
+                   help="build and compare the SASS, time nothing")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -403,11 +419,17 @@ def main():
                   + (", ".join(differ) or "none"))
     if args.buckets:
         for source in sources:
-            print_buckets(source, ["repo", *forms])
+            if source != "probes":
+                print_buckets(source, ["repo", *forms])
+    if args.sass_only:
+        return
 
-    lg = lifted_graph_for(Code.R1_2)
     result = {"card": card}
-    for batch in args.batch or [FLAGSHIP_BATCH]:
+    if "probes" in sources:
+        sources.remove("probes")
+        run_probes(libs["probes"], args.reps, card, result)
+    lg = lifted_graph_for(Code.R1_2) if sources or "streaming" in args.source else None
+    for batch in (args.batch or [FLAGSHIP_BATCH]) if lg else ():
         BATCH = batch
         llrs = channel_llrs(lg.n, batch, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
         for source in sources:
@@ -602,6 +624,48 @@ def run_phases(source, built, block, lg, llrs, reps, card, result):
                    for form, lib in built.items() if form != "base"}
             hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result,
                           registers(source, fns, kernel, rule))
+
+
+def run_probes(built, reps, card, result):
+    """Holds every form's copy stream (P1 at ``copybw.CONFIGS``, P4's copy
+    at Bt = 128, 256, 512) to its plain version, bit for bit, then times
+    the forms and the library call in turns, each a chain of launches
+    (``probes._kernels.turns``); prints each form's stream kernels' nvcc
+    report."""
+    libs = {form: probe_kernels.bind(lib) for form, lib in built.items()}
+    for form in libs:
+        log = LOGS.get(("probes", form))
+        found = ptxas_report(str(log)) if log else {}
+        print(f"probes {form}: " + "; ".join(
+            f"{k} {report_text(v)}" for k, v in sorted(found.items())
+            if "stream" in k or "copy" in k))
+    cases = []
+    for i, (P, Z, Bt, G, dtype) in enumerate(copybw.CONFIGS):
+        src = seeded_cuda((G, P, Z, Bt), dtype, 100 + i, scale=300.0)
+        cases.append((f"P1 stream P={P} Z={Z} Bt={Bt} G={G} {str(dtype)[6:]}", src,
+                      copybw.stream_slabs, copybw.stream_slabs_reference,
+                      ("src + 1", lambda src=src: src + 1)))
+    for bt in (128, 256, 512):
+        src = seeded_cuda((v2.B // bt, v2.G, v2.D, v2.Z, bt), torch.bfloat16, bt)
+        out = torch.empty_like(src)
+        cases.append((f"P4 copy Bt={bt}", src, v2.plane_copy, v2.plane_copy_reference,
+                      ("Tensor.copy_", lambda src=src, out=out: out.copy_(src))))
+    for what, src, wrapper, plain, (library, call) in cases:
+        ref = plain(src)
+        for form, lib in libs.items():
+            got = with_lib(probe_kernels, "lib", lib, None, wrapper, src)
+            assert torch.equal(got, ref), f"{what}: {form} differs from the plain version"
+        del ref, got
+        fns = {form: lambda lib=lib: with_lib(probe_kernels, "lib", lib, None, wrapper, src)
+               for form, lib in libs.items()}
+        fns[library] = call
+        found = probe_kernels.turns(fns, 20, reps)
+        result[what] = {name: t.ms for name, t in found.items()}
+        print(f"[{card}] {what}: all forms equal; " + ", ".join(
+            f"{name} {t.ms:.4f} ms ({2 * src.nbytes / t.ms / 1e6:.1f} GB/s, host "
+            f"{t.host_ms:.4f} ms a launch, gap {t.gap_ms:.4f})" for name, t in found.items())
+            + f" (chains of 20 in turns, median of {reps})")
+    torch.cuda.empty_cache()
 
 
 def run_source(source, built, block, lg, llrs, reps, card, result):
