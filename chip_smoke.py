@@ -126,7 +126,9 @@ import importlib.util
 import io
 import json
 import os
+import re
 import runpy
+import shutil
 import socket
 import statistics
 from collections import Counter
@@ -501,6 +503,25 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     over their type's rate (f32 unless given)."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def sass(so):
+    """{kernel: its SASS instructions} of the library ``so`` (addresses
+    and encodings dropped), demangled names."""
+    dump = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+        elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            kernels[name].append(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(kernels), capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    short = (re.sub(r"\(anonymous namespace\)::|ldpc::", "", n).split("(")[0] for n in names)
+    return {n: kernels[k] for n, k in zip(short, kernels)}
 
 
 def i8_folds(kind, d):
@@ -2693,12 +2714,40 @@ def probe_copy_stream(card, measured):
     return rows
 
 
+def p2_round_instructions():
+    """{mode: (instructions, FP32-pipe instructions)} of a P2 round, counted
+    from the SASS of the built ``alu_chain_kernel<OP>`` as
+    ``vpu_peak.ROUND_MARKS`` says, roll charged add's; and under
+    ``roll_loop`` the shuffles and FADDs of roll's kernel at the tool's Z
+    (a lane's, a round)."""
+    code = sass(_build.library_path("probes"))
+    found = {}
+    for op, (mode, mark) in enumerate(vpu_peak.ROUND_MARKS.items()):
+        kernel = next(v for k, v in code.items() if k.endswith(f"alu_chain_kernel<{op}>"))
+        opcodes = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0] for i in kernel]
+        rounds = opcodes.count(mark)
+        assert rounds > 0, f"alu_chain_kernel<{op}> has no {mark}"
+        fp = [o for o in opcodes if o.startswith("F") and not o.startswith("F2")]
+        found[mode] = (len(fp) / rounds, sum(o in vpu_peak.FP32_PIPE_OPCODES for o in fp) / rounds)
+    found["roll"] = found["add"]
+    t = vpu_peak.ROLL_LANES[vpu_peak.Z]
+    kernel = next(v for k, v in code.items()
+                  if k.endswith(f"roll_chain_kernel<{vpu_peak.Z}, {t}>"))
+    # roll's kernel has its shuffles and FADDs in its round loop alone
+    found["roll_loop"] = {op: sum(f" {op}" in f" {i}" for i in kernel) for op in ("SHFL", "FADD")}
+    return found
+
+
 def probe_alu_chain(card, measured):
     """P2: every op at the tool's rounds on ``vpu_peak.PLANES`` planes,
-    held against the plain version, fma too (see ``vpu_peak``)."""
+    held against the plain version, fma too (see ``vpu_peak``). The bound:
+    a round's instructions (``p2_round_instructions``) at the issue rate,
+    or its FP32-pipe ones at that pipe's rate, whichever takes longer."""
     x = vpu_peak.planes(vpu_peak.PLANES)
     rounds = vpu_peak.R * vpu_peak.K
-    rows = {"issue_rate_per_s": vpu_peak.ISSUE_RATE, "data_sheet_f32_per_s": F32_OPS_PER_S}
+    per_round = p2_round_instructions()
+    rows = {"issue_rate_per_s": vpu_peak.ISSUE_RATE,
+            "fp32_pipe_per_s": vpu_peak.FP32_PIPE_RATE, "data_sheet_f32_per_s": F32_OPS_PER_S}
     for mode in vpu_peak.MODES:
         ref, plain_ms = timed_once(lambda: vpu_peak.alu_chain_reference(x, mode, rounds))
         err = probe_hold(f"alu_chain {mode}", [vpu_peak.alu_chain(x, mode, rounds)], [ref])
@@ -2707,15 +2756,34 @@ def probe_alu_chain(card, measured):
         ms = found[mode].ms
         rounds_done = x.numel() * rounds
         rate = rounds_done * vpu_peak.OPS[mode] / (ms * 1e-3)
-        rows[mode] = {"ops_per_s": rate, "rounds_per_s": rounds_done / (ms * 1e-3)}
-        # an FMA counts two operations at the f32 rate, as in bound()
-        ops = rounds_done * (2 if mode == "fma" else vpu_peak.OPS[mode])
-        b = bound(2 * x.nbytes, ops)
+        issued, on_pipe = per_round[mode]
+        by_ops = rounds_done * max(issued / vpu_peak.ISSUE_RATE,
+                                   on_pipe / vpu_peak.FP32_PIPE_RATE)
+        b = max((1e3 * by_ops, "operations"), bound(2 * x.nbytes, 0))
+        rows[mode] = {"ops_per_s": rate, "rounds_per_s": rounds_done / (ms * 1e-3),
+                      "instructions_a_round": issued, "fp32_pipe_a_round": on_pipe,
+                      "bound_ms": b[0]}
         print(f"[{card}] P2 alu chain {mode}: {ms:.3f} ms, {rate / 1e12:.3f} T ops/s "
-              f"({vpu_peak.OPS[mode]} an element a round), {100 * rate / vpu_peak.ISSUE_RATE:.1f} "
-              f"% of the issue rate {vpu_peak.ISSUE_RATE / 1e12:.1f} T/s, "
-              f"{100 * rate / F32_OPS_PER_S:.1f} % of {F32_OPS_PER_S / 1e12:.0f} T/s "
+              f"({vpu_peak.OPS[mode]} an element a round, the tool's count), "
+              f"{rounds_done / (ms * 1e-3) / 1e12:.3f} T rounds/s; bound {b[0]:.3f} ms "
+              f"({issued:g} instructions a round at the issue rate "
+              f"{vpu_peak.ISSUE_RATE / 1e12:.2f} T/s, {on_pipe:g} on the FP32 pipe at "
+              f"{vpu_peak.FP32_PIPE_RATE / 1e12:.2f} T/s), {100 * b[0] / ms:.1f} % of it "
               f"({chain_text(found[mode])}); equal")
+        if mode == "roll":
+            # the kernel's warps (C = 32 / T columns a warp) and their
+            # shuffles and FADDs a round: one warp shuffle a clock an SM (32
+            # results), one warp instruction a clock a sub-partition
+            loop = per_round["roll_loop"]
+            warps = -(-x.shape[0] * x.shape[2] // (32 // vpu_peak.ROLL_LANES[vpu_peak.Z]))
+            clocks = 132 * 1.98e9 * ms * 1e-3
+            shfl = warps * loop["SHFL"] * rounds / clocks
+            issue = warps * (loop["SHFL"] + loop["FADD"]) * rounds / (4 * clocks)
+            rows[mode].update(shuffle_unit_share=shfl, issue_share_shfl_fadd=issue)
+            print(f"[{card}] P2 roll: {loop['SHFL']} shuffles and {loop['FADD']} FADDs a lane "
+                  f"a round (SASS), {warps} warps: the shuffle unit (32 results a clock an SM "
+                  f"at 1.98 GHz) {100 * shfl:.1f} % busy, the issue slots {100 * issue:.1f} % "
+                  "with those alone")
         measured[f"alu_chain:{mode}"] = probe_entry(launches, ms, plain_ms, b, err)
     return rows
 

@@ -17,10 +17,10 @@
 //
 // What bounds them on an H100: P1, P3 and P4 move every byte of their
 // inputs and outputs once through device memory (3.35 TB/s on the data
-// sheet); P2 keeps its planes in registers (and shared memory for roll), so
-// it is bound by the rate at which the SMs issue its instructions: four
-// sub-partitions an SM, each issuing one warp instruction (32 lanes) a
-// clock.
+// sheet); P2 keeps its planes in registers, so it is bound by the rate at
+// which the SMs issue its instructions: four sub-partitions an SM, each
+// issuing one warp instruction (32 lanes) a clock; roll also by the SM's
+// shuffle unit, 32 results a clock.
 //
 // What the designs do about it: P1 and P4's copy are one template, a
 // thread one 16-byte vector, blocks of 512 over the array in one launch,
@@ -33,11 +33,13 @@
 // (what counts, inferred from those times: blocks that sweep memory in
 // order, not more bytes in flight). P2 runs each element's chain in a
 // register, a thread an element, the rounds unrolled; enough planes to
-// fill the card's 132 SMs (one plane fills about 22); roll rotates the
-// plane's columns through shared memory each round (two buffers, one
-// barrier a round). P3 and P4's min-sum give a thread 8 consecutive frames
-// (16 bytes of bf16) of one lane, so a warp reads and writes whole
-// 512-byte rows; a rotation is an offset in the row index.
+// fill the card's 132 SMs (one plane fills about 22); roll holds a column
+// in the registers of a few lanes of a warp, so a round's rotation is a
+// renaming of registers inside a lane and one warp shuffle a register
+// across lanes, with no shared memory and no barrier. P3 and P4's min-sum
+// give a thread 8 consecutive frames (16 bytes of bf16) of one lane, so a
+// warp reads and writes whole 512-byte rows; a rotation is an offset in the
+// row index.
 //
 // Every result is bit for bit its plain version's
 // (ldpc_toolbox_torch/probes/*.py); fma's too from the tool's inputs in
@@ -118,10 +120,14 @@ cudaError_t stream_launch(const void* src, void* out, size_t bytes, cudaStream_t
 
 enum ChainOp : int { kAdd = 0, kFma = 1, kSel = 2, kRoll = 3 };
 constexpr int kChainThreads = 256;
-constexpr int kRollCols = 32;     // a warp's columns
-constexpr int kRollRows = 12;     // rows of threads: 384 a block
-constexpr int kRollPerThread = 32;  // values a thread: Z <= 384
 constexpr int kRollShift = 37;
+constexpr int kRollThreads = 128;  // four warps a block
+// lanes a column at the tool's Z = 360: at 132 planes, 2 (254 registers,
+// no spill) ran 7.798 ms in turns with 4 (128 registers) 11.754, 3 (128
+// registers, 24 bytes of spill, 423 blocks on 132 SMs) 25.347 and the
+// columns through shared memory 79.505 (tools/compare_forms.py --source
+// probes, NVIDIA H100 80GB HBM3 at 700 W)
+constexpr int kRollLanes360 = 2;
 
 template <int OP>
 __device__ __forceinline__ float chain_step(float x) {
@@ -147,45 +153,63 @@ __global__ void __launch_bounds__(kChainThreads) alu_chain_kernel(const float* i
   }
 }
 
-// roll: x = roll(x, 37, axis 0) + 1.0000001 on (planes, Z, B) f32, a block
-// kRollCols columns of one plane (blockIdx.y), each thread the rows
-// threadIdx.y + kRollRows j of its column; the plane's column block goes
-// through shared memory each round, two buffers in turn.
-__global__ void __launch_bounds__(kRollCols* kRollRows) roll_chain_kernel(const float* in,
-                                                                         float* out, int Z,
-                                                                         int B, int rounds) {
-  extern __shared__ float cols[];  // 2 x (Z, kRollCols)
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const size_t plane = (size_t)blockIdx.y * Z * B;
-  const int col = blockIdx.x * kRollCols + tx;
-  const int shift = kRollShift % Z;
-  float x[kRollPerThread];
-  int from[kRollPerThread];
+// roll: x = roll(x, 37, axis 0) + 1.0000001 on (planes, Z, B) f32. A
+// column of Z rows lies in the registers of T lanes of one warp, lane t
+// its rows t b .. t b + b - 1 (b = Z / T); a warp C = 32 / T columns of
+// the planes' planes x B, lane t C + c the column's part t (lanes past T C
+// idle). With s = 37 mod Z = q b + m, row i of lane t takes, each round,
+// register i - m of lane t - q (i >= m) or register i - m + b of lane t -
+// q - 1 (i < m), lanes mod T: every register index static, the lane the
+// same for a whole group. The values that cross lanes come by one shuffle
+// a register, issued first; then, where q = 0, the rest move inside the
+// lane from the top register down, each read before it is written, the
+// add writing the register it moves to (no move instruction). No shared
+// memory, no barrier. vpu_peak.roll_source is the same map in Python.
+template <int Z, int T>
+__global__ void __launch_bounds__(kRollThreads, 2)
+    roll_chain_kernel(const float* in, float* out, int B, int cols, int rounds) {
+  constexpr int b = Z / T, C = 32 / T, s = kRollShift % Z, q = s / b, m = s % b;
+  static_assert(Z % T == 0 && T >= 1 && T <= 32, "T lanes must split a column evenly");
+  const int lane = threadIdx.x % 32, t = lane / C, c = lane % C;
+  const int col = (blockIdx.x * kRollThreads + threadIdx.x) / 32 * C + c;
+  const bool live = t < T && col < cols;
+  // the lanes of this column that rows i >= m and i < m read
+  const int near = (t + 2 * T - q % T) % T * C + c;
+  const int far = (t + 2 * T - (q + 1) % T) % T * C + c;
+  const size_t base = live ? (size_t)(col / B) * Z * B + col % B + (size_t)t * b * B : 0;
+  float x[b];
 #pragma unroll
-  for (int j = 0; j < kRollPerThread; ++j) {
-    const int r = ty + kRollRows * j;
-    if (r < Z) {
-      x[j] = in[plane + (size_t)r * B + col];
-      from[j] = (r - shift + Z) % Z;
+  for (int i = 0; i < b; ++i) x[i] = live ? in[base + (size_t)i * B] : 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    float y[b];
+#pragma unroll
+    for (int i = 0; i < b; ++i) {
+      if (i < m) {
+        y[i] = __shfl_sync(0xffffffffu, x[i - m + b], far);
+      } else if (q != 0) {
+        y[i] = __shfl_sync(0xffffffffu, x[i - m], near);
+      }
     }
-  }
-  for (int round = 0; round < rounds; ++round) {
-    float* buf = cols + (round & 1) * Z * kRollCols;
 #pragma unroll
-    for (int j = 0; j < kRollPerThread; ++j) {
-      const int r = ty + kRollRows * j;
-      if (r < Z) buf[r * kRollCols + tx] = x[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kRollPerThread; ++j)
-      if (ty + kRollRows * j < Z) x[j] = __fadd_rn(buf[from[j] * kRollCols + tx], 1.0000001f);
+    for (int i = b - 1; i >= 0; --i)
+      x[i] = __fadd_rn(i < m || q != 0 ? y[i] : x[i - m], 1.0000001f);
   }
+  if (live) {
 #pragma unroll
-  for (int j = 0; j < kRollPerThread; ++j) {
-    const int r = ty + kRollRows * j;
-    if (r < Z) out[plane + (size_t)r * B + col] = x[j];
+    for (int i = 0; i < b; ++i) out[base + (size_t)i * B] = x[i];
   }
+}
+
+template <int Z, int T>
+cudaError_t roll_launch(const float* in, float* out, int planes, int B, int rounds,
+                        cudaStream_t stream) {
+  constexpr int C = 32 / T, kColsPerBlock = kRollThreads / 32 * C;
+  const int cols = planes * B;
+  if (cols == 0) return cudaSuccess;
+  const int blocks = (cols + kColsPerBlock - 1) / kColsPerBlock;
+  roll_chain_kernel<Z, T><<<blocks, kRollThreads, 0, stream>>>(in, out, B, cols, rounds);
+  return cudaGetLastError();
 }
 
 template <int OP>
@@ -367,7 +391,7 @@ extern "C" int ldpc_probe_stream(const void* src, void* out, long long bytes, in
 }
 
 // rounds chained steps of op (0 add, 1 fma, 2 sel, 3 roll) on planes (n, Z,
-// B) f32; roll needs B a multiple of 32 and Z at most 384.
+// B) f32; roll takes Z = 24, 40 or 360 (cudaErrorInvalidValue otherwise).
 extern "C" int ldpc_probe_alu_chain(const float* in, float* out, int planes, int Z, int B,
                                     int op, int rounds, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
@@ -377,17 +401,13 @@ extern "C" int ldpc_probe_alu_chain(const float* in, float* out, int planes, int
     case kAdd: err = chain_launch<kAdd>(in, out, n, rounds, s); break;
     case kFma: err = chain_launch<kFma>(in, out, n, rounds, s); break;
     case kSel: err = chain_launch<kSel>(in, out, n, rounds, s); break;
-    case kRoll: {
-      if (B % kRollCols || Z > kRollRows * kRollPerThread || Z < 1) break;
-      const int smem = 2 * Z * kRollCols * (int)sizeof(float);
-      err = cudaFuncSetAttribute(roll_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess || planes == 0) break;
-      roll_chain_kernel<<<dim3(B / kRollCols, planes), dim3(kRollCols, kRollRows), smem, s>>>(
-          in, out, Z, B, rounds);
-      err = cudaGetLastError();
+    case kRoll:
+      switch (Z) {  // the Z values vpu_peak.ROLL_LANES names, each with its lanes a column
+        case 24: err = roll_launch<24, 4>(in, out, planes, B, rounds, s); break;
+        case 40: err = roll_launch<40, 4>(in, out, planes, B, rounds, s); break;
+        case 360: err = roll_launch<360, kRollLanes360>(in, out, planes, B, rounds, s); break;
+      }
       break;
-    }
   }
   return static_cast<int>(err);
 }

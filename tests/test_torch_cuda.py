@@ -1274,8 +1274,23 @@ def test_probe_alu_chain(cuda, mode):
         ref = vpu_peak.alu_chain_reference(x, mode, 300)
         # fma too: from inputs in [0.4, 0.6) one rounding and two agree
         assert torch.equal(out, ref)
-    with pytest.raises(ValueError, match="roll"):
-        vpu_peak.alu_chain(torch.zeros((1, 8, 40), device=cuda), "roll", 1)
+    if mode == "roll":
+        # round counts 0, 1, the shift, odd; one plane and the tool's 132;
+        # every Z the kernel is built for, B = 44 cutting warps across
+        # planes and leaving the last one part empty
+        cases = [((1, 360, 128), r) for r in (0, 1, 37, 301)] + [((132, 360, 128), 37)]
+        cases += [((3, z, 44), 37) for z in sorted(vpu_peak.ROLL_LANES)]
+        for shape, rounds in cases:
+            x = torch.from_numpy(rng.uniform(0.4, 0.6, shape).astype(np.float32)).to(cuda)
+            before = vpu_peak.alu_chain.launches
+            out = vpu_peak.alu_chain(x, mode, rounds)
+            assert vpu_peak.alu_chain.launches == before + 1
+            assert torch.equal(out, vpu_peak.alu_chain_reference(x, mode, rounds)), (shape, rounds)
+    # roll's kernel is built for a few Z: any other raises, naming them
+    for z in (8, 36, 361, 384):
+        with pytest.raises(ValueError, match=r"roll's kernel is built for Z in \[24, 40, 360\], "
+                                             f"not {z}$"):
+            vpu_peak.alu_chain(torch.zeros((1, z, 40), device=cuda), "roll", 1)
 
 
 @pytest.mark.parametrize("mode", ["dma", "roll0", "switch", "dynroll"])

@@ -121,6 +121,37 @@ def test_alu_chain_matches_the_tool(tools, monkeypatch, mode):
     assert not np.array_equal(port, a)
 
 
+@pytest.mark.parametrize("z", sorted(vpu_peak.ROLL_LANES))
+def test_roll_lanes_map_is_torch_roll(z):
+    """roll's kernel layout (a column in the registers of T lanes, lane t
+    rows t b .. t b + b - 1) and its index map ``roll_source``, run in the
+    kernel's order: the values it shuffles read first, then the rest inside
+    a lane from the top register down, in place. Every round equals
+    ``torch.roll(x, 37, dims=1)`` bit for bit, and every value moves."""
+    t_lanes = vpu_peak.ROLL_LANES[z]
+    b = z // t_lanes
+    q, m = divmod(37 % z, b)
+    x = torch.arange(2 * z * 3, dtype=torch.float32).reshape(2, z, 3)
+    regs = [[x[:, t * b + i] for i in range(b)] for t in range(t_lanes)]
+    src = {(t, i): vpu_peak.roll_source(z, t_lanes, t, i)
+           for t in range(t_lanes) for i in range(b)}
+    # the kernel shuffles rows i < m, and every row where q > 0
+    shuffled = {key for key in src if key[1] < m or q}
+    for _ in range(3):
+        got = {key: regs[lt][li] for key, (lt, li) in src.items() if key in shuffled}
+        for t in range(t_lanes):
+            for i in reversed(range(b)):
+                if (t, i) not in shuffled:
+                    lt, li = src[t, i]
+                    assert lt == t and li < i  # in the lane, not yet written
+                    got[t, i] = regs[t][li]
+                regs[t][i] = got[t, i]
+        x = torch.roll(x, 37, dims=1)
+        got = torch.stack([r for lane in regs for r in lane], dim=1)
+        assert torch.equal(got, x)
+        assert all(src[key] != key for key in src)
+
+
 @functools.cache
 def _roll_tool():
     """``prof_roll.py``'s definitions (up to its measuring loop) at small

@@ -11,7 +11,7 @@ fused_layered_i8, fused_layered_f32, fused_layered_f64 (the streaming
 sweep's i8 and float instances), streaming (the min-sum streaming
 kernels: the layered sweep of ``csrc/fused_layered.cu`` and the check and
 variable phases of ``csrc/flooding.cu``), or probes (the copy stream of
-``csrc/probes.cu``: P1 and P4's copy). A form is a directory holding a
+``csrc/probes.cu``: P1, P4's copy and P2 roll). A form is a directory holding a
 version of the kernel sources (``csrc/<source>.cu`` and the headers it
 includes), built here with the package's nvcc flags; "repo" is the package's
 own ``csrc/``, built into the package's ``build/`` as its wrappers build it.
@@ -70,8 +70,11 @@ shapes and P4's copy (``v2.plane_copy``) at Bt = 128, 256 and 512 (B =
 every form and the library call (torch's ``src + 1``, ``Tensor.copy_``) in
 turns, each a chain of launches behind a busy stream, the host path out of
 the window (``probes._kernels.chain_ms`` and ``turns``: the median over
-``--reps`` rounds of each chain's median), and prints nvcc's registers,
-stack and spills of each form's stream kernels.
+``--reps`` rounds of each chain's median); then P2 roll
+(``vpu_peak.alu_chain(x, "roll")``) at the tool's 132 planes, every form
+equal to the plain version at 301 rounds and timed in turns at the
+tool's 32768 (no library call); and prints nvcc's registers, stack and
+spills of each form's stream and roll kernels.
 
 ``--batch`` times every source at other batch sizes too, one run after
 the other on the same builds (528 frames: one tile an SM of the card's 132,
@@ -92,7 +95,6 @@ import functools
 import json
 import pathlib
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -109,6 +111,7 @@ from chip_smoke import (  # noqa: E402
     R1_2_RATE,
     channel_llrs,
     event_ms,
+    sass,
     seeded_cuda,
     sigma_at,
 )
@@ -126,7 +129,7 @@ from ldpc_toolbox_torch.ops import (  # noqa: E402
     resident_layered,
 )
 from ldpc_toolbox_torch.probes import _kernels as probe_kernels  # noqa: E402
-from ldpc_toolbox_torch.probes import copybw, v2  # noqa: E402
+from ldpc_toolbox_torch.probes import copybw, v2, vpu_peak  # noqa: E402
 
 OUT = _build.BUILD_DIR / "forms"
 #: the frames of the decodes being timed
@@ -180,6 +183,8 @@ SWEEPS = {
     **{f"fused_layered_{p}": ("fused_layered_iteration_float", "_lib_float",
                               fused_layered.bind_float) for p in ("f32", "f64")},
 }
+#: the rounds at which ``probes`` holds P2 roll's forms to the plain version
+ROLL_CHECK_ROUNDS = 301
 #: block sizes of the c5040f6 forms, by source
 BASE_THREADS = {"compressed": 256, "resident_layered": 512, "flooding": 512}
 #: the block size of the streaming sweep of before the lane form
@@ -445,25 +450,6 @@ def main():
     print(json.dumps(result))
 
 
-def sass(so):
-    """{kernel: its SASS instructions} of the library ``so`` (addresses
-    and encodings dropped), demangled names."""
-    dump = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
-                           "-sass", str(so)], capture_output=True, text=True, check=True).stdout
-    kernels, name = {}, None
-    for line in dump.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            kernels[name] = []
-        elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
-            kernels[name].append(m.group(1))
-    names = subprocess.run(["c++filt"], input="\n".join(kernels), capture_output=True,
-                           text=True, check=True).stdout.splitlines()
-    short = (re.sub(r"\(anonymous namespace\)::|ldpc::", "", n).split("(")[0] for n in names)
-    return {n: kernels[k] for n, k in zip(short, kernels)}
-
-
 def sass_differs(repo_so, form_so):
     """(kernels of the package's build, the kernels whose SASS differs in
     the form's or that only one of them has)."""
@@ -630,15 +616,16 @@ def run_probes(built, reps, card, result):
     """Holds every form's copy stream (P1 at ``copybw.CONFIGS``, P4's copy
     at Bt = 128, 256, 512) to its plain version, bit for bit, then times
     the forms and the library call in turns, each a chain of launches
-    (``probes._kernels.turns``); prints each form's stream kernels' nvcc
-    report."""
+    (``probes._kernels.turns``); then P2 roll the same way at the tool's
+    shape, without a library call; prints each form's stream and roll
+    kernels' nvcc report."""
     libs = {form: probe_kernels.bind(lib) for form, lib in built.items()}
     for form in libs:
         log = LOGS.get(("probes", form))
         found = ptxas_report(str(log)) if log else {}
         print(f"probes {form}: " + "; ".join(
             f"{k} {report_text(v)}" for k, v in sorted(found.items())
-            if "stream" in k or "copy" in k))
+            if "stream" in k or "copy" in k or "roll" in k))
     cases = []
     for i, (P, Z, Bt, G, dtype) in enumerate(copybw.CONFIGS):
         src = seeded_cuda((G, P, Z, Bt), dtype, 100 + i, scale=300.0)
@@ -665,6 +652,25 @@ def run_probes(built, reps, card, result):
             f"{name} {t.ms:.4f} ms ({2 * src.nbytes / t.ms / 1e6:.1f} GB/s, host "
             f"{t.host_ms:.4f} ms a launch, gap {t.gap_ms:.4f})" for name, t in found.items())
             + f" (chains of 20 in turns, median of {reps})")
+    # P2 roll at the tool's 132 planes: held at ROLL_CHECK_ROUNDS, timed at
+    # the tool's 32768, chains of 5 (no library call computes it)
+    x = vpu_peak.planes(vpu_peak.PLANES)
+    ref = vpu_peak.alu_chain_reference(x, "roll", ROLL_CHECK_ROUNDS)
+    for form, lib in libs.items():
+        got = with_lib(probe_kernels, "lib", lib, None, vpu_peak.alu_chain, x, "roll",
+                       ROLL_CHECK_ROUNDS)
+        assert torch.equal(got, ref), f"P2 roll: {form} differs from the plain version"
+    del ref, got
+    fns = {form: lambda lib=lib: with_lib(probe_kernels, "lib", lib, None, vpu_peak.alu_chain,
+                                          x, "roll")
+           for form, lib in libs.items()}
+    found = probe_kernels.turns(fns, 5, reps)
+    what = f"P2 roll {vpu_peak.PLANES} planes x {vpu_peak.R * vpu_peak.K} rounds"
+    result[what] = {name: t.ms for name, t in found.items()}
+    rounds_done = x.numel() * vpu_peak.R * vpu_peak.K
+    print(f"[{card}] {what}: all forms equal at {ROLL_CHECK_ROUNDS} rounds; " + ", ".join(
+        f"{name} {t.ms:.3f} ms ({rounds_done / t.ms / 1e9:.2f} T rounds/s)"
+        for name, t in found.items()) + f" (chains of 5 in turns, median of {reps})")
     torch.cuda.empty_cache()
 
 
