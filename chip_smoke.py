@@ -367,15 +367,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
         "ldpc_toolbox_tpu/ops/resident_flooding_dual.py:133 and "
         "ldpc_toolbox_tpu/ops/resident_flooding.py:144"),
     # the i8 and float-rule instances of the streaming kernels #3, #7 and
-    # #8 (the templates of csrc/streaming.cuh on I8Rule and FloatRule)
+    # #8 (the templates of csrc/streaming.cuh on I8Rule and FloatRule; the
+    # i8 sweep and check phase kernels of their own, csrc/i8_streaming.cuh)
     "fused_layered_iteration_i8": (
-        "ldpc_toolbox_torch/csrc/fused_layered_i8.cu",
+        "ldpc_toolbox_torch/csrc/i8_streaming.cuh",
         "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
     "fused_layered_iteration_float": (
         "ldpc_toolbox_torch/csrc/float_rules.cuh",
         "ldpc_toolbox_tpu/ops/fused_layered.py:39"),
     "fused_check_i8": (
-        "ldpc_toolbox_torch/csrc/flooding_i8.cu",
+        "ldpc_toolbox_torch/csrc/i8_streaming.cuh",
         "ldpc_toolbox_tpu/ops/fused_bp2.py:774"),
     "fused_check_float": (
         "ldpc_toolbox_torch/csrc/float_rules.cuh",

@@ -12,7 +12,8 @@
 // channel planes and messages in the TPU's vector memory and inline
 // MinstarApproxI8Rule or AminstarI8Rule (ops/fused_bp2.py). As for the
 // float instances, one array serves both. The phase kernels replace the
-// i8 paths of ops/fused_bp2.py fused_check and fused_var.
+// i8 paths of ops/fused_bp2.py fused_check and fused_var; the check phase
+// is i8_check_kernel of csrc/i8_streaming.cuh, a form of its own.
 //
 // What bounds it on an H100: the state lives in device memory; each
 // iteration each edge lane of each frame reads and writes its message in
@@ -40,8 +41,7 @@
 // slot order, clips tot to +-127 when Jones is on, writes the hard
 // decision tot <= 0 and each v2c = clip(tot - c2v, +-127).
 
-#include "i8.cuh"
-#include "streaming.cuh"
+#include "i8_streaming.cuh"
 
 namespace {
 
@@ -63,8 +63,7 @@ template <int DMAX, int FAMILY>
 struct CheckLaunch {
   static cudaError_t run(const void* v2c, void* c2v, const FloodingTables& t,
                          int nbt, int threads, int flags, cudaStream_t stream) {
-    return fused_check_launch<DMAX>(I8Rule<FAMILY>{flags}, v2c, c2v, t, nbt,
-                                    threads, stream);
+    return i8_check_launch<DMAX, FAMILY>(flags, v2c, c2v, t, nbt, threads, stream);
   }
 };
 
@@ -93,8 +92,9 @@ extern "C" int ldpc_resident_flooding_i8_decode(
 // The phases under an i8 rule. They take the layout's eleven int32 tables
 // of csrc/flooding.cu (an array of device pointers), the tile shape (Bt
 // must be 4), kind (0 MinstarApprox, 1 Aminstar) and flags (bit 0
-// PartialHardLimit, bit 1 Jones, bit 2 Deg1Clip); threads is at most 256.
-// Each returns the launch's cudaError_t.
+// PartialHardLimit, bit 1 Jones, bit 2 Deg1Clip); threads is at most
+// I8Rule's CheckUnits block (the check phase) or VarUnits block (the
+// variable phase), 512 each. Each returns the launch's cudaError_t.
 
 // c2v (nbt, E, Z, 4) int8 from v2c (nbt, E, Z, 4) int8; max_degree the
 // largest check degree (at most 32).

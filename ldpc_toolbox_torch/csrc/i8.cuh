@@ -320,7 +320,11 @@ __device__ __forceinline__ void i8_var_update(const Cells& cells, int8_t* post,
 // block than the other rules (in turns on the card, against 256):
 // flooding 512 (32 warps an SM at 64 registers; 12 % faster a flagship
 // decode), the layered check lanes 384 (a flagship check group of 360
-// lanes in one pass, 24 warps at 80 registers; 11 % faster).
+// lanes in one pass, 24 warps at 80 registers; 11 % faster). The
+// streaming sweep and check phase, kernels of their own
+// (csrc/i8_streaming.cuh), take the resident kernels' blocks: SweepUnits
+// the layered one (against 256, in turns), CheckUnits the flooding one
+// (against 384).
 template <int FAMILY>
 struct I8Rule {
   using Q = int16_t;
@@ -329,7 +333,8 @@ struct I8Rule {
   using FloodUnits = Units<kBt, 512>;
   using VarUnits = FloodUnits;
   using LayeredUnits = Units<kBt, 384>;
-  using SweepUnits = Units<>;
+  using SweepUnits = LayeredUnits;
+  using CheckUnits = FloodUnits;
   static constexpr bool kWords = true;
   static constexpr int big = 127;
   static constexpr uint32_t bigs = k127s;

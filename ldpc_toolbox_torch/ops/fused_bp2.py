@@ -767,8 +767,8 @@ F64_UNIT_THREADS = 512
 F32_UNIT_THREADS = 384
 F32_VAR_THREADS = 256
 #: threads per block of the i8 rules' flooding kernels, resident and
-#: phases (``csrc/i8.cuh`` I8Rule's FloodUnits: a lane's four frames a
-#: thread, 32 warps an SM)
+#: phases (``csrc/i8.cuh`` I8Rule's FloodUnits, whose block the check
+#: phase's CheckUnits take: a lane's four frames a thread, 32 warps an SM)
 I8_FLOODING_THREADS = 512
 #: the layout tables the flooding kernels read, in their argument order
 _TABLES = (

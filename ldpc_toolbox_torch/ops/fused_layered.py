@@ -38,6 +38,7 @@ from . import _build
 from .fused_bp2 import _MSG_DTYPES, is_float_rule, is_i8
 from .resident_layered import (
     F64_LAYERED_THREADS,
+    I8_LAYERED_THREADS,
     LANE_THREADS,
     layered_launch,
     message_sweep,
@@ -106,10 +107,15 @@ def _lib_float(name):
 
 
 def sweep_threads(rule) -> int:
-    """Threads per block of a rule's sweep (``csrc/float_rules.cuh``
-    FloatRule's SweepUnits): ``F64_LAYERED_THREADS`` for an f64 float rule,
-    whose sweep takes its resident layered kernel's frame pairs,
-    ``LANE_THREADS`` (a lane's four frames) for every other."""
+    """Threads per block of a rule's sweep (the rule's SweepUnits):
+    ``F64_LAYERED_THREADS`` for an f64 float rule, whose sweep takes its
+    resident layered kernel's frame pairs (``csrc/float_rules.cuh``),
+    ``I8_LAYERED_THREADS`` for an i8 rule, whose sweep takes its resident
+    layered kernel's block (``csrc/i8.cuh``: a flagship check group of 360
+    lanes in one pass), ``LANE_THREADS`` (a lane's four frames) for every
+    other."""
+    if is_i8(rule):
+        return I8_LAYERED_THREADS
     f64 = is_float_rule(rule) and rule.storage_dtype == torch.float64
     return F64_LAYERED_THREADS if f64 else LANE_THREADS
 

@@ -966,6 +966,75 @@ def test_i8_variants_match_plain_versions(cuda, code, decoder):
     assert int(out[2].sum()) > 0
 
 
+def _i8_streaming_tiles(code, decoder, device, batch=128):
+    """(tiles, layout, rule) of an i8 name's streaming instance at a
+    check-degree bucket: R1_4short (bucket 8, missing lanes) at ``batch``
+    frames, or ``_streaming_case``'s 5G BG2 z=16 (bucket 16) and CCSDS C2
+    (bucket 32)."""
+    if code != "DVB-S2 R1_4short":
+        return _streaming_case(code, decoder, device)
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    tiles = tile_inputs if decoder.startswith("HL") else flooding_tiles
+    return tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, batch, 0.9, 5, device))
+
+
+def _hold_i8_streaming(tiles, layered):
+    """The sweep (two in place in a row) or the check phase (two, each on
+    the v2c of an update) of an i8 streaming instance against the plain
+    version, bit for bit, each launch counted on its wrapper."""
+    x0, _, layout, rule = tiles
+    if layered:
+        rcv0 = torch.zeros((x0.shape[0], layout.E, layout.Z, 4), dtype=torch.int8,
+                           device=x0.device)
+        kernel, plain = (x0.clone(), rcv0.clone()), (x0.clone(), rcv0.clone())
+        for _ in range(2):
+            before = fused_layered_ops.fused_layered_iteration_i8.launches
+            out = fused_layered_ops.fused_layered_iteration_i8(*kernel, layout, rule)
+            assert fused_layered_ops.fused_layered_iteration_i8.launches == before + 1
+            ref = fused_layered_iteration_reference(*plain, layout, rule)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+            kernel, plain = out[:2], ref[:2]
+        return
+    v2c = fused_bp2.fused_var(None, x0, layout, rule)[0]
+    for _ in range(2):
+        before = fused_bp2.fused_check_i8.launches
+        c2v = fused_bp2.fused_check_i8(v2c, layout, rule)
+        assert fused_bp2.fused_check_i8.launches == before + 1
+        assert torch.equal(c2v, fused_bp2.fused_check_reference(v2c, layout, rule))
+        v2c = fused_bp2.fused_var(c2v, x0, layout, rule)[0]
+
+
+@pytest.mark.parametrize("decoder", I8_VARIANTS)
+@pytest.mark.parametrize("code", list(F64_BUCKETS))
+def test_i8_streaming_forms_match_plain_versions(cuda, code, decoder):
+    """The int8 instances of the streaming sweep (TPU #3, the layered names)
+    and check phase (#7, the flooding names) of ``csrc/i8_streaming.cuh``
+    (their own blocks, MinstarApprox's fold on the FMA pipe) against the
+    plain versions, bit for bit: every i8 name, both families, at each
+    check-degree bucket (8 with missing lanes, 16 with large magnitudes,
+    32 with the sweep's park in device memory); two sweeps in place in a
+    row, two check phases each after an update."""
+    tiles = _i8_streaming_tiles(code, decoder, cuda)
+    assert min(b for b in (8, 16, 32) if b >= tiles[2].max_chk_degree) == F64_BUCKETS[code]
+    if code == "DVB-S2 R1_4short":
+        assert int((tiles[2].syn_mask >= 0).sum()) > 0
+    _hold_i8_streaming(tiles, decoder.startswith("HL"))
+
+
+@pytest.mark.parametrize("tiles", [1, 133])
+@pytest.mark.parametrize("decoder", ["HLMinstarapproxi8", "HLAminstari8PartialHardLimit",
+                                     "Minstarapproxi8JonesPartialHardLimitDeg1Clip",
+                                     "Aminstari8Deg1Clip"])
+def test_i8_streaming_forms_on_odd_tile_counts(cuda, decoder, tiles):
+    """The i8 streaming sweep and check phase on one tile (B = 4) and on
+    133 tiles, a count no grid of the card's 132 SMs divides, against the
+    plain versions, bit for bit."""
+    found = _i8_streaming_tiles("DVB-S2 R1_4short", decoder, cuda, batch=4 * tiles)
+    assert found[0].shape[0] == tiles
+    _hold_i8_streaming(found, decoder.startswith("HL"))
+
+
 #: the syndrome kernel's cases: one code of each check-degree bucket the
 #: test codes reach (R1_4short 8, with missing lanes; 5G BG2 z=16 16; CCSDS
 #: C2 32, Z = 511) and a partial tile (5G BG2 z=16 at B = 130: 33 tiles, the

@@ -175,6 +175,130 @@ def test_word_signs_and_magnitudes():
         assert torch.equal((neg >> 8 * f) & 0xFF, -m.roll(f) % 256)
 
 
+#: the FMA form of the word steps of the i8 streaming instances
+#: (``csrc/i8_streaming.cuh``): mad.lo and mad.hi by I8Fma's constants (-1
+#: and 2^(25 + i)), the MinstarApprox fold on a biased accumulator (a +
+#: 0x80 a byte), mirrored the same way; ``hi`` the sweep's form (each right
+#: shift and add a mad.hi), else the check phase's (a shift and an add)
+_POW2 = [1 << (25 + i) for i in range(7)]
+
+
+def _mad_lo(x, m, y):
+    return (x * m + y) & _M32
+
+
+def _mad_hi(x, m, y):
+    return ((x * m >> 32) + y) & _M32
+
+
+def _shr_add(x, i, y, hi):
+    """shr_add: (x >> (7 - i)) + y, by a mad.hi where ``hi``."""
+    return _mad_hi(x, _POW2[i], y) if hi else ((x >> (7 - i)) + y) & _M32
+
+
+def _fma_steps_of(dH, steps, hi):
+    """FmaSteps::of: Steps::of from dH = t - 0x80 a byte, each step's word
+    T * 0x01010101 - dH, each bit's term a shr_add."""
+    y = [_mad_lo(dH, _M32, s * _ONES) for s in steps]
+    total, x = torch.zeros_like(dH), torch.zeros_like(dH)
+    for b in range(len(y).bit_length() - 1, -1, -1):
+        for m in range(1, (len(y) >> b) + 1, 2):
+            x = x ^ y[(m << b) - 1]
+        total = _shr_add(x & _HIGHS, b, total, hi)
+    return total
+
+
+def _fold_fma(A, b, hi):
+    """fold_fma: MinstarApproxI8's fold on A = a + 0x80 a byte and b."""
+    r = _mad_lo(b, _M32, A)
+    mn = _mad_lo((r ^ _HIGHS) & _high_mask(r), _M32, A)
+    dH = _mad_lo(mn, _M32, A ^ b ^ mn)
+    r2 = _mad_lo(_fma_steps_of(dH, fused_bp2._i8_thresholds(), hi), _M32, mn)
+    return (r2 & _high_mask(r2)) | _HIGHS
+
+
+@pytest.mark.parametrize("hi", [True, False], ids=["sweep", "check"])
+def test_fma_fold_matches_the_rules(hi):
+    """The FMA form of MinstarApproxI8's fold (``csrc/i8_streaming.cuh``
+    fold_fma, the sweep's and the check phase's), mirrored bit for bit, on
+    every byte pair in [0, 127]^2: the word fold of ``csrc/i8.cuh`` plus
+    0x80 a byte, and the plain rule's fold per frame; every intermediate
+    word stays in 32 bits."""
+    wa, wb, a, b, perms = _all_pairs_as_words()
+    out = _fold_fma(wa | _HIGHS, wb, hi)
+    assert torch.equal(out, _minstar_approx4(wa, wb) | _HIGHS)
+    rule = fused_bp2.MinstarApproxI8Rule()
+    for f, p in enumerate(perms):
+        want = rule._fold(a[p].to(torch.int32), b[p].to(torch.int32)).to(torch.int64)
+        assert torch.equal((out >> 8 * f) & 0x7F, want), f
+
+
+def _fma_check(x, d, phl, hi):
+    """I8FmaCheck under MinstarApprox (``csrc/i8_streaming.cuh``) on the
+    words x[0..d-1] (a byte a frame in [-127, 127]): set's magnitudes and
+    sign bits by shr_add, the left folds with their prefix on biased words,
+    the partial hard limit and the negation of out; the d output words."""
+    signs, par, mag = [0] * ((d + 7) // 8), 0, []
+    for k in range(d):
+        s = x[k] & _HIGHS
+        mag.append(_shr_add(s, 0, x[k] ^ _high_mask(x[k]), hi))
+        signs[k // 8] = (signs[k // 8] | s if k % 8 == 7
+                         else _shr_add(s, k % 8, signs[k // 8], hi))
+        par = par ^ s
+
+    def out(k, O):
+        if phl:
+            O = O | _high_mask((O - 100 * _ONES) & _M32)
+        neg = _high_mask(par ^ ((signs[k // 8] << (7 - k % 8)) & _M32))
+        v = _mad_lo(O, _M32, 0x01010100)
+        return ((v & neg) | (O & ~neg & _M32)) ^ _HIGHS
+
+    outs, pre = [], mag[0] | _HIGHS
+    for t in range(d):
+        if t + 1 < d:
+            a = mag[1] | _HIGHS if t == 0 else _fold_fma(pre, mag[t + 1], hi)
+            for k in range(t + 2, d):
+                a = _fold_fma(a, mag[k], hi)
+        else:
+            a = torch.full_like(mag[0], _HIGHS) if t == 0 else pre
+        outs.append(out(t, a))
+        if 1 <= t and t + 1 < d:
+            pre = _fold_fma(pre, mag[t], hi)
+    return outs
+
+
+@pytest.mark.parametrize("hi", [True, False], ids=["sweep", "check"])
+@pytest.mark.parametrize("phl", [False, True], ids=["plain", "PartialHardLimit"])
+def test_fma_check_matches_the_rule(phl, hi):
+    """The FMA form of a whole MinstarApprox check (``csrc/i8_streaming.cuh``
+    I8FmaCheck, the sweep's and the check phase's), mirrored bit for bit,
+    against the plain rule's check on
+    random inputs in [-127, 127] (large magnitudes among them, so that the
+    partial hard limit acts) at every degree from 1 to 32; the mad.hi
+    terms of the magnitudes and sign bits equal the shifts they stand for
+    on every input."""
+    g = torch.Generator().manual_seed(3)
+    rule = fused_bp2.MinstarApproxI8Rule(hard_limit=phl)
+    for d in range(1, fused_bp2.I8_MAX_CHECK_DEGREE + 1):
+        vals = torch.randint(-127, 128, (d, 512, fused_bp2.BT), generator=g)
+        vals[:, :64] = torch.randint(90, 128, (d, 64, fused_bp2.BT), generator=g) * (
+            1 - 2 * torch.randint(0, 2, (d, 64, fused_bp2.BT), generator=g))
+        words = [sum((vals[k, :, f] % 256) << 8 * f for f in range(fused_bp2.BT))
+                 for k in range(d)]
+        outs = _fma_check(words, d, phl, hi)
+        want = rule.check([vals[k].to(torch.int32) for k in range(d)])
+        for k in range(d):
+            got = torch.stack([((outs[k] >> 8 * f) & 0xFF) for f in range(fused_bp2.BT)], -1)
+            assert torch.equal((got ^ 0x80) - 0x80, want[k].to(torch.int64)), (d, k)
+    x = torch.arange(-127, 128, dtype=torch.int64)
+    w = sum(x.roll(f) % 256 << 8 * f for f in range(fused_bp2.BT))
+    s = w & _HIGHS
+    assert torch.equal(_mad_hi(s, _POW2[0], w ^ _high_mask(w)),
+                       ((w ^ _high_mask(w)) + (s >> 7)) & _M32)
+    for i in range(7):
+        assert torch.equal(_mad_hi(s, _POW2[i], torch.zeros_like(s)), s >> (7 - i))
+
+
 def test_quantize_matches_jax():
     """The C=8 quantizer on its edges: every half-way point k/16, values
     just above and under them (0.49999997 rounds up in f32 through

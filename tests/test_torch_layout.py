@@ -310,13 +310,12 @@ def test_f32_layered_units_match_the_wrappers():
     assert resident_layered.float_layered_threads(rule) == LANE_THREADS
     assert fused_layered.sweep_threads(rule) == LANE_THREADS
     assert "  using LayeredUnits = Units<>;\n" in (csrc / "message_kernels.cuh").read_text()
-    for name in ("HLMinsumbf16", "HLMinstarapproxi8"):
-        rule = fused_bp2.rule_for(make_arithmetic(name)[1])
-        assert fused_layered.sweep_threads(rule) == LANE_THREADS, name
-    # min-sum's and the i8 rules' sweeps take a lane's four frames; the
-    # sweep's launch bounds and launch check are its rule's SweepUnits'
-    for header in ("message_kernels.cuh", "i8.cuh"):
-        assert "  using SweepUnits = Units<>;\n" in (csrc / header).read_text(), header
+    rule = fused_bp2.rule_for(make_arithmetic("HLMinsumbf16")[1])
+    assert fused_layered.sweep_threads(rule) == LANE_THREADS
+    # min-sum's sweep takes a lane's four frames (the i8 rules' their own
+    # block: test_i8_streaming_units_match_the_wrappers); the sweep's launch
+    # bounds and launch check are its rule's SweepUnits'
+    assert "  using SweepUnits = Units<>;\n" in (csrc / "message_kernels.cuh").read_text()
     streaming = (csrc / "streaming.cuh").read_text()
     assert "__launch_bounds__(Rule::SweepUnits::kBlock, 2) fused_layered_kernel(" in streaming
     assert "if (threads > Rule::SweepUnits::kBlock) return cudaErrorInvalidValue;" in streaming
@@ -371,6 +370,39 @@ def test_i8_units_match_the_wrappers():
     for name in ("Minstarapproxi8", "Aminstari8JonesDeg1Clip", "HLAminstari8PartialHardLimit"):
         rule = fused_bp2.rule_for(make_arithmetic(name)[1])
         assert fused_bp2.unit_threads(rule, LANE_THREADS) == fused_bp2.I8_FLOODING_THREADS
+
+
+@pytest.mark.parametrize("name", [
+    "HLMinstarapproxi8", "HLAminstari8PartialHardLimit", "Minstarapproxi8",
+    "Aminstari8JonesDeg1Clip", "Minstarapproxi8JonesPartialHardLimitDeg1Clip",
+])
+def test_i8_streaming_units_match_the_wrappers(name):
+    """The i8 rules' streaming sweep (TPU #3) and check phase (#7) units
+    (``csrc/i8.cuh`` I8Rule's SweepUnits and CheckUnits, read from the
+    source): names of their own that take the resident kernels' blocks, a
+    lane's four frames a thread at the blocks the wrappers pass for every
+    i8 name of either schedule (``fused_layered.sweep_threads``:
+    ``I8_LAYERED_THREADS``, 384; ``fused_bp2.unit_threads``:
+    ``I8_FLOODING_THREADS``, 512); a flagship check group of Z = 360 lanes
+    in one pass of the sweep's block, where the template sweep's 256 took
+    two; two blocks an SM, so 80 and 64 registers a thread (65536 over the
+    two blocks' threads, in multiples of 8); each kernel's launch bounds
+    and launch check are its units'."""
+    src = (REPO / "ldpc_toolbox_torch" / "csrc" / "i8.cuh").read_text()
+    assert "  using SweepUnits = LayeredUnits;\n  using CheckUnits = FloodUnits;\n" in src
+    layered = re.search(r"  using LayeredUnits = Units<kBt, (\d+)>;\n", src)
+    flood = re.search(r"  using FloodUnits = Units<kBt, (\d+)>;\n", src)
+    sweep, check = int(layered[1]), int(flood[1])
+    rule = fused_bp2.rule_for(make_arithmetic(name)[1])
+    assert fused_layered.sweep_threads(rule) == sweep == I8_LAYERED_THREADS == 384
+    assert fused_bp2.unit_threads(rule, LANE_THREADS) == check == fused_bp2.I8_FLOODING_THREADS
+    assert _passes(fused_bp2.BT, sweep) == 1 and _passes(fused_bp2.BT, LANE_THREADS) == 2
+    assert [65536 // (2 * n) // 8 * 8 for n in (sweep, check)] == [80, 64]
+    streaming = (REPO / "ldpc_toolbox_torch" / "csrc" / "i8_streaming.cuh").read_text()
+    for units, kernel in (("SweepUnits", "i8_sweep_kernel"), ("CheckUnits", "i8_check_kernel")):
+        assert f"__launch_bounds__(I8Rule<FAMILY>::{units}::kBlock, 2) {kernel}(" in streaming
+        assert (f"threads > I8Rule<FAMILY>::{units}::kBlock) return cudaErrorInvalidValue;"
+                in streaming)
 
 
 @pytest.mark.parametrize("code", CODES)

@@ -2,7 +2,7 @@
 
     python3 tools/compare_forms.py --source SOURCE [--source SOURCE ...]
         [--form NAME=DIR[:THREADS[:VAR]] ...] [--base DIR] [--reps 5] [--batch 1024 ...]
-        [--buckets] [--sass-only]
+        [--buckets] [--sass-only] [--counts REGEX]
 
 SOURCE is one of compressed, flooding, resident_layered (min-sum),
 resident_layered_i8, flooding_i8 (the i8 instances), resident_layered_f32,
@@ -21,7 +21,11 @@ form, the float rules' layered frame pairs, the f64 sweep's and the i8
 instances among them: a form of before the f64 float rules' (lane, frame) units runs its
 f64 flooding kernels at 256, and so does a form of before the i8 rules'
 blocks of 512 and 384 run its i8 kernels, or one of before the f64 layered
-frame pairs of 384 its f64 layered kernels and sweep; VAR, where given, sets
+frame pairs of 384 its f64 layered kernels and sweep; a form of before the
+i8 rules' own sweep and check phase (``csrc/i8_streaming.cuh``) runs
+its i8 sweep at 256 (``:256`` with ``--source fused_layered_i8``) and its
+check phase at its flooding block, 512 (``:512`` with ``--source
+flooding_i8``), since THREADS sets every block; VAR, where given, sets
 the block of the f32 float rules' variable phase apart, whose units are its
 own). ``--base`` names a directory holding the sources
 of commit c5040f6 (``git show c5040f6:ldpc_toolbox_torch/csrc/<file>`` for
@@ -79,7 +83,10 @@ spills of each form's stream and roll kernels.
 ``--batch`` times every source at other batch sizes too, one run after
 the other on the same builds (528 frames: one tile an SM of the card's 132,
 against the flagship's two). ``--sass-only`` stops after the builds and
-the SASS comparison: nothing is timed.
+the SASS comparison: nothing is timed. ``--counts REGEX`` prints, for each
+source and form, the static SASS instructions of every kernel whose name
+matches REGEX by the pipe they issue to (ALU, FMA, memory, control, moves,
+uniform) and its most frequent ALU opcodes.
 
 Prints the card's name and power limit, a line a tile set with each form's
 time and, from nvcc's report of its build, the registers, stack-frame and
@@ -266,10 +273,19 @@ LOGS = {}
 _CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float64: "double"}
 
 
-def instance(wrapper, rule):
+#: the i8 rules' own sweep and check phase kernels (csrc/i8_streaming.cuh),
+#: by the template kernel they replace there
+I8_KERNELS = {"fused_layered_kernel": "i8_sweep_kernel", "fused_check_kernel": "i8_check_kernel"}
+
+
+def instance(wrapper, rule, own=True):
     """The demangled name (``ldpc::`` and spaces dropped) of the flagship
-    instance (degree bucket 8) that ``wrapper`` launches under ``rule``."""
+    instance (degree bucket 8) that ``wrapper`` launches under ``rule``
+    (``own`` False: the template kernel's, which a form of before the i8
+    rules' own sweep and check phase launches)."""
     kernel = next(k for w, k in KERNEL_OF.items() if wrapper.startswith(w))
+    if fused_bp2.is_i8(rule) and own and kernel in I8_KERNELS:
+        return f"{I8_KERNELS[kernel]}<8,{rule.kind}>"
     if fused_bp2.is_i8(rule):
         tag = f"I8Rule<{rule.kind}>"
     elif fused_bp2.is_float_rule(rule):
@@ -318,7 +334,8 @@ def registers(source, forms, wrapper, rule):
     out = {}
     for form in forms:
         log = LOGS.get((source, form))
-        found = ptxas_report(str(log)).get(instance(wrapper, rule)) if log else None
+        report = ptxas_report(str(log)) if log else {}
+        found = report.get(instance(wrapper, rule)) or report.get(instance(wrapper, rule, False))
         if found:
             out[form] = report_text(found)
     return out
@@ -369,6 +386,9 @@ def main():
                         "sources' flagship rules")
     p.add_argument("--sass-only", action="store_true",
                    help="build and compare the SASS, time nothing")
+    p.add_argument("--counts", metavar="REGEX",
+                   help="print the SASS instructions of each form's kernels whose name "
+                        "matches REGEX, by the pipe they issue to")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -422,6 +442,13 @@ def main():
             n, differ = sass_differs(_build.library_path(source), OUT / f"{source}-{form}.so")
             print(f"{source} {form}: {n} kernels, SASS differing from repo: "
                   + (", ".join(differ) or "none"))
+    if args.counts:
+        for source, form, _ in [(s, "repo", None) for s in sources] + jobs:
+            so = (_build.library_path(source) if form == "repo"
+                  else OUT / f"{source}-{form}.so")
+            for kernel, code in sorted(sass(so).items()):
+                if re.search(args.counts, re.sub(r"\s", "", kernel)):
+                    print(f"{source} {form} {kernel}: {sass_counts(code)}")
     if args.buckets:
         for source in sources:
             if source != "probes":
@@ -448,6 +475,37 @@ def main():
             streaming[form] = (lane, fused_layered.bind(sweep), phases)
         run_streaming(streaming, lg, llrs, args.reps, card, result)
     print(json.dumps(result))
+
+
+#: SASS opcodes by the pipe they issue to on Hopper: the FMA pipe (IMAD and
+#: its kin issue there, as the f32 arithmetic does), memory, control, moves;
+#: the uniform datapath's (U...) apart; every other arithmetic or logic
+#: opcode is the integer (ALU) pipe's
+SASS_PIPES = {
+    "fma": ("IMAD", "FFMA", "FMUL", "FADD", "HFMA2", "HADD2", "HMUL2"),
+    "mem": ("LDG", "STG", "LDS", "STS", "LDL", "STL", "LDC", "LD", "ST", "ATOM", "RED",
+            "LDGSTS", "LDGDEPBAR", "DEPBAR"),
+    "ctrl": ("BRA", "BAR", "EXIT", "BSSY", "BSYNC", "WARPSYNC", "NOP", "CALL", "RET",
+             "YIELD", "BPT", "ERRBAR", "MEMBAR"),
+    "move": ("MOV", "S2R", "S2UR", "CS2R", "R2UR", "SHFL", "VOTE"),
+}
+
+
+def sass_counts(code):
+    """A kernel's static SASS instructions (``sass``) by pipe, and its most
+    frequent ALU opcodes."""
+    pipes, alu = {k: 0 for k in ("alu", *SASS_PIPES, "uniform")}, {}
+    for ins in code:
+        op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+        base = op.split(".")[0]
+        pipe = next((k for k, ops in SASS_PIPES.items() if base in ops),
+                    "uniform" if base.startswith("U") else "alu")
+        pipes[pipe] += 1
+        if pipe == "alu":
+            alu[base] = alu.get(base, 0) + 1
+    top = ", ".join(f"{k} {n}" for k, n in sorted(alu.items(), key=lambda kv: -kv[1])[:8])
+    return f"{len(code)} instructions: " + ", ".join(f"{k} {n}" for k, n in pipes.items()) + \
+        f" (ALU: {top})"
 
 
 def sass_differs(repo_so, form_so):
