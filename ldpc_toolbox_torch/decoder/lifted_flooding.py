@@ -70,6 +70,7 @@ from ..ops.resident_compressed import (
 )
 from ..ops.plane_gather import gather_planes, plane_index
 from ..ops.resident_flooding import decode_loop, resident_flooding_decode
+from ..telemetry import add, span
 from .compaction import staged_while_decode
 from .lifted import LiftedGraph
 from .lifted_layered import (
@@ -115,16 +116,22 @@ def lifted_flooding_decode(
 def kernel_flooding_decode(lg, arithmetic, llrs, max_iterations, resident=True):
     """``lifted_flooding_decode`` on the kernels, whatever
     ``kernel_fallback`` says: the route ``selftest`` holds against
-    ``plane_flooding_decode``."""
-    q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
+    ``plane_flooding_decode``. Its spans and its tile count are
+    ``kernel_layered_decode``'s."""
+    with span("decode.tiles_in"):
+        q_t, bits0_t, layout, rule = flooding_tiles(lg, arithmetic, llrs)
     if not resident:
         decode = streaming_flooding_decode
     elif takes_compressed_state(rule):
         decode = compressed_flooding_decode
     else:
         decode = resident_flooding_decode
-    bits, iters, conv = decode(q_t, bits0_t, layout, rule, max_iterations)
-    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
+    with span("decode.kernel"):
+        bits, iters, conv = decode(q_t, bits0_t, layout, rule, max_iterations)
+    if resident:
+        add("tile_iterations", lambda: iters.amax(dim=1).sum())
+    with span("decode.tiles_out"):
+        return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
 
 
 def flooding_tiles(lg, arithmetic, llrs):

@@ -64,6 +64,7 @@ from ..ops.resident_layered import (
     layered_decode_planes,
     resident_layered_decode,
 )
+from ..telemetry import add, span
 from .compaction import staged_while_decode
 from .lifted import LiftedGraph
 
@@ -118,16 +119,24 @@ def kernel_fallback(lg: LiftedGraph, arithmetic):
 def kernel_layered_decode(lg, arithmetic, llrs, max_iterations, resident=True):
     """``lifted_layered_decode`` on the kernels, whatever
     ``kernel_fallback`` says: the route ``selftest`` holds against
-    ``plain_layered_decode``."""
-    qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
+    ``plain_layered_decode``. The tiling, the kernel and the output are
+    the spans ``ldpc.decode.tiles_in``, ``.kernel`` and ``.tiles_out``;
+    a resident or compressed decode adds ``tile_iterations``
+    (``telemetry``)."""
+    with span("decode.tiles_in"):
+        qv0_t, bits0_t, layout, rule = tile_inputs(lg, arithmetic, llrs)
     if not resident:
         decode = streaming_layered_decode
     elif takes_compressed_state(rule):
         decode = compressed_layered_decode
     else:
         decode = resident_layered_decode
-    bits, iters, conv = decode(qv0_t, bits0_t, layout, rule, max_iterations)
-    return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
+    with span("decode.kernel"):
+        bits, iters, conv = decode(qv0_t, bits0_t, layout, rule, max_iterations)
+    if resident:
+        add("tile_iterations", lambda: iters.amax(dim=1).sum())
+    with span("decode.tiles_out"):
+        return tiles_to_output(lg, bits, iters, conv, llrs.shape[0])
 
 
 #: (id(graph), device) -> DeviceLayout, each dropped when its graph dies

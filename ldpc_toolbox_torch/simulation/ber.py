@@ -62,6 +62,7 @@ from ..encoder import Encoder
 from ..parallel.mesh import max_over, shard_batch, sum_over
 from ..sparse import SparseMatrix
 from ..systematic import permute_columns
+from ..telemetry import span
 from .channel import AwgnChannel
 from .interleaving import Interleaver
 from .modulation import Bpsk
@@ -172,9 +173,10 @@ def step_generator(seed: int, point: int, step: int, device) -> torch.Generator:
     """The generator of one simulation step, seeded from
     ``SeedSequence([seed, point, step])``: like the JAX harness's key folded
     by (point, step), every step's stream depends only on those three."""
-    state = np.random.SeedSequence([seed, point, step]).generate_state(1, np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) & (2**63 - 1))
+    with span("generator"):
+        state = np.random.SeedSequence([seed, point, step]).generate_state(1, np.uint64)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(state[0]) & (2**63 - 1))
     return gen
 
 
@@ -201,9 +203,10 @@ def _frame_counters(msg, out, bch_max_errors: int, msg_cols=None, mesh=None) -> 
         bch_frame_err.sum(dtype=torch.int64),
         torch.where(bch_frame_err, zero, iters).sum(dtype=torch.int64),
     ])
-    if mesh is not None:
-        values = sum_over(mesh, values)
-    return dict(zip(_COUNTER_NAMES, values.tolist()))
+    with span("counters.read"):
+        if mesh is not None:
+            values = sum_over(mesh, values)
+        return dict(zip(_COUNTER_NAMES, values.tolist()))
 
 
 class BerTest:
@@ -277,17 +280,26 @@ class BerTest:
     def step(self, generator: torch.Generator, noise_sigma: float) -> dict:
         """One batch of frames through the whole chain; its nine counters
         (with a mesh: this rank's rows decoded, the counters summed over
-        the ranks)."""
+        the ranks). The step and each call in it are spans
+        (``telemetry``)."""
         p = self.p
-        msg = torch.randint(
-            0, 2, (p.batch_size, self.k), generator=generator,
-            dtype=torch.uint8, device=self.device,
-        )
-        llr = self.channel_llrs(self.encode(msg), noise_sigma, generator)
-        if p.mesh is not None:
-            msg, llr = shard_batch(msg, p.mesh), shard_batch(llr, p.mesh)
-        out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
-        return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols, p.mesh)
+        with span("step"):
+            with span("draw"):
+                msg = torch.randint(
+                    0, 2, (p.batch_size, self.k), generator=generator,
+                    dtype=torch.uint8, device=self.device,
+                )
+            with span("encode"):
+                cw = self.encode(msg)
+            with span("channel"):
+                llr = self.channel_llrs(cw, noise_sigma, generator)
+            del cw  # its memory goes back to the allocator before the decode
+            if p.mesh is not None:
+                msg, llr = shard_batch(msg, p.mesh), shard_batch(llr, p.mesh)
+            with span("decode"):
+                out = self.decode(self.graph, self.arithmetic, llr, p.max_iterations)
+            with span("counters"):
+                return _frame_counters(msg, out, p.bch_max_errors, self._msg_cols, p.mesh)
 
     def noise_sigma(self, ebn0_db: float) -> float:
         """The channel's sigma at an Eb/N0 (ber.rs:246-302)."""

@@ -9,15 +9,19 @@ Elsewhere every test skips.
 """
 
 import dataclasses
+import json
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
+from ldpc_toolbox_torch import telemetry
 from ldpc_toolbox_torch.codes.ccsds import C2Code
 from ldpc_toolbox_torch.codes.dvbs2 import Code as DvbCode
 from ldpc_toolbox_torch.codes.nr5g import BaseGraph
-from ldpc_toolbox_torch.decoder import Decoder, lifted_layered
+from ldpc_toolbox_torch.decoder import Decoder, lifted_decode_for, lifted_layered
 from ldpc_toolbox_torch.decoder.factory import make_arithmetic
 from ldpc_toolbox_torch.decoder.lifted_flooding import (
     flooding_tiles,
@@ -57,6 +61,8 @@ from ldpc_toolbox_torch.ops.resident_layered import (
     resident_layered_decode_i8,
     resident_layered_decode_reference,
 )
+from ldpc_toolbox_torch.simulation import BerTestBuilder
+from ldpc_toolbox_torch.simulation.ber import step_generator
 from ldpc_toolbox_torch.sparse import SparseMatrix
 
 pytestmark = pytest.mark.cuda
@@ -1413,3 +1419,42 @@ def test_probe_layered_sweep_parts(cuda, code, decoder):
     assert fused_layered_iteration.launches == sweep + 1
     for a, b in zip(whole, fused_layered_iteration(qv0.clone(), rcv0.clone(), layout, rule)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("decoder", ["HLMinsumbf16", "Minsumbf16"], ids=["layered", "flooding"])
+def test_telemetry_of_a_profiled_step(cuda, decoder, tmp_path):
+    """Two ``ber`` steps profiled on the card (each in a ``pb.step`` range,
+    as the benchmark runs them) export every program span twice, the
+    counters' read waits for the device in a synchronising call, and the
+    decode's tile counter equals the count from the frames' iterations."""
+    from portbench import program_trace
+
+    lg = lifted_graph_for(DvbCode.R1_4short)
+    test = BerTestBuilder(
+        h=DvbCode.R1_4short.h(), lifted_graph=lg, decoder_implementation=decoder,
+        max_iterations=30, batch_size=64, device="cuda",
+    ).build()
+    test.step(step_generator(5, 1, 0, cuda), 1.05)  # loads the kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            with record_function("pb.step"):
+                test.step(step_generator(5, 0, i, cuda), 1.05)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    spans = Counter(e["name"] for e in data["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e["name"].startswith("ldpc."))
+    assert spans == Counter({"ldpc." + name: 2 for name in program_trace.ORDER})
+    prog = program_trace.reduce(data)
+    assert prog.steps == 2
+    assert prog.syncs.get("counters.read", 0) >= 2
+    assert prog.device_s.get("decode.kernel", 0.0) > 0
+    numbers = program_trace.per_step(prog)
+    assert numbers["syncs_per_step"] >= 1 and numbers["launches_per_step"] > 0
+
+    _, arith = make_arithmetic(decoder)
+    with telemetry.counting() as counts:
+        out = lifted_decode_for(test.schedule)(lg, arith, _llrs(lg.n, 64, 1.05, 5, cuda), 30)
+    iters = out["iterations"].reshape(-1, fused_bp2.BT)
+    assert 0 < int(iters.min()) < int(iters.max())
+    assert counts == {"tile_iterations": int(iters.amax(dim=1).sum())}

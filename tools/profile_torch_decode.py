@@ -1,38 +1,43 @@
-"""Where the device time of a port decode goes, by kernel, on one GPU.
+"""Where the device time of a port decode goes, by kernel and by the
+decode's own spans, on one GPU.
 
     python3 tools/profile_torch_decode.py --decoder Minsumbf16 [--streaming]
 
 Runs ``Decoder(DVB-S2 R1_2, decoder).decode_batch`` (B = 1024, channel
 LLRs at 1.0 dB, at most 30 iterations by default) once to warm up, then
-``--reps`` times under ``torch.profiler`` (CPU and CUDA activities), and
-prints the card (``nvidia-smi`` name and power limit), the device time a
-decode of each kernel and memory operation (host-side operator rows left
-out, so nothing counts twice), their sum, the wall time a decode and the
-device's idle share (1 - busy / wall; it exits non-zero if busy exceeds
-wall, which means a row was counted twice). ``--streaming``
-profiles the streaming path of the decoder's schedule
-(``lifted_flooding_decode`` or ``lifted_layered_decode`` with
-``resident=False``; every name) instead of the Decoder's resident one. The Chrome
-trace goes to ``chiprun_out/``.
+``--reps`` times under ``torch.profiler`` (CPU and CUDA activities), each
+decode and a synchronize in a ``pb.step`` range, and reduces the Chrome
+trace as the benchmark does (``portbench/trace.reduce``: device rows only,
+so nothing counts twice; busy time over the window of the ranges; idle
+unclamped) and by the port's spans (``portbench/program_trace.reduce``).
+Prints the card (``nvidia-smi`` name and power limit), the device time a
+decode of the top kernels and memory operations, the busy and wall time a
+decode and the device's idle share (it exits non-zero if busy exceeds
+wall, which means a row was counted twice), and the decode's split by its
+``ldpc.decode.*`` spans: the tiling, the kernel and the output, with idle
+time, synchronising calls and launches. ``--streaming`` profiles the
+streaming path of the decoder's schedule (``lifted_flooding_decode`` or
+``lifted_layered_decode`` with ``resident=False``; every name) instead of
+the Decoder's resident one. The Chrome trace goes to ``chiprun_out/``.
 """
 
 import argparse
+import json
 import pathlib
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from ldpc_toolbox_torch.codes.dvbs2 import Code  # noqa: E402
 from ldpc_toolbox_torch.decoder import Decoder, lifted_decode_for  # noqa: E402
+from portbench import program_trace, trace  # noqa: E402
 
-#: rows printed by device time; the rest are summed on one line
+#: kernels and memory operations printed by device time; the rest are summed
 TOP = 12
 
 
@@ -68,39 +73,33 @@ def main():
     decode()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(args.reps):
-            decode()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.reps
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU:
-            continue  # host ops; their kernels are rows of their own
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / args.reps, ev.count // args.reps, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    path = "streaming" if args.streaming else "Decoder.decode_batch"
-    print(f"[{card}] {args.decoder} {path}: B={args.batch}, {args.ebn0} dB, "
-          f"{args.iters} iterations at most, {args.reps} decodes profiled")
-    for ms, count, name in rows[:TOP]:
-        print(f"  {ms:10.3f} ms {100 * ms / busy:6.2f} %  x{count:<5} {name[:90]}")
-    rest = sum(r[0] for r in rows[TOP:])
-    print(f"  {rest:10.3f} ms {100 * rest / busy:6.2f} %  the other {len(rows[TOP:])} rows")
-    # unclamped: busy above wall means rows were counted twice, and
-    # shows as a negative idle share rather than as 0 %
-    print(f"  device busy {busy:.3f} ms, wall {wall_ms:.3f} ms a decode, "
-          f"idle {100 * (1 - busy / wall_ms):.2f} %")
+            with record_function(trace.PREFIX + "step"):
+                decode()
+                torch.cuda.synchronize()
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(
-        str(out / f"trace_{args.decoder}_{path.split('.')[0]}_{args.ebn0}dB.json")
-    )
-    if busy > wall_ms:
+    path = "streaming" if args.streaming else "Decoder.decode_batch"
+    name = out / f"trace_{args.decoder}_{path.split('.')[0]}_{args.ebn0}dB.json"
+    prof.export_chrome_trace(str(name))
+    data = json.loads(name.read_text())
+    summary = trace.reduce(data, top=TOP)
+    spans = program_trace.reduce(data)
+    busy, wall = 1e3 * summary.busy_s / args.reps, 1e3 * summary.window_s / args.reps
+    print(f"[{card}] {args.decoder} {path}: B={args.batch}, {args.ebn0} dB, "
+          f"{args.iters} iterations at most, {args.reps} decodes profiled")
+    for op, seconds in summary.device_ops:
+        ms = 1e3 * seconds / args.reps
+        print(f"  {ms:10.3f} ms {100 * ms / busy:6.2f} %  {op[:90]}")
+    rest = busy - 1e3 * sum(s for _, s in summary.device_ops) / args.reps
+    print(f"  {rest:10.3f} ms {100 * rest / busy:6.2f} %  the other rows")
+    # unclamped: busy above wall means rows were counted twice, and
+    # shows as a negative idle share rather than as 0 %
+    print(f"  device busy {busy:.3f} ms, wall {wall:.3f} ms a decode, "
+          f"idle {100 * (1 - busy / wall):.2f} %")
+    print("  a decode by span (outside: the synchronize that ends it):")
+    print("\n".join("    " + line for line in program_trace.table(spans, args.reps).splitlines()))
+    if busy > wall:
         sys.exit("device busy time exceeds the wall time: rows counted twice")
 
 
