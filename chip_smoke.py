@@ -952,6 +952,26 @@ def flagship_layered(card, llrs):
                                                   (bound_ms, bound_by))}
 
 
+def flooding_bounds(tiles, iters):
+    """(bound ms, what sets it, state-traffic floor ms, tile-iterations) of
+    the min-sum resident flooding decode of ``tiles`` whose frames ran
+    ``iters``: the bound counts the inputs and outputs once and each
+    tile-iteration's operations; the floor, a tile-iteration's v2c and c2v
+    read and written, q read, the bits written and read once per edge by the
+    syndrome."""
+    q, _, layout, rule = tiles
+    nbt, VG, Z, Bt = q.shape
+    s, lanes = q.element_size(), VG * Z * Bt * nbt
+    tile_its = int(tile_iterations(iters, Bt).sum())
+    edge_tile, lane_tile = layout.E * Z * Bt, VG * Z * Bt
+    ops = tile_its * (edge_tile * (CHECK_OPS + int(rule.scale != 1.0) + VAR_EDGE_OPS + SYN_OPS)
+                      + lane_tile * VAR_LANE_OPS)
+    ms, by = bound(lanes * (s + 1 + 1) + nbt * Bt * 8, ops)
+    state_ms = 1e3 * tile_its * (4 * edge_tile * s + lane_tile * (s + 1) + edge_tile) \
+        / HBM_BYTES_PER_S
+    return ms, by, state_ms, tile_its
+
+
 def flagship_flooding(card, llrs, worst):
     """Main path 2: the flooding decode, resident (through the Decoder) and
     streaming; each phase kernel against its plain version on the
@@ -1065,15 +1085,7 @@ def flagship_flooding(card, llrs, worst):
     all_ms = cuda_ms(every_frame_passes, 10)
     all_bound = bound(2 * lanes + frames * (1 + 1 + 4) + 4, edges * SYN_OPS)
     init_ms = cuda_ms(lambda: fused_var(None, q, layout, rule), 10)
-    tile_its = int(tile_iterations(iters, Bt).sum())
-    edge_tile, lane_tile = E * Z * Bt, VG * Z * Bt
-    ops = tile_its * (edge_tile * (CHECK_OPS + scale_op + VAR_EDGE_OPS + SYN_OPS)
-                      + lane_tile * VAR_LANE_OPS)
-    res_bound, res_by = bound(lanes * (s + 1 + 1) + nbt * Bt * 8, ops)
-    # per tile-iteration: v2c and c2v read and written, q read, bits
-    # written, and the bits read once per edge by the syndrome
-    state_ms = 1e3 * tile_its * (4 * edge_tile * s + lane_tile * (s + 1) + edge_tile) \
-        / HBM_BYTES_PER_S
+    res_bound, res_by, state_ms, tile_its = flooding_bounds(tiles, iters)
     mbps = 1e-6 * code.k * FLAGSHIP_BATCH / (decode_ms * 1e-3)
     print(f"[{card}] flagship flooding Decoder.decode_batch: {decode_ms:.3f} ms, "
           f"{mbps:.1f} Mbit/s decoded info, {decode_ms / executed:.3f} ms/iter, "
@@ -2242,6 +2254,25 @@ def held_step(card, test, ebn0, worst, kernel, plain, tiles):
           f"{int(out['success'].sum())}/{batch} converged")
 
 
+def psk8_kernel(card, test, ebn0):
+    """The resident flooding kernel (#4/#5 bf16, bucket 16: the benchmark's
+    8PSK cells' shape) on the tiles of the 8PSK r=3/5 step at ``ebn0``
+    (``held_step``'s LLRs): its time beside its bound and its state-traffic
+    floor (``flooding_bounds``)."""
+    gen = step_generator(test.p.seed, 0, 0, test.device)
+    msg = torch.randint(0, 2, (test.p.batch_size, test.k), generator=gen, dtype=torch.uint8,
+                        device=test.device)
+    llr = test.channel_llrs(test.encode(msg), test.noise_sigma(ebn0), gen)
+    tiles = flooding_tiles(test.graph, test.arithmetic, llr)
+    iters = resident_flooding_decode(*tiles, test.p.max_iterations)[1]
+    ms = cuda_ms(lambda: resident_flooding_decode(*tiles, test.p.max_iterations), 5)
+    b, by, state_ms, tile_its = flooding_bounds(tiles, iters)
+    print(f"[{card}] resident_flooding_decode kernel, 8PSK r=3/5 B={test.p.batch_size} "
+          f"{ebn0:.2f} dB ber step (bucket 16): {ms:.3f} ms, median of 5; bound {b:.4f} ms by "
+          f"{by} ({100 * b / ms:.1f}% of bound); state-traffic floor {state_ms:.3f} ms "
+          f"({100 * state_ms / ms:.1f}% of it; {tile_its} tile-iterations)")
+
+
 def psk8_step_split(card, worst):
     """One B = 1024 step of the 8PSK pipeline at 3.6 and 4.2 dB held
     against the flooding kernel's plain version (``held_step``); then the
@@ -2258,6 +2289,7 @@ def psk8_step_split(card, worst):
     for ebn0 in (3.6, 4.2):
         held_step(card, test, ebn0, worst, resident_flooding_decode,
                   resident_flooding_decode_reference, flooding_tiles)
+    psk8_kernel(card, test, 3.6)
     sigma = test.noise_sigma(4.2)
 
     def step(events):

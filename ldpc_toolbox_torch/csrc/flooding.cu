@@ -10,15 +10,18 @@
 //   of those left (ldpc_toolbox_tpu/decoder/compaction.py, the body of
 //   staged_while_decode's while loop)
 // - resident_flooding_dual.py resident_flooding_dual_decode and
-//   resident_flooding.py resident_flooding_decode -> resident_flooding_kernel.
-//   The two TPU kernels compute the same function and differ only in how
-//   the state fits the TPU's vector memory (two message arrays, or one
-//   aliased array). Here the state lives in device memory either way; the
-//   kernel keeps one array, which serves both.
-// The check, variable and resident kernels are the templates of
-// csrc/streaming.cuh and csrc/message_kernels.cuh on MinSumRule (f32 and
-// bf16 messages); csrc/flooding_i8.cu, _f32.cu and _f64.cu hold their
-// instances on the other rules.
+//   resident_flooding.py resident_flooding_decode -> flooding_ring_kernel
+//   (csrc/flooding_ring.cuh). The two TPU kernels compute the same
+//   function and differ only in how the state fits the TPU's vector memory
+//   (two message arrays, or one aliased array). Here the state lives in
+//   device memory either way; the kernel keeps one array, which serves
+//   both.
+// The check and variable kernels are the templates of csrc/streaming.cuh
+// on MinSumRule (f32 and bf16 messages); csrc/flooding_i8.cu, _f32.cu and
+// _f64.cu hold their instances on the other rules, with those of the
+// resident template of csrc/message_kernels.cuh, resident_flooding_kernel,
+// whose form the min-sum rule took until flooding_ring_kernel, a kernel of
+// its own, replaced it.
 //
 // Layout of the phase kernels (as the JAX package's): a tile is Bt frames,
 // frames innermost. v2c planes (nbt, E, Z, Bt) are check-major in check
@@ -41,8 +44,10 @@
 // it streams through device memory every iteration. Min-sum does a few
 // compares per byte, far below the compute roof.
 //
-// What the resident kernel's design does about it (the form of
-// csrc/compressed.cu's kernels, on csrc/lanes.cuh):
+// What the resident template's design does about it (the form of
+// csrc/compressed.cu's kernels, on csrc/lanes.cuh; the min-sum rule's
+// resident kernel keeps its arithmetic and feeds it through a ring of bulk
+// copies instead, csrc/flooding_ring.cuh):
 // - one thread per lane of a tile, all four frames at once: messages and q
 //   move as one 8-byte (bf16) or 16-byte (f32) vector, the hard bits as one
 //   4-byte word, and each table load and mod-Z index is done once a lane;
@@ -97,6 +102,7 @@
 //   c2v at chk_omask in variable coordinates), and the syndrome skips
 //   syn_mask.
 
+#include "flooding_ring.cuh"
 #include "streaming.cuh"
 
 using ldpc::FloodingTables;
@@ -337,8 +343,9 @@ cudaError_t syndrome_launch(const void* bits, const FloodingTables& t, const Syn
 }  // namespace
 }  // namespace ldpc
 
-// The resident decode and the check phase by degree bucket: the templates
-// of csrc/message_kernels.cuh and csrc/streaming.cuh on the min-sum rule.
+// The resident decode and the check phase by degree bucket: the kernel of
+// csrc/flooding_ring.cuh and the template of csrc/streaming.cuh on the
+// min-sum rule.
 namespace ldpc {
 namespace {
 
@@ -347,10 +354,10 @@ struct ResidentLaunch {
   static cudaError_t run(void* msg, const void* q, void* post, void* bits,
                          void* iters, void* conv, const Tables& t, int nbt,
                          int max_iterations, int threads, float big,
-                         float scale, cudaStream_t stream) {
-    return flooding_launch<DMAX>(MinSumRule<Msg>{big, scale}, msg, q, post,
-                                 bits, iters, conv, t, nbt, max_iterations,
-                                 threads, stream);
+                         float scale, int stage_bytes, cudaStream_t stream) {
+    return flooding_ring_launch<DMAX>(MinSumRule<Msg>{big, scale}, msg, q, post,
+                                      bits, iters, conv, t, nbt, max_iterations,
+                                      threads, stage_bytes, stream);
   }
 };
 
@@ -432,20 +439,40 @@ extern "C" int ldpc_fused_syndrome(const void* bits, void* flags, void* frozen, 
 
 // The whole decode. It takes the ten layered tables instead (see Tables in
 // layered.cuh), the tile shape (Bt must be 4) and the largest check degree
-// (at most 64); threads is at most 256. msg (nbt, E, Z, 4) and post (nbt,
-// VG, Z, 4) int8 scratch; q (nbt, VG, Z, 4) channel planes; bits (nbt, VG,
-// Z, 4) int8 raw-channel bits in, decoded bits out; iters and conv (nbt, 4)
-// int32 out.
+// (at most 64); threads is 32 to 256, whole warps; stage_bytes, a multiple
+// of 16, the bytes of each of the ring's stages (csrc/flooding_ring.cuh;
+// the launch's shared memory is the tables' and two stages). msg (nbt, E,
+// Z, 4) and post (nbt, VG, Z, 4) int8 scratch, each followed by 16 bytes
+// the kernel may read; q (nbt, VG, Z, 4) channel planes, 16-byte aligned,
+// its bytes a multiple of 16 or followed by 16 bytes it may read; bits
+// (nbt, VG, Z, 4) int8 raw-channel bits in, decoded bits out; iters and
+// conv (nbt, 4) int32 out.
 extern "C" int ldpc_resident_flooding_decode(
     void* msg, const void* q, void* post, void* bits, void* iters, void* conv,
     const void* const* tables, int nbt, int CG, int E, int VG, int Z, int Bt,
     int max_degree, int max_iterations, int threads, float big, float scale,
-    int msg_bf16, void* stream) {
+    int msg_bf16, int stage_bytes, void* stream) {
   if (Bt != ldpc::kBt || threads > ldpc::kThreads) return cudaErrorInvalidValue;
   const ldpc::Tables t = ldpc::make_tables(tables, CG, E, VG, Z);
   return static_cast<int>(ldpc::by_bucket<ldpc::ResidentLaunch>(
       max_degree, msg_bf16, msg, q, post, bits, iters, conv, t, nbt,
-      max_iterations, threads, big, scale, static_cast<cudaStream_t>(stream)));
+      max_iterations, threads, big, scale, stage_bytes,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The shared memory a block of the whole decode may take on device
+// dev with two blocks an SM (the SM's, less what the card keeps a block,
+// halved, and at most a block's own limit); a negative cudaError_t when
+// the card cannot be asked.
+extern "C" int ldpc_ring_block_bytes(int dev) {
+  int sm = 0, reserved = 0, block = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return std::min(sm / 2 - reserved, block);
 }
 
 extern "C" const char* ldpc_flooding_error_string(int err) {

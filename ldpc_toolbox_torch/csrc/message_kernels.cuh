@@ -11,11 +11,15 @@
 //   resident_flooding_decode).
 // The Pallas kernels inline whatever rule ops/fused_bp2.py rule_for gives
 // them; here a rule is a policy type, and each source instantiates the
-// kernels on its rules: csrc/resident_layered.cu and csrc/flooding.cu on
+// kernels on its rules: csrc/resident_layered.cu the layered kernel on
 // MinSumRule below (f32 and bf16 messages), csrc/resident_layered_i8.cu and
-// csrc/flooding_i8.cu on I8Rule (csrc/i8.cuh), and the *_f32.cu and
-// *_f64.cu sources on FloatRule (csrc/float_rules.cuh). So the loads, the
-// missing lane, the deltas, the park and the stores are written once.
+// csrc/flooding_i8.cu both kernels on I8Rule (csrc/i8.cuh), and the
+// *_f32.cu and *_f64.cu sources both on FloatRule (csrc/float_rules.cuh).
+// So the loads, the missing lane, the deltas, the park and the stores are
+// written once. The min-sum rule's resident flooding decode is a kernel of
+// its own, flooding_ring_kernel (csrc/flooding_ring.cuh, built by
+// csrc/flooding.cu), which feeds the same arithmetic through a ring of bulk
+// copies; resident_flooding_kernel has no MinSumRule instance.
 //
 // A rule gives:
 // - Q, Msg, P: the types of the layered posteriors, of the messages (and

@@ -794,13 +794,15 @@ def bind_flooding(lib):
     # bits, flags, frozen, conv, iters, count, it, scratch, tables, dims,
     # max degree, stream
     lib.ldpc_fused_syndrome.argtypes = [p] * 6 + [i, p, p] + dims + [i, p]
-    # the resident decode takes the layered tables and a degree bucket
+    # the resident decode takes the layered tables, a degree bucket and
+    # the bytes of a stage of its ring
     lib.ldpc_resident_flooding_decode.argtypes = (
-        [p] * 7 + [i] * 7 + [i, i, f, f, i, p]
+        [p] * 7 + [i] * 7 + [i, i, f, f, i, i, p]
     )
+    lib.ldpc_ring_block_bytes.argtypes = [i]
     for fn in (
         lib.ldpc_fused_check, lib.ldpc_fused_var, lib.ldpc_fused_syndrome,
-        lib.ldpc_resident_flooding_decode,
+        lib.ldpc_resident_flooding_decode, lib.ldpc_ring_block_bytes,
     ):
         fn.restype = i
     lib.ldpc_flooding_error_string.argtypes = [i]

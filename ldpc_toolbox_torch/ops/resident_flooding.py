@@ -13,12 +13,14 @@ state fits the TPU's vector memory (two message arrays, or one array
 aliased between the phases). On this card the state lives in device
 memory either way, and the CUDA kernel keeps one array.
 
-On a CUDA tensor it launches ``resident_flooding_kernel`` of
-``csrc/flooding.cu`` (one thread block per tile of 4 frames, a thread per
-lane, all iterations in one launch, one message array in check-major
-cells) or raises, also for a tile of another width; on a CPU tensor it
-runs the plain version ``resident_flooding_decode_reference``, built from
-the plain phases (any width).
+On a CUDA tensor it launches ``flooding_ring_kernel`` of
+``csrc/flooding_ring.cuh``, built by ``csrc/flooding.cu`` (one thread block
+per tile of 4 frames, a thread per lane, all iterations in one launch, one
+message array in check-major cells, every operand of a pass brought into
+shared memory by bulk copies through a ring of two stages of
+``ring_stage_bytes``) or raises, also for a tile of another width; on a CPU
+tensor it runs the plain version ``resident_flooding_decode_reference``,
+built from the plain phases (any width).
 
 Semantics (bit-identical to the JAX package's kernels): v2c starts as the
 channel planes rolled into check coordinates with big at the missing
@@ -55,6 +57,7 @@ lane's four frames, ``fused_bp2.F32_UNIT_THREADS`` threads a block
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -73,7 +76,7 @@ from .fused_bp2 import (
     raise_on,
     unit_threads,
 )
-from .resident_layered import LANE_THREADS, lane_launch
+from .resident_layered import BT, LANE_THREADS, lane_launch, shared_ints
 
 __all__ = [
     "resident_flooding_decode",
@@ -82,7 +85,79 @@ __all__ = [
     "resident_flooding_decode_reference",
     "flooding_loop",
     "decode_loop",
+    "ring_stage_bytes",
 ]
+
+#: the min-sum kernel's ring (``csrc/flooding_ring.cuh``): its stages, the
+#: bytes before them (their barriers), and the least bytes a stage takes
+RING_STAGES = 2
+RING_HEAD_BYTES = 128
+RING_MIN_STAGE_BYTES = 32 * 1024
+
+
+def _round16(b):
+    return -(-b // 16) * 16
+
+
+def _window_bytes(n, lane_bytes):
+    """The stage bytes of a window of n lanes (``ring::window_bytes``)."""
+    return _round16(n * lane_bytes) + 16
+
+
+def _wrapped_bytes(n, lane_bytes):
+    """The stage bytes of a window that may wrap at Z (``ring::wrapped_bytes``)."""
+    return _round16(n * lane_bytes) + 48
+
+
+def ring_stage_bytes(layout, itemsize: int, block_bytes: int) -> int:
+    """The bytes of each stage of the min-sum kernel's ring for a layout
+    and a message size (4: f32, 2: bf16), on a card whose blocks may take
+    ``block_bytes`` of shared memory two an SM (``ldpc_ring_block_bytes``).
+
+    A stage holds the largest whole group of each pass, at least
+    ``RING_MIN_STAGE_BYTES`` (``csrc/flooding_ring.cuh``: a check group's
+    message rows, one window; a variable group's q window and message
+    rows, a window each; a check group's hard-bit rows, a window each),
+    within what is left beside the tables and the barriers, in whole
+    128-byte rows; where a group does not fit, the kernel cuts it into
+    chunks of lanes (a chunk of a rotated row may wrap: two windows).
+    Raises ``ValueError`` when not even a chunk of one lane of the largest
+    group fits."""
+    lane = BT * itemsize
+    Z, dc = layout.Z, layout.max_chk_degree
+    dv = max((m.d for m in layout.var_meta), default=0)
+
+    # a chunk of one lane of the largest group of each pass
+    least = max(dc * _window_bytes(1, lane),
+                _window_bytes(1, lane) + dv * _wrapped_bytes(1, lane),
+                dc * _wrapped_bytes(1, BT))
+    room = (block_bytes - 4 * shared_ints(layout, False) - RING_HEAD_BYTES) // RING_STAGES
+    room = room // 128 * 128
+    if room < least:
+        raise ValueError(
+            f"the ring's stages ({least} bytes at least) do not fit beside the "
+            f"layout tables in a block's {block_bytes} bytes of shared memory"
+        )
+    # the largest whole group of each pass, its rows as they lie
+    whole = max(_window_bytes(dc * Z, lane), (1 + dv) * _window_bytes(Z, lane),
+                dc * _window_bytes(Z, BT), RING_MIN_STAGE_BYTES)
+    return min(room, -(-whole // 128) * 128)
+
+
+@functools.cache
+def _ring_block_bytes(index: int) -> int:
+    got = flooding_lib().ldpc_ring_block_bytes(index)
+    raise_on(-got if got < 0 else 0, "ldpc_ring_block_bytes")
+    return got
+
+
+def _scratch(shape, dtype, device):
+    """An empty tensor of ``shape`` with 16 bytes of its allocation after
+    it: the min-sum kernel copies whole 16-byte rows, which may reach past
+    the last cell."""
+    n = math.prod(shape)
+    slack = 16 // torch.empty((), dtype=dtype).element_size()
+    return torch.empty(n + slack, dtype=dtype, device=device)[:n].view(shape)
 
 
 def _launch_planes(q_t, bits0_t, layout, rule, max_iterations):
@@ -99,8 +174,8 @@ def _launch_planes(q_t, bits0_t, layout, rule, max_iterations):
     nbt, VG, Z, Bt = q_t.shape
     dev = q_t.device
     state = (
-        torch.empty((nbt, layout.E, Z, Bt), dtype=q_t.dtype, device=dev),
-        torch.empty((nbt, VG, Z, Bt), dtype=torch.int8, device=dev),
+        _scratch((nbt, layout.E, Z, Bt), q_t.dtype, dev),
+        _scratch((nbt, VG, Z, Bt), torch.int8, dev),
         bits0_t.clone(memory_format=torch.contiguous_format),
         torch.empty((nbt, Bt), dtype=torch.int32, device=dev),
         torch.empty((nbt, Bt), dtype=torch.int32, device=dev),
@@ -131,12 +206,18 @@ def resident_flooding_decode(q_t, bits0_t, layout, rule, max_iterations: int):
         q_t, bits0_t, layout, rule, max_iterations
     )
     msg, post, bits, iters, conv = state
+    stage = ring_stage_bytes(
+        layout, q_t.element_size(), _ring_block_bytes(q_t.device.index or 0)
+    )
+    if q_t.numel() * q_t.element_size() % 16:
+        # the kernel's copies of q's last row may reach 8 bytes past it
+        q_t = _scratch(q_t.shape, q_t.dtype, q_t.device).copy_(q_t)
     raise_on(
         flooding_lib().ldpc_resident_flooding_decode(
             msg.data_ptr(), q_t.data_ptr(), post.data_ptr(), bits.data_ptr(),
             iters.data_ptr(), conv.data_ptr(), tables, *dims,
             int(max_iterations), LANE_THREADS, rule.big, rule.scale,
-            _MSG_DTYPES[rule.storage_dtype], stream,
+            _MSG_DTYPES[rule.storage_dtype], stage, stream,
         ),
         "resident_flooding_decode",
     )

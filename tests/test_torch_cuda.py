@@ -145,16 +145,40 @@ def test_flooding_phase_kernels_match_plain_versions(cuda, decoder):
         before[0] + 1, before[1] + 2, before[2] + 2)
 
 
+#: codes of each check-degree bucket for the min-sum resident flooding
+#: kernel's ring (``csrc/flooding_ring.cuh``), with (batch, sigma,
+#: iterations) at which frames converge at different iterations and some
+#: do not: R1_4short (bucket 8), R3_5short (16; f32 chunks its groups),
+#: R8_9short (32; degree 27, whose check groups both message types cut into
+#: chunks of 254 and 106 lanes in bf16, Z = 360 no multiple of the chunk),
+#: the seeded QC code of degree 40 (64, which no standards code reaches)
+RING_CASES = {
+    "DVB-S2 R1_4short": (8, 128, 0.9, 10),
+    "DVB-S2 R3_5short": (16, 64, 0.66, 10),
+    "DVB-S2 R8_9short": (32, 64, 0.47, 10),
+    "QC 3x40 z=16": (64, 128, 0.45, 10),
+}
+
+
 @pytest.mark.parametrize("decoder", FLOODING)
-def test_resident_flooding_kernel_matches_plain_version(cuda, decoder):
-    _, args = _flooding_case(decoder, cuda)
+@pytest.mark.parametrize("code", list(RING_CASES))
+def test_resident_flooding_kernel_matches_plain_version(cuda, code, decoder):
+    """The min-sum resident flooding kernel (the ring of bulk copies) at
+    every degree bucket, bf16, f32 and normalized bf16 messages, against
+    the plain version, bit for bit; one launch a decode."""
+    bucket, batch, sigma, iterations = RING_CASES[code]
+    lg = (_qc_degree40()[0] if code.startswith("QC") else
+          lifted_graph_for(getattr(DvbCode, code.split()[1])))
+    args = flooding_tiles(lg, make_arithmetic(decoder)[1], _llrs(lg.n, batch, sigma, 5, cuda))
+    assert min(b for b in (8, 16, 32, 64) if b >= args[2].max_chk_degree) == bucket
     before = resident_flooding_decode.launches
-    out = resident_flooding_decode(*args, 6)
+    out = resident_flooding_decode(*args, iterations)
     assert resident_flooding_decode.launches == before + 1
-    ref = resident_flooding_decode_reference(*args, 6)
+    ref = resident_flooding_decode_reference(*args, iterations)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert 0 < int(out[2].sum()) < out[2].numel()
+    assert len(set(out[1][out[2] == 1].tolist())) > 1
 
 
 def test_flooding_partial_tile_streaming_equals_resident(cuda):

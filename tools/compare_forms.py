@@ -157,7 +157,7 @@ PLAN = {
     ],
     "flooding": [
         ("flooding", resident_flooding, "flooding_lib", "resident_flooding_decode",
-         resident_compressed.compressed_flooding_decode, fused_bp2.bind_flooding),
+         resident_compressed.compressed_flooding_decode, None),
     ],
     "resident_layered_i8": [
         ("layered", resident_layered, "_lib_i8", "resident_layered_decode_i8", None,
@@ -278,22 +278,25 @@ _CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float64
 I8_KERNELS = {"fused_layered_kernel": "i8_sweep_kernel", "fused_check_kernel": "i8_check_kernel"}
 
 
-def instance(wrapper, rule, own=True):
-    """The demangled name (``ldpc::`` and spaces dropped) of the flagship
-    instance (degree bucket 8) that ``wrapper`` launches under ``rule``
-    (``own`` False: the template kernel's, which a form of before the i8
-    rules' own sweep and check phase launches)."""
+def instance(wrapper, rule, own=True, bucket=8):
+    """The demangled name (``ldpc::`` and spaces dropped) of the instance
+    of degree bucket ``bucket`` (the flagship's: 8) that ``wrapper``
+    launches under ``rule`` (``own`` False: the template kernel's, which a
+    form of before the i8 rules' own sweep and check phase, or of before
+    the min-sum rule's ring kernel, launches)."""
     kernel = next(k for w, k in KERNEL_OF.items() if wrapper.startswith(w))
     if fused_bp2.is_i8(rule) and own and kernel in I8_KERNELS:
-        return f"{I8_KERNELS[kernel]}<8,{rule.kind}>"
+        return f"{I8_KERNELS[kernel]}<{bucket},{rule.kind}>"
     if fused_bp2.is_i8(rule):
         tag = f"I8Rule<{rule.kind}>"
     elif fused_bp2.is_float_rule(rule):
         tag = f"FloatRule<{_CTYPE[rule.storage_dtype]},{rule.kind}>"
     else:
         ctype = _CTYPE[rule.storage_dtype]
+        if own and kernel == "resident_flooding_kernel":
+            return f"flooding_ring_kernel<{bucket},{ctype}>"
         tag = ctype if kernel.startswith("compressed") else f"MinSumRule<{ctype}>"
-    return f"{kernel}<{tag}>" if kernel == "fused_var_kernel" else f"{kernel}<8,{tag}>"
+    return f"{kernel}<{tag}>" if kernel == "fused_var_kernel" else f"{kernel}<{bucket},{tag}>"
 
 
 @functools.cache
@@ -327,15 +330,16 @@ def make_rule(name):
     return fused_bp2.rule_for(make_arithmetic(name)[1])
 
 
-def registers(source, forms, wrapper, rule):
-    """{form: "R regs, S B stack, P B spill"} of the instance each form of
-    ``source`` ran, from nvcc's report of its build (empty where no report
-    is kept)."""
+def registers(source, forms, wrapper, rule, bucket=8):
+    """{form: "R regs, S B stack, P B spill"} of the instance (of degree
+    bucket ``bucket``) each form of ``source`` ran, from nvcc's report of
+    its build (empty where no report is kept)."""
     out = {}
     for form in forms:
         log = LOGS.get((source, form))
         report = ptxas_report(str(log)) if log else {}
-        found = report.get(instance(wrapper, rule)) or report.get(instance(wrapper, rule, False))
+        found = (report.get(instance(wrapper, rule, bucket=bucket))
+                 or report.get(instance(wrapper, rule, False, bucket)))
         if found:
             out[form] = report_text(found)
     return out
@@ -389,6 +393,10 @@ def main():
     p.add_argument("--counts", metavar="REGEX",
                    help="print the SASS instructions of each form's kernels whose name "
                         "matches REGEX, by the pipe they issue to")
+    p.add_argument("--cell", action="append", default=[], metavar="WORKLOAD",
+                   help="time the resident decodes of the sources of the cell's schedule at "
+                        "a benchmark cell's shape too (BENCHMARK.json), on its first step's "
+                        "LLRs (repeatable)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -466,6 +474,8 @@ def main():
         llrs = channel_llrs(lg.n, batch, sigma_at(R1_2_RATE, FLAGSHIP_EBN0), seed=0)
         for source in sources:
             run_source(source, libs[source], block, lg, llrs, args.reps, card, result)
+    for workload in args.cell:
+        run_cell(workload, sources, libs, block, args.reps, card, result)
     if "streaming" in args.source:
         streaming = {"repo": (True, fused_layered._lib(), fused_bp2.flooding_lib())}
         for form, d in forms.items():
@@ -513,6 +523,49 @@ def sass_differs(repo_so, form_so):
     the form's or that only one of them has)."""
     a, b = sass(repo_so), sass(form_so)
     return len(a), sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+
+
+class PreRing:
+    """A library of ``csrc/flooding.cu`` of before the ring kernel, under
+    the package's calls: its resident decode takes no stage size (the
+    argument before the stream is dropped), and it has no
+    ``ldpc_ring_block_bytes``."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def ldpc_resident_flooding_decode(self, *args):
+        return self.lib.ldpc_resident_flooding_decode(*args[:-2], args[-1])
+
+    def ldpc_ring_block_bytes(self, dev):
+        return fused_bp2.flooding_lib().ldpc_ring_block_bytes(dev)
+
+
+def bind_flooding_form(lib):
+    """``fused_bp2.bind_flooding`` for a form's ``flooding`` library; one of
+    before the ring kernel is declared with its own resident decode and
+    called through ``PreRing``."""
+    if hasattr(lib, "ldpc_ring_block_bytes"):
+        return fused_bp2.bind_flooding(lib)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldpc_resident_flooding_decode.argtypes = [p] * 7 + [i] * 7 + [i, i, f, f, i, p]
+    lib.ldpc_resident_flooding_decode.restype = i
+    lib.ldpc_flooding_error_string.argtypes = [i]
+    lib.ldpc_flooding_error_string.restype = ctypes.c_char_p
+    wrapped = PreRing(lib)
+    try:
+        dims = [i] * 6
+        lib.ldpc_fused_check.argtypes = [p, p, p] + dims + [i, f, f, i, i, p]
+        lib.ldpc_fused_var.argtypes = [p, p, p, p, p] + dims + [f, i, i, p]
+        lib.ldpc_fused_syndrome.argtypes = [p] * 6 + [i, p, p] + dims + [i, p]
+        for fn in (lib.ldpc_fused_check, lib.ldpc_fused_var, lib.ldpc_fused_syndrome):
+            fn.restype = i
+    except AttributeError:
+        pass
+    return wrapped
 
 
 def bind_form(bind, lib):
@@ -576,12 +629,12 @@ def run_streaming(forms, lg, llrs, reps, card, result):
         checks, variables = {}, {}
         for form, (lane, _, lib) in forms.items():
             if lane:
-                checks[form] = lambda lib=bind_form(fused_bp2.bind_flooding, lib): with_phases(
+                checks[form] = lambda lib=bind_form(bind_flooding_form, lib): with_phases(
                     lib, fused_bp2.fused_check, v2c0, layout, rule)
             else:
                 checks[form] = lambda lib=lib: per_frame_check(lib, v2c0, layout, rule)
             # the variable phase kept its C interface
-            variables[form] = lambda lib=bind_form(fused_bp2.bind_flooding, lib): with_phases(
+            variables[form] = lambda lib=bind_form(bind_flooding_form, lib): with_phases(
                 lib, fused_bp2.fused_var, c2v, q, layout, rule)
         for kernel, fns in (("fused_check", checks), ("fused_var", variables)):
             hold_and_time(fns, f"streaming {kernel} {name}", reps, card, result)
@@ -732,9 +785,48 @@ def run_probes(built, reps, card, result):
     torch.cuda.empty_cache()
 
 
-def run_source(source, built, block, lg, llrs, reps, card, result):
+def run_cell(workload, sources, libs, block, reps, card, result):
+    """Every form of each source of the schedule of a benchmark cell's
+    decoder, on the LLRs of the cell's step 0 at seed 7
+    (``portbench/harness.build_test``, ``BerTest.channel_llrs``), its
+    decoder's name alone, held and timed in turns (``run_source``); the
+    registers printed are those of the instance of the cell's degree
+    bucket. Prints the step's tile-iterations and mean iterations."""
+    global BATCH
+    from ldpc_toolbox_torch.simulation.ber import step_generator
+    from portbench import harness, lookup
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cell = lookup.load_cell(root / "BENCHMARK.json", workload)
+    test = harness.build_test(cell.config, torch.device("cuda"))
+    gen = step_generator(7, 0, 0, "cuda")
+    msg = torch.randint(0, 2, (test.p.batch_size, test.k), generator=gen, dtype=torch.uint8,
+                        device="cuda")
+    llrs = test.channel_llrs(test.encode(msg), test.noise_sigma(cell.traffic["ebn0_db"]), gen)
+    name = cell.config["decoder"]
+    schedule = "layered" if name.startswith("HL") else "flooding"
+    tiles = (tile_inputs if schedule == "layered" else flooding_tiles)(
+        test.graph, test.arithmetic, llrs)
+    bucket = next(b for b in (8, 16, 32, 64) if tiles[2].max_chk_degree <= b)
+    iters = resident_flooding.resident_flooding_decode(*tiles, FLAGSHIP_ITERS)[1] \
+        if schedule == "flooding" else None
+    if iters is not None:
+        print(f"[{card}] {workload}: {int(iters.amax(dim=1).sum())} tile-iterations, "
+              f"{float(iters.float().mean()):.3f} iterations a frame, bucket {bucket}")
+    BATCH = test.p.batch_size
+    for source in sources:
+        if source in PLAN and PLAN[source][0][0] == schedule and source not in SOURCE_NAMES:
+            run_source(source, libs[source], block, test.graph, llrs, reps, card, result,
+                       names=[name], tag=f" {workload}", bucket=bucket)
+
+
+def run_source(source, built, block, lg, llrs, reps, card, result, names=None, tag="",
+               bucket=8):
     """Holds every form of ``source`` to the package's and times them, on
-    each of its tile sets; the times go into ``result``."""
+    each of its tile sets; the times go into ``result``. ``names``: the
+    decoder names to run instead of the source's (a cell's; its resident
+    decodes alone), ``tag`` added to each line's label, ``bucket`` the
+    degree bucket of the instance whose registers are printed."""
     if source in SWEEPS:
         run_sweep(source, built, block, lg, llrs, reps, card, result)
         return
@@ -742,7 +834,7 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
         tiles = tile_inputs if schedule == "layered" else flooding_tiles
         wrapper = getattr(module, kernel)
         fns_of = {}
-        for name in SOURCE_NAMES.get(source, NAMES[schedule]):
+        for name in names or SOURCE_NAMES.get(source, NAMES[schedule]):
             t = tiles(lg, make_arithmetic(name)[1], llrs)
             fns = {}
             for form, lib in built.items():
@@ -750,15 +842,15 @@ def run_source(source, built, block, lg, llrs, reps, card, result):
                     fns[form] = lambda lib=lib, t=t: base_flooding(lib, *t, FLAGSHIP_ITERS)
                 else:
                     n = block.get(form, (BASE_THREADS[source],) * 2 if form == "base" else None)
-                    fns[form] = lambda lib=bind_form(bind, lib), n=n, t=t: with_lib(
+                    fns[form] = lambda lib=bind_form(bind or bind_flooding_form, lib), n=n, t=t: with_lib(
                         module, getter, lib, n, wrapper, *t, FLAGSHIP_ITERS)
             if other is not None:
                 fns[other.__name__] = lambda t=t: other(*t, FLAGSHIP_ITERS)
             fns_of[name] = fns
         for name, fns in fns_of.items():
-            hold_and_time(fns, f"{source} {kernel} {name}", reps, card, result,
-                          registers(source, fns, kernel, make_rule(name)))
-    if source in PHASES:
+            hold_and_time(fns, f"{source} {kernel} {name}{tag}", reps, card, result,
+                          registers(source, fns, kernel, make_rule(name), bucket))
+    if source in PHASES and not names:
         run_phases(source, built, block, lg, llrs, reps, card, result)
 
 

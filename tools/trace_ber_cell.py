@@ -14,11 +14,13 @@ the benchmark's ranges (``portbench/trace.reduce``) and by the program's
 table by program span (device ms, idle ms in sync and in launch gaps,
 synchronising calls and launches, a step), the step's numbers
 (``program_trace.per_step``, ``tile_useful_pct``), the runtime calls a
-step by name, and the checks that tie the two reductions together; exits
+step by name, the device rows launched under ``ldpc.decode.kernel`` by
+kernel name, and the checks that tie the two reductions together; exits
 non-zero when one fails.
 """
 
 import argparse
+import bisect
 import json
 import os
 import pathlib
@@ -38,6 +40,28 @@ from ldpc_toolbox_torch import telemetry  # noqa: E402
 from ldpc_toolbox_torch.ops.fused_bp2 import BT  # noqa: E402
 from ldpc_toolbox_torch.simulation.ber import step_generator  # noqa: E402
 from portbench import harness, lookup, program_trace, trace  # noqa: E402
+
+
+def span_kernels(data, span):
+    """{device row name: seconds} of the rows launched while the program's
+    span ``span`` (an innermost one, as ``ldpc.decode.kernel`` is) was
+    open on the host."""
+    events = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+    opened = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] == telemetry.PREFIX + span)
+    starts = [a for a, _ in opened]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= opened[i][1]
+
+    launched = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and inside(float(e["ts"]))}
+    found = Counter()
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched:
+            found[e["name"]] += float(e["dur"]) * 1e-6
+    return found
 
 
 def main():
@@ -89,6 +113,10 @@ def main():
     print(f"tile_iterations = {counts.get('tile_iterations')}, "
           f"total_iterations = {window.totals['total_iterations']}, "
           f"frames = {window.totals['num_frames']}")
+    kernels = span_kernels(data, "decode.kernel")
+    total = sum(kernels.values())
+    print("device rows under ldpc.decode.kernel, ms a step: " + ", ".join(
+        f"{n} {1e3 * s / steps:.3f} ({100 * s / total:.2f} %)" for n, s in kernels.most_common()))
     runtime = Counter(e["name"] for e in data["traceEvents"]
                       if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"))
     print("runtime calls a step: " + ", ".join(
